@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA GPU and
+check them.
 
     python3 chip_smoke.py [--seed N]
 
 Needs one CUDA GPU, ``nvcc`` and the checkout around this file; it fails
 (non-zero exit, no result line) without them. Imports nothing of JAX or
-of ``matrix_factorization_tpu``. Each phase prints one JSON line:
+of ``matrix_factorization_tpu``. Each phase prints one JSON line; any
+failed check ends the run with a non-zero exit:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch, CUDA;
    TF32 off for every f32 product.
-2. build: every ``csrc/*.cu`` of the port, compiled for sm_90a.
+2. build: every ``csrc/*.cu`` of the port (the scorer, the SGD step and
+   apply), compiled for sm_90a, all ``nvcc`` processes at once.
 3. compare: the catalog-scoring kernel against its plain PyTorch version
    on the card, for kernels linear/sigmoid/rbf, f32 and bf16 tables, at
    (B, I, Kp) = (1, 59392, 256), (256, 59392, 256) and (5, 1000, 128);
@@ -24,11 +27,38 @@ of ``matrix_factorization_tpu``. Each phase prints one JSON line:
    requests through ``CoalescingRecommender`` (each equal to a direct
    ``recommend``). Launch counts are zeroed before this phase; each
    catalog step must launch the kernel.
-5. kernels / latency: kernel, plain and library (cuBLAS GEMM + torch
-   epilogue) times with CUDA events (median, L2 flushed before each
-   launch), the bound of each shape, and the serving latencies.
+5. latency / kernel_time: serving latencies; the scorer's kernel, plain
+   and library (cuBLAS GEMM + torch epilogue) times with CUDA events
+   (median, L2 flushed before each launch) and the bound of each shape.
+6. data / pack: config-3 ratings (25M unique pairs of 162,000 x 59,392,
+   half stars, as ``benchmarks/run_configs.py::_gen`` makes them, plus
+   4,096 held out), the headline ratings of ``bench.py`` (2M, 10,000 x
+   20,000), each packed once on the card (``pack_ratings``,
+   ``order='auto'``).
+7. compare_sgd: the SGD step kernel + the apply kernel against the plain
+   step on the card, same tables and batch: config-3 sigmoid (bs 2M, Kp
+   256, user-primary), config-3 rbf (bs 1M), the headline linear batch
+   (bs 131,072, Kp 128, item-primary), k=126 (Kp 128, no spare lane) and
+   a frozen item side; both tables at atol = rtol = 1e-5.
+8. train (sigmoid, rbf): config 3 through ``KernelMF.fit`` (3 epochs,
+   falling train RMSE) and ``update_users`` (1,000 users, half of them
+   known; the item table bitwise unchanged) with the step and apply
+   counts zeroed just before and read just after; ``predict`` on the
+   held-out pairs and ``recommend``; then updates/s (median of 3
+   one-epoch windows on the pack made once), one epoch against the plain
+   step (atol 1e-4), the epoch repeated (bitwise equal) and a profiled
+   epoch (device busy share, top kernels).
+9. golden: the golden mini fixture trained on the card, held-out RMSE
+   within 1e-3 of the pinned oracle values (3 kernels x 2 pack orders).
+10. train_headline: ``bench.py``'s shape, updates/s over a 20-epoch
+    window, median of 5, beside the card's name and power limit.
+11. sgd_kernel_time: the step and the apply on the first batch of the
+    config-3 sigmoid and rbf packs and of the headline pack: kernel,
+    plain and library (``index_add_`` for the apply) times with CUDA
+    events, and the bounds computed from that batch.
 
-Then the ``kernels`` line, the ``nvidia-smi`` line, and last
+Then the ``kernels`` line (``score_catalog``, ``sgd_step``,
+``segment_apply``), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -43,15 +73,13 @@ import tempfile
 import threading
 import time
 import traceback
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 on the CUDA
 # cores, bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 N_USERS, N_ITEMS, N_FACTORS = 162_000, 59_392, 200  # config 3
-# "cpu" rehearses the phases without a GPU (small sizes, the kernel
-# wrapper replaced by its plain version); a real run is always "cuda"
-DEVICE = "cuda"
 
 
 class SmokeFailure(Exception):
@@ -104,7 +132,7 @@ class Timer:
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32,
-                                 device=DEVICE)
+                                 device="cuda")
 
     def ms(self, fn, reps=25, warmup=3):
         torch = self.torch
@@ -132,9 +160,9 @@ def phase_compare(torch, rng, SGDConfig, cuda_scores):
             cfg = SGDConfig(kernel=kernel, n_factors=n_factors,
                             gamma=1.0 / n_factors, min_rating=0.5,
                             max_rating=5.0)
-            pu32 = torch.from_numpy(ext_tables(rng, B, cfg, "user")).to(DEVICE)
-            Q32 = torch.from_numpy(ext_tables(rng, I, cfg, "item")).to(DEVICE)
-            mu = torch.tensor(3.5, device=DEVICE)
+            pu32 = torch.from_numpy(ext_tables(rng, B, cfg, "user")).to("cuda")
+            Q32 = torch.from_numpy(ext_tables(rng, I, cfg, "item")).to("cuda")
+            mu = torch.tensor(3.5, device="cuda")
             for dtype in (torch.float32, torch.bfloat16):
                 pu, Q = pu32.to(dtype), Q32.to(dtype)
                 got = cuda_scores.cuda_score_catalog(cfg, mu, pu, Q)
@@ -166,7 +194,7 @@ def phase_serve(torch, rng, kernel, tmpdir, launches):
     out = {"phase": "serve", "kernel": kernel}
     t0 = time.perf_counter()
     src = KernelMF(n_factors=N_FACTORS, kernel=kernel, gamma=1.0 / N_FACTORS,
-                   min_rating=0.5, max_rating=5.0, device=DEVICE)
+                   min_rating=0.5, max_rating=5.0, device="cuda")
     cfg = src._cfg()
     P = ext_tables(rng, N_USERS, cfg, "user")
     Q = ext_tables(rng, N_ITEMS, cfg, "item")
@@ -174,11 +202,11 @@ def phase_serve(torch, rng, kernel, tmpdir, launches):
     src.user_vocab = IdVocab(range(N_USERS))
     src.item_vocab = IdVocab(range(10_000_000, 10_000_000 + N_ITEMS))
     src.global_mean = mean
-    src._params = params_from_numpy(P, Q, mean, device=DEVICE, cfg=cfg)
+    src._params = params_from_numpy(P, Q, mean, device="cuda", cfg=cfg)
     save_model(src, f"{tmpdir}/{kernel}")
     del src
-    model = load_model(f"{tmpdir}/{kernel}", device=None if DEVICE == "cuda" else DEVICE)
-    check(model._params.item_features.device.type == DEVICE,
+    model = load_model(f"{tmpdir}/{kernel}")
+    check(model._params.item_features.device.type == "cuda",
           "load_model put the tables elsewhere")
     out["setup_s"] = time.perf_counter() - t0
 
@@ -240,7 +268,7 @@ def phase_serve(torch, rng, kernel, tmpdir, launches):
     check(launches() > n0, "recommend_batch did not launch the kernel")
     check(len(batch) == 2560, "recommend_batch row count")
     params = model._params
-    ud = torch.as_tensor(users, device=DEVICE)
+    ud = torch.as_tensor(users, device="cuda")
     plain = cuda_scores.plain_score_catalog(
         cfg, params.global_mean, params.user_features[ud],
         params.item_features[:N_ITEMS])
@@ -293,11 +321,12 @@ def phase_serve(torch, rng, kernel, tmpdir, launches):
 
 
 def _device_share(torch, fn, calls):
-    """Run ``fn`` over ``calls`` under ``torch.profiler``: the summed time
-    of the CUDA kernels, its share of the wall time (the profiler's own
-    cost inflates the wall time, so the share is a lower bound), and the
-    kernels that took most of it."""
-    from torch.autograd import DeviceType
+    """Run ``fn`` over ``calls`` under ``torch.profiler`` and read the
+    exported trace: the device time per call, the device's busy share
+    (the union of its kernel and copy intervals over the span from the
+    first to the last; the rest is idle, waiting on the host), the device
+    time over the host's wall time (a lower bound: the profiler slows the
+    host), and the kernels that took most of the time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -306,14 +335,28 @@ def _device_share(torch, fn, calls):
             fn(c)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(f"{d}/trace.json")
+        trace = json.loads(Path(f"{d}/trace.json").read_text())
+    ev = sorted((e["ts"], e["ts"] + e["dur"], e["name"])
+                for e in trace["traceEvents"] if e.get("ph") == "X"
+                and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    by_name, busy_us, cur = {}, 0.0, None
+    for t_start, t_end, name in ev:
+        by_name[name] = by_name.get(name, 0.0) + (t_end - t_start) / 1e3
+        if cur is None or t_start > cur[1]:
+            busy_us += 0 if cur is None else cur[1] - cur[0]
+            cur = [t_start, t_end]
+        else:
+            cur[1] = max(cur[1], t_end)
+    if cur is not None:
+        busy_us += cur[1] - cur[0]
     dev_ms = sum(by_name.values())
+    span_us = ev[-1][1] - ev[0][0] if ev else 0.0
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"device_ms_per_call": dev_ms / len(calls),
-            "device_busy_share": dev_ms / wall_ms if dev_ms else None,
+            "device_busy_share": busy_us / span_us if span_us else None,
+            "device_share_of_wall": dev_ms / wall_ms if dev_ms else None,
             "top_kernels_ms_per_call": [[n[:80], t / len(calls)] for n, t in top]}
 
 
@@ -357,9 +400,9 @@ def phase_kernel_times(torch, rng, SGDConfig, cuda_scores, timer):
             cfg = SGDConfig(kernel=kernel, n_factors=N_FACTORS,
                             gamma=1.0 / N_FACTORS, min_rating=0.5,
                             max_rating=5.0)
-            pu32 = torch.from_numpy(ext_tables(rng, B, cfg, "user")).to(DEVICE)
-            Q32 = torch.from_numpy(ext_tables(rng, N_ITEMS, cfg, "item")).to(DEVICE)
-            mu = torch.tensor(3.5, device=DEVICE)
+            pu32 = torch.from_numpy(ext_tables(rng, B, cfg, "user")).to("cuda")
+            Q32 = torch.from_numpy(ext_tables(rng, N_ITEMS, cfg, "item")).to("cuda")
+            mu = torch.tensor(3.5, device="cuda")
             for dtype in (torch.float32, torch.bfloat16):
                 pu, Q = pu32.to(dtype), Q32.to(dtype)
                 name = str(dtype).split(".")[-1]
@@ -388,6 +431,447 @@ def phase_kernel_times(torch, rng, SGDConfig, cuda_scores, timer):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Training (slice 2): the SGD step and apply kernels
+# ---------------------------------------------------------------------------
+
+# config 3 (benchmarks/run_configs.py:170-185): bs 2M for sigmoid, 1M for rbf
+CONFIG3 = {"sigmoid": {"lr": 0.01, "batch_size": 2_097_152},
+           "rbf": {"lr": 0.05, "batch_size": 1_048_576}}
+N_RATINGS = 25_000_000
+N_HELD_OUT = 4096
+# the headline shape of bench.py:29-39
+HEAD = {"n_ratings": 2_000_000, "n_users": 10_000, "n_items": 20_000,
+        "n_factors": 100, "batch_size": 131_072, "lr": 0.002, "reg": 0.005,
+        "epochs": 20, "trials": 5}
+
+
+def gen_ratings(n_users, n_items, n_ratings, seed):
+    """Unique (user, item) pairs with half-star ratings in [0.5, 5], made
+    as ``benchmarks/run_configs.py::_gen`` makes them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    flat = rng.integers(0, n_users * n_items, int(n_ratings * 1.15),
+                        dtype=np.int64)
+    flat = np.unique(flat)[:n_ratings]
+    rng.shuffle(flat)
+    u = (flat // n_items).astype(np.int32)
+    i = (flat % n_items).astype(np.int32)
+    r = np.round(rng.uniform(0.5, 5, len(u)) * 2).astype(np.float32) / 2
+    return u, i, r
+
+
+def sgd_cfg(kernel, n_factors, lr, batch_size, **kw):
+    from matrix_factorization_tpu_torch.core.config import SGDConfig
+
+    return SGDConfig(kernel=kernel, n_factors=n_factors, lr=lr,
+                     reg=kw.pop("reg", 0.005), gamma=1.0 / n_factors,
+                     min_rating=0.5, max_rating=5.0, batch_size=batch_size,
+                     **kw)
+
+
+def random_params(torch, rng, cfg, n_users, n_items):
+    from matrix_factorization_tpu_torch import params_from_numpy
+
+    return params_from_numpy(ext_tables(rng, n_users, cfg, "user"),
+                             ext_tables(rng, n_items, cfg, "item"), 3.5,
+                             device="cuda", cfg=cfg)
+
+
+def clone_params(p):
+    return p._replace(user_features=p.user_features.clone(),
+                      item_features=p.item_features.clone())
+
+
+def step_args(params, b, cfg, primary):
+    """The step's arguments for a pack's batch (sorted by ``primary``,
+    with its argsort) as ``segment_sgd.minibatch_update`` maps them:
+    (positional args, keyword args, the secondary table)."""
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    prim, sec = ("user", "item") if primary == "user" else ("item", "user")
+    tables = {"user": params.user_features, "item": params.item_features}
+    ids = {"user": b["u"], "item": b["i"]}
+    upd = {"user": cfg.update_user_params, "item": cfg.update_item_params}
+    dev = params.user_features.device
+    args = (cfg, params.global_mean, tables[prim], tables[sec], ids[prim],
+            ids[sec], b["r"], b["w"], sgd.mask_tensor(cfg, prim, dev),
+            sgd.mask_tensor(cfg, sec, dev), cfg.lr, cfg.reg)
+    return args, {"update_prim": upd[prim], "write_dq": upd[sec]}, tables[sec]
+
+
+def run_step(params, b, cfg, primary, plain):
+    """One step on the card, in place: the step and apply kernels, or
+    (``plain``) their plain versions. Returns the secondary deltas."""
+    from matrix_factorization_tpu_torch.ops import cuda_sgd
+
+    step, apply = ((cuda_sgd.plain_sgd_step, cuda_sgd.plain_segment_apply)
+                   if plain else
+                   (cuda_sgd.cuda_sgd_step, cuda_sgd.cuda_segment_apply))
+    args, kw, sec_tbl = step_args(params, b, cfg, primary)
+    dq = step(*args, **kw)
+    if kw["write_dq"]:
+        apply(sec_tbl, dq, b["sp"], b["ss"])
+    return dq
+
+
+def phase_compare_sgd(torch, rng, cases):
+    """Step kernel + apply kernel against the plain step on the card, from
+    the same tables and batch; both tables and the step's ``dq`` at
+    atol = rtol = 1e-5: both sum in f32, in different orders. The apply is
+    also held alone, both versions applying the plain step's ``dq``.
+    Returns the largest error of the step (primary table, dq) and of the
+    apply (secondary table)."""
+    from matrix_factorization_tpu_torch.ops import cuda_sgd
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    worst = {"sgd_step": 0.0, "segment_apply": 0.0}
+    for name, cfg, pack, k, n_users, n_items in cases:
+        t0 = time.perf_counter()
+        b = sgd.batch_at(pack, k)
+        p0 = random_params(torch, rng, cfg, n_users, n_items)
+        pk, pp = clone_params(p0), clone_params(p0)
+        dq = run_step(pk, b, cfg, pack.primary, plain=False)
+        dq_plain = run_step(pp, b, cfg, pack.primary, plain=True)
+        prim, sec = (("user_features", "item_features")
+                     if pack.primary == "user"
+                     else ("item_features", "user_features"))
+        upd_sec = dq is not None
+        out = {"phase": "compare_sgd", "case": name, "kernel": cfg.kernel,
+               "bs": pack.batch_size, "Kp": cfg.padded_factors,
+               "primary": pack.primary,
+               "update_prim": (cfg.update_user_params if prim == "user_features"
+                               else cfg.update_item_params),
+               "update_sec": upd_sec}
+        errs = {}
+        for tname in ("user_features", "item_features"):
+            got, want = getattr(pk, tname), getattr(pp, tname)
+            errs[tname] = float((got - want).abs().max())
+            ok = bool(torch.isfinite(got).all()) and torch.allclose(
+                got, want, atol=1e-5, rtol=1e-5)
+            check(ok, f"compare_sgd {name}: {tname} differs by {errs[tname]}")
+        step_err = errs[prim]
+        if not out["update_prim"]:
+            check(torch.equal(getattr(pk, prim), getattr(p0, prim)),
+                  f"compare_sgd {name}: the frozen primary side moved")
+        if upd_sec:
+            step_err = max(step_err, float((dq - dq_plain).abs().max()))
+            check(torch.allclose(dq, dq_plain, atol=1e-5, rtol=1e-5),
+                  f"compare_sgd {name}: dq differs")
+            got = getattr(p0, sec).clone()
+            cuda_sgd.cuda_segment_apply(got, dq_plain, b["sp"], b["ss"])
+            want = getattr(p0, sec).clone()
+            cuda_sgd.plain_segment_apply(want, dq_plain, b["sp"], b["ss"])
+            apply_err = float((got - want).abs().max())
+            check(torch.allclose(got, want, atol=1e-5, rtol=1e-5),
+                  f"compare_sgd {name}: the apply differs by {apply_err}")
+            worst["segment_apply"] = max(worst["segment_apply"], apply_err)
+            out["apply_max_abs_err"] = apply_err
+        else:
+            check(torch.equal(getattr(pk, sec), getattr(p0, sec)),
+                  f"compare_sgd {name}: the frozen side moved")
+        worst["sgd_step"] = max(worst["sgd_step"], step_err)
+        torch.cuda.synchronize()
+        out.update({"user_max_abs_err": errs["user_features"],
+                    "item_max_abs_err": errs["item_features"],
+                    "step_max_abs_err": step_err,
+                    "seconds": time.perf_counter() - t0, "ok": True})
+        emit(out)
+        del pk, pp, p0, dq, dq_plain
+        torch.cuda.empty_cache()  # the plain step's (bs, Kp) temporaries
+    return worst
+
+
+def plain_epoch(params, data, cfg, order):
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    for k in order.tolist():
+        run_step(params, sgd.batch_at(data, k), cfg, data.primary, plain=True)
+
+
+def phase_train(torch, rng, kernel, data3, pack, pack_seconds, seed):
+    """Config 3 through ``KernelMF.fit`` and ``update_users`` (the main
+    path; the step and apply counts are zeroed just before it and read
+    just after), then throughput on the pack made once, the plain epoch,
+    bitwise repeatability, the profile, ``predict`` and ``recommend``."""
+    import numpy as np
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch import KernelMF
+    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    u, i, r, hu, hi = data3
+    spec = CONFIG3[kernel]
+    out = {"phase": "train", "kernel": kernel, "n_ratings": len(r),
+           "batch_size": spec["batch_size"], "pack_seconds": pack_seconds,
+           "n_batches": pack.n_batches, "primary": pack.primary}
+    model = KernelMF(n_factors=N_FACTORS, kernel=kernel, lr=spec["lr"],
+                     reg=0.005, gamma=1.0 / N_FACTORS, min_rating=0.5,
+                     max_rating=5.0, batch_size=spec["batch_size"],
+                     epoch_order="auto", seed=seed)
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    y = pd.Series(r)
+
+    # -- the main path: fit, then update_users -------------------------
+    cuda_sgd.reset_launches()
+    t0 = time.perf_counter()
+    model.fit(X, y, n_epochs=3)
+    out["fit_seconds"] = time.perf_counter() - t0
+    hist = model.train_rmse
+    out["train_rmse"] = hist
+    check(len(hist) == 3 and all(np.isfinite(hist)), f"train RMSE {hist}")
+    check(hist[2] < hist[1] < hist[0], f"train RMSE not falling: {hist}")
+    check(model._params.item_features.device.type == "cuda", "tables left the card")
+    fit_launches = (cuda_sgd.step_launches, cuda_sgd.apply_launches)
+
+    known = rng.choice(np.unique(u), 500, replace=False)
+    new = np.arange(500) + 10_000_000
+    uu = np.repeat(np.concatenate([known, new]), 100)
+    ii = rng.integers(0, N_ITEMS, len(uu))
+    pairs = np.unique(uu.astype(np.int64) * N_ITEMS + ii)
+    Xu = pd.DataFrame({"user_id": pairs // N_ITEMS, "item_id": pairs % N_ITEMS})
+    yu = pd.Series(np.round(rng.uniform(0.5, 5, len(Xu)) * 2) / 2)
+    items = model._params.item_features.clone()
+    n_users0 = model.n_users
+    t0 = time.perf_counter()
+    model.update_users(Xu, yu)
+    torch.cuda.synchronize()
+    out["update_users_seconds"] = time.perf_counter() - t0
+    launches = {"sgd_step": cuda_sgd.step_launches,
+                "segment_apply": cuda_sgd.apply_launches}
+    check(launches["sgd_step"] > fit_launches[0], "update_users did not step")
+    check(torch.equal(model._params.item_features, items),
+          "update_users moved the frozen item table")
+    check(model.n_users == n_users0 + 500, "update_users did not add users")
+    out.update({"fit_launches": dict(zip(launches, fit_launches)),
+                "launches": launches, "update_users_ratings": len(Xu),
+                "update_users_rmse_last": model.train_rmse[-1]})
+
+    # -- predict held-out pairs, recommend -----------------------------
+    preds = np.asarray(model.predict(pd.DataFrame({"user_id": hu,
+                                                   "item_id": hi})))
+    check(preds.shape == (N_HELD_OUT,) and np.isfinite(preds).all(),
+          "held-out predict shape")
+    check(preds.min() >= 0.5 and preds.max() <= 5.0,
+          "held-out predict outside [0.5, 5]")
+    out["heldout_predict_mean"] = float(preds.mean())
+    n0 = cuda_scores.launches
+    rec = model.recommend(int(u[0]), amount=10)
+    check(cuda_scores.launches > n0 and len(rec) == 10,
+          "recommend after training did not launch the scorer")
+    del model, X
+    torch.cuda.empty_cache()
+
+    # -- throughput on the pack made once ------------------------------
+    cfg = sgd_cfg(kernel, N_FACTORS, spec["lr"], spec["batch_size"],
+                  compute_epoch_rmse=False)
+    p0 = sgd.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                         N_USERS, N_ITEMS, cfg, float(r.mean()))
+    gen = torch.Generator().manual_seed(seed)
+    sgd.sgd_train(p0, pack, gen, cfg, 1, cfg.lr)  # warm-up epoch
+    windows, enqueue = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sgd.sgd_train(p0, pack, gen, cfg, 1, cfg.lr)
+        enqueue.append(time.perf_counter() - t0)  # host time to enqueue
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+    out["epoch_seconds"] = windows
+    out["epoch_enqueue_seconds"] = enqueue
+    out["updates_per_sec"] = pack.n_real / statistics.median(windows)
+
+    # -- one epoch against the plain step; the kernel epoch repeated -----
+    order = torch.randperm(pack.n_batches, generator=gen)
+    pk = clone_params(p0)
+    sgd.epoch(pk, pack, cfg, cfg.lr, order=order)
+    pk2 = clone_params(p0)
+    sgd.epoch(pk2, pack, cfg, cfg.lr, order=order)
+    pp = clone_params(p0)
+    plain_epoch(pp, pack, cfg, order)
+    torch.cuda.synchronize()
+    err = max(float((pk.user_features - pp.user_features).abs().max()),
+              float((pk.item_features - pp.item_features).abs().max()))
+    out["epoch_vs_plain_max_abs_err"] = err
+    check(err <= 1e-4, f"a kernel epoch differs from the plain epoch by {err}")
+    check(torch.equal(pk.user_features, pk2.user_features)
+          and torch.equal(pk.item_features, pk2.item_features),
+          "the kernel epoch is not bitwise repeatable")
+    del pk, pk2, pp
+    torch.cuda.empty_cache()
+
+    # -- where an epoch's time goes ------------------------------------
+    out["epoch_profile"] = _device_share(
+        torch, lambda _: sgd.sgd_train(p0, pack, gen, cfg, 1, cfg.lr), [0])
+    out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    return out
+
+
+def phase_golden(torch):
+    """The golden mini fixture on the card: held-out RMSE within 1e-3 of
+    the pinned sequential-oracle values (``tests/test_golden_mini.py``),
+    replaying the JAX engine's batch orders recorded beside the fixture."""
+    import numpy as np
+
+    from matrix_factorization_tpu_torch import params_from_numpy
+    from matrix_factorization_tpu_torch.core.config import SGDConfig
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    data_dir = Path(__file__).resolve().parent / "tests" / "data"
+    exp = json.loads((data_dir / "golden_mini_expected.json").read_text())
+    orders = json.loads((data_dir / "golden_mini_batch_orders.json").read_text())
+    raw = np.genfromtxt(data_dir / "golden_mini.csv", delimiter=",",
+                        skip_header=1)
+    u, i = raw[:, 0].astype(np.int32), raw[:, 1].astype(np.int32)
+    r, tr = raw[:, 2].astype(np.float64), raw[:, 3].astype(bool)
+    init = np.random.default_rng(exp["init_seed"])
+    nu, ni, K = exp["n_users"], exp["n_items"], exp["n_factors"]
+    P0 = init.normal(0, 0.1, (nu, K))
+    Q0 = init.normal(0, 0.1, (ni, K))
+    mu = float(r[tr].mean())
+    lo, hi = exp["min_rating"], exp["max_rating"]
+    out = {"phase": "golden", "budget": 1e-3}
+    for kernel in ("linear", "sigmoid", "rbf"):
+        cfg = SGDConfig(kernel=kernel, n_factors=K, lr=exp["lrs"][kernel],
+                        reg=exp["reg"], gamma=exp["gamma"], min_rating=lo,
+                        max_rating=hi, batch_size=1024)
+        kp = cfg.padded_factors
+        uf = np.zeros((sgd.round_up(nu, 8), kp), np.float32)
+        uf[:nu, :K] = P0
+        itf = np.zeros((sgd.round_up(ni, 8), kp), np.float32)
+        itf[:ni, :K] = Q0
+        if kernel != "rbf":
+            uf[:, sgd.const_col(cfg, "user")] = 1.0
+            itf[:, sgd.const_col(cfg, "item")] = 1.0
+        for order in ("shuffle", "item"):
+            params = params_from_numpy(uf, itf, mu, device="cuda")
+            data = sgd.pack_ratings(u[tr], i[tr], r[tr].astype(np.float32),
+                                    1024, order=order, device="cuda")
+            params, _ = sgd.sgd_train(params, data, None, cfg, exp["n_epochs"],
+                                      cfg.lr, batch_orders=orders["orders"])
+            P = params.user_features.cpu().numpy().astype(np.float64)
+            Q = params.item_features.cpu().numpy().astype(np.float64)
+            ut, it_, rt = u[~tr], i[~tr], r[~tr]
+            Pu, Qi = P[ut, :K], Q[it_, :K]
+            if kernel == "rbf":
+                pred = lo + (hi - lo) * np.exp(
+                    -exp["gamma"] * ((Pu - Qi) ** 2).sum(1))
+            else:
+                x = (mu + P[ut, sgd.bias_col(cfg, "user")]
+                     + Q[it_, sgd.bias_col(cfg, "item")] + (Pu * Qi).sum(1))
+                pred = x if kernel == "linear" else lo + (hi - lo) / (1 + np.exp(-x))
+            e = float(np.sqrt(np.mean((np.clip(pred, lo, hi) - rt) ** 2)))
+            gap = abs(e - exp["oracle_test_rmse"][kernel])
+            out[f"{kernel}_{order}_test_rmse"] = e
+            out[f"{kernel}_{order}_gap"] = gap
+            check(gap <= 1e-3, f"golden {kernel}/{order}: held-out RMSE {e} "
+                               f"vs pinned {exp['oracle_test_rmse'][kernel]}")
+    return out
+
+
+def phase_train_headline(torch, head_data, pack, pack_seconds, seed, smi):
+    """bench.py's headline shape: updates/s over a 20-epoch window,
+    median of 5."""
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    u, i, r = head_data
+    cfg = sgd_cfg("linear", HEAD["n_factors"], HEAD["lr"], HEAD["batch_size"],
+                  reg=HEAD["reg"], compute_epoch_rmse=False, shuffle="batch")
+    params = sgd.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                             HEAD["n_users"], HEAD["n_items"], cfg,
+                             float(r.mean()))
+    gen = torch.Generator().manual_seed(seed)
+    sgd.sgd_train(params, pack, gen, cfg, HEAD["epochs"], cfg.lr)  # warm-up
+    rates, enqueue = [], []
+    for _ in range(HEAD["trials"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sgd.sgd_train(params, pack, gen, cfg, HEAD["epochs"], cfg.lr)
+        enqueue.append(time.perf_counter() - t0)  # host time to enqueue
+        torch.cuda.synchronize()
+        rates.append(HEAD["epochs"] * pack.n_real / (time.perf_counter() - t0))
+    prof = _device_share(
+        torch, lambda _: sgd.sgd_train(params, pack, gen, cfg, 1, cfg.lr), [0])
+    return {"phase": "train_headline", "nvidia_smi": smi,
+            "kernelmf_sgd_rating_updates_per_sec": statistics.median(rates),
+            "updates_per_sec_best": max(rates), "trials": rates,
+            "window_enqueue_seconds": enqueue,
+            "window_epochs": HEAD["epochs"], "n_ratings": pack.n_real,
+            "batch_size": pack.batch_size, "n_batches": pack.n_batches,
+            "primary": pack.primary, "pack_seconds": pack_seconds,
+            "epoch_profile": prof}
+
+
+def sgd_bounds(b, kp, primary):
+    """(bound_ms, bound_by) of the step and of the apply on this batch:
+    each input read once (ids, r, w; each distinct secondary row; each
+    primary run's row), each output written once (the primary rows, dq;
+    the apply's touched rows), at 3.35 TB/s; about 12 f32 operations per
+    entry and column for the step, 1 for the apply, at 67 TFLOP/s."""
+    prim = b["u"] if primary == "user" else b["i"]
+    n = prim.numel()
+    runs_prim = int(prim.unique_consecutive().numel())
+    runs_sec = int(b["ss"].unique_consecutive().numel())
+    row = kp * 4
+    step_bytes = n * 16 + runs_sec * row + 2 * runs_prim * row + n * row
+    apply_bytes = n * (row + 8) + 2 * runs_sec * row
+    out = {}
+    for name, nbytes, flops in (("sgd_step", step_bytes, 12 * n * kp),
+                                ("segment_apply", apply_bytes, n * kp)):
+        tb, to = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+        out[name] = (max(tb, to) * 1e3, "bytes" if tb >= to else "operations",
+                     nbytes)
+    return out, runs_prim, runs_sec
+
+
+def phase_sgd_kernel_times(torch, rng, shapes, timer):
+    """Kernel, plain and library times of the step and the apply on the
+    first batch of each (name, cfg, pack, n_users, n_items) shape, and
+    their bounds; returns {shape name: {kernel name: row}}."""
+    from matrix_factorization_tpu_torch.ops import cuda_sgd
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    out = {}
+    for shape, cfg, pack, n_users, n_items in shapes:
+        b = sgd.batch_at(pack, 0)
+        p = random_params(torch, rng, cfg, n_users, n_items)
+        args, _, S = step_args(p, b, cfg, pack.primary)
+        bounds, runs_prim, runs_sec = sgd_bounds(b, cfg.padded_factors,
+                                                 pack.primary)
+        dq = cuda_sgd.cuda_sgd_step(*args)
+        ss_long, dq_perm = b["ss"].long(), dq[b["sp"].long()]
+        rows = {
+            "sgd_step": {
+                "ms": timer.ms(lambda: cuda_sgd.cuda_sgd_step(*args)),
+                "plain_ms": timer.ms(lambda: cuda_sgd.plain_sgd_step(*args)),
+                "library_ms": None},
+            "segment_apply": {
+                "ms": timer.ms(lambda: cuda_sgd.cuda_segment_apply(
+                    S, dq, b["sp"], b["ss"])),
+                "plain_ms": timer.ms(lambda: cuda_sgd.plain_segment_apply(
+                    S, dq, b["sp"], b["ss"])),
+                # one PyTorch call of the same function on the pre-permuted
+                # rows: a float-atomic scatter, a yardstick the port never
+                # calls
+                "library_ms": timer.ms(lambda: S.index_add_(0, ss_long, dq_perm))},
+        }
+        for name, row in rows.items():
+            row.update({"shape": shape, "bound_ms": bounds[name][0],
+                        "bound_by": bounds[name][1],
+                        "bound_bytes": bounds[name][2], "bs": pack.batch_size,
+                        "Kp": cfg.padded_factors, "kernel": cfg.kernel,
+                        "primary": pack.primary, "runs_prim": runs_prim,
+                        "runs_sec": runs_sec,
+                        "launches_per_epoch": pack.n_batches})
+            emit({"phase": "sgd_kernel_time", "name": name, **row})
+        out[shape] = rows
+        del dq, dq_perm, p, args, S
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -401,8 +885,10 @@ def main() -> int:
     import numpy as np
 
     from matrix_factorization_tpu_torch.core.config import SGDConfig
-    from matrix_factorization_tpu_torch.ops import _build, cuda_scores
+    from matrix_factorization_tpu_torch.ops import _build, cuda_scores, cuda_sgd
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -421,6 +907,7 @@ def main() -> int:
     emit({"phase": "build", "sources": sources, "seconds": secs,
           "ptxas": ptxas})
 
+    # -- serving (slice 1) -------------------------------------------------
     rng = np.random.default_rng(args.seed)
     worst = phase_compare(torch, rng, SGDConfig, cuda_scores)
 
@@ -439,10 +926,82 @@ def main() -> int:
     emit({"phase": "latency", **latency})
     models.clear()
 
-    rows = phase_kernel_times(torch, rng, SGDConfig, cuda_scores, Timer(torch))
+    timer = Timer(torch)
+    rows = phase_kernel_times(torch, rng, SGDConfig, cuda_scores, timer)
     head = next(r for r in rows if r["B"] == 256 and r["kernel"] == "sigmoid"
                 and r["dtype"] == "float32")
-    emit({"kernels": [{
+
+    # -- training (slice 2): data and packs, made once ---------------------
+    t0 = time.perf_counter()
+    u3, i3, r3 = gen_ratings(N_USERS, N_ITEMS, N_RATINGS + N_HELD_OUT,
+                             args.seed)
+    data3 = (u3[:N_RATINGS], i3[:N_RATINGS], r3[:N_RATINGS],
+             u3[N_RATINGS:], i3[N_RATINGS:])
+    t_config3 = time.perf_counter() - t0
+    hr = np.random.default_rng(args.seed)
+    head_data = (hr.integers(0, HEAD["n_users"], HEAD["n_ratings"]).astype(np.int32),
+                 hr.integers(0, HEAD["n_items"], HEAD["n_ratings"]).astype(np.int32),
+                 hr.uniform(0.5, 5.0, HEAD["n_ratings"]).astype(np.float32))
+    small = gen_ratings(5000, 3000, 200_000, args.seed + 1)
+    emit({"phase": "data", "seconds": time.perf_counter() - t0,
+          "config3_seconds": t_config3,
+          "config3_ratings": N_RATINGS, "held_out": N_HELD_OUT,
+          "config3_users_rated": int(np.unique(data3[0]).size)})
+    packs, pack_seconds = {}, {}
+    for name, (u, i, r), bs in (
+            ("sigmoid", data3[:3], CONFIG3["sigmoid"]["batch_size"]),
+            ("rbf", data3[:3], CONFIG3["rbf"]["batch_size"]),
+            ("headline", head_data, HEAD["batch_size"]),
+            ("small", small, 16_384)):
+        t0 = time.perf_counter()
+        packs[name] = sgd.pack_ratings(u, i, r, bs, order="auto", device="cuda")
+        torch.cuda.synchronize()
+        pack_seconds[name] = time.perf_counter() - t0
+    emit({"phase": "pack", "seconds": pack_seconds,
+          "primary": {k: v.primary for k, v in packs.items()},
+          "n_batches": {k: v.n_batches for k, v in packs.items()}})
+
+    cases = [
+        ("config3_sigmoid", sgd_cfg("sigmoid", N_FACTORS, 0.01, 2_097_152),
+         packs["sigmoid"], 0, N_USERS, N_ITEMS),
+        ("config3_rbf", sgd_cfg("rbf", N_FACTORS, 0.05, 1_048_576),
+         packs["rbf"], 0, N_USERS, N_ITEMS),
+        ("headline_linear", sgd_cfg("linear", HEAD["n_factors"], HEAD["lr"],
+                                    HEAD["batch_size"], reg=HEAD["reg"]),
+         packs["headline"], 0, HEAD["n_users"], HEAD["n_items"]),
+        ("ragged_k126_sigmoid", sgd_cfg("sigmoid", 126, 0.05, 16_384),
+         packs["small"], 1, 5000, 3000),
+        ("frozen_items_sigmoid", sgd_cfg("sigmoid", HEAD["n_factors"], 0.05,
+                                         HEAD["batch_size"],
+                                         update_item_params=False),
+         packs["headline"], 1, HEAD["n_users"], HEAD["n_items"]),
+    ]
+    check(packs["headline"].primary == "item", "the headline pack is item-primary")
+    sgd_worst = phase_compare_sgd(torch, rng, cases)
+
+    train_launches = {"sgd_step": 0, "segment_apply": 0}
+    for kernel in ("sigmoid", "rbf"):
+        out = phase_train(torch, rng, kernel, data3, packs[kernel],
+                          pack_seconds[kernel], args.seed)
+        for k in train_launches:
+            train_launches[k] += out["launches"][k]
+        emit(out)
+    check(all(v > 0 for v in train_launches.values()),
+          f"the training path missed a kernel: {train_launches}")
+
+    t0 = time.perf_counter()
+    golden = phase_golden(torch)
+    golden["seconds"] = time.perf_counter() - t0
+    emit(golden)
+    emit(phase_train_headline(torch, head_data, packs["headline"],
+                              pack_seconds["headline"], args.seed, smi))
+    sgd_rows = phase_sgd_kernel_times(torch, rng, [
+        (name, cases[k][1], packs[pk], *cases[k][4:])
+        for name, k, pk in (("config3_sigmoid", 0, "sigmoid"),
+                            ("config3_rbf", 1, "rbf"),
+                            ("headline_linear", 2, "headline"))], timer)
+
+    kernels = [{
         "name": "score_catalog", "route": "cuda",
         "source": "matrix_factorization_tpu_torch/csrc/score_catalog.cu",
         "replaces": "matrix_factorization_tpu/ops/pallas_scores.py:34",
@@ -452,7 +1011,27 @@ def main() -> int:
         "library_ms": head["library_ms"],
         "shape": {k: head[k] for k in ("B", "I", "Kp", "kernel", "dtype")},
         "shapes": rows, "serving": latency,
-    }]})
+    }]
+    for name, replaces, note in (
+            ("sgd_step", "matrix_factorization_tpu/ops/pallas_sgd.py:65",
+             "the fused mini-batch step (_step_kernel)"),
+            ("segment_apply", "matrix_factorization_tpu/ops/segment_sgd.py:923",
+             "the secondary apply (tile_sec_scatter), an XLA scatter on the "
+             "TPU and not a Pallas kernel; the port needs it deterministic")):
+        row = sgd_rows["config3_sigmoid"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "matrix_factorization_tpu_torch/csrc/sgd_step.cu",
+            "replaces": replaces, "note": note,
+            "launches": train_launches[name],
+            "max_abs_err": sgd_worst[name], "ms": row["ms"],
+            "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": {k: row[k] for k in ("bs", "Kp", "kernel", "primary",
+                                          "runs_prim", "runs_sec")},
+            "shapes": [rows_[name] for rows_ in sgd_rows.values()]})
+    emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

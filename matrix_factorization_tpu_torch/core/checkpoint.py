@@ -10,6 +10,9 @@ checkpoint is a directory:
   the constructor ``config``, the raw user and item ids, ``train_rmse``,
   ``train_loss``, ``global_mean`` and ``epochs_done``
 
+``fit_resumable`` trains in segments and checkpoints after each, so an
+interrupted fit restarts from the last completed segment.
+
 A checkpoint written by either package loads into the other: ``config``
 holds the JAX package's constructor arguments, so ``device`` (a runtime
 choice of the port) is left out of it. Writes are atomic: a temp
@@ -23,6 +26,7 @@ import pickle
 import shutil
 import tempfile
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -96,4 +100,34 @@ def load_model(path, device=None):
         model._params = params_from_numpy(
             npz["user_features"], npz["item_features"], npz["global_mean"],
             device=model._device, cfg=model._cfg())
+    return model
+
+
+def fit_resumable(
+    model,
+    X,
+    y,
+    ckpt_dir,
+    total_epochs: Optional[int] = None,
+    segment_epochs: int = 10,
+):
+    """Train ``model`` (a ``KernelMF``) in checkpointed segments of
+    ``segment_epochs``; resumes from ``ckpt_dir`` when it holds a
+    checkpoint of the same class, from its ``_epochs_done``. Segments
+    after the first continue with ``fit(warm_start=True)``. The restored
+    model keeps the caller's ``device``."""
+    ckpt_dir = Path(ckpt_dir)
+    total = total_epochs or model.n_epochs
+    start = 0
+    if (ckpt_dir / "meta.pkl").exists():
+        restored = load_model(ckpt_dir, device=getattr(model, "device", None))
+        if type(restored) is type(model):
+            model = restored
+            start = model._epochs_done
+    while start < total:
+        step = min(segment_epochs, total - start)
+        model.fit(X, y, n_epochs=step, warm_start=start > 0)
+        start += step
+        model._epochs_done = start
+        save_model(model, ckpt_dir)
     return model

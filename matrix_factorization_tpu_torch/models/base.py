@@ -14,12 +14,12 @@ from __future__ import annotations
 
 import inspect
 from abc import ABC, abstractmethod
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import pandas as pd
 
-from matrix_factorization_tpu_torch.core.ids import IdVocab
+from matrix_factorization_tpu_torch.core.ids import IdVocab, check_no_duplicates
 
 _MAX_PREDICT_CHUNK = 8192
 
@@ -106,6 +106,45 @@ class RecommenderBase(ABC):
         return item_id in self.item_vocab
 
     # -- preprocessing ------------------------------------------------------
+    def _preprocess_fit(
+        self, X: pd.DataFrame, y: pd.Series
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Build vocabularies and return dense (u, i, r) arrays.
+
+        Raises ``ValueError`` on duplicate (user, item) pairs, as the
+        reference does (``recommender_base.py:127-128``).
+        """
+        users = X["user_id"].to_numpy()
+        items = X["item_id"].to_numpy()
+        check_no_duplicates(users, items)
+        self.user_vocab = IdVocab.from_values(users)
+        self.item_vocab = IdVocab.from_values(items)
+        u = self.user_vocab.encode(users)
+        i = self.item_vocab.encode(items)
+        r = np.asarray(y, dtype=np.float32)
+        return u, i, r
+
+    def _preprocess_update(
+        self, X: pd.DataFrame, y: pd.Series
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, List[Any], List[Any]]:
+        """Drop unknown items, register new users; returns
+        (u, i, r, known_users, new_users) — reference
+        ``recommender_base.py:142-171``."""
+        users = X["user_id"].to_numpy()
+        items = X["item_id"].to_numpy()
+        check_no_duplicates(users, items)
+        i = self.item_vocab.encode(items)
+        keep = i >= 0
+        users, i = users[keep], i[keep]
+        r = np.asarray(y, dtype=np.float32)[keep]
+
+        uniq = pd.unique(users)
+        known_users = [u_ for u_ in uniq if u_ in self.user_vocab]
+        new_users = [u_ for u_ in uniq if u_ not in self.user_vocab]
+        self.user_vocab.extend(new_users)
+        u = self.user_vocab.encode(users)
+        return u, i, r, known_users, new_users
+
     def _preprocess_predict(self, X: pd.DataFrame) -> Tuple[np.ndarray, np.ndarray]:
         """Dense ids with unknowns mapped to -1
         (reference ``recommender_base.py:166-168``)."""

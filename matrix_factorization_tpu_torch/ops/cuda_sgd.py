@@ -1,0 +1,258 @@
+"""Hand-written CUDA mini-batch SGD step and deterministic secondary apply.
+
+Counterpart of ``matrix_factorization_tpu/ops/pallas_sgd.py``. The source
+``csrc/sgd_step.cu`` holds two kernels:
+
+* ``mf_sgd_step`` replaces the Pallas ``_step_kernel``: for one batch
+  sorted by the primary side's id it updates the primary table in place
+  (every row from the pre-step tables, deltas of one row summed) and
+  writes the per-entry secondary deltas ``dq`` (bs, Kp);
+* ``mf_segment_apply`` adds ``dq`` to the secondary table over the
+  pack's stable secondary argsort (``sec_perm``, ``sec_ids_sorted``), one
+  writer per row and a fixed summation order, where XLA's scatter did it
+  on the TPU. A float-atomic ``index_add_`` would break same-seed, same-
+  bits determinism.
+
+The source says what bounds them and how they are laid out.
+
+``cuda_sgd_step`` and ``cuda_segment_apply`` launch the kernels and take
+only CUDA tensors. ``plain_sgd_step`` and ``plain_segment_apply`` are the
+same functions in plain PyTorch (a gather, ``ext_forward_and_rowgrads``
+and ``index_add_``); the CPU path and the comparisons use them.
+``sgd_step`` and ``segment_apply`` pick between the two by the tensors'
+device: a CUDA tensor always launches the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+import torch
+
+from matrix_factorization_tpu_torch.core.config import LANE, SGDConfig
+
+_KERNEL_CODES = {"linear": 0, "sigmoid": 1, "rbf": 2}
+MAX_WIDTH = 8 * LANE  # the kernels hold a row in registers, Kp <= 1024
+
+_count_lock = threading.Lock()
+step_launches = 0  # mf_sgd_step launches since import or reset_launches()
+apply_launches = 0  # mf_segment_apply launches, likewise
+
+
+def reset_launches() -> None:
+    global step_launches, apply_launches
+    with _count_lock:
+        step_launches = apply_launches = 0
+
+
+def _count_step() -> None:
+    global step_launches
+    with _count_lock:
+        step_launches += 1
+
+
+def _count_apply() -> None:
+    global apply_launches
+    with _count_lock:
+        apply_launches += 1
+
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from matrix_factorization_tpu_torch.ops import _build
+
+        lib = _build.load("sgd_step")
+        vp, ci, cf, cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                           ctypes.c_longlong)
+        lib.mf_sgd_step.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                    cll, ci, ci, cf, cf, cf, cf, cf, ci, vp]
+        lib.mf_sgd_step.restype = ci
+        lib.mf_segment_apply.argtypes = [vp, vp, vp, vp, cll, ci, vp]
+        lib.mf_segment_apply.restype = ci
+        lib.mf_sgd_error_string.argtypes = [ci]
+        lib.mf_sgd_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(name: str, t: torch.Tensor, device: torch.device, dtype,
+           shape=None) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} must be on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+
+
+def _check_width(kp: int) -> None:
+    if kp % LANE or not 0 < kp <= MAX_WIDTH:
+        raise ValueError(f"row width {kp} is not a multiple of {LANE} "
+                         f"in (0, {MAX_WIDTH}]")
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU tensors, and the comparisons on the card)
+# ---------------------------------------------------------------------------
+
+
+def plain_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
+                   sec_tbl: torch.Tensor, prim_ids: torch.Tensor,
+                   sec_ids: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
+                   pmask: torch.Tensor, smask: torch.Tensor, lr: float,
+                   reg: float, update_prim: bool = True,
+                   write_dq: bool = True) -> Optional[torch.Tensor]:
+    """The step of ``cuda_sgd_step`` as gather + row math + ``index_add_``
+    (``segment_sgd._minibatch_update``'s per-side deltas). The forward and
+    gradients are symmetric in the two sides, so the primary rows go in as
+    ``pu`` whichever side they are."""
+    from matrix_factorization_tpu_torch.ops.segment_sgd import (
+        ext_forward_and_rowgrads)
+
+    x = prim_tbl[prim_ids.long()]
+    y = sec_tbl[sec_ids.long()]
+    pred, dx, dy = ext_forward_and_rowgrads(cfg, mu, x, y)
+    err = (pred - r) * w
+    rw = reg * w
+    if update_prim:
+        g = (err[:, None] * dx + rw[:, None] * x) * pmask[None, :]
+        prim_tbl.index_add_(0, prim_ids.long(), -lr * g)
+    if not write_dq:
+        return None
+    return -lr * ((err[:, None] * dy + rw[:, None] * y) * smask[None, :])
+
+
+def plain_segment_apply(table: torch.Tensor, rows: torch.Tensor,
+                        perm: torch.Tensor, ids_sorted: torch.Tensor) -> None:
+    """``table[ids_sorted[j]] += rows[perm[j]]`` by ``index_add_``."""
+    table.index_add_(0, ids_sorted.long(), rows[perm.long()])
+
+
+# ---------------------------------------------------------------------------
+# The kernels
+# ---------------------------------------------------------------------------
+
+
+def cuda_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
+                  sec_tbl: torch.Tensor, prim_ids: torch.Tensor,
+                  sec_ids: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
+                  pmask: torch.Tensor, smask: torch.Tensor, lr: float,
+                  reg: float, update_prim: bool = True,
+                  write_dq: bool = True) -> Optional[torch.Tensor]:
+    """One step of ``mf_sgd_step`` on ``prim_tbl``'s stream.
+
+    ``prim_ids`` and ``sec_ids`` (n,) int32 sorted by ``prim_ids``; ``r``
+    and ``w`` (n,) f32; tables (rows, Kp) and masks (Kp,) f32; ``mu`` one
+    f32 on the card (read by the kernel, so the call never syncs). Ids are
+    not bounds-checked (that would sync): they come from the vocabulary.
+    Updates ``prim_tbl`` in place unless ``update_prim`` is false; returns
+    the secondary deltas (n, Kp), or None when ``write_dq`` is false."""
+    if cfg.kernel not in _KERNEL_CODES:
+        raise ValueError(f"unknown kernel {cfg.kernel!r}")
+    dev = prim_tbl.device
+    if dev.type != "cuda":
+        raise ValueError(f"cuda_sgd_step takes CUDA tensors, got {dev}")
+    if prim_tbl.dim() != 2 or sec_tbl.dim() != 2:
+        raise ValueError("tables must be 2-D")
+    kp = prim_tbl.shape[1]
+    _check_width(kp)
+    n = prim_ids.numel()
+    f32, i32 = torch.float32, torch.int32
+    _check("mu", mu, dev, f32, ())
+    _check("prim_tbl", prim_tbl, dev, f32)
+    _check("sec_tbl", sec_tbl, dev, f32, (sec_tbl.shape[0], kp))
+    for name, t, dt in (("prim_ids", prim_ids, i32), ("sec_ids", sec_ids, i32),
+                        ("r", r, f32), ("w", w, f32)):
+        _check(name, t, dev, dt, (n,))
+    _check("pmask", pmask, dev, f32, (kp,))
+    _check("smask", smask, dev, f32, (kp,))
+    dq = torch.empty((n, kp), dtype=f32, device=dev) if write_dq else None
+    if n == 0:
+        return dq
+    lib = _library()
+    rc = lib.mf_sgd_step(
+        mu.data_ptr(), prim_tbl.data_ptr(), sec_tbl.data_ptr(),
+        prim_ids.data_ptr(), sec_ids.data_ptr(), r.data_ptr(), w.data_ptr(),
+        pmask.data_ptr(), smask.data_ptr(),
+        dq.data_ptr() if dq is not None else None, n, kp,
+        _KERNEL_CODES[cfg.kernel], float(cfg.gamma), float(cfg.a),
+        float(cfg.c), float(lr), float(reg), int(bool(update_prim)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"sgd_step launch failed: {lib.mf_sgd_error_string(rc).decode()}")
+    _count_step()
+    return dq
+
+
+def cuda_segment_apply(table: torch.Tensor, rows: torch.Tensor,
+                       perm: torch.Tensor, ids_sorted: torch.Tensor) -> None:
+    """``table[ids_sorted[j]] += rows[perm[j]]`` by ``mf_segment_apply``,
+    in place, on ``table``'s stream: ``table`` (rows, Kp) and ``rows``
+    (n, Kp) f32, ``perm`` and ``ids_sorted`` (n,) int32 with
+    ``ids_sorted`` ascending."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"cuda_segment_apply takes CUDA tensors, got {dev}")
+    if table.dim() != 2:
+        raise ValueError("table must be 2-D")
+    kp = table.shape[1]
+    _check_width(kp)
+    n = perm.numel()
+    _check("table", table, dev, torch.float32)
+    _check("rows", rows, dev, torch.float32, (n, kp))
+    _check("perm", perm, dev, torch.int32, (n,))
+    _check("ids_sorted", ids_sorted, dev, torch.int32, (n,))
+    if n == 0:
+        return
+    lib = _library()
+    rc = lib.mf_segment_apply(
+        table.data_ptr(), rows.data_ptr(), perm.data_ptr(),
+        ids_sorted.data_ptr(), n, kp,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"segment_apply launch failed: "
+            f"{lib.mf_sgd_error_string(rc).decode()}")
+    _count_apply()
+
+
+# ---------------------------------------------------------------------------
+# Routing by device
+# ---------------------------------------------------------------------------
+
+
+def sgd_step(cfg: SGDConfig, mu, prim_tbl, sec_tbl, prim_ids, sec_ids, r, w,
+             pmask, smask, lr, reg, update_prim=True, write_dq=True):
+    """``cuda_sgd_step`` for CUDA tables, ``plain_sgd_step`` for CPU
+    tables; any other device raises."""
+    if prim_tbl.device.type == "cuda":
+        fn = cuda_sgd_step
+    elif prim_tbl.device.type == "cpu":
+        fn = plain_sgd_step
+    else:
+        raise ValueError(f"no SGD step for device {prim_tbl.device}")
+    return fn(cfg, mu, prim_tbl, sec_tbl, prim_ids, sec_ids, r, w, pmask,
+              smask, lr, reg, update_prim, write_dq)
+
+
+def segment_apply(table, rows, perm, ids_sorted) -> None:
+    """``cuda_segment_apply`` for a CUDA table, ``plain_segment_apply``
+    for a CPU table; any other device raises."""
+    if table.device.type == "cuda":
+        cuda_segment_apply(table, rows, perm, ids_sorted)
+    elif table.device.type == "cpu":
+        plain_segment_apply(table, rows, perm, ids_sorted)
+    else:
+        raise ValueError(f"no segment apply for device {table.device}")

@@ -1,4 +1,5 @@
-"""The port's CUDA catalog scorer on the card, against its plain version.
+"""The port's CUDA kernels on the card, against their plain versions: the
+catalog scorer, the SGD step and the secondary-side apply.
 
 Marked ``cuda``: each test skips without a CUDA GPU (the kernel has no
 CPU mode; the CPU tests hold the plain version against the JAX package).
@@ -8,13 +9,14 @@ Run on a machine with a GPU and ``nvcc``:
 """
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
 from matrix_factorization_tpu_torch import KernelMF, params_from_numpy
 from matrix_factorization_tpu_torch.core.config import SGDConfig
 from matrix_factorization_tpu_torch.core.ids import IdVocab
-from matrix_factorization_tpu_torch.ops import cuda_scores
+from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
 pytestmark = pytest.mark.cuda
@@ -100,3 +102,140 @@ def test_model_on_cuda_matches_cpu(cuda, kernel):
     assert list(a.item_id) == list(b.item_id)
     np.testing.assert_allclose(a.rating_pred, b.rating_pred, atol=1e-5)
     np.testing.assert_allclose(gpu.predict(b), cpu.predict(b), atol=1e-5)
+
+
+def _batch(rng, n, n_prim, n_sec, cuda):
+    """A primary-sorted batch with runs and weight-0 pads."""
+    prim = np.sort(rng.integers(0, n_prim, n)).astype(np.int32)
+    sec = rng.integers(0, n_sec, n).astype(np.int32)
+    r = rng.uniform(0.5, 5, n).astype(np.float32)
+    w = (rng.uniform(size=n) > 0.1).astype(np.float32)
+    sp = np.argsort(sec, kind="stable").astype(np.int32)
+    return [torch.from_numpy(a).to(cuda) for a in (prim, sec, r, w, sp, sec[sp])]
+
+
+@pytest.mark.parametrize("kernel", ["linear", "sigmoid", "rbf"])
+@pytest.mark.parametrize("n_factors", [12, 126, 200, 500])
+@pytest.mark.parametrize("prim_side", ["user", "item"])
+def test_sgd_step_and_apply_match_plain(cuda, kernel, n_factors, prim_side):
+    """One step (kernel + apply) against the plain step on the same
+    tables and batch; atol = rtol = 1e-5 (both sum in f32, in different
+    orders). n_factors=126 fills Kp=128 with no spare lane."""
+    cfg = SGDConfig(kernel=kernel, n_factors=n_factors, gamma=1 / n_factors,
+                    min_rating=0.5, max_rating=5.0, reg=0.01)
+    rng = np.random.default_rng(n_factors)
+    sec_side = "item" if prim_side == "user" else "user"
+    n_prim, n_sec = 300, 700
+    P = torch.from_numpy(_rows(cfg, n_prim, rng, prim_side)).to(cuda)
+    S = torch.from_numpy(_rows(cfg, n_sec, rng, sec_side)).to(cuda)
+    prim, sec, r, w, sp, ss = _batch(rng, 5000, n_prim, n_sec, cuda)
+    pm = torch.from_numpy(sgd.update_mask(cfg, prim_side)).to(cuda)
+    sm = torch.from_numpy(sgd.update_mask(cfg, sec_side)).to(cuda)
+    mu = torch.tensor(3.5, device=cuda)
+    Pk, Sk, Pp, Sp = P.clone(), S.clone(), P.clone(), S.clone()
+    before = (cuda_sgd.step_launches, cuda_sgd.apply_launches)
+    dq = cuda_sgd.cuda_sgd_step(cfg, mu, Pk, Sk, prim, sec, r, w, pm, sm,
+                                0.05, cfg.reg)
+    cuda_sgd.cuda_segment_apply(Sk, dq, sp, ss)
+    assert (cuda_sgd.step_launches, cuda_sgd.apply_launches) == (
+        before[0] + 1, before[1] + 1)
+    dq_plain = cuda_sgd.plain_sgd_step(cfg, mu, Pp, Sp, prim, sec, r, w, pm,
+                                       sm, 0.05, cfg.reg)
+    cuda_sgd.plain_segment_apply(Sp, dq_plain, sp, ss)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dq, dq_plain, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(Pk, Pp, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(Sk, Sp, atol=1e-5, rtol=1e-5)
+    assert not torch.equal(Pk, P) and not torch.equal(Sk, S)
+    # frozen primary: the table is not written, dq is the same
+    P2 = P.clone()
+    dq2 = cuda_sgd.cuda_sgd_step(cfg, mu, P2, S, prim, sec, r, w, pm, sm,
+                                 0.05, cfg.reg, update_prim=False)
+    assert torch.equal(P2, P) and torch.equal(dq2, dq)
+    assert cuda_sgd.cuda_sgd_step(cfg, mu, P2, S, prim, sec, r, w, pm, sm,
+                                  0.05, cfg.reg, write_dq=False) is None
+
+
+def test_sgd_step_is_deterministic(cuda):
+    """Long runs and many collisions; the same step twice gives the same
+    bits (no float atomics)."""
+    cfg = SGDConfig(kernel="sigmoid", n_factors=200, gamma=0.005,
+                    min_rating=0.5, max_rating=5.0, reg=0.01)
+    rng = np.random.default_rng(0)
+    P = torch.from_numpy(_rows(cfg, 50, rng, "user")).to(cuda)
+    S = torch.from_numpy(_rows(cfg, 40, rng, "item")).to(cuda)
+    prim, sec, r, w, sp, ss = _batch(rng, 200_000, 50, 40, cuda)
+    pm = torch.from_numpy(sgd.update_mask(cfg, "user")).to(cuda)
+    sm = torch.from_numpy(sgd.update_mask(cfg, "item")).to(cuda)
+    mu = torch.tensor(3.5, device=cuda)
+    outs = []
+    for _ in range(2):
+        Pk, Sk = P.clone(), S.clone()
+        dq = cuda_sgd.cuda_sgd_step(cfg, mu, Pk, Sk, prim, sec, r, w, pm, sm,
+                                    1e-4, cfg.reg)
+        cuda_sgd.cuda_segment_apply(Sk, dq, sp, ss)
+        outs.append((Pk, Sk))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+def test_sgd_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    cfg = SGDConfig(n_factors=12)
+    mu = torch.tensor(3.0, device=cuda)
+    P = torch.zeros(8, 128, device=cuda)
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    v = torch.ones(4, device=cuda)
+    m = torch.ones(128, device=cuda)
+    good = [mu, P, P.clone(), ids, ids, v, v, m, m]
+    for k, bad in ((3, ids.long()), (5, v.double()), (1, P[:, :64].contiguous()),
+                   (2, P.T.contiguous().T), (0, mu.cpu()), (7, m[:64]),
+                   (1, torch.zeros(8, 1152, device=cuda))):
+        args = list(good)
+        args[k] = bad
+        with pytest.raises(ValueError):
+            cuda_sgd.cuda_sgd_step(cfg, *args, 0.1, 0.0)
+    rows = torch.zeros(4, 128, device=cuda)
+    with pytest.raises(ValueError):
+        cuda_sgd.cuda_segment_apply(P, rows[:, :64].contiguous(), ids, ids)
+    with pytest.raises(ValueError):
+        cuda_sgd.cuda_segment_apply(P, rows, ids.long(), ids)
+
+
+@pytest.mark.parametrize("kernel", ["linear", "sigmoid", "rbf"])
+def test_fit_on_cuda_matches_cpu(cuda, kernel):
+    """The same fit on the card and on the CPU: the same initial tables
+    would need one generator on both, so the CUDA tables are loaded from
+    the CPU model's start and trained with the same batch orders."""
+    rng = np.random.default_rng(1)
+    u = rng.integers(0, 300, 6000).astype(np.int32)
+    i = rng.integers(0, 200, 6000).astype(np.int32)
+    r = (np.round(rng.uniform(0.5, 5, 6000) * 2) / 2).astype(np.float32)
+    cfg = SGDConfig(kernel=kernel, n_factors=20, lr=0.05, reg=0.02,
+                    gamma=0.05, min_rating=0.5, max_rating=5.0, batch_size=512)
+    p0 = sgd.init_params(torch.Generator().manual_seed(0), 300, 200, cfg, 2.75)
+    orders = [torch.randperm(12, generator=torch.Generator().manual_seed(e))
+              for e in range(3)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        data = sgd.pack_ratings(u, i, r, 512, order="user", device=dev)
+        start = p0._replace(**{k: getattr(p0, k).to(dev) for k in p0._fields})
+        before = cuda_sgd.step_launches
+        out[dev] = sgd.sgd_train(start, data, None, cfg, 3, cfg.lr,
+                                 batch_orders=orders)
+        if dev == "cuda":
+            assert cuda_sgd.step_launches == before + 3 * data.n_batches
+    (pc, hc), (pg, hg) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(pg.user_features.cpu(), pc.user_features,
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(pg.item_features.cpu(), pc.item_features,
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(hg.cpu(), hc, atol=1e-5, rtol=1e-5)
+    m = KernelMF(n_factors=20, kernel=kernel, n_epochs=2, lr=0.05, reg=0.02,
+                 batch_size=512, device="cuda")
+    X = pd.DataFrame({"user_id": u, "item_id": i}).drop_duplicates()
+    before = cuda_sgd.step_launches
+    m.fit(X, pd.Series(r[X.index]))
+    assert m._params.user_features.device.type == "cuda"
+    assert len(m.train_rmse) == 2 and np.isfinite(m.train_rmse).all()
+    assert cuda_sgd.step_launches == before + 2 * -(-len(X) // 512)

@@ -36,6 +36,12 @@ assert len(back.recommend_batch([1, 2], amount=3)) == 6
 co = mf.CoalescingRecommender(back)
 assert len(co.recommend(5, amount=2)) == 2
 co.close()
+import pandas as pd
+X = pd.DataFrame({"user_id": np.arange(60) % 9, "item_id": np.arange(60) // 9})
+t = mf.KernelMF(n_factors=6, n_epochs=2, batch_size=16, device="cpu")
+t.fit(X, pd.Series(rng.uniform(1, 5, 60)))
+t.update_users(X.iloc[::9][:5].assign(user_id=99), pd.Series(np.ones(5)), n_epochs=1)
+assert len(t.train_rmse) == 1
 print("\n".join(sorted(sys.modules)))
 """
 
@@ -52,6 +58,7 @@ def test_port_runs_without_jax_modules():
     assert proc.returncode == 0, proc.stderr
     loaded = proc.stdout.split()
     assert "matrix_factorization_tpu_torch.serve.coalesce" in loaded
+    assert "matrix_factorization_tpu_torch.ops.cuda_sgd" in loaded
     bad = sorted(m for m in loaded if _top(m) in FORBIDDEN)
     assert not bad, bad
 

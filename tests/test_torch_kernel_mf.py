@@ -1,11 +1,18 @@
-"""The PyTorch port's KernelMF serving against the JAX package's.
+"""The PyTorch port's KernelMF against the JAX package's.
 
-A small JAX ``KernelMF`` is fitted per kernel and checkpointed with the
-JAX ``save_model``; the port loads it (``device="cpu"``) and must give
-the same predictions, views, recommendations and batch recommendations
-(same items in the same order, scores at atol 1e-5: both score in f32,
-summed in different orders). The reverse trip, a port checkpoint into
-the JAX package, must work too."""
+Serving: a small JAX ``KernelMF`` is fitted per kernel and checkpointed
+with the JAX ``save_model``; the port loads it (``device="cpu"``) and
+must give the same predictions, views, recommendations and batch
+recommendations (same items in the same order, scores at atol 1e-5: both
+score in f32, summed in different orders). The reverse trip, a port
+checkpoint into the JAX package, must work too.
+
+Training: the port's ``fit`` / ``update_users`` on the reference's
+cold-start split (the ported ``train_update_test_split``, equal to the
+JAX split) reach the JAX model's held-out RMSE within 0.02 (the initial
+tables and batch orders come from different generators, so the two
+trajectories differ), and ``warm_start``, ``update_users``,
+``fit_resumable`` and checkpoints keep their contracts."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,12 +23,18 @@ import torch
 from matrix_factorization_tpu import KernelMF as JaxKernelMF
 from matrix_factorization_tpu.core import checkpoint as jax_ckpt
 from matrix_factorization_tpu.data.synthetic import lowrank_ratings
+from matrix_factorization_tpu.utils.splits import (
+    train_update_test_split as jax_split)
 from matrix_factorization_tpu_torch import (
     KernelMF,
+    fit_resumable,
     load_model,
     params_from_numpy,
     save_model,
+    train_update_test_split,
 )
+from matrix_factorization_tpu_torch.models.kernel_mf import _generator
+from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
 KERNELS = ["linear", "sigmoid", "rbf"]
 
@@ -191,16 +204,19 @@ def test_port_checkpoint_loads_into_jax(fitted, data, kernel, tmp_path):
 
 
 def test_training_and_later_slices_raise(fitted, data):
+    """Training is ported (slice 2); ALS and its warm start wait for
+    slice 3 and meshes for slice 6, and the message names the slice."""
     m = load_model(fitted["linear"][1], device="cpu")
     X, y = data
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        m.fit(X, y)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        m.update_users(X, y)
-    for kw in ({"method": "als"}, {"mesh": object()},
-               {"mesh": object(), "keep_sharded": True},
-               {"als_warm_start": 2}):
-        with pytest.raises(NotImplementedError, match="slice 2"):
+    m.fit(X, y, n_epochs=1)
+    assert len(m.train_rmse) == 1 and np.isfinite(m.train_rmse[0])
+    m.update_users(X.iloc[:50], y.iloc[:50], n_epochs=1)
+    assert len(m.train_rmse) == 1
+    for kw, where in (({"method": "als"}, "slice 3"),
+                      ({"als_warm_start": 2}, "slice 3"),
+                      ({"mesh": object()}, "slice 6"),
+                      ({"mesh": object(), "keep_sharded": True}, "slice 6")):
+        with pytest.raises(NotImplementedError, match=where):
             KernelMF(device="cpu", **kw)
     for kw in ({"kernel": "cubic"}, {"serving_dtype": "float16"},
                {"keep_sharded": True}, {"method": "als", "kernel": "rbf"},
@@ -209,6 +225,8 @@ def test_training_and_later_slices_raise(fitted, data):
             KernelMF(device="cpu", **kw)
     with pytest.raises(RuntimeError, match="not fitted"):
         KernelMF(device="cpu").recommend(1)
+    with pytest.raises(RuntimeError, match="not fitted"):
+        KernelMF(device="cpu").update_users(X, y)
 
 
 def test_default_device_needs_cuda(fitted, monkeypatch):
@@ -224,3 +242,138 @@ def test_default_device_needs_cuda(fitted, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         KernelMF(device="cuda")
     assert KernelMF(device="cpu")._device == torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# Training (slice 2)
+# ---------------------------------------------------------------------------
+
+TRAIN_KW = dict(n_factors=14, n_epochs=6, lr=0.05, reg=0.02, batch_size=256,
+                min_rating=1.0, max_rating=5.0, seed=1)
+
+
+@pytest.fixture(scope="module")
+def split(data):
+    X, y = data
+    return train_update_test_split(X.assign(rating=y), 0.2, seed=4)
+
+
+def _rmse(a, b):
+    return float(np.sqrt(np.mean((np.asarray(a, np.float64)
+                                  - np.asarray(b, np.float64)) ** 2)))
+
+
+def test_split_matches_jax_split(data, split):
+    X, y = data
+    want = jax_split(X.assign(rating=y), 0.2, seed=4)
+    for got, exp in zip(split, want):
+        pd.testing.assert_frame_equal(pd.DataFrame(got), pd.DataFrame(exp))
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_fit_and_update_users_match_jax_heldout(split, kernel):
+    X_tr, y_tr, X_up, y_up, X_te, y_te = split
+    out = {}
+    for name, cls, kw in (("port", KernelMF, {"device": "cpu"}),
+                          ("jax", JaxKernelMF, {})):
+        m = cls(kernel=kernel, **TRAIN_KW, **kw).fit(X_tr, y_tr)
+        hist = np.asarray(m.train_rmse)
+        assert len(hist) == 6 and np.isfinite(hist).all()
+        assert (np.diff(hist) < 0).all(), (name, hist)
+        m.update_users(X_up, y_up, lr=0.05, n_epochs=5)
+        out[name] = _rmse(m.predict(X_te), y_te)
+    assert abs(out["port"] - out["jax"]) <= 0.02, out
+
+
+def test_warm_start_continues_without_reinit(split):
+    X_tr, y_tr = split[0], split[1]
+    m = KernelMF(kernel="sigmoid", **TRAIN_KW, device="cpu")
+    m.fit(X_tr, y_tr, n_epochs=2)
+    before = m._params
+    m.fit(X_tr, y_tr, n_epochs=1, warm_start=True)
+    assert len(m.train_rmse) == 3
+    # the continued fit is one more epoch from the current tables, with
+    # the batch order of the fit's own generator (seed, epochs done + 1)
+    cfg = m._cfg()
+    data = sgd.pack_ratings(m.user_vocab.encode(X_tr.user_id.to_numpy()),
+                            m.item_vocab.encode(X_tr.item_id.to_numpy()),
+                            np.asarray(y_tr, np.float32), cfg.batch_size,
+                            device="cpu")
+    want, hist = sgd.sgd_train(before, data, _generator("cpu", 1, 3), cfg, 1,
+                               m.lr)
+    assert torch.equal(m._params.user_features, want.user_features)
+    assert torch.equal(m._params.item_features, want.item_features)
+    assert m.train_rmse[2] == hist[0].item()
+    with pytest.raises(KeyError):  # a warm start keeps the id space
+        m.fit(X_tr.iloc[:2].assign(user_id=[-7, -8]), y_tr.iloc[:2],
+              n_epochs=1, warm_start=True)
+
+
+def test_update_users_freezes_items_and_grows_users(split):
+    X_tr, y_tr, X_up, y_up, _, _ = split
+    m = KernelMF(kernel="linear", **TRAIN_KW, device="cpu").fit(X_tr, y_tr)
+    items = m._params.item_features.clone()
+    users = m._params.user_features.clone()
+    n0, cap0 = m.n_users, users.shape[0]
+    known = X_tr.user_id.iloc[:3].tolist()
+    Xk = pd.DataFrame({"user_id": known, "item_id": X_tr.item_id.iloc[:3]})
+    X = pd.concat([X_up, Xk], ignore_index=True)
+    y = pd.concat([y_up, y_tr.iloc[:3]], ignore_index=True)
+    # no epochs: what is left is the re-initialisation and the new rows
+    m.update_users(X, y, n_epochs=0)
+    new_users = pd.unique(X_up.user_id)
+    assert m.n_users == n0 + len(new_users)
+    assert m._params.user_features.shape[0] == max(
+        cap0, sgd.round_up(max(m.n_users, int(cap0 * 1.5) + 1), 1024))
+    assert m._params.user_features.shape[0] >= m.n_users
+    assert torch.equal(m._params.item_features, items)
+    kd = m.user_vocab.encode(np.asarray(known, dtype=object))
+    cfg = m._cfg()
+    rows = m._params.user_features[torch.from_numpy(kd.astype(np.int64))]
+    assert not torch.equal(rows, users[kd])  # re-initialised
+    assert torch.all(rows[:, sgd.bias_col(cfg, "user")] == 0)
+    assert torch.all(rows[:, sgd.const_col(cfg, "user")] == 1)
+    others = np.setdiff1d(np.arange(n0), kd)
+    assert torch.equal(m._params.user_features[others], users[others])
+    # with epochs: only user rows move, and the frozen item table is
+    # bitwise unchanged
+    m.update_users(X, y, n_epochs=3)
+    assert torch.equal(m._params.item_features, items)
+    assert len(m.train_rmse) == 3 and m.train_rmse[-1] < m.train_rmse[0]
+    assert m.predict(X_up.iloc[:5]) and all(m.predictions_possible)
+
+
+def test_fit_resumable_segments(split, tmp_path):
+    """Two checkpointed segments are the same two fits run by hand (each
+    segment draws its batch orders from its own generator, as in the JAX
+    package), and a run resumed from the first segment's checkpoint ends
+    bitwise where the uninterrupted run ends."""
+    X_tr, y_tr = split[0], split[1]
+    kw = dict(kernel="rbf", **{**TRAIN_KW, "n_epochs": 4})
+    m = fit_resumable(KernelMF(**kw, device="cpu"), X_tr, y_tr,
+                      tmp_path / "a", segment_epochs=2)
+    assert m._epochs_done == 4 and len(m.train_rmse) == 4
+    ref = KernelMF(**kw, device="cpu").fit(X_tr, y_tr, n_epochs=2)
+    ref.fit(X_tr, y_tr, n_epochs=2, warm_start=True)
+    assert torch.equal(m._params.user_features, ref._params.user_features)
+    assert m.train_rmse == ref.train_rmse
+    half = fit_resumable(KernelMF(**kw, device="cpu"), X_tr, y_tr,
+                         tmp_path / "b", total_epochs=2, segment_epochs=2)
+    assert half._epochs_done == 2
+    resumed = fit_resumable(KernelMF(**kw, device="cpu"), X_tr, y_tr,
+                            tmp_path / "b", segment_epochs=2)
+    assert resumed._epochs_done == 4
+    assert torch.equal(resumed._params.item_features, m._params.item_features)
+    assert resumed.train_rmse == m.train_rmse
+
+
+def test_port_trained_checkpoint_predicts_the_same_in_jax(split, tmp_path):
+    X_tr, y_tr, X_up, y_up, X_te, _ = split
+    m = KernelMF(kernel="sigmoid", **TRAIN_KW, device="cpu").fit(X_tr, y_tr)
+    m.update_users(X_up, y_up, n_epochs=2)
+    save_model(m, tmp_path / "ckpt")
+    back = jax_ckpt.load_model(tmp_path / "ckpt")
+    assert back.train_rmse == m.train_rmse
+    np.testing.assert_allclose(back.predict(X_te), m.predict(X_te), atol=1e-5)
+    user = X_te.user_id.iloc[0]
+    _assert_same_frame(m.recommend(user), back.recommend(user))
