@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA GPU and
-check them.
+"""Drive the PyTorch port's serving, SGD training and ALS paths on one
+CUDA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -12,7 +12,8 @@ failed check ends the run with a non-zero exit:
 1. device: the card (``nvidia-smi`` name and power limit), torch, CUDA;
    TF32 off for every f32 product.
 2. build: every ``csrc/*.cu`` of the port (the scorer, the SGD step and
-   apply), compiled for sm_90a, all ``nvcc`` processes at once.
+   apply, the GJ SPD leaf), compiled for sm_90a, all ``nvcc`` processes at
+   once.
 3. compare: the catalog-scoring kernel against its plain PyTorch version
    on the card, for kernels linear/sigmoid/rbf, f32 and bf16 tables, at
    (B, I, Kp) = (1, 59392, 256), (256, 59392, 256) and (5, 1000, 128);
@@ -57,8 +58,34 @@ failed check ends the run with a non-zero exit:
     plain and library (``index_add_`` for the apply) times with CUDA
     events, and the bounds computed from that batch.
 
+12. als_pack: config 3 grouped into count buckets once (by user: chunks of
+    15,625 x 256; by item: 7,812 x 512).
+13. compare_spd: the GJ leaf kernel against its plain version on the card,
+    both against the float64 inverse, at (E, d) = (15,625, 104),
+    (15,625, 97), (7,812, 101), (1,000, 128), (4,096, 64), (3, 8), (5, 1)
+    on Jacobi-scaled ridged grams of seeded rows, and on the two leaves
+    (104 and 97) of the first full config-3 user chunk at k=200; atol =
+    rtol = 1e-4 between the two, ``max|A X - I| < 5e-3``.
+14. train_als: ``KernelMF(method='als')`` at config 3, k=200, reg 0.1 per
+    observation, through ``fit`` (3 sweeps, bucketed, falling RMSE) and
+    ``update_users`` (1,000 users, half known; items bitwise unchanged)
+    with the GJ count zeroed just before and read just after; ``predict``,
+    ``recommend`` and a checkpoint round trip. als_sweeps: one sweep's
+    seconds at k=200 and k=100 on the buckets of 12; the first full user
+    chunk's system solved with the Cholesky leaf against the GJ leaf (atol
+    1e-4); the sweep repeated (bitwise equal); a profiled sweep.
+15. warm_start: a sigmoid ``KernelMF`` (k=200, bs 2,097,152) with one ALS
+    warm sweep and one SGD epoch on the first 2.5M config-3 ratings, GJ
+    and SGD counts > 0, its train RMSE below a cold fit's.
+16. implicit: ``ImplicitALS()`` (k=64) on 1M seeded interactions of
+    6,040 x 3,706: ``fit`` (3 epochs, falling loss), ``update_users`` of
+    100 new users, ``recommend``; GJ count > 0.
+17. spd_kernel_time: the GJ leaf's kernel, plain and library
+    (``torch.linalg.inv``) times at the first five shapes of 13, and
+    their bounds.
+
 Then the ``kernels`` line (``score_catalog``, ``sgd_step``,
-``segment_apply``), the ``nvidia-smi`` line, and last
+``segment_apply``, ``spd_gj``), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -872,6 +899,346 @@ def phase_sgd_kernel_times(torch, rng, shapes, timer):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Factor ALS (slice 3): the Gauss-Jordan SPD leaf
+# ---------------------------------------------------------------------------
+
+# (E, d) of the leaf comparisons: the two Schur halves of a config-3 user
+# chunk at k=200 (15,625 users of 256 slots, d=201 split 104 + 97), an item
+# chunk at k=100 (d=101), d=128 past the 48 KB shared-memory opt-in,
+# ImplicitALS's default d=64, and two small shapes
+SPD_SHAPES = ((15_625, 104), (15_625, 97), (7_812, 101), (1_000, 128),
+              (4_096, 64), (3, 8), (5, 1))
+SPD_TIMED = SPD_SHAPES[:5]
+# KernelMF(method='als') at config 3's width (benchmarks/RESULTS.md,
+# "Extension: factor ALS")
+ALS = {"n_factors": 200, "reg": 0.1, "reg_scale": "per_obs", "sweeps": 3}
+# the ALS warm start of a sigmoid fit, on the first 2.5M config-3 ratings
+WARM = {"n_ratings": 2_500_000, "batch_size": 2_097_152, "lr": 0.01,
+        "reg": 0.005, "als_warm_reg": 0.1}
+# ImplicitALS at its default width on the MovieLens-1M shape
+IMPLICIT = {"n_users": 6_040, "n_items": 3_706, "n": 1_000_000, "epochs": 3,
+            "new_users": 100}
+
+
+def jacobi_scaled(torch, A):
+    """``A`` scaled to a unit diagonal, as ``spd_solve`` hands it down."""
+    ds = torch.rsqrt(torch.diagonal(A, dim1=-2, dim2=-1))
+    return (A * ds[:, :, None] * ds[:, None, :]).contiguous()
+
+
+def ridged_grams(torch, gen, E, d, L=64, ridge=0.5):
+    """Jacobi-scaled ``X^T X + ridge I`` of seeded N(0, 0.3^2) rows, as
+    ``tests/test_spd.py::_ridged_gram`` makes them: (E, d, d) f32."""
+    X = torch.randn((E, L, d), generator=gen, device="cuda") * 0.3
+    A = X.transpose(1, 2) @ X
+    A.diagonal(dim1=-2, dim2=-1).add_(ridge)
+    return jacobi_scaled(torch, A)
+
+
+def spd_bound(E, d):
+    """(bound_ms, bound_by) of E GJ inverses: 2 d^3 f32 operations and
+    8 d^2 bytes (read once, written once) a matrix."""
+    t_ops = 2.0 * d ** 3 * E / PEAK_FLOPS["float32"]
+    t_bytes = 8.0 * d * d * E / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def first_full_chunk(buckets):
+    return max(buckets, key=lambda b: b.other_ids.shape[0])
+
+
+def chunk_leaves(torch, A):
+    """The two GJ leaf inputs of ``spd_solve`` on a d=201 batch: the
+    Jacobi-scaled A11 (104) and its Schur complement S (97), formed as
+    ``spd_inverse`` forms them."""
+    from matrix_factorization_tpu_torch.ops import cuda_spd, spd
+
+    As = jacobi_scaled(torch, A)
+    d = As.shape[-1]
+    m = ((d // 2 + 7) // 8) * 8
+    A11 = As[:, :m, :m].contiguous()
+    A12 = As[:, :m, m:]
+    inv11 = cuda_spd.cuda_gj_inverse(A11)
+    S = As[:, m:, m:] - spd._mm(A12.transpose(1, 2), spd._mm(inv11, A12))
+    return A11, S.contiguous()
+
+
+def phase_compare_spd(torch, gen, real):
+    """The GJ kernel against its plain version on the card, both against
+    the float64 inverse; returns the largest kernel-vs-plain error.
+    ``real``: (name, batch) leaf inputs of the config-3 chunk."""
+    from matrix_factorization_tpu_torch.ops import cuda_spd
+
+    def cases():
+        for E, d in SPD_SHAPES:
+            yield f"ridged_{E}x{d}", ridged_grams(torch, gen, E, d)
+        yield from real
+
+    worst = 0.0
+    for name, A in cases():
+        E, d = A.shape[0], A.shape[-1]
+        got = cuda_spd.cuda_gj_inverse(A)
+        want = cuda_spd.plain_gj_inverse(A)
+        A64 = A.double()
+        exact = torch.linalg.inv(A64)
+        eye = torch.eye(d, dtype=torch.float64, device="cuda")
+        err = float((got - want).abs().max())
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want, atol=1e-4, rtol=1e-4)
+        out = {"phase": "compare_spd", "case": name, "E": E, "d": d,
+               "max_abs_err": err,
+               "kernel_eye_err": float((A64 @ got.double() - eye).abs().max()),
+               "plain_eye_err": float((A64 @ want.double() - eye).abs().max()),
+               "kernel_vs_f64": float((got.double() - exact).abs().max()),
+               "plain_vs_f64": float((want.double() - exact).abs().max()),
+               "inv_max_abs": float(exact.abs().max()), "ok": ok}
+        emit(out)
+        check(ok, f"compare_spd {name}: kernel differs from plain by {err}")
+        check(out["kernel_eye_err"] < 5e-3 and out["plain_eye_err"] < 5e-3,
+              f"compare_spd {name}: |A X - I| too large")
+        worst = max(worst, err)
+        del A, A64, got, want, exact
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_train_als(torch, rng, data3, seed, tmpdir):
+    """KernelMF(method='als') at config 3 through ``fit`` (3 sweeps, on the
+    bucketed path) and ``update_users`` (1,000 users, half known; the item
+    table bitwise unchanged), with the GJ count zeroed just before and
+    read just after; then ``predict``, ``recommend`` and a checkpoint
+    round trip."""
+    import numpy as np
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch import KernelMF, load_model, save_model
+    from matrix_factorization_tpu_torch.models import kernel_mf
+    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_spd
+
+    u, i, r, hu, hi = data3
+    model = KernelMF(method="als", kernel="linear", n_factors=ALS["n_factors"],
+                     reg=ALS["reg"], reg_scale=ALS["reg_scale"], min_rating=0.5,
+                     max_rating=5.0, seed=seed)
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    out = {"phase": "train_als", "n_ratings": len(r), **ALS}
+
+    cuda_spd.reset_launches()
+    t0 = time.perf_counter()
+    model.fit(X, pd.Series(r), n_epochs=ALS["sweeps"])
+    torch.cuda.synchronize()
+    out["fit_seconds"] = time.perf_counter() - t0
+    hist = model.train_rmse
+    out["train_rmse"] = hist
+    check(kernel_mf._als_needs_buckets(u, i, model.n_users, model.n_items),
+          "config 3 should take the bucketed ALS path")
+    check(len(hist) == ALS["sweeps"] and all(np.isfinite(hist)),
+          f"ALS train RMSE {hist}")
+    check(hist[-1] < hist[0], f"ALS train RMSE not falling: {hist}")
+    fit_launches = cuda_spd.launches
+
+    known = rng.choice(np.unique(u), 500, replace=False)
+    new = np.arange(500) + 10_000_000
+    uu = np.repeat(np.concatenate([known, new]), 100)
+    ii = rng.integers(0, N_ITEMS, len(uu))
+    pairs = np.unique(uu.astype(np.int64) * N_ITEMS + ii)
+    Xu = pd.DataFrame({"user_id": pairs // N_ITEMS, "item_id": pairs % N_ITEMS})
+    yu = pd.Series(np.round(rng.uniform(0.5, 5, len(Xu)) * 2) / 2)
+    items = model._params.item_features.clone()
+    n_users0 = model.n_users
+    t0 = time.perf_counter()
+    model.update_users(Xu, yu)
+    torch.cuda.synchronize()
+    out["update_users_seconds"] = time.perf_counter() - t0
+    launches = cuda_spd.launches
+    check(launches > fit_launches, "ALS update_users did not launch the GJ leaf")
+    check(torch.equal(model._params.item_features, items),
+          "ALS update_users moved the frozen item table")
+    check(model.n_users == n_users0 + 500, "ALS update_users did not add users")
+    out.update({"fit_launches": fit_launches, "launches": launches,
+                "update_users_rmse": model.train_rmse})
+
+    preds = np.asarray(model.predict(pd.DataFrame({"user_id": hu,
+                                                   "item_id": hi})))
+    check(preds.shape == (N_HELD_OUT,) and np.isfinite(preds).all()
+          and preds.min() >= 0.5 and preds.max() <= 5.0,
+          "ALS held-out predict")
+    out["heldout_predict_mean"] = float(preds.mean())
+    n0 = cuda_scores.launches
+    rec = model.recommend(int(u[0]), amount=10)
+    check(cuda_scores.launches > n0 and len(rec) == 10,
+          "ALS recommend did not launch the scorer")
+    save_model(model, f"{tmpdir}/als")
+    back = load_model(f"{tmpdir}/als")
+    again = back.recommend(int(u[0]), amount=10)
+    check(list(again["item_id"]) == list(rec["item_id"]) and np.array_equal(
+        again["rating_pred"].to_numpy(), rec["rating_pred"].to_numpy()),
+        "the reloaded ALS model recommends otherwise")
+    del model, back, X
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_als_sweeps(torch, data3, buckets, seed):
+    """One sweep's seconds at k=200 and k=100 on buckets made once
+    (median of 3), the first full user chunk's normal equations solved
+    with the Cholesky leaf against the GJ leaf, the sweep repeated
+    (bitwise equal) and a profiled sweep."""
+    from matrix_factorization_tpu_torch.core.config import SGDConfig
+    from matrix_factorization_tpu_torch.ops import ials, spd
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    bu, bi = buckets
+    mean = float(data3[2].mean())
+    out = {"phase": "als_sweeps", "user_chunks": len(bu), "item_chunks": len(bi)}
+    for k in (ALS["n_factors"], 100):
+        cfg = SGDConfig(kernel="linear", n_factors=k, reg=ALS["reg"],
+                        min_rating=0.5, max_rating=5.0, compute_epoch_rmse=False)
+        p0 = sgd.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                             N_USERS, N_ITEMS, cfg, mean)
+
+        def sweep(_=None):
+            return ials.ials_train_bucketed(p0, bu, bi, None, cfg, 1,
+                                            reg_scale=ALS["reg_scale"])[0]
+
+        sweep()  # warm-up
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p1 = sweep()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        out[f"k{k}_sweep_seconds"] = secs
+        out[f"k{k}_sweep_median_s"] = statistics.median(secs)
+        if k != ALS["n_factors"]:
+            continue
+        p2 = sweep()
+        check(torch.equal(p1.user_features, p2.user_features)
+              and torch.equal(p1.item_features, p2.item_features),
+              "the ALS sweep is not bitwise repeatable")
+        ch = first_full_chunk(bu)
+        A, b = ials.normal_equations(p0.item_features, ch.other_ids, ch.ratings,
+                                     ch.mask, p0.global_mean, cfg, "user",
+                                     reg_scale=ALS["reg_scale"])
+        x_gj = spd.spd_solve(A, b)
+        x_chol = spd.spd_solve(A, b, leaf="cholesky")
+        err = float((x_gj - x_chol).abs().max())
+        out.update({"cholesky_vs_gj_max_abs_err": err,
+                    "solution_max_abs": float(x_gj.abs().max()),
+                    "chunk_E": int(A.shape[0]), "chunk_L": int(ch.other_ids.shape[1])})
+        check(torch.allclose(x_gj, x_chol, atol=1e-4, rtol=0),
+              f"Cholesky-leaf solve differs from the GJ-leaf solve by {err}")
+        del A, b, x_gj, x_chol, p2
+        torch.cuda.empty_cache()
+        out["sweep_profile"] = _device_share(torch, sweep, [0])
+        out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    return out
+
+
+def phase_warm_start(torch, data3, seed):
+    """A sigmoid fit with one ALS warm sweep then one SGD epoch, on the
+    first 2.5M config-3 ratings, against a cold fit of the same epoch."""
+    import numpy as np
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch import KernelMF
+    from matrix_factorization_tpu_torch.ops import cuda_sgd, cuda_spd
+
+    n = WARM["n_ratings"]
+    X = pd.DataFrame({"user_id": data3[0][:n], "item_id": data3[1][:n]})
+    y = pd.Series(data3[2][:n])
+    kw = dict(kernel="sigmoid", n_factors=N_FACTORS, lr=WARM["lr"],
+              reg=WARM["reg"], min_rating=0.5, max_rating=5.0,
+              batch_size=WARM["batch_size"], seed=seed)
+    out = {"phase": "warm_start", **WARM}
+    cuda_spd.reset_launches()
+    cuda_sgd.reset_launches()
+    t0 = time.perf_counter()
+    warm = KernelMF(als_warm_start=1, als_warm_reg=WARM["als_warm_reg"],
+                    **kw).fit(X, y, n_epochs=1)
+    torch.cuda.synchronize()
+    out["fit_seconds"] = time.perf_counter() - t0
+    launches = {"spd_gj": cuda_spd.launches, "sgd_step": cuda_sgd.step_launches,
+                "segment_apply": cuda_sgd.apply_launches}
+    check(all(v > 0 for v in launches.values()),
+          f"the warm-start fit missed a kernel: {launches}")
+    cold = KernelMF(**kw).fit(X, y, n_epochs=1)
+    out.update({"launches": launches, "warm_train_rmse": warm.train_rmse,
+                "cold_train_rmse": cold.train_rmse})
+    check(np.isfinite(warm.train_rmse).all()
+          and warm.train_rmse[-1] < cold.train_rmse[-1],
+          f"warm start {warm.train_rmse} not below cold {cold.train_rmse}")
+    del warm, cold
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_implicit(torch, seed):
+    """ImplicitALS at its default width (k=64) on 1M seeded interactions of
+    6,040 x 3,706 (the MovieLens-1M shape), strengths 1..10: ``fit`` (loss
+    falling), ``update_users`` for new users, ``recommend``."""
+    import numpy as np
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch import ImplicitALS
+    from matrix_factorization_tpu_torch.ops import cuda_spd
+
+    nu, ni, n = IMPLICIT["n_users"], IMPLICIT["n_items"], IMPLICIT["n"]
+    rng = np.random.default_rng(seed + 2)
+    flat = np.unique(rng.integers(0, nu * ni, int(n * 1.05)))
+    rng.shuffle(flat)
+    flat = flat[:n]  # after the shuffle: the sorted head would drop users
+    X = pd.DataFrame({"user_id": flat // ni, "item_id": flat % ni})
+    s = pd.Series(rng.integers(1, 11, len(flat)).astype(np.float32))
+    out = {"phase": "implicit", **IMPLICIT}
+    cuda_spd.reset_launches()
+    t0 = time.perf_counter()
+    m = ImplicitALS(n_epochs=IMPLICIT["epochs"], seed=seed).fit(X, s)
+    torch.cuda.synchronize()
+    out["fit_seconds"] = time.perf_counter() - t0
+    loss = m.train_loss
+    check(len(loss) == IMPLICIT["epochs"] and np.isfinite(loss).all()
+          and loss[-1] < loss[0], f"implicit loss not falling: {loss}")
+    k = IMPLICIT["new_users"]
+    Xn = pd.DataFrame({"user_id": np.repeat(np.arange(k) + 10_000_000, 20),
+                       "item_id": np.concatenate(
+                           [rng.choice(ni, 20, replace=False) for _ in range(k)])})
+    items = m._params.item_features.clone()
+    m.update_users(Xn, pd.Series(rng.integers(1, 11, len(Xn)).astype(np.float32)))
+    check(torch.equal(m._params.item_features, items),
+          "implicit update_users moved the item table")
+    rec = m.recommend(10_000_000, amount=10)
+    check(len(rec) == 10 and m.n_users == nu + k, "implicit recommend")
+    out.update({"train_loss": loss, "launches": cuda_spd.launches})
+    check(cuda_spd.launches > 0, "ImplicitALS launched no GJ leaf")
+    return out
+
+
+def phase_spd_kernel_times(torch, gen, timer):
+    """Kernel, plain and library (``torch.linalg.inv``) times of the leaf
+    at the main path's shapes, and their bounds."""
+    from matrix_factorization_tpu_torch.ops import cuda_spd
+
+    rows = []
+    for E, d in SPD_TIMED:
+        A = ridged_grams(torch, gen, E, d)
+        b_ms, b_by = spd_bound(E, d)
+        row = {"E": E, "d": d,
+               "ms": timer.ms(lambda: cuda_spd.cuda_gj_inverse(A)),
+               "plain_ms": timer.ms(lambda: cuda_spd.plain_gj_inverse(A)),
+               # the one PyTorch call of the same function (LU-based): a
+               # yardstick the port never calls
+               "library_ms": timer.ms(lambda: torch.linalg.inv(A)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        row["tflops"] = 2.0 * d ** 3 * E / (row["ms"] * 1e-3) / 1e12
+        rows.append(row)
+        emit({"phase": "spd_kernel_time", **row})
+        del A
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -885,7 +1252,7 @@ def main() -> int:
     import numpy as np
 
     from matrix_factorization_tpu_torch.core.config import SGDConfig
-    from matrix_factorization_tpu_torch.ops import _build, cuda_scores, cuda_sgd
+    from matrix_factorization_tpu_torch.ops import _build, cuda_scores, cuda_sgd, ials
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
     t_start = time.perf_counter()
@@ -1001,6 +1368,47 @@ def main() -> int:
                             ("config3_rbf", 1, "rbf"),
                             ("headline_linear", 2, "headline"))], timer)
 
+    # -- factor ALS (slice 3) ------------------------------------------------
+    packs.clear()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    t0 = time.perf_counter()
+    buckets = ials.group_both_sides_bucketed(*data3[:3], N_USERS, N_ITEMS)
+    torch.cuda.synchronize()
+    emit({"phase": "als_pack", "seconds": time.perf_counter() - t0,
+          "chunks": [[(int(b.other_ids.shape[0]), int(b.other_ids.shape[1]))
+                      for b in side] for side in buckets]})
+    # the leaves of the first full user chunk's solve against the seeded
+    # initial item table (the first sweep of a fit)
+    cfg_als = SGDConfig(kernel="linear", n_factors=ALS["n_factors"],
+                        reg=ALS["reg"], min_rating=0.5, max_rating=5.0)
+    p_init = sgd.init_params(torch.Generator(device="cuda").manual_seed(args.seed),
+                             N_USERS, N_ITEMS, cfg_als, float(data3[2].mean()))
+    ch = first_full_chunk(buckets[0])
+    A, _ = ials.normal_equations(p_init.item_features, ch.other_ids, ch.ratings,
+                                 ch.mask, p_init.global_mean, cfg_als, "user",
+                                 reg_scale=ALS["reg_scale"])
+    real = list(zip(("config3_chunk_A11", "config3_chunk_schur"),
+                    chunk_leaves(torch, A)))
+    del A, p_init
+    spd_worst = phase_compare_spd(torch, gen, real)
+    del real
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        train_als = phase_train_als(torch, rng, data3, args.seed, tmpdir)
+    emit(train_als)
+    emit(phase_als_sweeps(torch, data3, buckets, args.seed))
+    del buckets
+    torch.cuda.empty_cache()
+    warm = phase_warm_start(torch, data3, args.seed)
+    emit(warm)
+    implicit = phase_implicit(torch, args.seed)
+    emit(implicit)
+    spd_rows = phase_spd_kernel_times(torch, gen, timer)
+    spd_launches = {"train_als": train_als["launches"],
+                    "warm_start": warm["launches"]["spd_gj"],
+                    "implicit": implicit["launches"]}
+
     kernels = [{
         "name": "score_catalog", "route": "cuda",
         "source": "matrix_factorization_tpu_torch/csrc/score_catalog.cu",
@@ -1031,6 +1439,18 @@ def main() -> int:
             "shape": {k: row[k] for k in ("bs", "Kp", "kernel", "primary",
                                           "runs_prim", "runs_sec")},
             "shapes": [rows_[name] for rows_ in sgd_rows.values()]})
+    row = spd_rows[0]
+    kernels.append({
+        "name": "spd_gj", "route": "cuda",
+        "source": "matrix_factorization_tpu_torch/csrc/spd_gj.cu",
+        "replaces": "matrix_factorization_tpu/ops/pallas_spd.py:56",
+        "note": "the Gauss-Jordan SPD leaf (_gj_kernel) of every ALS solve",
+        "launches": sum(spd_launches.values()),
+        "launches_by_path": spd_launches, "max_abs_err": spd_worst,
+        "ms": row["ms"], "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "shape": {"E": row["E"], "d": row["d"]}, "shapes": spd_rows})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

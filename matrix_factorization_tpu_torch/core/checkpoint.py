@@ -1,8 +1,9 @@
 """Checkpoints of fitted models, in the JAX package's directory layout.
 
 Counterpart of ``save_model`` / ``load_model`` in
-``matrix_factorization_tpu/core/checkpoint.py``, for ``KernelMF``. A
-checkpoint is a directory:
+``matrix_factorization_tpu/core/checkpoint.py``, for ``KernelMF`` (SGD or
+ALS) and ``ImplicitALS``, whose tables are both ``MFParams``. A checkpoint
+is a directory:
 
 * ``arrays.npz`` — the tables: ``user_features``, ``item_features`` and
   ``global_mean`` (``MFParams`` fields, host numpy)
@@ -75,21 +76,29 @@ def save_model(model, path) -> None:
         raise
 
 
-def load_model(path, device=None):
-    """Restore a ``KernelMF`` from a checkpoint directory onto ``device``
-    (``None`` = CUDA, see ``core.device``)."""
-    from matrix_factorization_tpu_torch.core.ids import IdVocab
+def _model_classes() -> dict:
+    from matrix_factorization_tpu_torch.models.implicit import ImplicitALS
     from matrix_factorization_tpu_torch.models.kernel_mf import KernelMF
+
+    return {"KernelMF": KernelMF, "ImplicitALS": ImplicitALS}
+
+
+def load_model(path, device=None):
+    """Restore a ``KernelMF`` or an ``ImplicitALS`` from a checkpoint
+    directory onto ``device`` (``None`` = CUDA, see ``core.device``)."""
+    from matrix_factorization_tpu_torch.core.ids import IdVocab
     from matrix_factorization_tpu_torch.ops.segment_sgd import params_from_numpy
 
     path = Path(path)
     with (path / "meta.pkl").open("rb") as f:
         meta = pickle.load(f)
-    if meta["model_class"] != "KernelMF" or meta["params_class"] != "MFParams":
+    classes = _model_classes()
+    if meta["model_class"] not in classes or meta["params_class"] != "MFParams":
         raise ValueError(
-            f"the PyTorch port loads KernelMF checkpoints only, not "
-            f"{meta['model_class']!r} ({meta['params_class']!r})")
-    model = KernelMF(**meta["config"], device=device)
+            f"the PyTorch port loads {' and '.join(sorted(classes))} "
+            f"checkpoints only, not {meta['model_class']!r} "
+            f"({meta['params_class']!r})")
+    model = classes[meta["model_class"]](**meta["config"], device=device)
     model.user_vocab = IdVocab(meta["user_raw_ids"])
     model.item_vocab = IdVocab(meta["item_raw_ids"])
     model.train_rmse = meta["train_rmse"]

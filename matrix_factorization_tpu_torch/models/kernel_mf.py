@@ -2,13 +2,15 @@
 {linear, sigmoid, rbf} (PyTorch port).
 
 Counterpart of ``matrix_factorization_tpu/models/kernel_mf.py``, single
-device and SGD: ``fit`` (with ``warm_start``), ``update_users``,
-``predict``, ``recommend`` and ``recommend_batch``. A model is trained
-here or arrives fitted through ``core.checkpoint.load_model`` (a
-checkpoint of either package) or ``ops.segment_sgd.params_from_numpy``.
-On the GPU, training runs the hand-written step and apply kernels of
-``ops/cuda_sgd.py`` and serving the catalog scorer of
-``ops/cuda_scores.py``.
+device: ``fit`` (with ``warm_start``), ``update_users``, ``predict``,
+``recommend`` and ``recommend_batch``, trained by mini-batch SGD,
+``method='als'`` (exact alternation, ``ops/ials.py``) or SGD after
+``als_warm_start`` ALS sweeps. A model is trained here or arrives fitted
+through ``core.checkpoint.load_model`` (a checkpoint of either package) or
+``ops.segment_sgd.params_from_numpy``. On the GPU, SGD runs the
+hand-written step and apply kernels of ``ops/cuda_sgd.py``, the ALS solves
+the Gauss-Jordan leaf of ``ops/cuda_spd.py``, and serving the catalog
+scorer of ``ops/cuda_scores.py``.
 
 Reference: ``matrix_factorization/kernel_matrix_factorization.py``
 (fit ``:320-445``, update_users ``:165-237``, predict ``:130-163``). The
@@ -31,10 +33,17 @@ from matrix_factorization_tpu_torch.core.config import SGDConfig
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.core.ids import check_no_duplicates
 from matrix_factorization_tpu_torch.models.base import RecommenderBase, chunked_predict
-from matrix_factorization_tpu_torch.ops import scoring
+from matrix_factorization_tpu_torch.ops import ials, scoring
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
-_SLICE_3 = "slice 3 of the PyTorch port (ALS)"
+
+def _als_needs_buckets(u, i, n_users: int, n_items: int,
+                       budget_rows: int = 30_000_000) -> bool:
+    """One padded block per side materialises (E, L_max) tables; switch to
+    count-bucketed sweeps when that passes the row budget."""
+    lu = int(np.bincount(u, minlength=n_users).max()) if len(u) else 1
+    li = int(np.bincount(i, minlength=n_items).max()) if len(i) else 1
+    return n_users * lu > budget_rows or n_items * li > budget_rows
 
 
 def _generator(device, *entropy) -> torch.Generator:
@@ -80,9 +89,15 @@ class KernelMF(RecommenderBase):
         ``recommend_batch``), which halves the bytes they stream; sums stay
         f32 and ``predict`` reads the f32 tables. ``device``: where the
         tables live, ``None`` meaning CUDA (``RuntimeError`` without a
-        GPU). ``mesh`` (slice 6), ``method='als'`` and ``als_warm_start``
-        (slice 3) raise ``NotImplementedError`` until the slices that
-        port them; ``keep_sharded`` needs a mesh."""
+        GPU). ``mesh`` raises ``NotImplementedError`` until slice 6 ports
+        it; ``keep_sharded`` needs a mesh.
+
+        ``method='als'``: exact alternating least squares for factors and
+        biases (linear kernel), ``reg_scale`` 'absolute' or 'per_obs' (see
+        ``ops.ials._reg_diag``). ``als_warm_start``: that many exact linear
+        ALS sweeps (ridge ``als_warm_reg``, default ``reg``, scaled per
+        observation) before the SGD epochs of a fresh fit; a sigmoid model
+        fits its pre-activation to logit targets."""
         if kernel not in ("linear", "sigmoid", "rbf"):
             raise ValueError("Kernel must be one of linear, sigmoid, or rbf")
         if method not in ("sgd", "als"):
@@ -140,12 +155,8 @@ class KernelMF(RecommenderBase):
             raise ValueError("serving_dtype must be 'float32' or 'bfloat16'")
         if dp_layout not in ("auto", "tiled", "flat"):
             raise ValueError("dp_layout must be 'auto', 'tiled' or 'flat'")
-        for flag, unported, where in (
-                ("mesh=", mesh is not None, sgd.SLICE_6),
-                ("method='als'", method == "als", _SLICE_3),
-                ("als_warm_start", bool(als_warm_start), _SLICE_3)):
-            if unported:
-                raise NotImplementedError(f"KernelMF({flag}) comes with {where}")
+        if mesh is not None:
+            raise NotImplementedError(f"KernelMF(mesh=) comes with {sgd.SLICE_6}")
         super().__init__(min_rating=min_rating, max_rating=max_rating, verbose=verbose)
         self._device = resolve_device(device)
         self.device = device
@@ -210,9 +221,12 @@ class KernelMF(RecommenderBase):
     # -- lifecycle ----------------------------------------------------------
     def fit(self, X: pd.DataFrame, y: pd.Series, n_epochs: int = None,
             warm_start: bool = False):
-        """Train by mini-batch SGD; ``warm_start=True`` continues from the
-        current tables (same id space) instead of re-initialising, the
-        building block of ``core.checkpoint.fit_resumable``.
+        """Train by mini-batch SGD, or by ALS sweeps (``method='als'``, an
+        epoch being one user and one item sweep); ``warm_start=True``
+        continues from the current tables (same id space) instead of
+        re-initialising, the building block of
+        ``core.checkpoint.fit_resumable``. The ``als_warm_start`` sweeps
+        run on a fresh fit only, never on a continuation.
 
         The initial tables come from a generator seeded with ``seed``; the
         epochs' batch orders from one seeded with (``seed``, epochs done
@@ -236,17 +250,63 @@ class KernelMF(RecommenderBase):
                 self.init_mean, self.init_sd)
             self.train_rmse = []
         n_epochs = n_epochs or self.n_epochs
-        shuffle = _generator("cpu", self.seed, len(self.train_rmse) + 1)
-        data = sgd.pack_ratings(u, i, r, cfg.batch_size,
-                                order=self.epoch_order, device=self._device)
-        params, rmse_hist = sgd.sgd_train(params, data, shuffle, cfg,
-                                          n_epochs, self.lr)
+        if self.method == "als":
+            # the pack only feeds the RMSE pass: no per-batch sorts
+            data = sgd.pack_ratings(u, i, r, cfg.batch_size,
+                                    order=self.epoch_order, aggregate=False,
+                                    device=self._device)
+            params, rmse_hist = self._als(params, u, i, r, cfg, data,
+                                          n_epochs, self.reg_scale)
+        else:
+            data = sgd.pack_ratings(u, i, r, cfg.batch_size,
+                                    order=self.epoch_order, device=self._device)
+            if self.als_warm_start and not warm_start:
+                params = self._run_als_warm_start(params, u, i, r, cfg, data)
+            shuffle = _generator("cpu", self.seed, len(self.train_rmse) + 1)
+            params, rmse_hist = sgd.sgd_train(params, data, shuffle, cfg,
+                                              n_epochs, self.lr)
         self._params = params
         self.train_rmse = list(self.train_rmse) + rmse_hist.cpu().tolist()
         if self.verbose:
             for e, v in enumerate(self.train_rmse):
                 print(f"Epoch {e + 1} train RMSE: {v:.4f}")
         return self
+
+    def _als(self, params, u, i, r, cfg, data, n_epochs, reg_scale):
+        """``n_epochs`` ALS epochs on (u, i, r): count-bucketed sweeps when
+        one padded block per side would pass ``_als_needs_buckets``'
+        budget, else the grouped sweeps."""
+        if _als_needs_buckets(u, i, self.n_users, self.n_items):
+            bu, bi = ials.group_both_sides_bucketed(
+                u, i, r, self.n_users, self.n_items, device=self._device)
+            return ials.ials_train_bucketed(params, bu, bi, data, cfg, n_epochs,
+                                            reg_scale=reg_scale)
+        by_user = ials.group_by_entity(u, i, r, self.n_users, device=self._device)
+        by_item = ials.group_by_entity(i, u, r, self.n_items, device=self._device)
+        return ials.ials_train(params, by_user, by_item, data, cfg, n_epochs,
+                               reg_scale=reg_scale)
+
+    def _run_als_warm_start(self, params, u, i, r, cfg, data):
+        """Exact linear ALS sweeps as the SGD init. Sigmoid fits the
+        pre-activation x in logit space: pred = a + c*sigma(x), so the
+        target is logit((r - a)/c), clipped to [0.01, 0.99] before the
+        transform; the free bias columns absorb the offset, so
+        ``global_mean`` keeps its meaning. The ridge is per observation,
+        as the SGD objective's L2 is."""
+        if self.kernel == "sigmoid":
+            frac = np.clip((np.asarray(r, np.float64) - cfg.a) / cfg.c,
+                           0.01, 0.99)
+            t = np.log(frac / (1.0 - frac)).astype(np.float32)
+        else:
+            t = np.asarray(r, np.float32)
+        warm_reg = cfg.reg if self.als_warm_reg is None else self.als_warm_reg
+        lin = SGDConfig(kernel="linear", n_factors=cfg.n_factors, lr=cfg.lr,
+                        reg=warm_reg, min_rating=cfg.min_rating,
+                        max_rating=cfg.max_rating, batch_size=cfg.batch_size,
+                        compute_epoch_rmse=False)
+        params, _ = self._als(params, u, i, t, lin, data, self.als_warm_start,
+                              "per_obs")
+        return params
 
     def update_users(self, X: pd.DataFrame, y: pd.Series, lr: float = 0.01,
                      n_epochs: int = 20, verbose: int = 0):
@@ -256,8 +316,11 @@ class KernelMF(RecommenderBase):
         ``:189-199``), new users get fresh rows, then SGD runs with
         ``update_item_params=False``. The pack is primary-item, so the
         step kernel's primary side is the frozen one here and only the
-        apply kernel writes (the user table). ``train_rmse`` becomes this
-        run's history."""
+        apply kernel writes (the user table). With ``method='als'`` the
+        named users are solved exactly instead, ``min(n_epochs, 2)`` (at
+        least 1) user sweeps against the frozen items
+        (``_als_update_users``). ``train_rmse`` becomes this run's
+        history."""
         self._require_fitted()
         u, i, r, known_users, _new_users = self._preprocess_update(X, y)
         self._ensure_user_capacity(
@@ -275,16 +338,45 @@ class KernelMF(RecommenderBase):
 
         pack_bs = min(self.batch_size, max(1, len(r)))
         cfg = self._cfg(batch_size=pack_bs, update_item_params=False)
-        data = sgd.pack_ratings(u, i, r, pack_bs, device=self._device)
-        params, rmse_hist = sgd.sgd_train(
-            self._params, data, _generator("cpu", self.seed + 1, 2), cfg,
-            n_epochs, lr)
+        if self.method == "als":
+            params, rmse_hist = self._als_update_users(u, i, r, cfg,
+                                                       max(1, min(n_epochs, 2)))
+        else:
+            data = sgd.pack_ratings(u, i, r, pack_bs, device=self._device)
+            params, rmse_hist = sgd.sgd_train(
+                self._params, data, _generator("cpu", self.seed + 1, 2), cfg,
+                n_epochs, lr)
         self._params = params
         self.train_rmse = rmse_hist.cpu().tolist()
         if verbose:
             for e, v in enumerate(self.train_rmse):
                 print(f"Epoch {e + 1} train RMSE: {v:.4f}")
         return self
+
+    def _als_update_users(self, u, i, r, cfg, n_epochs):
+        """Exact user sweeps with the item side frozen, over the users
+        named in (u, i, r) only: they are grouped as a compact block, solved
+        against Q and written back at their dense ids. (The JAX package
+        groups all ``n_users``, which at 162,000 users and k=200 would
+        materialise 26 GB of grams; a user without data keeps their row in
+        both, and a named user's solve depends only on Q and their
+        ratings, so the results are the same.)"""
+        if len(u) == 0:  # every rating named an unknown item
+            return self._params, torch.zeros(n_epochs)
+        uniq, local = np.unique(u, return_inverse=True)
+        local = local.astype(np.int32)
+        rows = torch.from_numpy(uniq.astype(np.int64)).to(self._device)
+        block = self._params._replace(
+            user_features=self._params.user_features[rows])
+        by_user = ials.group_by_entity(local, i, r, len(uniq), device=self._device)
+        data = sgd.pack_ratings(local, i, r, cfg.batch_size, aggregate=False,
+                                device=self._device)
+        block, rmse_hist = ials.ials_train(
+            block, by_user, None, data, cfg, n_epochs,
+            update_item_params=False, reg_scale=self.reg_scale)
+        uf = self._params.user_features.clone()
+        uf[rows] = block.user_features
+        return self._params._replace(user_features=uf), rmse_hist
 
     def _predict_arrays(self, u: np.ndarray, i: np.ndarray, bound_ratings: bool):
         self._require_fitted()

@@ -1,0 +1,125 @@
+"""Hand-written CUDA Gauss-Jordan inverse of a batch of SPD matrices.
+
+Counterpart of ``matrix_factorization_tpu/ops/pallas_spd.py``: the kernel
+``csrc/spd_gj.cu`` replaces the Pallas ``_gj_kernel`` and inverts (E, d, d)
+f32 SPD matrices, d <= 128, by Gauss-Jordan elimination without pivoting
+in exact f32. It is the leaf of ``ops.spd.spd_inverse``, so every ALS and
+iALS solve reaches it. Its source says what bounds it and how it is laid
+out.
+
+The TPU design does not carry over: no (d, d, 128) lane-batched layout, no
+identity padding of E to a multiple of 128 or of d to a multiple of 8. The
+kernel takes the matrices as they are, one CTA each.
+
+``cuda_gj_inverse`` launches the kernel and takes only CUDA tensors.
+``plain_gj_inverse`` is the same arithmetic in plain PyTorch, vectorised
+over E; the CPU path and the comparisons on the card use it.
+``gj_inverse`` picks between the two by the tensor's device: a CUDA tensor
+always launches the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+MAX_D = 128  # the leaf's largest block, as on the TPU (pallas_spd.py:110)
+
+_count_lock = threading.Lock()
+launches = 0  # kernel launches since import or the last reset_launches()
+
+
+def reset_launches() -> None:
+    global launches
+    with _count_lock:
+        launches = 0
+
+
+def _count_launch() -> None:
+    global launches
+    with _count_lock:
+        launches += 1
+
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from matrix_factorization_tpu_torch.ops import _build
+
+        lib = _build.load("spd_gj")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.mf_gj_inverse.argtypes = [vp, vp, ctypes.c_longlong, ci, vp]
+        lib.mf_gj_inverse.restype = ci
+        lib.mf_spd_error_string.argtypes = [ci]
+        lib.mf_spd_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check_batch(A: torch.Tensor) -> int:
+    """``d`` of an (E, d, d) batch; ``ValueError`` for any other shape or
+    for d > ``MAX_D``."""
+    if A.dim() != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"gj_inverse takes (E, d, d), got {tuple(A.shape)}")
+    d = A.shape[-1]
+    if d > MAX_D:
+        raise ValueError(f"gj_inverse leaf handles d <= {MAX_D}, got {d}")
+    return d
+
+
+def plain_gj_inverse(A: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch: d steps of pivot,
+    ``u = M[:, j] - e_j``, ``v = (M[j, :] + e_j) * (1 / p)`` with an exact
+    reciprocal, and ``M -= u (x) v``, all E matrices at once. Returns a
+    new (E, d, d) f32 tensor on ``A``'s device."""
+    d = _check_batch(A)
+    M = A.to(torch.float32, copy=True)
+    eye = torch.eye(d, dtype=torch.float32, device=M.device)
+    for j in range(d):
+        inv_p = 1.0 / M[:, j, j]
+        u = M[:, :, j] - eye[j]
+        v = (M[:, j, :] + eye[j]) * inv_p[:, None]
+        M.addcmul_(u[:, :, None], v[:, None, :], value=-1.0)
+    return M
+
+
+def cuda_gj_inverse(A: torch.Tensor) -> torch.Tensor:
+    """Inverses of the (E, d, d) f32 SPD batch ``A`` by ``mf_gj_inverse``,
+    on ``A``'s stream, into a new tensor. ``A`` must be a contiguous CUDA
+    f32 tensor; E may be 0 (nothing is launched)."""
+    d = _check_batch(A)
+    if A.device.type != "cuda":
+        raise ValueError(f"cuda_gj_inverse takes CUDA tensors, got {A.device}")
+    if A.dtype != torch.float32:
+        raise ValueError(f"A must be torch.float32, got {A.dtype}")
+    if not A.is_contiguous():
+        raise ValueError("A must be contiguous")
+    E = A.shape[0]
+    if E >= 2**31:
+        raise ValueError(f"gj_inverse launches at most 2^31 - 1 matrices, got {E}")
+    out = torch.empty_like(A)
+    if E == 0 or d == 0:
+        return out
+    lib = _library()
+    rc = lib.mf_gj_inverse(A.data_ptr(), out.data_ptr(), E, d,
+                           torch.cuda.current_stream(A.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"gj_inverse launch failed: {lib.mf_spd_error_string(rc).decode()}")
+    _count_launch()
+    return out
+
+
+def gj_inverse(A: torch.Tensor) -> torch.Tensor:
+    """``cuda_gj_inverse`` for a CUDA tensor, ``plain_gj_inverse`` for a
+    CPU tensor; any other device raises."""
+    if A.device.type == "cuda":
+        return cuda_gj_inverse(A)
+    if A.device.type == "cpu":
+        return plain_gj_inverse(A)
+    raise ValueError(f"no gj_inverse for device {A.device}")

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions: the
-catalog scorer, the SGD step and the secondary-side apply.
+catalog scorer, the SGD step, the secondary-side apply and the
+Gauss-Jordan SPD leaf.
 
 Marked ``cuda``: each test skips without a CUDA GPU (the kernel has no
 CPU mode; the CPU tests hold the plain version against the JAX package).
@@ -13,10 +14,10 @@ import pandas as pd
 import pytest
 import torch
 
-from matrix_factorization_tpu_torch import KernelMF, params_from_numpy
+from matrix_factorization_tpu_torch import ImplicitALS, KernelMF, params_from_numpy
 from matrix_factorization_tpu_torch.core.config import SGDConfig
 from matrix_factorization_tpu_torch.core.ids import IdVocab
-from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd
+from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, cuda_spd, ials, spd
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
 pytestmark = pytest.mark.cuda
@@ -239,3 +240,92 @@ def test_fit_on_cuda_matches_cpu(cuda, kernel):
     assert m._params.user_features.device.type == "cuda"
     assert len(m.train_rmse) == 2 and np.isfinite(m.train_rmse).all()
     assert cuda_sgd.step_launches == before + 2 * -(-len(X) // 512)
+
+
+def _scaled_grams(rng, E, d, device, L=64):
+    """Ridged grams Jacobi-scaled to a unit diagonal, as ``spd_solve``
+    hands them to the leaf."""
+    X = rng.standard_normal((E, L, d)).astype(np.float32) * 0.3
+    A = np.einsum("eld,elf->edf", X, X) + 0.5 * np.eye(d, dtype=np.float32)
+    A = torch.from_numpy(A.astype(np.float32)).to(device)
+    ds = torch.rsqrt(torch.diagonal(A, dim1=-2, dim2=-1))
+    return (A * ds[:, :, None] * ds[:, None, :]).contiguous()
+
+
+@pytest.mark.parametrize("E,d", [(5, 1), (3, 8), (130, 33), (257, 64),
+                                 (64, 97), (64, 104), (40, 111), (50, 128)])
+def test_gj_kernel_matches_plain(cuda, E, d):
+    """Every column count a lane can own (1-4), d = 111 and 128 past the
+    48 KB shared-memory opt-in; atol = rtol = 1e-4 between kernel and plain
+    (f32, FMA-contracted in the kernel), |A A^-1 - I| < 5e-3 (the JAX
+    bar) and the same bits twice."""
+    A = _scaled_grams(np.random.default_rng(d), E, d, cuda)
+    before = cuda_spd.launches
+    got = cuda_spd.cuda_gj_inverse(A)
+    assert cuda_spd.launches == before + 1
+    want = cuda_spd.plain_gj_inverse(A)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    eye = torch.eye(d, dtype=torch.float64, device=cuda)
+    assert float((A.double() @ got.double() - eye).abs().max()) < 5e-3
+    assert torch.equal(cuda_spd.cuda_gj_inverse(A), got)
+
+
+def test_gj_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):
+    def refuse(A):
+        raise AssertionError("the plain leaf ran on a CUDA tensor")
+
+    monkeypatch.setattr(cuda_spd, "plain_gj_inverse", refuse)
+    A = _scaled_grams(np.random.default_rng(0), 9, 201, cuda, L=256)
+    before = cuda_spd.launches
+    cuda_spd.gj_inverse(A[:, :100, :100].contiguous())
+    inv = spd.spd_inverse(A)  # d = 201: two leaves, 104 and 97
+    torch.cuda.synchronize()
+    assert cuda_spd.launches == before + 3
+    torch.testing.assert_close(inv, torch.linalg.inv(A), atol=1e-3, rtol=1e-3)
+
+
+def test_gj_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    A = torch.eye(6, device=cuda)[None].repeat(3, 1, 1)
+    for bad in (torch.eye(129, device=cuda)[None], A.double(), A.cpu(),
+                A.transpose(1, 2), A[0]):
+        with pytest.raises(ValueError):
+            cuda_spd.cuda_gj_inverse(bad)
+    assert cuda_spd.cuda_gj_inverse(A[:0]).shape == (0, 6, 6)
+
+
+def test_als_on_cuda_matches_cpu_and_launches(cuda):
+    """The same ALS sweeps on the card and on the CPU from the same
+    tables (atol 2e-4, the JAX bar between two ALS paths); the models'
+    fits on the card launch the leaf."""
+    rng = np.random.default_rng(2)
+    flat = rng.choice(300 * 200, 6000, replace=False)
+    u, i = (flat // 200).astype(np.int32), (flat % 200).astype(np.int32)
+    r = (np.round(rng.uniform(0.5, 5, 6000) * 2) / 2).astype(np.float32)
+    cfg = SGDConfig(n_factors=100, reg=0.1, batch_size=512)
+    p0 = sgd.init_params(torch.Generator().manual_seed(0), 300, 200, cfg, 2.75)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        start = p0._replace(**{k: getattr(p0, k).to(dev) for k in p0._fields})
+        bu, bi = ials.group_both_sides_bucketed(u, i, r, 300, 200,
+                                                max_block_rows=2000, device=dev)
+        data = sgd.pack_ratings(u, i, r, 512, device=dev)
+        before = cuda_spd.launches
+        out[dev] = ials.ials_train_bucketed(start, bu, bi, data, cfg, 2,
+                                            reg_scale="per_obs")
+        if dev == "cuda":
+            assert cuda_spd.launches == before + 2 * (len(bu) + len(bi))
+    (pc, hc), (pg, hg) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(pg.user_features.cpu(), pc.user_features,
+                               atol=2e-4, rtol=0)
+    torch.testing.assert_close(pg.item_features.cpu(), pc.item_features,
+                               atol=2e-4, rtol=0)
+    torch.testing.assert_close(hg.cpu(), hc, atol=1e-4, rtol=0)
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    before = cuda_spd.launches
+    m = KernelMF(n_factors=20, n_epochs=2, method="als", reg=0.1,
+                 device="cuda").fit(X, pd.Series(r))
+    assert cuda_spd.launches > before and np.isfinite(m.train_rmse).all()
+    before = cuda_spd.launches
+    ImplicitALS(n_factors=16, n_epochs=2, device="cuda").fit(X, pd.Series(r))
+    assert cuda_spd.launches == before + 4

@@ -42,6 +42,17 @@ t = mf.KernelMF(n_factors=6, n_epochs=2, batch_size=16, device="cpu")
 t.fit(X, pd.Series(rng.uniform(1, 5, 60)))
 t.update_users(X.iloc[::9][:5].assign(user_id=99), pd.Series(np.ones(5)), n_epochs=1)
 assert len(t.train_rmse) == 1
+a = mf.KernelMF(n_factors=4, n_epochs=2, method="als", reg=0.1, device="cpu")
+a.fit(X, pd.Series(rng.uniform(1, 5, 60)))
+a.update_users(X.iloc[::9][:5].assign(user_id=98), pd.Series(np.ones(5)))
+w = mf.KernelMF(n_factors=4, n_epochs=1, kernel="sigmoid", als_warm_start=1,
+                batch_size=16, device="cpu")
+w.fit(X, pd.Series(rng.uniform(1, 5, 60)))
+im = mf.ImplicitALS(n_factors=4, n_epochs=2, device="cpu")
+im.fit(X, pd.Series(rng.uniform(0, 3, 60)))
+im.update_users(X.iloc[::9][:3].assign(user_id=97), pd.Series(np.ones(3)))
+assert len(a.train_rmse) == 2 and len(im.train_loss) == 2
+assert len(im.recommend(97, amount=2)) == 2
 print("\n".join(sorted(sys.modules)))
 """
 
@@ -59,6 +70,7 @@ def test_port_runs_without_jax_modules():
     loaded = proc.stdout.split()
     assert "matrix_factorization_tpu_torch.serve.coalesce" in loaded
     assert "matrix_factorization_tpu_torch.ops.cuda_sgd" in loaded
+    assert "matrix_factorization_tpu_torch.ops.cuda_spd" in loaded
     bad = sorted(m for m in loaded if _top(m) in FORBIDDEN)
     assert not bad, bad
 

@@ -204,19 +204,18 @@ def test_port_checkpoint_loads_into_jax(fitted, data, kernel, tmp_path):
 
 
 def test_training_and_later_slices_raise(fitted, data):
-    """Training is ported (slice 2); ALS and its warm start wait for
-    slice 3 and meshes for slice 6, and the message names the slice."""
+    """Training is ported (slice 2), ALS and its warm start too (slice 3);
+    meshes wait for slice 6, and the message names the slice."""
     m = load_model(fitted["linear"][1], device="cpu")
     X, y = data
     m.fit(X, y, n_epochs=1)
     assert len(m.train_rmse) == 1 and np.isfinite(m.train_rmse[0])
     m.update_users(X.iloc[:50], y.iloc[:50], n_epochs=1)
     assert len(m.train_rmse) == 1
-    for kw, where in (({"method": "als"}, "slice 3"),
-                      ({"als_warm_start": 2}, "slice 3"),
-                      ({"mesh": object()}, "slice 6"),
-                      ({"mesh": object(), "keep_sharded": True}, "slice 6")):
-        with pytest.raises(NotImplementedError, match=where):
+    assert KernelMF(device="cpu", method="als").method == "als"
+    assert KernelMF(device="cpu", als_warm_start=2).als_warm_start == 2
+    for kw in ({"mesh": object()}, {"mesh": object(), "keep_sharded": True}):
+        with pytest.raises(NotImplementedError, match="slice 6"):
             KernelMF(device="cpu", **kw)
     for kw in ({"kernel": "cubic"}, {"serving_dtype": "float16"},
                {"keep_sharded": True}, {"method": "als", "kernel": "rbf"},
