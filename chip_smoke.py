@@ -13,11 +13,17 @@ failed check ends the run with a non-zero exit:
    TF32 off for every f32 product.
 2. build: every ``csrc/*.cu`` of the port (the scorer, the SGD step and
    apply, the GJ SPD leaf), compiled for sm_90a, all ``nvcc`` processes at
-   once.
+   once; each kernel's registers, spill and stack bytes from ptxas (the
+   scorer and the GJ leaf must not spill).
 3. compare: the catalog-scoring kernel against its plain PyTorch version
    on the card, for kernels linear/sigmoid/rbf, f32 and bf16 tables, at
-   (B, I, Kp) = (1, 59392, 256), (256, 59392, 256) and (5, 1000, 128);
-   atol = rtol = 1e-4 (both sum in f32, in different orders).
+   (B, I, Kp) = (1, 59392, 256), (B_s, 59392, 256), (B_s + 1, 59392, 256)
+   and (256, 59392, 256) (the two sides of the streaming/tiled boundary
+   B_s), (5, 1000, 128), (3, 777, 1024) and (70, 1000, 1024) (I not a
+   multiple of any tile); atol = rtol = 1e-4 (both sum in f32, in
+   different orders). Then the cross-path check: every row of the B=256
+   scores equals, bitwise, the same user scored alone (B=1, streaming)
+   and inside a batch of B_s.
 4. serve: MovieLens-25M KernelMF at full width (162,000 x 59,392, k=200,
    gamma 1/200, ratings in [0.5, 5]; ``BASELINE.json`` config 3) for
    sigmoid and rbf, random tables from ``--seed``: ``params_from_numpy``
@@ -29,8 +35,11 @@ failed check ends the run with a non-zero exit:
    ``recommend``). Launch counts are zeroed before this phase; each
    catalog step must launch the kernel.
 5. latency / kernel_time: serving latencies; the scorer's kernel, plain
-   and library (cuBLAS GEMM + torch epilogue) times with CUDA events
-   (median, L2 flushed before each launch) and the bound of each shape.
+   and library (cuBLAS GEMM + torch epilogue: f32 for f32 tables, bf16
+   with f32 output for bf16 tables, and the f32 GEMM on the widened bf16
+   values as ``library_f32_ms``) times with CUDA events (median, L2
+   flushed before each launch) and the bound of each shape, at B = 1, 16,
+   64 and 256, every kernel and table type.
 6. data / pack: config-3 ratings (25M unique pairs of 162,000 x 59,392,
    half stars, as ``benchmarks/run_configs.py::_gen`` makes them, plus
    4,096 held out), the headline ratings of ``bench.py`` (2M, 10,000 x
@@ -73,7 +82,8 @@ failed check ends the run with a non-zero exit:
     ``recommend`` and a checkpoint round trip. als_sweeps: one sweep's
     seconds at k=200 and k=100 on the buckets of 12; the first full user
     chunk's system solved with the Cholesky leaf against the GJ leaf (atol
-    1e-4); the sweep repeated (bitwise equal); a profiled sweep.
+    1e-4); the sweep repeated (bitwise equal); a profiled sweep and the
+    GJ leaf's share of its device time.
 15. warm_start: a sigmoid ``KernelMF`` (k=200, bs 2,097,152) with one ALS
     warm sweep and one SGD epoch on the first 2.5M config-3 ratings, GJ
     and SGD counts > 0, its train RMSE below a cold fit's.
@@ -151,6 +161,28 @@ def bound(B, I, kp, kernel, dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ptxas_summary(logs):
+    """[kernel, registers, spill bytes (stores + loads), stack frame bytes]
+    of every kernel in ``nvcc -Xptxas -v`` logs."""
+    import re
+
+    out, name, spill = [], None, None
+    for log in logs:
+        for ln in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", ln)
+            if m:
+                name = m.group(1)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", ln)
+            if m:
+                spill = (int(m.group(2)) + int(m.group(3)), int(m.group(1)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and name is not None:
+                out.append([name[:120], int(m.group(1)), *(spill or (0, 0))])
+                name, spill = None, None
+    return out
+
+
 class Timer:
     """Median device time of one call, by CUDA events, the L2 cache
     flushed (a 256 MB write) before each timed call as a serving request
@@ -178,15 +210,43 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def compare_shapes(b_s):
+    """(B, I, Kp) of the compare phase: both sides of the path boundary
+    B_s at config 3's width, and ragged item counts at Kp 128 and 1024."""
+    return ((1, N_ITEMS, 256), (b_s, N_ITEMS, 256), (b_s + 1, N_ITEMS, 256),
+            (256, N_ITEMS, 256), (5, 1000, 128), (3, 777, 1024),
+            (70, 1000, 1024))
+
+
+def score_cfg(SGDConfig, kernel, kp):
+    n_factors = {256: N_FACTORS, 128: 100, 1024: 1000}[kp]
+    return SGDConfig(kernel=kernel, n_factors=n_factors, gamma=1.0 / n_factors,
+                     min_rating=0.5, max_rating=5.0)
+
+
+def cross_path_equal(torch, cuda_scores, cfg, mu, pu, Q, whole, b_s):
+    """Whether every row of ``whole`` (the scores of ``pu`` against ``Q``)
+    equals, bitwise, the same user scored alone and inside its batch of
+    ``b_s``: each score is one k-ordered f32 FMA chain on every path."""
+    for r in range(pu.shape[0]):
+        solo = cuda_scores.cuda_score_catalog(cfg, mu, pu[r:r + 1], Q)
+        if not torch.equal(solo[0], whole[r]):
+            return False
+    for g in range(0, pu.shape[0], b_s):
+        part = cuda_scores.cuda_score_catalog(cfg, mu, pu[g:g + b_s], Q)
+        if not torch.equal(part, whole[g:g + b_s]):
+            return False
+    return True
+
+
 def phase_compare(torch, rng, SGDConfig, cuda_scores):
-    """Kernel vs plain version on the card; returns the largest error."""
+    """Kernel vs plain version on the card, and at B=256 the cross-path
+    bitwise check; returns the largest error."""
     worst = 0.0
-    for B, I, kp in ((1, N_ITEMS, 256), (256, N_ITEMS, 256), (5, 1000, 128)):
-        n_factors = {256: N_FACTORS, 128: 100}[kp]
+    b_s = cuda_scores.STREAM_MAX_B
+    for B, I, kp in compare_shapes(b_s):
         for kernel in ("linear", "sigmoid", "rbf"):
-            cfg = SGDConfig(kernel=kernel, n_factors=n_factors,
-                            gamma=1.0 / n_factors, min_rating=0.5,
-                            max_rating=5.0)
+            cfg = score_cfg(SGDConfig, kernel, kp)
             pu32 = torch.from_numpy(ext_tables(rng, B, cfg, "user")).to("cuda")
             Q32 = torch.from_numpy(ext_tables(rng, I, cfg, "item")).to("cuda")
             mu = torch.tensor(3.5, device="cuda")
@@ -197,11 +257,20 @@ def phase_compare(torch, rng, SGDConfig, cuda_scores):
                 err = float((got - want).abs().max())
                 ok = bool(torch.isfinite(got).all()) and torch.allclose(
                     got, want, atol=1e-4, rtol=1e-4)
-                emit({"phase": "compare", "B": B, "I": I, "Kp": kp,
-                      "kernel": kernel, "dtype": str(dtype).split(".")[-1],
-                      "max_abs_err": err, "ok": ok})
+                out = {"phase": "compare", "B": B, "I": I, "Kp": kp,
+                       "kernel": kernel, "dtype": str(dtype).split(".")[-1],
+                       "path": cuda_scores.score_plan(
+                           B, I, kp, pu.element_size()).path,
+                       "max_abs_err": err, "ok": ok}
+                if B == 256:
+                    out["cross_path_equal"] = cross_path_equal(
+                        torch, cuda_scores, cfg, mu, pu, Q, got, b_s)
+                emit(out)
                 check(ok, f"kernel disagrees with its plain version at "
                           f"B={B} I={I} Kp={kp} {kernel} {dtype}: {err}")
+                check(out.get("cross_path_equal", True),
+                      f"B=256 scores differ from B=1 / B={b_s} ones "
+                      f"({kernel} {dtype})")
                 worst = max(worst, err)
     return worst
 
@@ -347,13 +416,14 @@ def phase_serve(torch, rng, kernel, tmpdir, launches):
     return model, out
 
 
-def _device_share(torch, fn, calls):
+def _device_share(torch, fn, calls, match=None):
     """Run ``fn`` over ``calls`` under ``torch.profiler`` and read the
     exported trace: the device time per call, the device's busy share
     (the union of its kernel and copy intervals over the span from the
     first to the last; the rest is idle, waiting on the host), the device
     time over the host's wall time (a lower bound: the profiler slows the
-    host), and the kernels that took most of the time."""
+    host), the kernels that took most of the time and, for ``match``, the
+    time and share of device time of the kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -381,10 +451,17 @@ def _device_share(torch, fn, calls):
     dev_ms = sum(by_name.values())
     span_us = ev[-1][1] - ev[0][0] if ev else 0.0
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return {"device_ms_per_call": dev_ms / len(calls),
-            "device_busy_share": busy_us / span_us if span_us else None,
-            "device_share_of_wall": dev_ms / wall_ms if dev_ms else None,
-            "top_kernels_ms_per_call": [[n[:80], t / len(calls)] for n, t in top]}
+    out = {"device_ms_per_call": dev_ms / len(calls),
+           "device_busy_share": busy_us / span_us if span_us else None,
+           "device_share_of_wall": dev_ms / wall_ms if dev_ms else None,
+           "top_kernels_ms_per_call": [[n[:80], t / len(calls)] for n, t in top]}
+    if match is not None:
+        hit = [(n, t) for n, t in by_name.items() if match in n]
+        ms = sum(t for _, t in hit)
+        out[f"{match}_calls"] = sum(1 for e in ev if match in e[2]) / len(calls)
+        out[f"{match}_ms_per_call"] = ms / len(calls)
+        out[f"{match}_share"] = ms / dev_ms if dev_ms else None
+    return out
 
 
 def phase_latency(torch, rng, model):
@@ -419,42 +496,59 @@ def phase_latency(torch, rng, model):
     }
 
 
+def library_scores(torch, cfg, mu, pu, Q):
+    """One cuBLAS GEMM (f32, or bf16 with f32 output for bf16 tables) plus
+    the torch epilogue: a yardstick of the same function; the port never
+    calls it."""
+    if pu.dtype == torch.float32:
+        dots = torch.mm(pu, Q.t())
+    else:
+        dots = torch.mm(pu, Q.t(), out_dtype=torch.float32)
+    if cfg.kernel == "linear":
+        return dots.add_(mu)
+    if cfg.kernel == "sigmoid":
+        return dots.add_(mu).sigmoid_().mul_(cfg.c).add_(cfg.a)
+    pn = pu.float().square().sum(1)
+    qn = Q.float().square().sum(1)
+    sq = pn[:, None] + qn[None, :] - 2 * dots
+    return sq.clamp_(min=0).mul_(-cfg.gamma).exp_().mul_(cfg.c).add_(cfg.a)
+
+
+SCORE_TIMED_B = (1, 16, 64, 256)
+
+
 def phase_kernel_times(torch, rng, SGDConfig, cuda_scores, timer):
-    """Kernel, plain and library times at the serving shapes of config 3."""
+    """Kernel, plain and library times at the serving shapes of config 3,
+    every kernel and table type."""
     rows = []
-    for B in (1, 256):
+    for B in SCORE_TIMED_B:
         for kernel in ("linear", "sigmoid", "rbf"):
-            cfg = SGDConfig(kernel=kernel, n_factors=N_FACTORS,
-                            gamma=1.0 / N_FACTORS, min_rating=0.5,
-                            max_rating=5.0)
+            cfg = score_cfg(SGDConfig, kernel, 256)
             pu32 = torch.from_numpy(ext_tables(rng, B, cfg, "user")).to("cuda")
             Q32 = torch.from_numpy(ext_tables(rng, N_ITEMS, cfg, "item")).to("cuda")
             mu = torch.tensor(3.5, device="cuda")
             for dtype in (torch.float32, torch.bfloat16):
                 pu, Q = pu32.to(dtype), Q32.to(dtype)
                 name = str(dtype).split(".")[-1]
-
-                def library(pu=pu32, Q=Q32, cfg=cfg):
-                    # cuBLAS f32 GEMM + torch epilogue on the f32 values
-                    # (a yardstick; the port never calls it)
-                    dots = torch.mm(pu, Q.t())
-                    if cfg.kernel == "linear":
-                        return dots.add_(mu)
-                    if cfg.kernel == "sigmoid":
-                        return dots.add_(mu).sigmoid_().mul_(cfg.c).add_(cfg.a)
-                    sq = (pu * pu).sum(1)[:, None] + (Q * Q).sum(1)[None, :] - 2 * dots
-                    return sq.clamp_(min=0).mul_(-cfg.gamma).exp_().mul_(cfg.c).add_(cfg.a)
-
                 b_ms, b_by = bound(B, N_ITEMS, cfg.padded_factors, kernel, name)
-                rows.append({
+                row = {
                     "B": B, "I": N_ITEMS, "Kp": cfg.padded_factors,
                     "kernel": kernel, "dtype": name,
+                    "path": cuda_scores.score_plan(B, N_ITEMS, cfg.padded_factors,
+                                                   pu.element_size()).path,
                     "ms": timer.ms(lambda: cuda_scores.cuda_score_catalog(cfg, mu, pu, Q)),
                     "plain_ms": timer.ms(lambda: cuda_scores.plain_score_catalog(cfg, mu, pu, Q)),
-                    "library_ms": timer.ms(library),
+                    "library_ms": timer.ms(lambda: library_scores(torch, cfg, mu, pu, Q)),
                     "bound_ms": b_ms, "bound_by": b_by,
-                })
-                emit({"phase": "kernel_time", **rows[-1]})
+                }
+                if dtype != torch.float32:
+                    # the f32 GEMM on the widened values, the earlier yardstick
+                    pw, Qw = pu.float(), Q.float()
+                    row["library_f32_ms"] = timer.ms(
+                        lambda: library_scores(torch, cfg, mu, pw, Qw))
+                    del pw, Qw
+                rows.append(row)
+                emit({"phase": "kernel_time", **row})
     return rows
 
 
@@ -1131,7 +1225,8 @@ def phase_als_sweeps(torch, data3, buckets, seed):
               f"Cholesky-leaf solve differs from the GJ-leaf solve by {err}")
         del A, b, x_gj, x_chol, p2
         torch.cuda.empty_cache()
-        out["sweep_profile"] = _device_share(torch, sweep, [0])
+        out["sweep_profile"] = _device_share(torch, sweep, [0],
+                                             match="gj_inverse_kernel")
         out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
     return out
 
@@ -1269,10 +1364,12 @@ def main() -> int:
 
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     secs = _build.build(sources)
-    ptxas = [ln.strip() for log in _build.build_logs.values()
-             for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = ptxas_summary(_build.build_logs.values())
     emit({"phase": "build", "sources": sources, "seconds": secs,
           "ptxas": ptxas})
+    spilled = [k for k in ptxas if k[2] and any(
+        n in k[0] for n in ("score_stream", "score_tile", "gj_inverse"))]
+    check(not spilled, f"the scorer or the GJ leaf spills: {spilled}")
 
     # -- serving (slice 1) -------------------------------------------------
     rng = np.random.default_rng(args.seed)

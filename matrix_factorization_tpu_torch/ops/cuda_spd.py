@@ -9,7 +9,8 @@ out.
 
 The TPU design does not carry over: no (d, d, 128) lane-batched layout, no
 identity padding of E to a multiple of 128 or of d to a multiple of 8. The
-kernel takes the matrices as they are, one CTA each.
+kernel takes the matrices as they are, each in the registers of a square
+of threads; ``gj_plan`` is its launch plan for a d.
 
 ``cuda_gj_inverse`` launches the kernel and takes only CUDA tensors.
 ``plain_gj_inverse`` is the same arithmetic in plain PyTorch, vectorised
@@ -22,10 +23,41 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
 MAX_D = 128  # the leaf's largest block, as on the TPU (pallas_spd.py:110)
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on sm_90
+
+# (largest d, side S, R, matrices a block): the instantiations of
+# csrc/spd_gj.cu. A matrix takes S x S threads holding R x R elements each.
+_GJ_TILES = ((8, 8, 1, 4), (16, 8, 2, 4), (32, 8, 4, 4), (64, 8, 8, 4),
+             (80, 16, 5, 1), (96, 16, 6, 1), (112, 16, 7, 1), (128, 16, 8, 1))
+
+
+class GJPlan(NamedTuple):
+    """How ``mf_gj_inverse`` lays out a (d, d) matrix: ``side`` x ``side``
+    threads of ``regs`` x ``regs`` elements each, ``per_block`` matrices
+    a block, ``smem_bytes`` of dynamic shared memory."""
+
+    side: int
+    regs: int
+    per_block: int
+    smem_bytes: int
+
+
+def gj_plan(d: int) -> GJPlan:
+    """The launch plan for d in [1, 128]; the shared memory is
+    ``csrc/spd_gj.cu::gj_smem`` (the pivot column and row slots of a
+    round's two steps, for both parities, then the staged matrices)."""
+    for max_d, side, regs, per_block in _GJ_TILES:
+        if 1 <= d <= max_d:
+            slot = 4 if regs <= 4 else 12
+            smem = (per_block * 8 * side * slot + per_block * d * d + 4) * 4
+            return GJPlan(side, regs, per_block, smem)
+    raise ValueError(f"gj_inverse leaf handles 1 <= d <= {MAX_D}, got {d}")
+
 
 _count_lock = threading.Lock()
 launches = 0  # kernel launches since import or the last reset_launches()
@@ -53,7 +85,8 @@ def _library():
 
         lib = _build.load("spd_gj")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.mf_gj_inverse.argtypes = [vp, vp, ctypes.c_longlong, ci, vp]
+        lib.mf_gj_inverse.argtypes = [vp, vp, ctypes.c_longlong, ci, ci, ci,
+                                      ci, ci, vp]
         lib.mf_gj_inverse.restype = ci
         lib.mf_spd_error_string.argtypes = [ci]
         lib.mf_spd_error_string.restype = ctypes.c_char_p
@@ -105,8 +138,10 @@ def cuda_gj_inverse(A: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(A)
     if E == 0 or d == 0:
         return out
+    plan = gj_plan(d)
     lib = _library()
-    rc = lib.mf_gj_inverse(A.data_ptr(), out.data_ptr(), E, d,
+    rc = lib.mf_gj_inverse(A.data_ptr(), out.data_ptr(), E, d, plan.side,
+                           plan.regs, plan.per_block, plan.smem_bytes,
                            torch.cuda.current_stream(A.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(

@@ -66,6 +66,67 @@ def test_kernel_matches_plain(cuda, shape, kernel, dtype):
     assert torch.equal(row[0], got[B - 1])
 
 
+B_S = cuda_scores.STREAM_MAX_B  # the last batch size that streams
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["linear", "sigmoid", "rbf"])
+@pytest.mark.parametrize("shape", [(1, 3001, 200), (B_S, 3001, 200),
+                                   (B_S + 1, 3001, 200), (256, 1000, 200),
+                                   (3, 777, 1000), (70, 1000, 1000),
+                                   (65, 129, 126)])
+def test_kernel_matches_plain_at_path_boundaries(cuda, shape, kernel, dtype):
+    """Both sides of the streaming/tiled boundary B_s, one and several
+    64-row blocks, I not a multiple of any tile, Kp = 1024 (n_factors
+    1000) and Kp = 128 with no spare lane (126); within 1e-4 of the plain
+    version."""
+    B, I, n_factors = shape
+    cfg = SGDConfig(kernel=kernel, n_factors=n_factors, gamma=1 / n_factors,
+                    min_rating=0.5, max_rating=5.0)
+    rng = np.random.default_rng(B + I)
+    pu = torch.from_numpy(_rows(cfg, B, rng, "user")).to(cuda, dtype)
+    Q = torch.from_numpy(_rows(cfg, I, rng, "item")).to(cuda, dtype)
+    mu = torch.tensor(3.5, device=cuda)
+    got = cuda_scores.cuda_score_catalog(cfg, mu, pu, Q)
+    want = cuda_scores.plain_score_catalog(cfg, mu, pu, Q)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["linear", "sigmoid", "rbf"])
+def test_scores_are_equal_across_paths(cuda, kernel, dtype):
+    """Each row of a B=256 call (tiled) equals, by torch.equal, the same
+    user scored alone (B=1, streaming) and inside a batch of B_s: every
+    score is the same k-ordered f32 FMA chain on every path."""
+    cfg = SGDConfig(kernel=kernel, n_factors=200, gamma=1 / 200,
+                    min_rating=0.5, max_rating=5.0)
+    rng = np.random.default_rng(7)
+    pu = torch.from_numpy(_rows(cfg, 256, rng, "user")).to(cuda, dtype)
+    Q = torch.from_numpy(_rows(cfg, 2999, rng, "item")).to(cuda, dtype)
+    mu = torch.tensor(3.5, device=cuda)
+    whole = cuda_scores.cuda_score_catalog(cfg, mu, pu, Q)
+    for r in range(256):
+        assert torch.equal(cuda_scores.cuda_score_catalog(cfg, mu, pu[r:r + 1], Q)[0],
+                           whole[r]), r
+    for g in range(0, 256, B_S):
+        assert torch.equal(cuda_scores.cuda_score_catalog(cfg, mu, pu[g:g + B_S], Q),
+                           whole[g:g + B_S]), g
+
+
+def test_score_kernel_refuses_a_plan_that_does_not_cover_the_call(cuda):
+    cfg = SGDConfig(n_factors=12)
+    mu = torch.tensor(3.0, device=cuda)
+    pu = torch.zeros(20, 128, device=cuda)
+    Q = torch.zeros(300, 128, device=cuda)
+    short = cuda_scores.score_plan(4, 300, 128, 4)._replace(tile=4)  # 4 < 20 users
+    before = cuda_scores.launches
+    with pytest.raises(RuntimeError):
+        cuda_scores.score_with_plan(cfg, mu, pu, Q, short)
+    assert cuda_scores.launches == before
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     cfg = SGDConfig(n_factors=12)
     mu = torch.tensor(3.0, device=cuda)
@@ -269,6 +330,45 @@ def test_gj_kernel_matches_plain(cuda, E, d):
     eye = torch.eye(d, dtype=torch.float64, device=cuda)
     assert float((A.double() @ got.double() - eye).abs().max()) < 5e-3
     assert torch.equal(cuda_spd.cuda_gj_inverse(A), got)
+
+
+@pytest.mark.parametrize("max_d", [t[0] for t in cuda_spd._GJ_TILES])
+def test_gj_kernel_matches_plain_at_every_d(cuda, max_d):
+    """Every d in [1, 128], grouped by the register tile that takes it;
+    E = 7 leaves the last block of four small matrices part empty.
+    Within 1e-4 of the plain version and |A A^-1 - I| < 5e-3."""
+    lo = max([t[0] for t in cuda_spd._GJ_TILES if t[0] < max_d], default=0) + 1
+    for d in range(lo, max_d + 1):
+        A = _scaled_grams(np.random.default_rng(d), 7, d, cuda)
+        got = cuda_spd.cuda_gj_inverse(A)
+        want = cuda_spd.plain_gj_inverse(A)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4, msg=f"d={d}")
+        eye = torch.eye(d, dtype=torch.float64, device=cuda)
+        assert float((A.double() @ got.double() - eye).abs().max()) < 5e-3, d
+
+
+@pytest.mark.parametrize("d", [1, 7, 64, 97, 104, 128])
+def test_gj_kernel_in_place_and_unaligned(cuda, d):
+    """``mf_gj_inverse`` with ``out`` the same tensor as ``A`` (the C
+    interface allows it), and a batch that starts 1-3 floats past a
+    16-byte boundary: the same bits as the out-of-place call."""
+    A = _scaled_grams(np.random.default_rng(d), 9, d, cuda)
+    want = cuda_spd.cuda_gj_inverse(A)
+    X = A.clone()
+    plan = cuda_spd.gj_plan(d)
+    lib = cuda_spd._library()
+    rc = lib.mf_gj_inverse(X.data_ptr(), X.data_ptr(), 9, d, plan.side,
+                           plan.regs, plan.per_block, plan.smem_bytes,
+                           torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert torch.equal(X, want)
+    for shift in (1, 2, 3):
+        buf = torch.zeros(A.numel() + shift, device=cuda)
+        view = buf[shift:].view(A.shape)
+        view.copy_(A)
+        assert torch.equal(cuda_spd.cuda_gj_inverse(view), want)
 
 
 def test_gj_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):
