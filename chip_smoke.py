@@ -14,7 +14,7 @@ failed check ends the run with a non-zero exit:
 2. build: every ``csrc/*.cu`` of the port (the scorer, the SGD step and
    apply, the GJ SPD leaf), compiled for sm_90a, all ``nvcc`` processes at
    once; each kernel's registers, spill and stack bytes from ptxas (the
-   scorer and the GJ leaf must not spill).
+   scorer, the GJ leaf and the SGD step must not spill).
 3. compare: the catalog-scoring kernel against its plain PyTorch version
    on the card, for kernels linear/sigmoid/rbf, f32 and bf16 tables, at
    (B, I, Kp) = (1, 59392, 256), (B_s, 59392, 256), (B_s + 1, 59392, 256)
@@ -47,9 +47,11 @@ failed check ends the run with a non-zero exit:
    ``order='auto'``).
 7. compare_sgd: the SGD step kernel + the apply kernel against the plain
    step on the card, same tables and batch: config-3 sigmoid (bs 2M, Kp
-   256, user-primary), config-3 rbf (bs 1M), the headline linear batch
-   (bs 131,072, Kp 128, item-primary), k=126 (Kp 128, no spare lane) and
-   a frozen item side; both tables at atol = rtol = 1e-5.
+   256, user-primary), config-3 rbf (bs 1M), a skewed config-3 batch
+   (both ids drawn as floor(rows * U^2): one user run of ~5,000 entries),
+   the headline linear batch (bs 131,072, Kp 128, item-primary), k=126
+   (Kp 128, no spare lane) and a frozen item side; both tables at atol =
+   rtol = 1e-5, and two runs of the kernels bitwise equal.
 8. train (sigmoid, rbf): config 3 through ``KernelMF.fit`` (3 epochs,
    falling train RMSE) and ``update_users`` (1,000 users, half of them
    known; the item table bitwise unchanged) with the step and apply
@@ -63,9 +65,10 @@ failed check ends the run with a non-zero exit:
 10. train_headline: ``bench.py``'s shape, updates/s over a 20-epoch
     window, median of 5, beside the card's name and power limit.
 11. sgd_kernel_time: the step and the apply on the first batch of the
-    config-3 sigmoid and rbf packs and of the headline pack: kernel,
-    plain and library (``index_add_`` for the apply) times with CUDA
-    events, and the bounds computed from that batch.
+    config-3 sigmoid and rbf packs, on the skewed config-3 batch and on
+    the first batch of the headline pack: kernel, plain and library
+    (``index_add_`` for the apply) times with CUDA events, the bounds
+    computed from that batch, and its longest primary run.
 
 12. als_pack: config 3 grouped into count buckets once (by user: chunks of
     15,625 x 256; by item: 7,812 x 512).
@@ -583,6 +586,72 @@ def gen_ratings(n_users, n_items, n_ratings, seed):
     return u, i, r
 
 
+def headline_ratings(seed):
+    """The uniform ratings of ``bench.py``'s headline shape."""
+    import numpy as np
+
+    hr = np.random.default_rng(seed)
+    return (hr.integers(0, HEAD["n_users"], HEAD["n_ratings"]).astype(np.int32),
+            hr.integers(0, HEAD["n_items"], HEAD["n_ratings"]).astype(np.int32),
+            hr.uniform(0.5, 5.0, HEAD["n_ratings"]).astype(np.float32))
+
+
+def skewed_pack(n_users, n_items, batch_size, seed):
+    """One user-primary batch of a skewed rating log: both ids drawn as
+    ``floor(n_rows * U**2)``, U uniform in [0, 1), so that id 0 holds
+    ~0.25% of the users' entries and ~0.41% of the items' at config 3 (the
+    head of MovieLens-25M is close to that); stored as the pack stores a
+    batch (stable sort by user, stable secondary argsort). A pair may
+    repeat: the batch is for the kernels, not for a fit."""
+    import numpy as np
+
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    rng = np.random.default_rng(seed)
+    u = (n_users * rng.random(batch_size) ** 2).astype(np.int32)
+    i = (n_items * rng.random(batch_size) ** 2).astype(np.int32)
+    r = np.round(rng.uniform(0.5, 5, batch_size) * 2).astype(np.float32) / 2
+    return sgd.pack_ratings(u, i, r, batch_size, shuffle_seed=None,
+                            order="user", device="cuda")
+
+
+def sgd_kernel_shapes(seed):
+    """(shape, cfg, pack, n_users, n_items) of the step's three measured
+    shapes without the 25M ratings (``tools/probe_kernels.py``), each
+    pack made directly from the seed: a config-3 sigmoid batch as the
+    25M-rating pack lays one out (two batches of uniform ratings sorted by
+    user as one chunk; batch 0 is the lower half of the users), the skewed
+    config-3 batch, and the headline pack."""
+    import numpy as np
+
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    bs = CONFIG3["sigmoid"]["batch_size"]
+    cfg3 = sgd_cfg("sigmoid", N_FACTORS, CONFIG3["sigmoid"]["lr"], bs)
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, N_USERS, 2 * bs).astype(np.int32)
+    i = rng.integers(0, N_ITEMS, 2 * bs).astype(np.int32)
+    r = np.round(rng.uniform(0.5, 5, 2 * bs) * 2).astype(np.float32) / 2
+    yield ("config3_sigmoid", cfg3,
+           sgd.pack_ratings(u, i, r, bs, shuffle_seed=None, order="user",
+                            item_sort_chunks=1, device="cuda"),
+           N_USERS, N_ITEMS)
+    yield ("config3_skewed", cfg3, skewed_pack(N_USERS, N_ITEMS, bs, seed),
+           N_USERS, N_ITEMS)
+    yield ("headline_linear",
+           sgd_cfg("linear", HEAD["n_factors"], HEAD["lr"], HEAD["batch_size"],
+                   reg=HEAD["reg"]),
+           sgd.pack_ratings(*headline_ratings(seed), HEAD["batch_size"],
+                            order="auto", device="cuda"),
+           HEAD["n_users"], HEAD["n_items"])
+
+
+def longest_run(ids):
+    """Length of the longest run of equal values in a sorted id tensor."""
+    _, counts = ids.unique_consecutive(return_counts=True)
+    return int(counts.max())
+
+
 def sgd_cfg(kernel, n_factors, lr, batch_size, **kw):
     from matrix_factorization_tpu_torch.core.config import SGDConfig
 
@@ -643,7 +712,8 @@ def phase_compare_sgd(torch, rng, cases):
     atol = rtol = 1e-5: both sum in f32, in different orders. The apply is
     also held alone, both versions applying the plain step's ``dq``.
     Returns the largest error of the step (primary table, dq) and of the
-    apply (secondary table)."""
+    apply (secondary table). Two runs of the kernels from the same tables
+    must agree bitwise."""
     from matrix_factorization_tpu_torch.ops import cuda_sgd
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
@@ -654,6 +724,13 @@ def phase_compare_sgd(torch, rng, cases):
         p0 = random_params(torch, rng, cfg, n_users, n_items)
         pk, pp = clone_params(p0), clone_params(p0)
         dq = run_step(pk, b, cfg, pack.primary, plain=False)
+        again = clone_params(p0)
+        dq_again = run_step(again, b, cfg, pack.primary, plain=False)
+        check(torch.equal(pk.user_features, again.user_features)
+              and torch.equal(pk.item_features, again.item_features)
+              and (dq is None or torch.equal(dq, dq_again)),
+              f"compare_sgd {name}: two runs of the kernels differ")
+        del again, dq_again
         dq_plain = run_step(pp, b, cfg, pack.primary, plain=True)
         prim, sec = (("user_features", "item_features")
                      if pack.primary == "user"
@@ -662,6 +739,8 @@ def phase_compare_sgd(torch, rng, cases):
         out = {"phase": "compare_sgd", "case": name, "kernel": cfg.kernel,
                "bs": pack.batch_size, "Kp": cfg.padded_factors,
                "primary": pack.primary,
+               "longest_prim_run": longest_run(
+                   b["u"] if pack.primary == "user" else b["i"]),
                "update_prim": (cfg.update_user_params if prim == "user_features"
                                else cfg.update_item_params),
                "update_sec": upd_sec}
@@ -985,6 +1064,8 @@ def phase_sgd_kernel_times(torch, rng, shapes, timer):
                         "Kp": cfg.padded_factors, "kernel": cfg.kernel,
                         "primary": pack.primary, "runs_prim": runs_prim,
                         "runs_sec": runs_sec,
+                        "longest_prim_run": longest_run(
+                            b["u"] if pack.primary == "user" else b["i"]),
                         "launches_per_epoch": pack.n_batches})
             emit({"phase": "sgd_kernel_time", "name": name, **row})
         out[shape] = rows
@@ -1368,8 +1449,10 @@ def main() -> int:
     emit({"phase": "build", "sources": sources, "seconds": secs,
           "ptxas": ptxas})
     spilled = [k for k in ptxas if k[2] and any(
-        n in k[0] for n in ("score_stream", "score_tile", "gj_inverse"))]
-    check(not spilled, f"the scorer or the GJ leaf spills: {spilled}")
+        n in k[0] for n in ("score_stream", "score_tile", "gj_inverse",
+                            "sgd_step_kernel", "step_finish"))]
+    check(not spilled, f"the scorer, the GJ leaf or the SGD step spills: "
+                       f"{spilled}")
 
     # -- serving (slice 1) -------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -1402,10 +1485,7 @@ def main() -> int:
     data3 = (u3[:N_RATINGS], i3[:N_RATINGS], r3[:N_RATINGS],
              u3[N_RATINGS:], i3[N_RATINGS:])
     t_config3 = time.perf_counter() - t0
-    hr = np.random.default_rng(args.seed)
-    head_data = (hr.integers(0, HEAD["n_users"], HEAD["n_ratings"]).astype(np.int32),
-                 hr.integers(0, HEAD["n_items"], HEAD["n_ratings"]).astype(np.int32),
-                 hr.uniform(0.5, 5.0, HEAD["n_ratings"]).astype(np.float32))
+    head_data = headline_ratings(args.seed)
     small = gen_ratings(5000, 3000, 200_000, args.seed + 1)
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "config3_seconds": t_config3,
@@ -1421,6 +1501,10 @@ def main() -> int:
         packs[name] = sgd.pack_ratings(u, i, r, bs, order="auto", device="cuda")
         torch.cuda.synchronize()
         pack_seconds[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packs["skewed"] = skewed_pack(N_USERS, N_ITEMS,
+                                  CONFIG3["sigmoid"]["batch_size"], args.seed)
+    pack_seconds["skewed"] = time.perf_counter() - t0
     emit({"phase": "pack", "seconds": pack_seconds,
           "primary": {k: v.primary for k, v in packs.items()},
           "n_batches": {k: v.n_batches for k, v in packs.items()}})
@@ -1430,6 +1514,8 @@ def main() -> int:
          packs["sigmoid"], 0, N_USERS, N_ITEMS),
         ("config3_rbf", sgd_cfg("rbf", N_FACTORS, 0.05, 1_048_576),
          packs["rbf"], 0, N_USERS, N_ITEMS),
+        ("config3_skewed", sgd_cfg("sigmoid", N_FACTORS, 0.01, 2_097_152),
+         packs["skewed"], 0, N_USERS, N_ITEMS),
         ("headline_linear", sgd_cfg("linear", HEAD["n_factors"], HEAD["lr"],
                                     HEAD["batch_size"], reg=HEAD["reg"]),
          packs["headline"], 0, HEAD["n_users"], HEAD["n_items"]),
@@ -1463,7 +1549,8 @@ def main() -> int:
         (name, cases[k][1], packs[pk], *cases[k][4:])
         for name, k, pk in (("config3_sigmoid", 0, "sigmoid"),
                             ("config3_rbf", 1, "rbf"),
-                            ("headline_linear", 2, "headline"))], timer)
+                            ("config3_skewed", 2, "skewed"),
+                            ("headline_linear", 3, "headline"))], timer)
 
     # -- factor ALS (slice 3) ------------------------------------------------
     packs.clear()

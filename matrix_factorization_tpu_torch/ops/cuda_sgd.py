@@ -6,7 +6,12 @@ Counterpart of ``matrix_factorization_tpu/ops/pallas_sgd.py``. The source
 * ``mf_sgd_step`` replaces the Pallas ``_step_kernel``: for one batch
   sorted by the primary side's id it updates the primary table in place
   (every row from the pre-step tables, deltas of one row summed) and
-  writes the per-entry secondary deltas ``dq`` (bs, Kp);
+  writes the per-entry secondary deltas ``dq`` (bs, Kp). A warp owns a
+  fixed segment of ``SEG_LEN`` consecutive entries; a run of equal ids
+  that crosses a segment boundary is summed in pieces, which a second
+  small launch of the same call adds in segment order (``step_plan``
+  lays the call out, ``segmented_sgd_step`` is that summation in plain
+  PyTorch);
 * ``mf_segment_apply`` adds ``dq`` to the secondary table over the
   pack's stable secondary argsort (``sec_perm``, ``sec_ids_sorted``), one
   writer per row and a fixed summation order, where XLA's scatter did it
@@ -18,7 +23,8 @@ The source says what bounds them and how they are laid out.
 ``cuda_sgd_step`` and ``cuda_segment_apply`` launch the kernels and take
 only CUDA tensors. ``plain_sgd_step`` and ``plain_segment_apply`` are the
 same functions in plain PyTorch (a gather, ``ext_forward_and_rowgrads``
-and ``index_add_``); the CPU path and the comparisons use them.
+and ``index_add_``); the CPU path and the comparisons use them. Only
+tests call ``segmented_sgd_step``.
 ``sgd_step`` and ``segment_apply`` pick between the two by the tensors'
 device: a CUDA tensor always launches the kernel.
 """
@@ -27,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,6 +41,15 @@ from matrix_factorization_tpu_torch.core.config import LANE, SGDConfig
 
 _KERNEL_CODES = {"linear": 0, "sigmoid": 1, "rbf": 2}
 MAX_WIDTH = 8 * LANE  # the kernels hold a row in registers, Kp <= 1024
+
+# The step's launch geometry; csrc/sgd_step.cu is compiled for the same
+# values (kSegLen, kStages, kWarps, kMaxSmem) and refuses any other.
+SEG_LEN = 64  # consecutive entries one warp owns
+STEP_STAGES = 6  # secondary rows a warp keeps in flight (its cp.async ring)
+STEP_WARPS = 8  # warps a block
+STEP_MAX_BLOCKS_PER_SM = 4
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may take on sm_90
+SMEM_PER_SM = 233_472  # of which a resident block reserves 1 KB
 
 _count_lock = threading.Lock()
 step_launches = 0  # mf_sgd_step launches since import or reset_launches()
@@ -71,7 +86,8 @@ def _library():
         vp, ci, cf, cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                            ctypes.c_longlong)
         lib.mf_sgd_step.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                    cll, ci, ci, cf, cf, cf, cf, cf, ci, vp]
+                                    cll, ci, ci, cf, cf, cf, cf, cf, ci,
+                                    vp, ci, cll, ci, ci, ci, vp]
         lib.mf_sgd_step.restype = ci
         lib.mf_segment_apply.argtypes = [vp, vp, vp, vp, cll, ci, vp]
         lib.mf_segment_apply.restype = ci
@@ -139,9 +155,124 @@ def plain_segment_apply(table: torch.Tensor, rows: torch.Tensor,
     table.index_add_(0, ids_sorted.long(), rows[perm.long()])
 
 
+def _piece_sums(g: torch.Tensor, starts: torch.Tensor,
+                lengths: torch.Tensor) -> torch.Tensor:
+    """Row sums of ``g[starts[p] : starts[p] + lengths[p]]`` for every piece
+    ``p``, each added in entry order from zero (f32, one add an entry)."""
+    out = torch.zeros((starts.numel(), g.shape[1]), dtype=g.dtype,
+                      device=g.device)
+    for t in range(int(lengths.max()) if lengths.numel() else 0):
+        live = (lengths > t).nonzero().squeeze(1)
+        out[live] += g[starts[live] + t]
+    return out
+
+
+def segmented_sgd_step(cfg: SGDConfig, mu: torch.Tensor,
+                       prim_tbl: torch.Tensor, sec_tbl: torch.Tensor,
+                       prim_ids: torch.Tensor, sec_ids: torch.Tensor,
+                       r: torch.Tensor, w: torch.Tensor, pmask: torch.Tensor,
+                       smask: torch.Tensor, lr: float, reg: float,
+                       update_prim: bool = True, write_dq: bool = True,
+                       seg_len: int = SEG_LEN) -> Optional[torch.Tensor]:
+    """``plain_sgd_step`` with the primary deltas summed as ``mf_sgd_step``
+    sums them: the batch is cut into segments of ``seg_len`` entries, the
+    deltas of a run of equal primary ids are added in entry order inside
+    each segment, and the pieces of a run that crosses segment boundaries
+    are then added in segment order before the pre-step row. Plain
+    PyTorch for the tests of the boundary logic; the entry points never
+    call it."""
+    from matrix_factorization_tpu_torch.ops.segment_sgd import (
+        ext_forward_and_rowgrads)
+
+    if seg_len <= 0:
+        raise ValueError(f"seg_len must be positive, got {seg_len}")
+    n = prim_ids.numel()
+    ids = prim_ids.long()
+    x = prim_tbl[ids]
+    y = sec_tbl[sec_ids.long()]
+    pred, dx, dy = ext_forward_and_rowgrads(cfg, mu, x, y)
+    err = (pred - r) * w
+    rw = reg * w
+    if update_prim and n:
+        g = -lr * ((err[:, None] * dx + rw[:, None] * x) * pmask[None, :])
+        pos = torch.arange(n, device=ids.device)
+        new_run = torch.ones(n, dtype=torch.bool, device=ids.device)
+        new_run[1:] = ids[1:] != ids[:-1]
+        starts = (new_run | (pos % seg_len == 0)).nonzero().squeeze(1)
+        lengths = torch.diff(starts, append=pos.new_tensor([n]))
+        pieces = _piece_sums(g, starts, lengths)
+        # the pieces of one run, in segment order: piece sums of piece sums
+        run_of_piece = torch.cumsum(new_run, 0)[starts] - 1
+        first = torch.ones_like(starts, dtype=torch.bool)
+        first[1:] = run_of_piece[1:] != run_of_piece[:-1]
+        run_starts = first.nonzero().squeeze(1)
+        run_lengths = torch.diff(run_starts,
+                                 append=pos.new_tensor([starts.numel()]))
+        total = _piece_sums(pieces, run_starts, run_lengths)
+        rows = ids[starts[run_starts]]
+        prim_tbl[rows] = prim_tbl[rows] + total
+    if not write_dq:
+        return None
+    return -lr * ((err[:, None] * dy + rw[:, None] * y) * smask[None, :])
+
+
 # ---------------------------------------------------------------------------
 # The kernels
 # ---------------------------------------------------------------------------
+
+
+class StepPlan(NamedTuple):
+    """How one ``mf_sgd_step`` call is laid out on the card."""
+
+    seg_len: int  # entries a warp owns at a time
+    n_segments: int  # ceil(n / seg_len)
+    grid: int  # blocks of STEP_WARPS warps, persistent over the segments
+    smem_bytes: int  # dynamic shared memory a block
+    stages: int  # secondary rows in flight a warp
+    scratch_shape: Tuple[int, int]  # f32 partial sums of crossing runs
+
+
+def step_smem(kp: int, stages: int = STEP_STAGES,
+              seg_len: int = SEG_LEN) -> int:
+    """Shared bytes of a step block: the two masks, each warp's ring of
+    ``stages`` rows, and each warp's segment metadata (16 + 4 bytes an
+    entry)."""
+    return 4 * kp * (2 + STEP_WARPS * stages) + 20 * seg_len * STEP_WARPS
+
+
+def step_plan(n: int, kp: int, n_sms: int = 132, seg_len: int = SEG_LEN,
+              stages: int = STEP_STAGES) -> StepPlan:
+    """The launch plan of the step for ``n`` entries of width ``kp`` on a
+    card with ``n_sms`` SMs; needs no look at the data, so the wrapper
+    allocates the scratch without waiting for the card. The scratch
+    holds a head and a tail slot of ``kp`` floats for every segment: the
+    partial sum of a run that reaches over the segment's start (or fills
+    it), and of another that reaches over its end. ``seg_len`` and
+    ``stages`` other than the defaults are for a build of the source
+    with other constants (``tools/probe_kernels.py``)."""
+    if n <= 0:
+        raise ValueError(f"the step needs n > 0, got {n}")
+    _check_width(kp)
+    n_segments = -(-n // seg_len)
+    smem = step_smem(kp, stages, seg_len)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{stages} stages of width {kp} need {smem} bytes "
+                         f"of shared memory, over {SMEM_LIMIT}")
+    per_sm = max(1, min(STEP_MAX_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
+    grid = min(-(-n_segments // STEP_WARPS), n_sms * per_sm)
+    return StepPlan(seg_len, n_segments, grid, smem, stages,
+                    (2 * n_segments, kp))
+
+
+_sm_counts: dict = {}
+
+
+def _n_sms(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
 
 
 def cuda_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
@@ -150,7 +281,9 @@ def cuda_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
                   pmask: torch.Tensor, smask: torch.Tensor, lr: float,
                   reg: float, update_prim: bool = True,
                   write_dq: bool = True) -> Optional[torch.Tensor]:
-    """One step of ``mf_sgd_step`` on ``prim_tbl``'s stream.
+    """One step of ``mf_sgd_step`` on ``prim_tbl``'s stream: the segment
+    launch and, when the primary side is updated, the launch that
+    finishes the runs crossing a segment boundary.
 
     ``prim_ids`` and ``sec_ids`` (n,) int32 sorted by ``prim_ids``; ``r``
     and ``w`` (n,) f32; tables (rows, Kp) and masks (Kp,) f32; ``mu`` one
@@ -180,6 +313,9 @@ def cuda_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
     dq = torch.empty((n, kp), dtype=f32, device=dev) if write_dq else None
     if n == 0:
         return dq
+    plan = step_plan(n, kp, _n_sms(dev))
+    scratch = (torch.empty(plan.scratch_shape, dtype=f32, device=dev)
+               if update_prim else None)
     lib = _library()
     rc = lib.mf_sgd_step(
         mu.data_ptr(), prim_tbl.data_ptr(), sec_tbl.data_ptr(),
@@ -188,6 +324,8 @@ def cuda_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
         dq.data_ptr() if dq is not None else None, n, kp,
         _KERNEL_CODES[cfg.kernel], float(cfg.gamma), float(cfg.a),
         float(cfg.c), float(lr), float(reg), int(bool(update_prim)),
+        scratch.data_ptr() if scratch is not None else None, plan.seg_len,
+        plan.n_segments, plan.grid, plan.smem_bytes, plan.stages,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(

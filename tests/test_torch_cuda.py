@@ -242,6 +242,104 @@ def test_sgd_step_is_deterministic(cuda):
     assert torch.equal(outs[0][1], outs[1][1])
 
 
+def _step_inputs(cfg, prim, n_prim, n_sec, rng, cuda, pad_tail=0):
+    """Tables, a batch over the given sorted primary ids (numpy), masks
+    and mu on the card."""
+    n = len(prim)
+    sec = rng.integers(0, n_sec, n).astype(np.int32)
+    r = rng.uniform(0.5, 5, n).astype(np.float32)
+    w = np.ones(n, np.float32)
+    if pad_tail:
+        w[-pad_tail:] = 0.0
+    P = torch.from_numpy(_rows(cfg, n_prim, rng, "user")).to(cuda)
+    S = torch.from_numpy(_rows(cfg, n_sec, rng, "item")).to(cuda)
+    batch = [torch.from_numpy(a).to(cuda)
+             for a in (prim.astype(np.int32), sec, r, w)]
+    pm = torch.from_numpy(sgd.update_mask(cfg, "user")).to(cuda)
+    sm = torch.from_numpy(sgd.update_mask(cfg, "item")).to(cuda)
+    return P, S, batch, pm, sm, torch.tensor(3.5, device=cuda)
+
+
+def _boundary_ids(case, rng):
+    """Sorted primary ids that put runs where the step's segments (of
+    ``cuda_sgd.SEG_LEN`` entries) have to decide; (ids, weight-0 tail)."""
+    L = cuda_sgd.SEG_LEN
+    if case == "run_ends_at_boundary":
+        return np.r_[np.full(L, 0), np.full(L // 2, 1), np.full(L // 2, 2),
+                     np.full(L - 1, 3), [4], np.full(L // 2, 5)], 0
+    if case == "run_over_three_segments":
+        return np.r_[np.full(L // 2, 0), np.full(L // 2 + 3 * L + 1, 1),
+                     np.full(L - 1, 2), np.full(3 * L, 3), [4, 5]], 0
+    if case == "single_run":
+        return np.full(2 * L + L // 2, 3), 0
+    if case == "one_run_of_40_segments":  # past one 32-segment look-up
+        return np.r_[[0, 1], np.full(40 * L + 5, 2), [3]], 0
+    if case == "ragged":
+        return np.sort(rng.integers(0, 9, 5 * L + 3)), 0
+    if case == "pad_tail":
+        ids = np.sort(rng.integers(0, 9, 4 * L))
+        return np.r_[ids, np.full(L + 1, ids[-1])], L + 1
+    if case == "skewed":  # floor(rows * U^2): id 0 holds ~4% of 60,000
+        return np.sort((600 * rng.random(60_000) ** 2).astype(np.int64)), 0
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["run_ends_at_boundary",
+                                  "run_over_three_segments", "single_run",
+                                  "one_run_of_40_segments", "ragged",
+                                  "pad_tail", "skewed"])
+@pytest.mark.parametrize("kernel", ["linear", "sigmoid", "rbf"])
+def test_sgd_step_where_runs_meet_segment_boundaries(cuda, kernel, case):
+    """The step kernel against the plain step (atol = rtol = 1e-5) on
+    batches whose runs end at, cross and cover its fixed segments, and on
+    a skewed batch; a second run gives the same bits; a frozen primary
+    side leaves the table as it was though runs cross; without dq the
+    table comes out the same."""
+    cfg = SGDConfig(kernel=kernel, n_factors=200, gamma=1 / 200,
+                    min_rating=0.5, max_rating=5.0, reg=0.01)
+    rng = np.random.default_rng(len(case))
+    prim, pad = _boundary_ids(case, rng)
+    P, S, batch, pm, sm, mu = _step_inputs(cfg, prim, 600, 700, rng, cuda, pad)
+    lr = 1e-3  # a run of thousands of entries sums within the tolerance
+    args = (cfg, mu)
+    tail = (S, *batch, pm, sm, lr, cfg.reg)
+    Pk, Pk2, Pp = P.clone(), P.clone(), P.clone()
+    dq = cuda_sgd.cuda_sgd_step(*args, Pk, *tail)
+    dq2 = cuda_sgd.cuda_sgd_step(*args, Pk2, *tail)
+    dq_plain = cuda_sgd.plain_sgd_step(*args, Pp, *tail)
+    torch.cuda.synchronize()
+    assert torch.isfinite(Pk).all() and torch.isfinite(dq).all()
+    torch.testing.assert_close(dq, dq_plain, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(Pk, Pp, atol=1e-5, rtol=1e-5)
+    assert torch.equal(Pk, Pk2) and torch.equal(dq, dq2)
+    assert not torch.equal(Pk, P)
+    frozen = P.clone()
+    dq3 = cuda_sgd.cuda_sgd_step(*args, frozen, *tail, update_prim=False)
+    assert torch.equal(frozen, P) and torch.equal(dq3, dq)
+    no_dq = P.clone()
+    assert cuda_sgd.cuda_sgd_step(*args, no_dq, *tail, write_dq=False) is None
+    assert torch.equal(no_dq, Pk)
+
+
+def test_sgd_step_kernel_refuses_a_plan_it_is_not_compiled_for(cuda,
+                                                               monkeypatch):
+    cfg = SGDConfig(n_factors=12)
+    rng = np.random.default_rng(3)
+    prim = np.sort(rng.integers(0, 9, 300))
+    P, S, batch, pm, sm, mu = _step_inputs(cfg, prim, 16, 16, rng, cuda)
+    plan = cuda_sgd.step_plan
+    for change in ({"seg_len": cuda_sgd.SEG_LEN // 2},
+                   {"stages": cuda_sgd.STEP_STAGES - 1},
+                   {"n_segments": 1}, {"grid": 1000}, {"smem_bytes": 1024}):
+        monkeypatch.setattr(cuda_sgd, "step_plan",
+                            lambda *a, **k: plan(*a, **k)._replace(**change))
+        before, P0 = cuda_sgd.step_launches, P.clone()
+        with pytest.raises(RuntimeError):
+            cuda_sgd.cuda_sgd_step(cfg, mu, P, S, *batch, pm, sm, 0.05, 0.0)
+        torch.cuda.synchronize()
+        assert cuda_sgd.step_launches == before and torch.equal(P, P0)
+
+
 def test_sgd_wrappers_reject_what_the_kernels_do_not_take(cuda):
     cfg = SGDConfig(n_factors=12)
     mu = torch.tensor(3.0, device=cuda)

@@ -1,8 +1,10 @@
-"""The launch plans of the port's two redesigned kernels, on the CPU.
+"""The launch plans of the port's redesigned kernels, on the CPU.
 
-``ops/cuda_scores.py::score_plan`` and ``ops/cuda_spd.py::gj_plan`` decide
-in Python how ``csrc/score_catalog.cu`` and ``csrc/spd_gj.cu`` cover a
-call; the kernels refuse a plan that does not match what they compute.
+``ops/cuda_scores.py::score_plan``, ``ops/cuda_spd.py::gj_plan`` and
+``ops/cuda_sgd.py::step_plan`` decide in Python how
+``csrc/score_catalog.cu``, ``csrc/spd_gj.cu`` and ``csrc/sgd_step.cu``
+cover a call; the kernels refuse a plan that does not match what they
+compute.
 These tests need no GPU: every plan covers its call, fits the card's
 limits, and names a shape the CUDA sources are compiled for.
 """
@@ -12,7 +14,7 @@ from pathlib import Path
 
 import pytest
 
-from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_spd
+from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, cuda_spd
 
 CSRC = Path(cuda_scores.__file__).resolve().parent.parent / "csrc"
 H100_SMS = 132
@@ -97,3 +99,59 @@ def test_gj_plan_refuses_what_the_kernel_does_not_take():
     for d in (0, 129, -3):
         with pytest.raises(ValueError):
             cuda_spd.gj_plan(d)
+
+
+def test_step_plan_names_what_the_source_is_compiled_for():
+    src = (CSRC / "sgd_step.cu").read_text()
+    assert f"#define MF_SEG_LEN {cuda_sgd.SEG_LEN}\n" in src
+    assert f"#define MF_STAGES {cuda_sgd.STEP_STAGES}\n" in src
+    assert f"constexpr int kWarps = {cuda_sgd.STEP_WARPS};" in src
+    assert f"constexpr int kMaxSmem = {cuda_sgd.SMEM_LIMIT};" in src
+    assert f"constexpr int kMaxVec = {cuda_sgd.MAX_WIDTH // 128};" in src
+    assert cuda_sgd.SEG_LEN % 32 == 0 and 32 <= cuda_sgd.SEG_LEN <= 128
+    # the kernel's own layout: masks, rings, entry words, primary ids
+    m = re.search(r"return 16 \* \(2 \* nv \* 32 \+ kWarps \* kStages \* nv "
+                  r"\* 32 \+ kWarps \* kSegLen\) \+\s+4 \* kWarps \* kSegLen;",
+                  src)
+    assert m, "step_smem_bytes changed: bring cuda_sgd.step_smem up to date"
+    for nv in range(1, 9):
+        W, S, L = cuda_sgd.STEP_WARPS, cuda_sgd.STEP_STAGES, cuda_sgd.SEG_LEN
+        assert cuda_sgd.step_smem(128 * nv) == (
+            16 * (2 * nv * 32 + W * S * nv * 32 + W * L) + 4 * W * L)
+
+
+@pytest.mark.parametrize("kp", [128, 256, 512, 1024])
+@pytest.mark.parametrize("mult", [1, 2, 7, 528, 529, 2048, 32_768])
+def test_step_plan_covers_every_n(kp, mult):
+    """Every n around a multiple of the segment length: the segments cover
+    the batch, the grid has a segment for every warp and fits the card,
+    and the scratch has a head and a tail slot a segment."""
+    L, W = cuda_sgd.SEG_LEN, cuda_sgd.STEP_WARPS
+    for n in range(max(1, mult * L - L - 1), mult * L + L + 2):
+        p = cuda_sgd.step_plan(n, kp, H100_SMS)
+        assert p.seg_len == L and p.stages == cuda_sgd.STEP_STAGES
+        assert (p.n_segments - 1) * L < n <= p.n_segments * L
+        assert 1 <= p.grid <= -(-p.n_segments // W)  # no block without work
+        assert p.grid <= H100_SMS * cuda_sgd.STEP_MAX_BLOCKS_PER_SM
+        assert p.smem_bytes == cuda_sgd.step_smem(kp) <= cuda_sgd.SMEM_LIMIT
+        # the blocks the plan puts on an SM fit its shared memory
+        per_sm = -(-p.grid // H100_SMS)
+        assert per_sm * (p.smem_bytes + 1024) <= cuda_sgd.SMEM_PER_SM
+        assert p.scratch_shape == (2 * p.n_segments, kp)
+
+
+def test_step_plan_at_the_main_path_shapes_and_refusals():
+    big = cuda_sgd.step_plan(2_097_152, 256, H100_SMS)
+    assert big.n_segments == 2_097_152 // cuda_sgd.SEG_LEN
+    assert big.grid % H100_SMS == 0  # a persistent grid, whole blocks an SM
+    head = cuda_sgd.step_plan(131_072, 128, H100_SMS)
+    assert head.grid == -(-head.n_segments // cuda_sgd.STEP_WARPS)
+    # the probe's other builds: the plan follows the constants it is given
+    other = cuda_sgd.step_plan(1000, 256, H100_SMS, seg_len=32, stages=2)
+    assert (other.seg_len, other.n_segments, other.stages) == (32, 32, 2)
+    assert other.smem_bytes == cuda_sgd.step_smem(256, 2, 32)
+    for bad in ((0, 128), (-5, 128), (10, 96), (10, 0), (10, 1152)):
+        with pytest.raises(ValueError):
+            cuda_sgd.step_plan(*bad)
+    with pytest.raises(ValueError):  # a ring that does not fit a block
+        cuda_sgd.step_plan(10, 1024, H100_SMS, stages=8)

@@ -271,3 +271,171 @@ def test_forward_and_grads_match_jax(kernel):
     want = jsgd.ext_forward_and_rowgrads(jcfg, 3.0, P, Q)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# The summation of the CUDA step kernel (fixed segments, pieces of a run
+# that crosses a segment boundary added in segment order), in plain PyTorch
+# ---------------------------------------------------------------------------
+
+SEG_ATOL = 1e-5  # segmented against plain: f32 sums in another order
+JAX_ATOL = 2e-5  # against the JAX scatter step
+
+
+def _boundary_ids(case, seg_len, rng):
+    """Sorted primary ids (and the number of weight-0 pads at the tail)
+    of a batch that puts runs where the segment logic has to decide."""
+    L = seg_len
+    if case == "run_ends_at_boundary":
+        # runs of exactly L, L/2 + L/2 and one that stops at 3L - 1
+        ids = np.r_[np.full(L, 0), np.full(L // 2, 1), np.full(L // 2, 2),
+                    np.full(L - 1, 3), [4], np.full(L // 2, 5)]
+        return ids, 0
+    if case == "run_over_three_segments":
+        # begins mid-segment, covers three whole segments, ends mid-segment;
+        # then one that begins at a boundary and covers three exactly
+        ids = np.r_[np.full(L // 2, 0), np.full(L // 2 + 3 * L + 1, 1),
+                    np.full(L - 1, 2), np.full(3 * L, 3), [4, 5]]
+        return ids, 0
+    if case == "single_run":
+        return np.full(2 * L + L // 2, 3), 0
+    if case == "ragged":
+        return np.sort(rng.integers(0, 9, 5 * L + 3)), 0
+    if case == "pad_tail":
+        ids = np.sort(rng.integers(0, 9, 4 * L))
+        return np.r_[ids, np.full(L + 1, ids[-1])], L + 1
+    raise ValueError(case)
+
+
+BOUNDARY_CASES = ["run_ends_at_boundary", "run_over_three_segments",
+                  "single_run", "ragged", "pad_tail"]
+
+
+def _boundary_batch(case, seg_len, primary, n_sec=30):
+    rng = np.random.default_rng(len(case) + seg_len)
+    prim, n_pad = _boundary_ids(case, seg_len, rng)
+    prim = prim.astype(np.int32)
+    n = len(prim)
+    sec = rng.integers(0, n_sec, n).astype(np.int32)
+    r = rng.uniform(1, 5, n).astype(np.float32)
+    w = np.ones(n, np.float32)
+    if n_pad:
+        w[-n_pad:] = 0.0
+    u, i = (prim, sec) if primary == "user" else (sec, prim)
+    sp = np.argsort(sec, kind="stable").astype(np.int32)
+    return {"u": u, "i": i, "r": r, "w": w, "sp": sp, "ss": sec[sp]}
+
+
+def _segmented_update(P, Q, b, cfg, primary, seg_len, step=None):
+    """The port's mini-batch update on CPU tensors with the primary deltas
+    summed by ``segmented_sgd_step`` (or by ``step``)."""
+    step = step or (lambda *a, **k: cuda_sgd.segmented_sgd_step(
+        *a, **k, seg_len=seg_len))
+    tabs = {"user": torch.from_numpy(P.copy()), "item": torch.from_numpy(Q.copy())}
+    prim, sec = ("user", "item") if primary == "user" else ("item", "user")
+    t = {k: torch.from_numpy(v) for k, v in b.items()}
+    ids = {"user": t["u"], "item": t["i"]}
+    upd = {"user": cfg.update_user_params, "item": cfg.update_item_params}
+    dq = step(cfg, torch.tensor(3.0), tabs[prim], tabs[sec], ids[prim],
+              ids[sec], t["r"], t["w"],
+              torch.from_numpy(sgd.update_mask(cfg, prim)),
+              torch.from_numpy(sgd.update_mask(cfg, sec)), LR, cfg.reg,
+              update_prim=upd[prim], write_dq=upd[sec])
+    assert (dq is None) == (not upd[sec])
+    if dq is not None:
+        cuda_sgd.plain_segment_apply(tabs[sec], dq, t["sp"], t["ss"])
+    return tabs["user"].numpy(), tabs["item"].numpy(), dq
+
+
+def _jax_scatter_update(P, Q, b, jcfg, primary):
+    import jax.numpy as jnp
+
+    jb = {k: jnp.asarray(b[k]) for k in ("u", "i", "r", "w")}
+    out = jsgd._minibatch_update(_jax_params(P, Q), jb, jcfg, LR, (0, 0),
+                                 (0, 0), primary, False, use_fused=False)
+    return np.asarray(out.user_features), np.asarray(out.item_features)
+
+
+@pytest.mark.parametrize("case", BOUNDARY_CASES)
+@pytest.mark.parametrize("seg_len", [4, 32])
+@pytest.mark.parametrize("primary", ["user", "item"])
+@pytest.mark.parametrize("kernel", ["linear", "sigmoid", "rbf"])
+def test_segmented_step_matches_plain_and_jax(kernel, primary, seg_len, case):
+    """``segmented_sgd_step`` (the CUDA kernel's summation) against
+    ``plain_sgd_step`` at 1e-5 and the JAX scatter step at 2e-5, on
+    batches whose runs end at, cross and cover segment boundaries."""
+    cfg, jcfg = _cfgs(kernel)
+    b = _boundary_batch(case, seg_len, primary)
+    P, Q = _tables(jcfg, 32, 32)
+    got = _segmented_update(P, Q, b, cfg, primary, seg_len)
+    want = _segmented_update(P, Q, b, cfg, primary, seg_len,
+                             step=cuda_sgd.plain_sgd_step)
+    for g, w_ in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g, w_, atol=SEG_ATOL, rtol=SEG_ATOL)
+    assert torch.equal(got[2], want[2])  # dq is per entry: the same bits
+    jax_out = _jax_scatter_update(P, Q, b, jcfg, primary)
+    np.testing.assert_allclose(got[0], jax_out[0], atol=JAX_ATOL, rtol=0)
+    np.testing.assert_allclose(got[1], jax_out[1], atol=JAX_ATOL, rtol=0)
+    assert not np.array_equal(got[0], P) and not np.array_equal(got[1], Q)
+
+
+@pytest.mark.parametrize("frozen", ["user", "item"])
+@pytest.mark.parametrize("seg_len", [4, 32])
+@pytest.mark.parametrize("kernel", ["linear", "sigmoid", "rbf"])
+def test_segmented_step_with_a_frozen_side(kernel, seg_len, frozen):
+    """A frozen primary side is not written though runs cross segment
+    boundaries; a frozen secondary side gets no deltas. Both agree with
+    the JAX scatter step."""
+    flags = {"update_item_params": frozen != "item",
+             "update_user_params": frozen != "user"}
+    cfg, jcfg = _cfgs(kernel, **flags)
+    P, Q = _tables(jcfg, 32, 32)
+    for primary in ("user", "item"):
+        b = _boundary_batch("run_over_three_segments", seg_len, primary)
+        got = _segmented_update(P, Q, b, cfg, primary, seg_len)
+        frozen_tbl, orig = (got[0], P) if frozen == "user" else (got[1], Q)
+        np.testing.assert_array_equal(frozen_tbl, orig)
+        jax_out = _jax_scatter_update(P, Q, b, jcfg, primary)
+        np.testing.assert_allclose(got[0], jax_out[0], atol=JAX_ATOL, rtol=0)
+        np.testing.assert_allclose(got[1], jax_out[1], atol=JAX_ATOL, rtol=0)
+
+
+def test_segmented_step_sums_pieces_in_segment_order():
+    """The pieces of a run are each summed from zero in entry order and
+    then added in segment order to the pre-step row: with deltas chosen
+    so that f32 addition order shows, the result is that order's bits."""
+    cfg = SGDConfig(kernel="linear", n_factors=4, reg=0.0, shuffle="none")
+    kp = cfg.padded_factors
+    n, seg_len = 10, 4
+    P = torch.zeros(2, kp)
+    P[1, 0] = 1.0
+    S = torch.zeros(n, kp)
+    S[:, 0] = torch.tensor([1e8, 1.0, -1e8, 1.0, 3.0, 1e-3, 1e8, -1e8, 5.0, 7.0])
+    # pred = mu + <x, y> with mu = 0; r chosen so that err = -1: delta = lr * y
+    ids = torch.ones(n, dtype=torch.int32)
+    sec = torch.arange(n, dtype=torch.int32)
+    y0 = S[:, 0]
+    r = (P[1, 0] * y0) + 1.0
+    mask = torch.zeros(kp)
+    mask[0] = 1.0
+    Pk = P.clone()
+    cuda_sgd.segmented_sgd_step(cfg, torch.tensor(0.0), Pk, S, ids, sec, r,
+                                torch.ones(n), mask, mask, 1.0, 0.0,
+                                seg_len=seg_len)
+    err = (P[1, 0] * y0) - r
+    d = -(err * y0)
+    pieces = []
+    for lo in range(0, n, seg_len):
+        acc = torch.tensor(0.0)
+        for v in d[lo:lo + seg_len]:
+            acc = acc + v
+        pieces.append(acc)
+    total = pieces[0]
+    for p in pieces[1:]:
+        total = total + p
+    assert Pk[1, 0].item() == (P[1, 0] + total).item()
+    assert torch.equal(Pk[0], P[0])
+    with pytest.raises(ValueError):
+        cuda_sgd.segmented_sgd_step(cfg, torch.tensor(0.0), Pk, S, ids, sec, r,
+                                    torch.ones(n), mask, mask, 1.0, 0.0,
+                                    seg_len=0)

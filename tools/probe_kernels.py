@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Probe the catalog scorer's two paths and hold the scorer and the GJ
-SPD leaf against another build of their sources, on one CUDA GPU.
+"""Probe the catalog scorer's two paths and the SGD step's design, and
+hold the scorer, the GJ SPD leaf and the SGD step against another build
+of their sources, on one CUDA GPU.
 
-    python3 tools/probe_kernels.py [--old-src DIR] [--out FILE] [--seed N]
+    python3 tools/probe_kernels.py [--phases paths,scorer,spd,sgd]
+        [--old-src DIR] [--variants L:STAGES[:FLAG...],...] [--out FILE]
+        [--seed N]
 
 1. build: the port's sources, with the ptxas lines (registers, spills).
 2. paths: at config 3's serving width (I = 59,392, Kp = 256), sigmoid,
@@ -19,6 +22,24 @@ SPD leaf against another build of their sources, on one CUDA GPU.
    ``chip_smoke.py``'s compare and compare_spd phases: ``torch.equal``
    of the two outputs, their largest difference, and both kernels' times
    at the timed shapes.
+4. sgd: one batch of each of ``chip_smoke.sgd_kernel_shapes`` (config 3
+   sigmoid with uniform and with skewed ids, the headline linear batch),
+   built directly from the seed, no 25M ratings. The step is held
+   against ``plain_sgd_step`` (atol = rtol = 1e-5, primary table and dq)
+   and against a second run of itself (``torch.equal``), with the
+   primary side frozen (table untouched) and without dq; timed as
+   called, without dq, with the secondary ids folded into a window of
+   16,384 rows that stays in L2, and with both (what the dq stream and
+   the gathers' misses cost), beside a fill of dq and a gather of the
+   secondary rows into dq by PyTorch's own kernels (what the card takes
+   to move the same bytes). With ``--old-src DIR`` holding an earlier
+   ``sgd_step.cu`` (the 20-argument interface, no plan), that build runs
+   on the same inputs: rows of runs inside one segment (summed in entry
+   order by both) ``torch.equal``, every row within 1e-5, dq
+   ``torch.equal``, and the same four timings.
+   ``--variants 32:6,128:6,64:4:MF_GATHER_KEEP=1.0`` builds the current
+   source with other segment lengths, stage counts and ``-D`` flags and
+   times each at the same shapes.
 
 Each result is one JSON line on stdout and in ``--out``. Needs a GPU and
 ``nvcc``; imports nothing of JAX.
@@ -49,18 +70,27 @@ def emit(obj):
         _out.flush()
 
 
-def build_old(src_dir: Path, name: str):
+def build_others(jobs):
+    """Build ``{tag: (source file, extra nvcc flags)}`` under other library
+    names, all at once; returns ``{tag: (library, nvcc log)}``."""
     from matrix_factorization_tpu_torch.ops import _build
 
     dst = _build.BUILD_DIR / "old"
     dst.mkdir(parents=True, exist_ok=True)
-    lib = dst / f"lib{name}_old.so"
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                          str(src_dir / f"{name}.cu")],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the old {name}.cu:\n{res.stdout}{res.stderr}")
-    return ctypes.CDLL(str(lib)), res.stdout + res.stderr
+    procs = {}
+    for tag, (src, flags) in jobs.items():
+        lib = dst / f"lib{tag}.so"
+        procs[tag] = (lib, src, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    out = {}
+    for tag, (lib, src, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} ({tag}):\n{log}")
+        out[tag] = (ctypes.CDLL(str(lib)), log)
+    return out
 
 
 def phase_paths(torch, rng, timer):
@@ -213,13 +243,196 @@ def phase_old_spd(torch, gen, timer, old):
         torch.cuda.empty_cache()
 
 
+def step_caller(torch, lib, plan_of=None):
+    """``fn(args, update_prim, write_dq) -> dq`` calling ``mf_sgd_step`` of
+    ``lib`` on ``chip_smoke.step_args``' arguments: the earlier 20-argument
+    interface, or (``plan_of(n, kp)`` given) the planned one."""
+    vp, ci, cf, cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_longlong)
+    base = [vp] * 10 + [cll, ci, ci, cf, cf, cf, cf, cf, ci]
+    lib.mf_sgd_step.argtypes = base + (
+        [vp] if plan_of is None else [vp, ci, cll, ci, ci, ci, vp])
+    lib.mf_sgd_step.restype = ci
+
+    def call(args, update_prim=True, write_dq=True):
+        cfg, mu, P, S, pid, sid, r, w, pm, sm, lr, reg = args
+        n, kp = pid.numel(), P.shape[1]
+        dq = torch.empty((n, kp), device="cuda") if write_dq else None
+        tail = [torch.cuda.current_stream().cuda_stream]
+        scratch = None
+        if plan_of is not None:
+            plan = plan_of(n, kp)
+            if update_prim:
+                scratch = torch.empty(plan.scratch_shape, device="cuda")
+            tail = [scratch.data_ptr() if update_prim else None, plan.seg_len,
+                    plan.n_segments, plan.grid, plan.smem_bytes, plan.stages,
+                    *tail]
+        rc = lib.mf_sgd_step(
+            mu.data_ptr(), P.data_ptr(), S.data_ptr(), pid.data_ptr(),
+            sid.data_ptr(), r.data_ptr(), w.data_ptr(), pm.data_ptr(),
+            sm.data_ptr(), dq.data_ptr() if write_dq else None, n, kp,
+            {"linear": 0, "sigmoid": 1, "rbf": 2}[cfg.kernel],
+            float(cfg.gamma), float(cfg.a), float(cfg.c), float(lr),
+            float(reg), int(update_prim), *tail)
+        if rc:
+            raise RuntimeError(f"mf_sgd_step failed: {rc}")
+        return dq
+
+    return call
+
+
+L2_WINDOW_ROWS = 16_384  # 16 MB of secondary rows at Kp 256: stays in L2
+
+
+def step_timings(timer, call, args):
+    """The step as called, without dq, with the secondary ids folded into
+    ``L2_WINDOW_ROWS`` rows, and with both."""
+    folded = list(args)
+    folded[5] = args[5] % L2_WINDOW_ROWS
+    return {
+        "ms": timer.ms(lambda: call(args)),
+        "no_dq_ms": timer.ms(lambda: call(args, write_dq=False)),
+        "l2_window_ms": timer.ms(lambda: call(folded)),
+        "l2_window_no_dq_ms": timer.ms(lambda: call(folded, write_dq=False)),
+    }
+
+
+def phase_sgd(torch, seed, timer, old_src, variants):
+    import numpy as np
+
+    from matrix_factorization_tpu_torch.ops import _build, cuda_sgd
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    jobs = {}
+    if old_src is not None and (old_src / "sgd_step.cu").exists():
+        jobs["sgd_step_old"] = (old_src / "sgd_step.cu", [])
+    for spec in variants:
+        seg_len, stages, *flags = spec.split(":")
+        jobs[f"sgd_step_{spec.replace(':', '_')}"] = (
+            _build.CSRC / "sgd_step.cu",
+            [f"-DMF_SEG_LEN={seg_len}", f"-DMF_STAGES={stages}",
+             *(f"-D{f}" for f in flags)])
+    built = build_others(jobs)
+    callers = {"current": lambda args, update_prim=True, write_dq=True:
+               cuda_sgd.cuda_sgd_step(*args, update_prim, write_dq)}
+    for tag, (lib, log) in built.items():
+        ptxas = [k for k in cs.ptxas_summary((log,)) if "step" in k[0]]
+        emit({"phase": "sgd_build", "tag": tag,
+              "registers": [min(k[1] for k in ptxas), max(k[1] for k in ptxas)],
+              "spill_bytes": max(k[2] for k in ptxas)})
+        if tag == "sgd_step_old":
+            callers["old"] = step_caller(torch, lib)
+        else:
+            seg_len, stages = (int(x) for x in tag.split("_")[2:4])
+            callers[tag[9:]] = step_caller(
+                torch, lib, lambda n, kp, seg_len=seg_len, stages=stages:
+                cuda_sgd.step_plan(n, kp, n_sms, seg_len, stages))
+
+    rng = np.random.default_rng(seed)
+    for shape, cfg, pack, n_users, n_items in cs.sgd_kernel_shapes(seed):
+        b = sgd.batch_at(pack, 0)
+        p0 = cs.random_params(torch, rng, cfg, n_users, n_items)
+        prim = "user_features" if pack.primary == "user" else "item_features"
+        ids = (b["u"] if pack.primary == "user" else b["i"]).long()
+        bounds, runs_prim, runs_sec = cs.sgd_bounds(b, cfg.padded_factors,
+                                                    pack.primary)
+        n = ids.numel()
+        new_run = torch.ones(n, dtype=torch.bool, device="cuda")
+        new_run[1:] = ids[1:] != ids[:-1]
+        starts = new_run.nonzero().squeeze(1)
+        ends = torch.cat([starts[1:], starts.new_tensor([n])]) - 1
+        row = {"phase": "sgd", "shape": shape, "kernel": cfg.kernel, "bs": n,
+               "Kp": cfg.padded_factors, "primary": pack.primary,
+               "runs_prim": runs_prim, "runs_sec": runs_sec,
+               "longest_prim_run": int((ends - starts).max()) + 1,
+               "bound_ms": bounds["sgd_step"][0],
+               "bound_by": bounds["sgd_step"][1]}
+
+        def run(call, **kw):
+            p = cs.clone_params(p0)
+            args, _, _ = cs.step_args(p, b, cfg, pack.primary)
+            dq = call(args, **kw)
+            torch.cuda.synchronize()
+            return getattr(p, prim), dq
+
+        P_plain, dq_plain = run(lambda args: cuda_sgd.plain_sgd_step(*args))
+        results = {}
+        for tag, call in callers.items():
+            P_k, dq_k = run(call)
+            P_again, dq_again = run(call)
+            P_frozen, dq_frozen = run(call, update_prim=False)
+            P_nodq, nodq = run(call, write_dq=False)
+            res = {
+                "P_max_abs_err": float((P_k - P_plain).abs().max()),
+                "dq_max_abs_err": float((dq_k - dq_plain).abs().max()),
+                "close": bool(
+                    torch.allclose(P_k, P_plain, atol=1e-5, rtol=1e-5)
+                    and torch.allclose(dq_k, dq_plain, atol=1e-5, rtol=1e-5)),
+                "deterministic": bool(torch.equal(P_k, P_again)
+                                      and torch.equal(dq_k, dq_again)),
+                "frozen_ok": bool(torch.equal(P_frozen, getattr(p0, prim))
+                                  and torch.equal(dq_frozen, dq_k)),
+                "no_dq_ok": nodq is None and bool(torch.equal(P_nodq, P_k)),
+            }
+            results[tag] = (P_k, dq_k)
+            del P_again, dq_again, P_frozen, dq_frozen, P_nodq
+            row[tag] = res
+        if "old" in results:
+            for tag, (P_k, dq_k) in results.items():
+                if tag == "old":
+                    continue
+                seg_len = (cuda_sgd.SEG_LEN if tag == "current"
+                           else int(tag.split("_")[0]))
+                # a run inside one segment is summed in entry order, as the
+                # earlier kernel summed every run
+                whole = ids[starts[starts // seg_len == ends // seg_len]]
+                P_old, dq_old = results["old"]
+                row[tag].update({
+                    "runs_summed_whole": int(whole.numel()),
+                    "whole_rows_equal_old": bool(
+                        torch.equal(P_k[whole], P_old[whole])),
+                    "all_rows_max_abs_diff_old": float(
+                        (P_k - P_old).abs().max()),
+                    "dq_equal_old": bool(torch.equal(dq_k, dq_old))})
+        del results, P_plain, dq_plain
+        torch.cuda.empty_cache()
+        p = cs.clone_params(p0)
+        args, _, _ = cs.step_args(p, b, cfg, pack.primary)
+        # what the card takes to move the step's bytes with PyTorch's own
+        # kernels: a fill of dq, and a gather of the secondary rows into dq
+        buf = torch.empty((n, cfg.padded_factors), device="cuda")
+        sid_long = args[5].long()
+        row["fill_dq_ms"] = timer.ms(buf.zero_)
+        row["gather_copy_ms"] = timer.ms(
+            lambda: torch.index_select(args[3], 0, sid_long, out=buf))
+        sid_long %= L2_WINDOW_ROWS
+        row["gather_copy_l2_window_ms"] = timer.ms(
+            lambda: torch.index_select(args[3], 0, sid_long, out=buf))
+        del buf, sid_long
+        order = list(callers) + list(reversed(callers))  # each twice, in turns
+        for k, tag in enumerate(order):
+            times = step_timings(timer, callers[tag], args)
+            for name, ms in times.items():
+                row[tag].setdefault(name, []).append(ms)
+        emit(row)
+        del p, p0, args
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     global _out
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="paths,scorer,spd,sgd",
+                    help="comma-separated: paths, scorer, spd, sgd")
     ap.add_argument("--old-src", type=Path, default=None)
+    ap.add_argument("--variants", default="",
+                    help="builds of the SGD step to time beside the current "
+                         "one: L:STAGES[:FLAG...], comma-separated")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    phases = set(args.phases.split(","))
 
     import numpy as np
     import torch
@@ -237,20 +450,31 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__})
-    secs = _build.build(["score_catalog", "spd_gj"])
+    sources = [name for name, used_by in (
+        ("score_catalog", {"paths", "scorer"}), ("spd_gj", {"spd"}),
+        ("sgd_step", {"sgd"})) if phases & used_by]
+    secs = _build.build(sources)
     emit({"phase": "build", "seconds": secs,
           "ptxas": cs.ptxas_summary(_build.build_logs.values())})
     timer = cs.Timer(torch)
     rng = np.random.default_rng(args.seed)
-    phase_paths(torch, rng, timer)
-    if args.old_src is not None:
-        old_sc, log_sc = build_old(args.old_src, "score_catalog")
-        old_gj, log_gj = build_old(args.old_src, "spd_gj")
+    if "paths" in phases:
+        phase_paths(torch, rng, timer)
+    old = {} if args.old_src is None else build_others({
+        f"{name}_old": (args.old_src / f"{name}.cu", [])
+        for name, phase in (("score_catalog", "scorer"), ("spd_gj", "spd"))
+        if phase in phases})
+    if old:
         emit({"phase": "build_old",
-              "ptxas": cs.ptxas_summary((log_sc, log_gj))})
-        phase_old_scores(torch, rng, timer, old_sc)
+              "ptxas": cs.ptxas_summary(log for _, log in old.values())})
+    if "score_catalog_old" in old:
+        phase_old_scores(torch, rng, timer, old["score_catalog_old"][0])
+    if "spd_gj_old" in old:
         phase_old_spd(torch, torch.Generator(device="cuda").manual_seed(args.seed),
-                      timer, old_gj)
+                      timer, old["spd_gj_old"][0])
+    if "sgd" in phases:
+        phase_sgd(torch, args.seed, timer, args.old_src,
+                  [v for v in args.variants.split(",") if v])
     emit({"phase": "done", "nvidia_smi": smi})
     return 0
 
