@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, SGD training and ALS paths on one
-CUDA GPU and check them.
+"""Drive the PyTorch port's serving, SGD training and ALS paths, its bias,
+neighbourhood and content models and its KernelMF sweep on one CUDA GPU
+and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -12,9 +13,10 @@ failed check ends the run with a non-zero exit:
 1. device: the card (``nvidia-smi`` name and power limit), torch, CUDA;
    TF32 off for every f32 product.
 2. build: every ``csrc/*.cu`` of the port (the scorer, the SGD step and
-   apply, the GJ SPD leaf), compiled for sm_90a, all ``nvcc`` processes at
-   once; each kernel's registers, spill and stack bytes from ptxas (the
-   scorer, the GJ leaf and the SGD step must not spill).
+   apply, the GJ SPD leaf, the segment sum), compiled for sm_90a, all
+   ``nvcc`` processes at once; each kernel's registers, spill and stack
+   bytes from ptxas (the scorer, the GJ leaf, the SGD step and the segment
+   sum must not spill).
 3. compare: the catalog-scoring kernel against its plain PyTorch version
    on the card, for kernels linear/sigmoid/rbf, f32 and bf16 tables, at
    (B, I, Kp) = (1, 59392, 256), (B_s, 59392, 256), (B_s + 1, 59392, 256)
@@ -97,14 +99,46 @@ failed check ends the run with a non-zero exit:
     (``torch.linalg.inv``) times at the first five shapes of 13, and
     their bounds.
 
+18. ml1m_data / compare_segsum: MovieLens-1M-shaped ratings
+    (``BASELINE.json`` config 2: 1M unique pairs of 6,040 x 3,706, half
+    stars, as ``run_configs._gen`` makes them, plus 10,000 held out); the
+    segment-sum kernel against ``index_add_`` on the card (rtol 1e-5, atol
+    1e-5 x the row's absolute sum), bitwise against its plain model and a
+    second run: the 1M ratings by user and by item, by user with 18
+    columns, a 4,096-entry batch, a stream with one 200,000-entry segment.
+19. baseline: ``BaselineModel`` at config 2 by ALS (reg 0.5) and by SGD
+    (lr 0.02, reg 0.02, bs 4,096), 20 epochs each: ``fit`` (falling train
+    RMSE, seconds), ``update_users`` (1,000 users, half known; item biases
+    bitwise unchanged), ``predict`` on the held-out pairs (float64 numpy,
+    atol 1e-5), ``recommend``, ``recommend_batch`` of 256 users, with the
+    segment-sum count zeroed just before and read just after; the fit
+    repeated (bitwise equal), a checkpoint round trip, the ALS-SGD gap.
+20. cf: ``UserUserCF`` and ``ItemItemCF`` (50 neighbours) on the config-2
+    ratings: ``fit`` seconds (a second fit bitwise equal), ``predict`` of
+    100,000 pairs, 2,000 of them against a float64 oracle (atol 6e-3),
+    ``recommend``.
+21. content: ``ContentBasedRecommender`` with 18 seeded binary genre
+    columns and without: profiles and both ``predict_mode``s against
+    float64 numpy (atol 1e-5); segment-sum count > 0.
+22. sweep: ``grid_search_kernel_mf`` at config 1 (MovieLens-100K shape,
+    linear, k=100, bs 4,096, 20 epochs, the 3 x 3 grid, 10,000 held out):
+    seconds, aggregate updates/s, step and apply counts = 9 x batches x 20,
+    ``recommend`` on the winner (scorer count > 0); the sweep again through
+    ``grid_train`` (the winner bitwise), its best and worst candidates
+    against ``sgd_train`` alone (atol 1e-5).
+23. segsum_kernel_time: the segment sum's kernel, plain and library
+    (``index_add_``) times at the shapes of 18 (device time from the
+    profiler's trace, and CUDA events around the call), and their bounds.
+
 Then the ``kernels`` line (``score_catalog``, ``sgd_step``,
-``segment_apply``, ``spd_gj``), the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.
+``segment_apply``, ``spd_gj``, ``segment_sum``), the ``nvidia-smi`` line,
+and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -1415,6 +1449,651 @@ def phase_spd_kernel_times(torch, gen, timer):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The bias, neighbourhood and content models and the sweep: the segment-sum
+# kernel
+# ---------------------------------------------------------------------------
+
+# BASELINE.json config 2 (benchmarks/run_configs.py:126-162): MovieLens-1M
+# shape, the bias model by ALS and by SGD
+ML1M = {"n_users": 6_040, "n_items": 3_706, "n_ratings": 1_000_000,
+        "held_out": 10_000}
+BASE = {"als": {"method": "als", "reg": 0.5, "n_epochs": 20,
+                "batch_size": 4096},
+        "sgd": {"method": "sgd", "lr": 0.02, "reg": 0.02, "n_epochs": 20,
+                "batch_size": 4096}}
+CF_NEIGHBOURS = 50
+CF_PREDICT = 100_000  # pairs timed; the first CF_ORACLE held to float64
+CF_ORACLE = 2_000
+N_GENRES = 18  # MovieLens-1M's genre count
+# BASELINE.json config 1 (benchmarks/run_configs.py:114-123): MovieLens-100K
+# shape, linear KernelMF, k=100, bs 4,096; the default 3 x 3 grid
+ML100K = {"n_users": 943, "n_items": 1_682, "n_ratings": 100_000,
+          "held_out": 10_000, "n_factors": 100, "batch_size": 4096,
+          "epochs": 20}
+
+
+def ml1m_ratings(seed):
+    """MovieLens-1M-shaped ratings, as ``run_configs._gen`` makes them:
+    (u, i, r) of the 1M training pairs and of the 10,000 held out."""
+    n = ML1M["n_ratings"]
+    u, i, r = gen_ratings(ML1M["n_users"], ML1M["n_items"],
+                          n + ML1M["held_out"], seed)
+    return (u[:n], i[:n], r[:n]), (u[n:], i[n:], r[n:])
+
+
+def segsum_cases(train, rng):
+    """(name, ids, n_rows, d) of the segment sum at the slice's shapes:
+    the 1M ratings by user and by item (the bias sums, one column), by user
+    with the 18 genre columns (the content profiles), a 4,096-entry batch
+    (bias SGD's step), and a stream with one 200,000-entry segment."""
+    import numpy as np
+
+    u, i, _ = train
+    nu, ni = ML1M["n_users"], ML1M["n_items"]
+    long_ids = np.concatenate([np.full(200_000, nu // 2),
+                               rng.integers(0, nu, 300_000)])
+    return (("ml1m_by_user", u, nu, 1), ("ml1m_by_item", i, ni, 1),
+            ("ml1m_profiles_by_user", u, nu, N_GENRES),
+            ("batch_4096", u[:4096], nu, 1),
+            ("long_segment", long_ids, nu, 1))
+
+
+def phase_compare_segsum(torch, rng, train):
+    """The segment-sum kernel against ``index_add_`` on the card (rtol
+    1e-5, atol 1e-5 x the row's absolute sum: both sum in f32, in other
+    orders), bitwise against its plain model ``segmented_segment_sum``
+    (the same adds in the same order) and against a second run. Returns
+    the largest error."""
+    import numpy as np
+
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
+
+    worst = 0.0
+    for name, ids, n_rows, d in segsum_cases(train, rng):
+        t0 = time.perf_counter()
+        ids_t = torch.from_numpy(np.asarray(ids, np.int32)).to("cuda")
+        vals = torch.from_numpy(rng.standard_normal(
+            (len(ids), d), dtype=np.float32)).to("cuda")
+        order = ss.sorted_order(ids_t)
+        got = torch.zeros((n_rows, d), device="cuda")
+        ss.cuda_segment_sum(got, vals, *order)
+        again = torch.zeros_like(got)
+        ss.cuda_segment_sum(again, vals, *order)
+        model = torch.zeros_like(got)
+        ss.segmented_segment_sum(model, vals, *order)
+        want = torch.zeros_like(got)
+        ss.plain_segment_sum(want, vals, *order)
+        scale = torch.zeros_like(got)
+        ss.plain_segment_sum(scale, vals.abs(), *order)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        check(torch.equal(got, again), f"compare_segsum {name}: two runs differ")
+        check(torch.equal(got, model),
+              f"compare_segsum {name}: the kernel is not its plain model")
+        check(bool(torch.all((got - want).abs()
+                             <= 1e-5 * want.abs() + 1e-5 * scale)),
+              f"compare_segsum {name}: off index_add_ by {err}")
+        emit({"phase": "compare_segsum", "case": name, "n": len(ids),
+              "d": d, "rows": n_rows,
+              "longest_segment": longest_run(order[1]),
+              "max_abs_err": err, "max_abs_sum": float(want.abs().max()),
+              "seconds": time.perf_counter() - t0, "ok": True})
+    return worst
+
+
+def bias_oracle(model, u_raw, i_raw):
+    """float64 numpy predictions of a fitted ``BaselineModel`` from its
+    biases: mu + the known sides' biases, clipped to the rating range."""
+    import numpy as np
+
+    uu = model.user_vocab.encode(np.asarray(u_raw, dtype=object))
+    ii = model.item_vocab.encode(np.asarray(i_raw, dtype=object))
+    bu = model.user_biases.astype(np.float64)
+    bi = model.item_biases.astype(np.float64)
+    pred = (float(model._params.global_mean) + np.where(uu >= 0, bu[uu], 0.0)
+            + np.where(ii >= 0, bi[ii], 0.0))
+    return np.clip(pred, model.min_rating, model.max_rating)
+
+
+def bias_als_oracle(model, train, kw):
+    """float64 numpy of the closed-form bias ALS that ``BaselineModel.fit``
+    ran, from the raw ``train`` (u, i, r) encoded through the model's
+    vocabularies: from zero biases, ``n_epochs`` sweeps of the user half
+    (``np.bincount`` by user), then the item half with the fresh user
+    biases; an id without ratings keeps its bias. Returns (user, item)
+    biases."""
+    import numpy as np
+
+    u, i, r = train
+    uu = model.user_vocab.encode(np.asarray(u, dtype=object))
+    ii = model.item_vocab.encode(np.asarray(i, dtype=object))
+    rr = np.asarray(r, np.float64)
+    mu, reg = rr.mean(), kw["reg"]
+    nu, ni = model.n_users, model.n_items
+    cu = np.bincount(uu, minlength=nu).astype(np.float64)
+    ci = np.bincount(ii, minlength=ni).astype(np.float64)
+    bu, bi = np.zeros(nu), np.zeros(ni)
+    for _ in range(kw["n_epochs"]):
+        bu = np.where(cu > 0, np.bincount(uu, rr - mu - bi[ii], nu)
+                      / (reg + cu), bu)
+        bi = np.where(ci > 0, np.bincount(ii, rr - mu - bu[uu], ni)
+                      / (reg + ci), bi)
+    return bu, bi
+
+
+def bias_sgd_oracle(torch, model, X, y, kw, seed):
+    """float64 numpy of the bias SGD that ``BaselineModel.fit`` ran: the
+    same pack, the same per-epoch permutations (redrawn from the fit's
+    seeded generator on the card), every entry reading the pre-step biases
+    and each side's deltas summed by id. Returns (user, item) biases."""
+    import numpy as np
+
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    u = model.user_vocab.encode(X["user_id"].to_numpy())
+    i = model.item_vocab.encode(X["item_id"].to_numpy())
+    data = sgd.pack_ratings(u, i, np.asarray(y, np.float32), kw["batch_size"],
+                            device="cpu")
+    uf, if_ = (t.reshape(-1).long().numpy() for t in (data.user_ids,
+                                                       data.item_ids))
+    rf, wf = (t.reshape(-1).double().numpy() for t in (data.ratings,
+                                                        data.weights))
+    n_pad = len(uf)
+    nb = max(1, n_pad // kw["batch_size"])
+    mu = float(model._params.global_mean)
+    lr, reg = kw["lr"], kw["reg"]
+    bu = np.zeros(model.n_users)
+    bi = np.zeros(model.n_items)
+    gen = sgd.seeded_generator(model._device, seed, 0)
+    for _ in range(kw["n_epochs"]):
+        perm = torch.randperm(n_pad, generator=gen,
+                              device=gen.device).cpu().numpy()
+        for uu, ii, rr, ww in zip(*(a[perm].reshape(nb, -1)
+                                    for a in (uf, if_, rf, wf))):
+            pu, pi = bu[uu], bi[ii]
+            err = (rr - (mu + pu + pi)) * ww
+            bu += np.bincount(uu, lr * (err - reg * ww * pu), len(bu))
+            bi += np.bincount(ii, lr * (err - reg * ww * pi), len(bi))
+    return bu, bi
+
+
+def update_cohort(rng, u, n_items, per_user=100):
+    """1,000 users, half of them known, ``per_user`` unique seeded items
+    each: the ``update_users`` frame and its ratings."""
+    import numpy as np
+    import pandas as pd
+
+    known = rng.choice(np.unique(u), 500, replace=False)
+    new = np.arange(500) + 10_000_000
+    uu = np.repeat(np.concatenate([known, new]), per_user)
+    ii = rng.integers(0, n_items, len(uu))
+    pairs = np.unique(uu.astype(np.int64) * n_items + ii)
+    X = pd.DataFrame({"user_id": pairs // n_items, "item_id": pairs % n_items})
+    return X, pd.Series(np.round(rng.uniform(0.5, 5, len(X)) * 2) / 2)
+
+
+def phase_baseline(torch, rng, train, held, tmpdir, seed):
+    """``BaselineModel`` at config 2, by ALS and by SGD, through ``fit``
+    (ALS: its train RMSE below the global mean's and not rising, the
+    biases against ``bias_als_oracle``, atol 1e-5; SGD: the biases
+    against ``bias_sgd_oracle``, atol 1e-5: on ratings without
+    signal, as ``run_configs._gen`` makes them, SGD at lr 0.02 settles at
+    its noise floor in the first epoch, so its RMSE need not fall further)
+    and ``update_users`` (1,000 users, half known; item biases bitwise
+    unchanged), ``predict`` (the held-out pairs against float64 numpy of
+    the fitted biases, atol 1e-5), ``recommend`` and ``recommend_batch``
+    (256 users), the segment-sum count zeroed just before and read just
+    after; then the fit repeated (bitwise equal biases) and a checkpoint
+    round trip."""
+    import numpy as np
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch import BaselineModel, load_model, save_model
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
+
+    u, i, r = train
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    y = pd.Series(r)
+    Xh = pd.DataFrame({"user_id": held[0], "item_id": held[1]})
+    Xu, yu = update_cohort(rng, u, ML1M["n_items"])
+    cohort = [int(x) for x in np.unique(u)[:256]]
+    rmse_mean = float(np.sqrt(np.mean((r.astype(np.float64)
+                                       - np.mean(r.astype(np.float64))) ** 2)))
+    out = {"phase": "baseline", "n_ratings": len(r), "config": BASE,
+           "global_mean_rmse": rmse_mean, "launches": {}}
+    for method, kw in BASE.items():
+        res = {}
+        ss.reset_launches()
+        t0 = time.perf_counter()
+        model = BaselineModel(min_rating=0.5, max_rating=5.0, seed=seed,
+                              **kw).fit(X, y)
+        torch.cuda.synchronize()
+        res["fit_seconds"] = time.perf_counter() - t0
+        res["fit_launches"] = ss.launches
+        hist = model.train_rmse
+        check(len(hist) == kw["n_epochs"] and np.isfinite(hist).all(),
+              f"baseline {method} RMSE {hist}")
+        fitted = (model._params.user_biases.clone(),
+                  model._params.item_biases.clone())
+        t0 = time.perf_counter()
+        if method == "als":
+            # exact from its first sweep on: below the mean, then it stalls
+            check(hist[-1] <= hist[0] < rmse_mean,
+                  f"baseline als RMSE {hist} against {rmse_mean}")
+            bu, bi = bias_als_oracle(model, train, kw)
+        else:
+            bu, bi = bias_sgd_oracle(torch, model, X, y, kw, seed)
+        res["oracle_seconds"] = time.perf_counter() - t0
+        res["oracle_max_abs_err"] = max(
+            float(np.abs(model.user_biases - bu).max()),
+            float(np.abs(model.item_biases - bi).max()))
+        check(res["oracle_max_abs_err"] <= 1e-5,
+              f"baseline {method} off its float64 oracle by "
+              f"{res['oracle_max_abs_err']}")
+        items = fitted[1]
+        t0 = time.perf_counter()
+        model.update_users(Xu, yu)
+        torch.cuda.synchronize()
+        res["update_users_seconds"] = time.perf_counter() - t0
+        check(torch.equal(model._params.item_biases, items),
+              f"baseline {method} update_users moved the item biases")
+        check(model.n_users == len(np.unique(u)) + 500,
+              f"baseline {method} update_users did not add the new users")
+        t0 = time.perf_counter()
+        preds = np.asarray(model.predict(Xh))
+        res["predict_seconds"] = time.perf_counter() - t0
+        want = bias_oracle(model, held[0], held[1])
+        res["predict_max_abs_err"] = float(np.abs(preds - want).max())
+        check(res["predict_max_abs_err"] <= 1e-5,
+              f"baseline {method} predict off float64 by "
+              f"{res['predict_max_abs_err']}")
+        rec = model.recommend(cohort[0], amount=10)
+        batch = model.recommend_batch(cohort, amount=10)
+        check(len(rec) == 10 and len(batch) == 2560
+              and list(batch["item_id"][:10]) == list(rec["item_id"]),
+              f"baseline {method} recommend")
+        scores = bias_oracle(model, [cohort[0]] * ML1M["n_items"],
+                             model.item_vocab.raw_ids)
+        check(np.allclose(np.sort(scores)[::-1][:10], rec["rating_pred"],
+                          atol=1e-5), f"baseline {method} recommend scores")
+        res["launches"] = ss.launches
+        out["launches"][method] = ss.launches
+        check(ss.launches > 0, f"baseline {method} launched no segment sum")
+        res["train_rmse_first_last"] = [hist[0], hist[-1]]
+        again = BaselineModel(min_rating=0.5, max_rating=5.0, seed=seed,
+                              **kw).fit(X, y)
+        check(torch.equal(again._params.user_biases, fitted[0])
+              and torch.equal(again._params.item_biases, fitted[1]),
+              f"baseline {method}: two fits differ")
+        save_model(model, f"{tmpdir}/baseline_{method}")
+        back = load_model(f"{tmpdir}/baseline_{method}")
+        check(torch.equal(back._params.user_biases, model._params.user_biases)
+              and back.predict(Xh.iloc[:100]) == model.predict(Xh.iloc[:100]),
+              f"baseline {method}: the reloaded model differs")
+        out[method] = res
+        del model, again, back
+    out["rmse_gap_als_sgd"] = abs(out["als"]["train_rmse_first_last"][1]
+                                  - out["sgd"]["train_rmse_first_last"][1])
+    return out
+
+
+def cf_oracle(torch, model, train, pu, pi, k):
+    """float64 predictions of a fitted CF model for dense pairs (pu, pi),
+    both known, by the reference's neighbourhood formula
+    (``tests/test_cf.py``): the top-``k`` raters by similarity, ties to the
+    lower index. The rating matrix is built here from the raw ``train``
+    (u, i, r) through the vocabularies and must equal the model's; the
+    means over the filled matrix and the float64 similarity come from it.
+    Returns (predictions from the model's f32 similarity rows, predictions
+    from float64 similarity rows, the largest difference between the two
+    similarities). On ratings without signal many similarities lie within
+    f32 rounding of the k-th one, so the two precisions may pick different
+    neighbours: only the first prediction is held to the formula."""
+    import numpy as np
+
+    u, i, r = train
+    Rh = np.zeros((model.n_users, model.n_items))
+    Rh[model.user_vocab.encode(np.asarray(u, dtype=object)),
+       model.item_vocab.encode(np.asarray(i, dtype=object))] = r
+    R = torch.from_numpy(Rh).to("cuda")
+    check(torch.equal(model._state.ratings, R.float()),
+          f"{type(model).__name__}: the rating matrix is not the raw ratings")
+    if model._mode == "item":
+        R, Rh = R.T, Rh.T
+        q, c = pi, pu
+    else:
+        q, c = pu, pi
+    means = R.mean(dim=1)
+    cen = R - means[:, None]
+    normed = cen / cen.norm(dim=1, keepdim=True).clamp(min=1e-12)
+    qt = torch.from_numpy(q).to(R.device)
+    S64 = (normed[qt] @ normed.T).cpu().numpy()
+    S32 = model._state.sim[qt].double().cpu().numpy()
+    m = means.cpu().numpy()
+
+    def predict(S):
+        out = np.empty(len(q))
+        for j, (a, b) in enumerate(zip(q, c)):
+            rated = Rh[:, b] > 0
+            rated[a] = False
+            s, r, mm = S[j][rated], Rh[rated, b], m[rated]
+            top = np.argsort(-s, kind="stable")[:k]
+            s, r, mm = s[top], r[top], mm[top]
+            den = np.abs(s).sum()
+            out[j] = m[a] if not len(s) or den == 0 else (
+                m[a] + (s * (r - mm)).sum() / den)
+        return out
+
+    return predict(S32), predict(S64), float(np.abs(S64 - S32).max())
+
+
+def phase_cf(torch, rng, train):
+    """``UserUserCF`` and ``ItemItemCF`` (50 neighbours) on the config-2
+    ratings: ``fit`` seconds, a second fit bitwise equal, ``predict`` of
+    100,000 seeded pairs (seconds), 2,000 of them against the float64
+    oracle of ``cf_oracle`` (the rating matrix equal to the raw ratings,
+    the similarity within 1e-4 of float64, the predictions atol 6e-3,
+    ``tests/test_cf.py``'s bar), ``recommend`` for one user."""
+    import numpy as np
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch import ItemItemCF, UserUserCF
+
+    u, i, r = train
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    y = pd.Series(r)
+    # dense ids of users and items that have ratings (``_gen`` keeps the
+    # first 1M of the sorted unique pairs: the highest user ids have none)
+    pu = rng.integers(0, len(np.unique(u)), CF_PREDICT)
+    pi = rng.integers(0, len(np.unique(i)), CF_PREDICT)
+    out = {"phase": "cf", "n_neighbors": CF_NEIGHBOURS, "pairs": CF_PREDICT}
+    for cls in (UserUserCF, ItemItemCF):
+        res = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = cls(n_neighbors=CF_NEIGHBOURS, min_rating=0.5,
+                    max_rating=5.0).fit(X, y)
+        torch.cuda.synchronize()
+        res["fit_seconds"] = time.perf_counter() - t0
+        raw_u = np.asarray(model.user_vocab.raw_ids)[pu]
+        raw_i = np.asarray(model.item_vocab.raw_ids)[pi]
+        pairs = pd.DataFrame({"user_id": raw_u, "item_id": raw_i})
+        t0 = time.perf_counter()
+        preds = np.asarray(model.predict(pairs, bound_ratings=False))
+        res["predict_seconds"] = time.perf_counter() - t0
+        res["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        check(np.isfinite(preds).all(), f"{cls.__name__} predict")
+        want, want64, sim_err = cf_oracle(torch, model, train, pu[:CF_ORACLE],
+                                          pi[:CF_ORACLE], CF_NEIGHBOURS)
+        err = np.abs(preds[:CF_ORACLE] - want)
+        err64 = np.abs(preds[:CF_ORACLE] - want64)
+        res.update({"oracle_max_abs_err": float(err.max()),
+                    "oracle_median_abs_err": float(np.median(err)),
+                    "sim_max_abs_err": sim_err,
+                    "f64_sim_max_abs_err": float(err64.max()),
+                    "f64_sim_pairs_over_6e-3": int((err64 > 6e-3).sum())})
+        check(sim_err <= 1e-4, f"{cls.__name__} similarity off float64 by "
+                               f"{sim_err}")
+        check(err.max() <= 6e-3, f"{cls.__name__} off the float64 oracle by "
+                                 f"{err.max()}")
+        rec = model.recommend(int(u[0]), amount=10)
+        check(len(rec) == 10 and np.isfinite(rec["rating_pred"]).all(),
+              f"{cls.__name__} recommend")
+        state = model._state
+        again = cls(n_neighbors=CF_NEIGHBOURS, min_rating=0.5,
+                    max_rating=5.0).fit(X, y)
+        check(torch.equal(again._state.sim, state.sim)
+              and torch.equal(again._state.means, state.means),
+              f"{cls.__name__}: two fits differ")
+        res["sim_shape"] = list(state.sim.shape)
+        out[cls.__name__] = res
+        del model, again, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_content(torch, rng, train, held, seed):
+    """``ContentBasedRecommender`` on the config-2 ratings, without
+    features (user means) and with 18 seeded binary genre columns: the
+    profiles against float64 numpy (atol 1e-5), both ``predict_mode``s on
+    the held-out pairs against float64 numpy of the fitted profiles (atol
+    1e-5); the segment-sum count zeroed just before the fits and read
+    just after."""
+    import numpy as np
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch import ContentBasedRecommender
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
+
+    u, i, r = train
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    y = pd.Series(r)
+    nu, ni = ML1M["n_users"], ML1M["n_items"]
+    genres = np.random.default_rng(seed + 4).integers(
+        0, 2, (ni, N_GENRES)).astype(np.float32)
+    feats = pd.DataFrame(genres, columns=[f"g{j}" for j in range(N_GENRES)])
+    feats.insert(0, "item_id", np.arange(ni))
+    out = {"phase": "content", "genres": N_GENRES}
+    ss.reset_launches()
+    t0 = time.perf_counter()
+    plain = ContentBasedRecommender(min_rating=0.5, max_rating=5.0).fit(X, y)
+    models = {mode: ContentBasedRecommender(
+        min_rating=0.5, max_rating=5.0, predict_mode=mode).fit(
+            X, y, item_features=feats)
+        for mode in ("profile_mean", "similarity")}
+    torch.cuda.synchronize()
+    out["fit_seconds"] = time.perf_counter() - t0
+    out["launches"] = ss.launches
+    check(ss.launches > 0, "the content fits launched no segment sum")
+
+    m = models["profile_mean"]
+    uu = m.user_vocab.encode(np.asarray(u, dtype=object))
+    ii = m.item_vocab.encode(np.asarray(i, dtype=object))
+    rr = r.astype(np.float64)
+    n_u = np.bincount(uu, minlength=m.n_users)
+    mean = np.bincount(uu, weights=rr, minlength=m.n_users) / np.maximum(n_u, 1)
+    F = np.zeros((m.n_items, N_GENRES))
+    enc = m.item_vocab.encode(np.arange(ni).astype(object))
+    F[enc[enc >= 0]] = genres[enc >= 0]
+    w = rr - 0.5
+    num = np.stack([np.bincount(uu, weights=w * F[ii, g], minlength=m.n_users)
+                    for g in range(N_GENRES)], axis=1)
+    den = np.bincount(uu, weights=w, minlength=m.n_users)
+    prof = np.where(den[:, None] > 0, num / np.maximum(den[:, None], 1e-12), 0)
+    errs = {"user_mean": float(np.abs(plain._profiles.cpu().numpy()
+                                      - mean).max()),
+            "profiles": float(np.abs(m._profiles.cpu().numpy() - prof).max())}
+    hu = m.user_vocab.encode(np.asarray(held[0], dtype=object))
+    hi = m.item_vocab.encode(np.asarray(held[1], dtype=object))
+    ok = (hu >= 0) & (hi >= 0)
+    gm = float(np.mean(r))
+    p = prof[np.maximum(hu, 0)]
+    want = {"profile_mean": p.mean(axis=1)}
+    f = F[np.maximum(hi, 0)]
+    cos = (p * f).sum(1) / np.maximum(np.linalg.norm(p, axis=1)
+                                      * np.linalg.norm(f, axis=1), 1e-12)
+    want["similarity"] = 0.5 + cos * 4.5
+    Xh = pd.DataFrame({"user_id": held[0], "item_id": held[1]})
+    for mode, model in models.items():
+        got = np.asarray(model.predict(Xh, bound_ratings=False))
+        errs[mode] = float(np.abs(got - np.where(ok, want[mode], gm)).max())
+    out["max_abs_err"] = errs
+    check(max(errs.values()) <= 1e-5, f"content off float64 numpy: {errs}")
+    check(len(m.recommend(int(u[0]), amount=10)) == 10, "content recommend")
+    del plain, models, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def sweep_inputs(seed):
+    """Config 1's ratings and what its sweep trains on: the 90,000
+    training and 10,000 held-out ratings as frames, the ``KernelMF``
+    keywords, the encoded training (u, i, r), the pack (on the card, as
+    ``grid_search_kernel_mf`` packs it), the id counts and the model's
+    config."""
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch import KernelMF
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    c = ML100K
+    u, i, r = gen_ratings(c["n_users"], c["n_items"], c["n_ratings"], seed + 3)
+    n = c["n_ratings"] - c["held_out"]
+    kw = dict(n_factors=c["n_factors"], batch_size=c["batch_size"],
+              kernel="linear", min_rating=0.5, max_rating=5.0)
+    model = KernelMF(seed=seed, **kw)
+    X = pd.DataFrame({"user_id": u[:n], "item_id": i[:n]})
+    y = pd.Series(r[:n])
+    uu, ii, rr = model._preprocess_fit(X, y)
+    return {"X": X, "y": y,
+            "Xv": pd.DataFrame({"user_id": u[n:], "item_id": i[n:]}),
+            "yv": pd.Series(r[n:]), "kw": kw, "raw_u0": int(u[0]),
+            "rr": rr, "data": sgd.pack_ratings(uu, ii, rr, c["batch_size"],
+                                               order=model.epoch_order),
+            "n_users": model.n_users, "n_items": model.n_items,
+            "cfg": model._cfg()}
+
+
+def phase_sweep(torch, sw, seed):
+    """``grid_search_kernel_mf`` at config 1 (linear, k=100, bs 4,096, 20
+    epochs, the default 3 x 3 grid) on 90,000 ratings with 10,000 held
+    out (``sweep_inputs``): seconds and aggregate updates/s, the step and
+    apply counts zeroed just before and read just after (9 x batches x 20
+    each), ``recommend`` on the winner (scorer count > 0). Then the sweep
+    again through ``sweep.grid_train`` (its best candidate bitwise the
+    winner's tables), its best and worst candidates against ``sgd_train``
+    run alone from the same tables and batch orders (atol 1e-5), and the
+    best candidate's first epoch through the kernels against the plain
+    step from the same tables and order (atol 1e-5)."""
+    import numpy as np
+
+    from matrix_factorization_tpu_torch import grid_search_kernel_mf
+    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, sweep
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    c = ML100K
+    n = len(sw["X"])
+    out = {"phase": "sweep", "n_train": n, "held_out": c["held_out"],
+           "epochs": c["epochs"], **sw["kw"]}
+    cuda_sgd.reset_launches()
+    cuda_scores.reset_launches()
+    t0 = time.perf_counter()
+    model, results = grid_search_kernel_mf(sw["X"], sw["y"], sw["Xv"],
+                                           sw["yv"], n_epochs=c["epochs"],
+                                           seed=seed, **sw["kw"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rec = model.recommend(sw["raw_u0"], amount=10)
+    launches = {"sgd_step": cuda_sgd.step_launches,
+                "segment_apply": cuda_sgd.apply_launches,
+                "score_catalog": cuda_scores.launches}
+    nb = -(-n // c["batch_size"])
+    k = len(results)
+    out.update({"seconds": secs, "candidates": k,
+                "updates_per_s": k * c["epochs"] * n / secs,
+                "launches": launches, "batches": nb,
+                "best": results[0], "worst": results[-1]})
+    check(k == 9 and all(np.isfinite(d["val_rmse"]) for d in results),
+          f"sweep results {results}")
+    check(launches["sgd_step"] == launches["segment_apply"]
+          == k * nb * c["epochs"], f"sweep launches {launches}")
+    check(launches["score_catalog"] > 0 and len(rec) == 10,
+          "the winner's recommend did not launch the scorer")
+
+    # the same sweep through grid_train: the winner's tables, bitwise
+    cfg, data, rr = model._cfg(), sw["data"], sw["rr"]
+    check(cfg == dataclasses.replace(sw["cfg"], lr=model.lr, reg=model.reg)
+          and (model.n_users, model.n_items) == (sw["n_users"], sw["n_items"]),
+          "the sweep's model is not configured as its inputs")
+    lrs = [d["lr"] for d in results]
+    regs = [d["reg"] for d in results]
+    t0 = time.perf_counter()
+    params_k, _ = sweep.grid_train(data, model.n_users, model.n_items, cfg,
+                                   c["epochs"], lrs, regs, float(rr.mean()),
+                                   seed=seed)
+    torch.cuda.synchronize()
+    out["grid_train_seconds"] = time.perf_counter() - t0
+    check(torch.equal(params_k.user_features[0], model._params.user_features)
+          and torch.equal(params_k.item_features[0],
+                          model._params.item_features),
+          "two sweeps differ: the winner's tables are not bitwise equal")
+    init = sgd.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                           model.n_users, model.n_items, cfg, float(rr.mean()))
+    gen = sgd.seeded_generator("cpu", seed, 1)
+    orders = [torch.randperm(nb, generator=gen) for _ in range(c["epochs"])]
+    errs = {}
+    for name, j in (("best", 0), ("worst", k - 1)):
+        alone, _ = sgd.sgd_train(init, data, None, cfg, c["epochs"], lrs[j],
+                                 batch_orders=orders, reg=regs[j])
+        errs[name] = max(float((alone.user_features
+                                - params_k.user_features[j]).abs().max()),
+                         float((alone.item_features
+                                - params_k.item_features[j]).abs().max()))
+    out["alone_max_abs_err"] = errs
+    check(max(errs.values()) <= 1e-5, f"sweep candidates off sgd_train: {errs}")
+
+    # the best candidate's first epoch: the kernels against the plain step
+    pk = clone_params(init)
+    sgd.epoch(pk, data, cfg, lrs[0], order=orders[0], reg=regs[0])
+    pp = clone_params(init)
+    plain_epoch(pp, data, dataclasses.replace(cfg, lr=lrs[0], reg=regs[0]),
+                orders[0])
+    torch.cuda.synchronize()
+    err = max(float((pk.user_features - pp.user_features).abs().max()),
+              float((pk.item_features - pp.item_features).abs().max()))
+    out["epoch_vs_plain_max_abs_err"] = err
+    check(torch.allclose(pk.user_features, pp.user_features, atol=1e-5,
+                         rtol=1e-5)
+          and torch.allclose(pk.item_features, pp.item_features, atol=1e-5,
+                             rtol=1e-5),
+          f"a sweep epoch through the kernels differs from the plain epoch "
+          f"by {err}")
+    return out
+
+
+def segsum_bound(ids_sorted, n, d):
+    """(bound_ms, bound_by): ids and perm read once (8 B an entry), vals
+    once (4 d B an entry), each touched row of out read and written once;
+    one f32 add an entry and column at 67 TFLOP/s."""
+    rows = int(ids_sorted.unique_consecutive().numel())
+    nbytes = n * (8 + 4 * d) + 2 * rows * 4 * d
+    tb, to = nbytes / HBM_BYTES_PER_S, n * d / PEAK_FLOPS["float32"]
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def phase_segsum_kernel_times(torch, rng, train, timer):
+    """Kernel, plain (``index_add_`` of the permuted rows) and library (one
+    ``index_add_`` of the unsorted stream, a float-atomic scatter the port
+    never calls) times of the segment sum at the slice's shapes, by CUDA
+    events around the call with the L2 flushed (``Timer.ms``, as every
+    other kernel row), and their bounds."""
+    import numpy as np
+
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
+
+    rows = []
+    for name, ids, n_rows, d in segsum_cases(train, rng):
+        ids_t = torch.from_numpy(np.asarray(ids, np.int32)).to("cuda")
+        ids_l = ids_t.long()
+        vals = torch.from_numpy(rng.standard_normal(
+            (len(ids), d), dtype=np.float32)).to("cuda")
+        order = ss.sorted_order(ids_t)
+        out = torch.zeros((n_rows, d), device="cuda")
+        b_ms, b_by = segsum_bound(order[1], len(ids), d)
+        calls = {"": lambda: ss.cuda_segment_sum(out, vals, *order),
+                 "plain_": lambda: ss.plain_segment_sum(out, vals, *order),
+                 "library_": lambda: out.index_add_(0, ids_l, vals)}
+        row = {"shape": name, "n": len(ids), "d": d, "rows": n_rows,
+               "bound_ms": b_ms, "bound_by": b_by}
+        for key, fn in calls.items():
+            row[f"{key}ms"] = timer.ms(fn)
+        rows.append(row)
+        emit({"phase": "segsum_kernel_time", **row})
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1450,9 +2129,9 @@ def main() -> int:
           "ptxas": ptxas})
     spilled = [k for k in ptxas if k[2] and any(
         n in k[0] for n in ("score_stream", "score_tile", "gj_inverse",
-                            "sgd_step_kernel", "step_finish"))]
-    check(not spilled, f"the scorer, the GJ leaf or the SGD step spills: "
-                       f"{spilled}")
+                            "sgd_step_kernel", "step_finish", "segsum"))]
+    check(not spilled, f"the scorer, the GJ leaf, the SGD step or the segment "
+                       f"sum spills: {spilled}")
 
     # -- serving (slice 1) -------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -1526,6 +2205,13 @@ def main() -> int:
                                          update_item_params=False),
          packs["headline"], 1, HEAD["n_users"], HEAD["n_items"]),
     ]
+    # the sweep's own pack and launch plan (config 1: linear, k=100, bs
+    # 4,096), at the grid's largest lr and reg; the last batch holds pads
+    sweep_in = sweep_inputs(args.seed)
+    sweep_cfg = dataclasses.replace(sweep_in["cfg"], lr=0.05, reg=0.5)
+    cases += [(f"config1_sweep_linear_batch{k}", sweep_cfg, sweep_in["data"],
+               k, sweep_in["n_users"], sweep_in["n_items"])
+              for k in (0, sweep_in["data"].n_batches - 1)]
     check(packs["headline"].primary == "item", "the headline pack is item-primary")
     sgd_worst = phase_compare_sgd(torch, rng, cases)
 
@@ -1592,12 +2278,38 @@ def main() -> int:
     spd_launches = {"train_als": train_als["launches"],
                     "warm_start": warm["launches"]["spd_gj"],
                     "implicit": implicit["launches"]}
+    del data3
+    torch.cuda.empty_cache()
+
+    # -- bias, neighbourhood and content models, the sweep -----------------
+    t0 = time.perf_counter()
+    train1m, held1m = ml1m_ratings(args.seed)
+    emit({"phase": "ml1m_data", "seconds": time.perf_counter() - t0, **ML1M})
+    segsum_worst = phase_compare_segsum(torch, rng, train1m)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        baseline = phase_baseline(torch, rng, train1m, held1m, tmpdir,
+                                  args.seed)
+    emit(baseline)
+    emit(phase_cf(torch, rng, train1m))
+    content = phase_content(torch, rng, train1m, held1m, args.seed)
+    emit(content)
+    sweep_out = phase_sweep(torch, sweep_in, args.seed)
+    emit(sweep_out)
+    segsum_rows = phase_segsum_kernel_times(torch, rng, train1m, timer)
+    segsum_launches = {"baseline_als": baseline["launches"]["als"],
+                       "baseline_sgd": baseline["launches"]["sgd"],
+                       "content": content["launches"]}
+    check(all(v > 0 for v in segsum_launches.values()),
+          f"a path of the slice missed the segment sum: {segsum_launches}")
 
     kernels = [{
         "name": "score_catalog", "route": "cuda",
         "source": "matrix_factorization_tpu_torch/csrc/score_catalog.cu",
         "replaces": "matrix_factorization_tpu/ops/pallas_scores.py:34",
-        "launches": main_path_launches, "max_abs_err": worst,
+        "launches": main_path_launches + sweep_out["launches"]["score_catalog"],
+        "launches_by_path": {"serve": main_path_launches,
+                             "sweep": sweep_out["launches"]["score_catalog"]},
+        "max_abs_err": worst,
         "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
@@ -1615,7 +2327,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "matrix_factorization_tpu_torch/csrc/sgd_step.cu",
             "replaces": replaces, "note": note,
-            "launches": train_launches[name],
+            "launches": train_launches[name] + sweep_out["launches"][name],
+            "launches_by_path": {"train": train_launches[name],
+                                 "sweep": sweep_out["launches"][name]},
             "max_abs_err": sgd_worst[name], "ms": row["ms"],
             "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1635,6 +2349,20 @@ def main() -> int:
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
         "shape": {"E": row["E"], "d": row["d"]}, "shapes": spd_rows})
+    row = next(r for r in segsum_rows if r["shape"] == "ml1m_by_user")
+    kernels.append({
+        "name": "segment_sum", "route": "cuda",
+        "source": "matrix_factorization_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "matrix_factorization_tpu/ops/als.py:75",
+        "note": "jax.ops.segment_sum and .at[].add of the bias, count and "
+                "profile sums (XLA scatters, not a Pallas kernel); the port "
+                "needs them deterministic",
+        "launches": sum(segsum_launches.values()),
+        "launches_by_path": segsum_launches, "max_abs_err": segsum_worst,
+        "ms": row["ms"], "kernel_ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "shape": {k: row[k] for k in ("n", "d", "rows")}, "shapes": segsum_rows})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,11 +2,13 @@
 
 Counterpart of ``save_model`` / ``load_model`` in
 ``matrix_factorization_tpu/core/checkpoint.py``, for ``KernelMF`` (SGD or
-ALS) and ``ImplicitALS``, whose tables are both ``MFParams``. A checkpoint
-is a directory:
+ALS) and ``ImplicitALS``, whose tables are both ``MFParams``, and
+``BaselineModel``, whose state is ``BiasParams``. A checkpoint is a
+directory:
 
-* ``arrays.npz`` — the tables: ``user_features``, ``item_features`` and
-  ``global_mean`` (``MFParams`` fields, host numpy)
+* ``arrays.npz`` — the params' fields as host numpy: ``user_features``,
+  ``item_features`` and ``global_mean`` (``MFParams``), or
+  ``user_biases``, ``item_biases`` and ``global_mean`` (``BiasParams``)
 * ``meta.pkl``   — ``format_version``, ``model_class``, ``params_class``,
   the constructor ``config``, the raw user and item ids, ``train_rmse``,
   ``train_loss``, ``global_mean`` and ``epochs_done``
@@ -77,15 +79,30 @@ def save_model(model, path) -> None:
 
 
 def _model_classes() -> dict:
+    """Model class name -> (class, the name of its params class)."""
+    from matrix_factorization_tpu_torch.models.baseline import BaselineModel
     from matrix_factorization_tpu_torch.models.implicit import ImplicitALS
     from matrix_factorization_tpu_torch.models.kernel_mf import KernelMF
 
-    return {"KernelMF": KernelMF, "ImplicitALS": ImplicitALS}
+    return {"KernelMF": (KernelMF, "MFParams"),
+            "ImplicitALS": (ImplicitALS, "MFParams"),
+            "BaselineModel": (BaselineModel, "BiasParams")}
+
+
+def _bias_params(npz, device):
+    import torch
+
+    from matrix_factorization_tpu_torch.ops.als import BiasParams
+
+    return BiasParams(*(
+        torch.from_numpy(np.array(npz[name], dtype=np.float32)).to(device)
+        for name in BiasParams._fields))
 
 
 def load_model(path, device=None):
-    """Restore a ``KernelMF`` or an ``ImplicitALS`` from a checkpoint
-    directory onto ``device`` (``None`` = CUDA, see ``core.device``)."""
+    """Restore a ``KernelMF``, an ``ImplicitALS`` or a ``BaselineModel``
+    from a checkpoint directory onto ``device`` (``None`` = CUDA, see
+    ``core.device``)."""
     from matrix_factorization_tpu_torch.core.ids import IdVocab
     from matrix_factorization_tpu_torch.ops.segment_sgd import params_from_numpy
 
@@ -93,12 +110,13 @@ def load_model(path, device=None):
     with (path / "meta.pkl").open("rb") as f:
         meta = pickle.load(f)
     classes = _model_classes()
-    if meta["model_class"] not in classes or meta["params_class"] != "MFParams":
+    if classes.get(meta["model_class"], (None, None))[1] != meta["params_class"]:
         raise ValueError(
-            f"the PyTorch port loads {' and '.join(sorted(classes))} "
+            f"the PyTorch port loads {', '.join(sorted(classes))} "
             f"checkpoints only, not {meta['model_class']!r} "
             f"({meta['params_class']!r})")
-    model = classes[meta["model_class"]](**meta["config"], device=device)
+    cls, params_class = classes[meta["model_class"]]
+    model = cls(**meta["config"], device=device)
     model.user_vocab = IdVocab(meta["user_raw_ids"])
     model.item_vocab = IdVocab(meta["item_raw_ids"])
     model.train_rmse = meta["train_rmse"]
@@ -106,9 +124,12 @@ def load_model(path, device=None):
     model.global_mean = meta["global_mean"]
     model._epochs_done = meta["epochs_done"]
     with np.load(path / "arrays.npz") as npz:
-        model._params = params_from_numpy(
-            npz["user_features"], npz["item_features"], npz["global_mean"],
-            device=model._device, cfg=model._cfg())
+        if params_class == "BiasParams":
+            model._params = _bias_params(npz, model._device)
+        else:
+            model._params = params_from_numpy(
+                npz["user_features"], npz["item_features"],
+                npz["global_mean"], device=model._device, cfg=model._cfg())
     return model
 
 

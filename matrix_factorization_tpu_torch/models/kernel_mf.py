@@ -46,14 +46,6 @@ def _als_needs_buckets(u, i, n_users: int, n_items: int,
     return n_users * lu > budget_rows or n_items * li > budget_rows
 
 
-def _generator(device, *entropy) -> torch.Generator:
-    """A generator on ``device`` seeded from integers, as ``fold_in`` keys
-    the JAX package's streams (numpy's ``SeedSequence`` mixes them)."""
-    seed = int(np.random.SeedSequence(list(entropy)).generate_state(
-        1, np.uint64)[0] & (2**63 - 1))
-    return torch.Generator(device=device).manual_seed(seed)
-
-
 class KernelMF(RecommenderBase):
     def __init__(
         self,
@@ -262,7 +254,8 @@ class KernelMF(RecommenderBase):
                                     order=self.epoch_order, device=self._device)
             if self.als_warm_start and not warm_start:
                 params = self._run_als_warm_start(params, u, i, r, cfg, data)
-            shuffle = _generator("cpu", self.seed, len(self.train_rmse) + 1)
+            shuffle = sgd.seeded_generator("cpu", self.seed,
+                                           len(self.train_rmse) + 1)
             params, rmse_hist = sgd.sgd_train(params, data, shuffle, cfg,
                                               n_epochs, self.lr)
         self._params = params
@@ -324,14 +317,14 @@ class KernelMF(RecommenderBase):
         self._require_fitted()
         u, i, r, known_users, _new_users = self._preprocess_update(X, y)
         self._ensure_user_capacity(
-            self.n_users, _generator(self._device, self.seed + 1, 0))
+            self.n_users, sgd.seeded_generator(self._device, self.seed + 1, 0))
 
         if known_users:
             idx = torch.from_numpy(self.user_vocab.encode(
                 np.asarray(known_users, dtype=object)).astype(np.int64))
             fresh = sgd.fresh_user_rows(
-                _generator(self._device, self.seed + 1, 1), len(known_users),
-                self._cfg(), self.init_mean, self.init_sd)
+                sgd.seeded_generator(self._device, self.seed + 1, 1),
+                len(known_users), self._cfg(), self.init_mean, self.init_sd)
             uf = self._params.user_features.clone()
             uf[idx.to(self._device)] = fresh
             self._params = self._params._replace(user_features=uf)
@@ -344,8 +337,8 @@ class KernelMF(RecommenderBase):
         else:
             data = sgd.pack_ratings(u, i, r, pack_bs, device=self._device)
             params, rmse_hist = sgd.sgd_train(
-                self._params, data, _generator("cpu", self.seed + 1, 2), cfg,
-                n_epochs, lr)
+                self._params, data,
+                sgd.seeded_generator("cpu", self.seed + 1, 2), cfg, n_epochs, lr)
         self._params = params
         self.train_rmse = rmse_hist.cpu().tolist()
         if verbose:

@@ -476,7 +476,8 @@ def sgd_minibatch_step(params: MFParams, u: torch.Tensor, i: torch.Tensor,
 
 
 def minibatch_update(params: MFParams, b: dict, cfg: SGDConfig, lr: float,
-                     primary: str, masks: Optional[dict] = None) -> MFParams:
+                     primary: str, masks: Optional[dict] = None,
+                     reg: Optional[float] = None) -> MFParams:
     """One synchronous mini-batch update, IN PLACE on ``params``' tables
     (which it returns): the counterpart of the JAX ``_minibatch_update``.
 
@@ -490,7 +491,7 @@ def minibatch_update(params: MFParams, b: dict, cfg: SGDConfig, lr: float,
     side (``cfg.update_item_params`` / ``update_user_params`` false) is
     neither written nor, for the secondary side, given deltas. ``masks``
     may carry the ``user`` and ``item`` update masks on the tables'
-    device."""
+    device; ``reg``, when given, replaces ``cfg.reg``."""
     from matrix_factorization_tpu_torch.ops import cuda_sgd
 
     prim_is_user = primary == "user"
@@ -513,7 +514,8 @@ def minibatch_update(params: MFParams, b: dict, cfg: SGDConfig, lr: float,
         masks = {s: mask_tensor(cfg, s, dev) for s in ("user", "item")}
     dq = cuda_sgd.sgd_step(
         cfg, params.global_mean, tables[prim_side], tables[sec_side],
-        prim_ids, sec_ids, r, w, masks[prim_side], masks[sec_side], lr, cfg.reg,
+        prim_ids, sec_ids, r, w, masks[prim_side], masks[sec_side], lr,
+        cfg.reg if reg is None else reg,
         update_prim=upd[prim_side], write_dq=upd[sec_side])
     if upd[sec_side]:
         cuda_sgd.segment_apply(tables[sec_side], dq, sp, ss)
@@ -535,6 +537,14 @@ def batch_at(data: RatingBatches, k: int) -> dict:
     return b
 
 
+def seeded_generator(device, *entropy) -> torch.Generator:
+    """A generator on ``device`` seeded from integers, as ``fold_in`` keys
+    the JAX package's streams (numpy's ``SeedSequence`` mixes them)."""
+    seed = int(np.random.SeedSequence(list(entropy)).generate_state(
+        1, np.uint64)[0] & (2**63 - 1))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def _perm(n: int, generator: torch.Generator) -> torch.Tensor:
     return torch.randperm(n, generator=generator, device=generator.device)
 
@@ -549,7 +559,7 @@ def _as_index(order, device) -> torch.Tensor:
 
 def epoch(params: MFParams, data: RatingBatches, cfg: SGDConfig, lr: float,
           generator: Optional[torch.Generator] = None,
-          order=None) -> MFParams:
+          order=None, reg: Optional[float] = None) -> MFParams:
     """One epoch of ``minibatch_update`` over ``data``, in place.
 
     ``cfg.shuffle``: ``'batch'`` visits the batches in a random order,
@@ -559,13 +569,14 @@ def epoch(params: MFParams, data: RatingBatches, cfg: SGDConfig, lr: float,
     permutation (of the batches for ``'batch'``, of the nb * bs elements
     for ``'full'``); otherwise it is drawn from ``generator`` with
     ``torch.randperm``. Under ``'batch'`` a CPU generator keeps the
-    order on the host, so the epoch never waits for the device."""
+    order on the host, so the epoch never waits for the device. ``reg``,
+    when given, replaces ``cfg.reg``."""
     nb, bs = data.n_batches, data.batch_size
     dev = data.user_ids.device
     masks = {s: mask_tensor(cfg, s, dev) for s in ("user", "item")}
 
     def step(b):
-        minibatch_update(params, b, cfg, lr, data.primary, masks)
+        minibatch_update(params, b, cfg, lr, data.primary, masks, reg)
 
     if cfg.shuffle == "full":
         perm = _as_index(order if order is not None
@@ -615,12 +626,15 @@ def sgd_train(
     n_epochs: int,
     lr: float,
     batch_orders: Optional[Sequence] = None,
+    reg: Optional[float] = None,
 ) -> Tuple[MFParams, torch.Tensor]:
     """Run ``n_epochs`` epochs on copies of ``params``' tables; returns
     (params, per-epoch train RMSE as one (n_epochs,) device tensor, zeros
     when ``cfg.compute_epoch_rmse`` is false). Nothing waits for the
     device between epochs. ``batch_orders``, one permutation per epoch,
-    replaces the orders drawn from ``generator`` (see ``epoch``)."""
+    replaces the orders drawn from ``generator`` (see ``epoch``).
+    ``reg``, when given, replaces ``cfg.reg`` (a sweep's candidates share
+    one config; the JAX ``sgd_train(reg=...)``)."""
     if batch_orders is not None and len(batch_orders) != n_epochs:
         raise ValueError(f"batch_orders has {len(batch_orders)} orders for "
                          f"{n_epochs} epochs")
@@ -629,7 +643,7 @@ def sgd_train(
     hist: List[torch.Tensor] = []
     for e in range(n_epochs):
         order = batch_orders[e] if batch_orders is not None else None
-        epoch(params, data, cfg, lr, generator, order)
+        epoch(params, data, cfg, lr, generator, order, reg)
         if cfg.compute_epoch_rmse:
             hist.append(torch.sqrt(masked_sse(params, data, cfg)
                                    / max(data.n_real, 1)))

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions: the
-catalog scorer, the SGD step, the secondary-side apply and the
-Gauss-Jordan SPD leaf.
+catalog scorer, the SGD step, the secondary-side apply, the Gauss-Jordan
+SPD leaf and the segment sum; and the models of the slice that the
+segment sum carries (bias, neighbourhood and content models, the sweep)
+on the card against the CPU.
 
 Marked ``cuda``: each test skips without a CUDA GPU (the kernel has no
 CPU mode; the CPU tests hold the plain version against the JAX package).
@@ -18,6 +20,7 @@ from matrix_factorization_tpu_torch import ImplicitALS, KernelMF, params_from_nu
 from matrix_factorization_tpu_torch.core.config import SGDConfig
 from matrix_factorization_tpu_torch.core.ids import IdVocab
 from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, cuda_spd, ials, spd
+from matrix_factorization_tpu_torch.ops import segment_sum as ss
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
 pytestmark = pytest.mark.cuda
@@ -527,3 +530,190 @@ def test_als_on_cuda_matches_cpu_and_launches(cuda):
     before = cuda_spd.launches
     ImplicitALS(n_factors=16, n_epochs=2, device="cuda").fit(X, pd.Series(r))
     assert cuda_spd.launches == before + 4
+
+
+# ---------------------------------------------------------------------------
+# The segment sum and the models it carries
+# ---------------------------------------------------------------------------
+
+
+def _segsum_stream(case, rng):
+    """(ids, n_rows, d) at the shapes of ``chip_smoke.py``'s compare phase
+    (MovieLens-1M: 1M ratings, 6,040 users, 3,706 items; item ids skewed
+    towards the head), a batch, and a long segment beside 300,000 others
+    (three columns here)."""
+    if case == "by_user":
+        return rng.integers(0, 6040, 1_000_000), 6040, 1
+    if case == "by_item":
+        return (3706 * rng.random(1_000_000) ** 2).astype(np.int64), 3706, 1
+    if case == "profiles":
+        return rng.integers(0, 6040, 1_000_000), 6040, 18
+    if case == "batch":
+        return rng.integers(0, 6040, 4096), 6040, 1
+    if case == "long":
+        ids = np.concatenate([np.full(200_000, 3020),
+                              rng.integers(0, 6040, 300_000)])
+        return ids, 6040, 3
+    return np.array([2, 2, 0]), 4, 33  # tiny, d past one warp's columns
+
+
+@pytest.mark.parametrize("case", ["by_user", "by_item", "profiles", "batch",
+                                  "long", "tiny"])
+def test_segment_sum_kernel_matches_plain(cuda, case):
+    """Against ``index_add_`` (rtol 1e-5, atol 1e-5 x the row's absolute
+    sum), bitwise against its plain model ``segmented_segment_sum`` (the
+    same adds in the same order) and against a second run."""
+    rng = np.random.default_rng(4)
+    ids, n_rows, d = _segsum_stream(case, rng)
+    ids_t = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(
+        rng.normal(size=(len(ids), d)).astype(np.float32)).to(cuda)
+    base = torch.from_numpy(
+        rng.normal(size=(n_rows, d)).astype(np.float32)).to(cuda)
+    order = ss.sorted_order(ids_t)
+    before = ss.launches
+    got = base.clone()
+    ss.cuda_segment_sum(got, vals, *order)
+    assert ss.launches == before + 1
+    again = base.clone()
+    ss.cuda_segment_sum(again, vals, *order)
+    model = base.clone()
+    ss.segmented_segment_sum(model, vals, *order)
+    want = base.clone()
+    ss.plain_segment_sum(want, vals, *order)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, model)
+    scale = base.abs().clone()
+    ss.plain_segment_sum(scale, vals.abs(), *order)
+    assert torch.all((got - want).abs() <= 1e-5 * (want.abs() + scale))
+
+
+def test_segment_sum_refuses_what_it_does_not_take(cuda, monkeypatch):
+    out = torch.zeros(8, 2, device=cuda)
+    vals = torch.ones(5, 2, device=cuda)
+    perm, ids = ss.sorted_order(torch.tensor([1, 1, 3, 0, 7], device=cuda))
+    for bad in ((out.double(), vals, perm, ids), (out, vals, perm.long(), ids),
+                (out, vals[:, :1], perm, ids), (out, vals.T.contiguous().T,
+                                                perm, ids),
+                (out.cpu(), vals, perm, ids)):
+        with pytest.raises(ValueError):
+            ss.cuda_segment_sum(*bad)
+    ss.cuda_segment_sum(out, vals[:0], perm[:0], ids[:0])  # nothing to add
+    assert torch.equal(out, torch.zeros_like(out))
+    plan = ss.segsum_plan
+    for change in ({"chunk": ss.CHUNK // 2}, {"n_chunks": 5}, {"grid": 9},
+                   {"finish_grid": 7}):
+        monkeypatch.setattr(ss, "segsum_plan",
+                            lambda *a, **k: plan(*a, **k)._replace(**change))
+        with pytest.raises(RuntimeError):
+            ss.cuda_segment_sum(out, vals, perm, ids)
+        torch.cuda.synchronize()
+        assert torch.equal(out, torch.zeros_like(out))
+
+
+def _ml_shaped(n=8000, n_users=400, n_items=250, seed=3):
+    rng = np.random.default_rng(seed)
+    flat = rng.choice(n_users * n_items, n, replace=False)
+    X = pd.DataFrame({"user_id": flat // n_items, "item_id": flat % n_items})
+    y = pd.Series(np.round(rng.uniform(0.5, 5, n) * 2) / 2)
+    return X, y
+
+
+@pytest.mark.parametrize("method", ["als", "sgd"])
+def test_baseline_on_cuda_matches_cpu_and_repeats(cuda, method):
+    """ALS: the same sweeps on both devices (atol 1e-5); SGD: the card's
+    fit from its own generator twice, bitwise, and the CPU's trained from
+    the card's permutations (atol 1e-5). The segment sum launches."""
+    from matrix_factorization_tpu_torch import BaselineModel
+    from matrix_factorization_tpu_torch.ops import als
+
+    X, y = _ml_shaped()
+    kw = dict(method=method, n_epochs=5, reg=0.5 if method == "als" else 0.02,
+              lr=0.02, min_rating=0.5, batch_size=512)
+    before = ss.launches
+    a = BaselineModel(device="cuda", **kw).fit(X, y)
+    assert ss.launches > before
+    b = BaselineModel(device="cuda", **kw).fit(X, y)
+    assert torch.equal(a._params.user_biases, b._params.user_biases)
+    assert torch.equal(a._params.item_biases, b._params.item_biases)
+    if method == "als":
+        c = BaselineModel(device="cpu", **kw).fit(X, y)
+        np.testing.assert_allclose(a.user_biases, c.user_biases, atol=1e-5)
+        np.testing.assert_allclose(a.item_biases, c.item_biases, atol=1e-5)
+        return
+    data = {d: sgd.pack_ratings(*a._preprocess_fit(X, y), 512, device=d)
+            for d in ("cpu", "cuda")}
+    orders = [torch.randperm(data["cpu"].user_ids.numel(),
+                             generator=torch.Generator().manual_seed(e))
+              for e in range(3)]
+    out = {}
+    for d in ("cpu", "cuda"):
+        p0 = als.init_bias_params(1024, a.n_items, 3.0, device=d)
+        out[d], _ = als.bias_sgd_train(p0, data[d], None, 0.02, 0.02, 3, 512,
+                                       orders=orders)
+    for f in ("user_biases", "item_biases"):
+        np.testing.assert_allclose(getattr(out["cuda"], f).cpu().numpy(),
+                                   getattr(out["cpu"], f).numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("cls", ["UserUserCF", "ItemItemCF"])
+def test_cf_on_cuda_matches_cpu(cuda, cls):
+    """Predictions atol 1e-4 (TF32 off, the similarity product in other
+    orders), two fits bitwise equal."""
+    import matrix_factorization_tpu_torch as mf
+
+    X, y = _ml_shaped()
+    a = getattr(mf, cls)(n_neighbors=20, device="cuda").fit(X, y)
+    b = getattr(mf, cls)(n_neighbors=20, device="cuda").fit(X, y)
+    c = getattr(mf, cls)(n_neighbors=20, device="cpu").fit(X, y)
+    assert torch.equal(a._state.sim, b._state.sim)
+    pairs = X.sample(2000, random_state=0)
+    np.testing.assert_allclose(a.predict(pairs), c.predict(pairs), atol=1e-4)
+    assert a.predict(pairs) == b.predict(pairs)
+
+
+def test_content_and_sweep_on_cuda_match_cpu(cuda):
+    import matrix_factorization_tpu_torch as mf
+
+    X, y = _ml_shaped()
+    rng = np.random.default_rng(5)
+    feats = pd.DataFrame(rng.integers(0, 2, (250, 18)).astype(float),
+                         columns=[f"g{j}" for j in range(18)])
+    feats.insert(0, "item_id", np.arange(250))
+    before = ss.launches
+    got = {d: mf.ContentBasedRecommender(device=d, min_rating=0.5).fit(
+        X, y, item_features=feats) for d in ("cuda", "cpu")}
+    assert ss.launches == before + 2  # the profile and its weight
+    np.testing.assert_allclose(got["cuda"]._profiles.cpu().numpy(),
+                               got["cpu"]._profiles.numpy(), atol=1e-5)
+    cut = 6000
+    args = (X.iloc[:cut], y.iloc[:cut], X.iloc[cut:], y.iloc[cut:])
+    kw = dict(lrs=[0.005, 0.02], regs=[0.01, 0.1], n_epochs=3, n_factors=16,
+              batch_size=512)
+    before = cuda_sgd.step_launches
+    m, res = mf.grid_search_kernel_mf(*args, device="cuda", **kw)
+    assert cuda_sgd.step_launches == before + 4 * 3 * -(-cut // 512)
+    m2, res2 = mf.grid_search_kernel_mf(*args, device="cuda", **kw)
+    assert torch.equal(m._params.user_features, m2._params.user_features)
+    assert res == res2 and np.isfinite(res[0]["val_rmse"])
+    # the sweep on both devices from one start and one set of orders
+    from matrix_factorization_tpu_torch.ops import sweep
+
+    cfg = m._cfg()
+    u, i, r = m._preprocess_fit(X, y)
+    p0 = sgd.init_params(torch.Generator().manual_seed(0), m.n_users,
+                         m.n_items, cfg, float(r.mean()))
+    orders = [torch.randperm(-(-len(r) // 512),
+                             generator=torch.Generator().manual_seed(e))
+              for e in range(3)]
+    out = {}
+    for d in ("cpu", "cuda"):
+        data = sgd.pack_ratings(u, i, r, 512, device=d)
+        start = p0._replace(**{k: getattr(p0, k).to(d) for k in p0._fields})
+        out[d], _ = sweep.grid_train(data, m.n_users, m.n_items, cfg, 3,
+                                     kw["lrs"], kw["regs"][:1] * 2,
+                                     float(r.mean()), init=start,
+                                     batch_orders=orders)
+    torch.testing.assert_close(out["cuda"].user_features.cpu(),
+                               out["cpu"].user_features, atol=1e-4, rtol=1e-4)

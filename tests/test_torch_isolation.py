@@ -53,6 +53,20 @@ im.fit(X, pd.Series(rng.uniform(0, 3, 60)))
 im.update_users(X.iloc[::9][:3].assign(user_id=97), pd.Series(np.ones(3)))
 assert len(a.train_rmse) == 2 and len(im.train_loss) == 2
 assert len(im.recommend(97, amount=2)) == 2
+ry = pd.Series(rng.uniform(1, 5, 60))
+for method in ("sgd", "als"):
+    b = mf.BaselineModel(method=method, n_epochs=2, batch_size=16, device="cpu")
+    b.fit(X, ry).update_users(X.iloc[::9][:4].assign(user_id=96), ry.iloc[:4])
+    assert len(b.recommend(96, amount=3)) == 3
+for cls in (mf.UserUserCF, mf.ItemItemCF):
+    assert len(cls(n_neighbors=3, device="cpu").fit(X, ry).predict(X)) == 60
+feats = pd.DataFrame({"item_id": range(7), "g0": [1.0, 0, 1, 0, 1, 0, 1]})
+c = mf.ContentBasedRecommender(predict_mode="similarity", device="cpu")
+assert len(c.fit(X, ry, item_features=feats).predict(X)) == 60
+g, res = mf.grid_search_kernel_mf(X, ry, X, ry, lrs=[0.01], regs=[0.1, 0.2],
+                                  n_epochs=1, n_factors=4, batch_size=16,
+                                  device="cpu")
+assert len(res) == 2 and len(g.recommend(1, amount=2)) == 2
 print("\n".join(sorted(sys.modules)))
 """
 
@@ -71,6 +85,10 @@ def test_port_runs_without_jax_modules():
     assert "matrix_factorization_tpu_torch.serve.coalesce" in loaded
     assert "matrix_factorization_tpu_torch.ops.cuda_sgd" in loaded
     assert "matrix_factorization_tpu_torch.ops.cuda_spd" in loaded
+    for name in ("ops.segment_sum", "ops.als", "ops.similarity", "ops.sweep",
+                 "models.baseline", "models.collaborative",
+                 "models.content_based", "models.grid_search"):
+        assert f"matrix_factorization_tpu_torch.{name}" in loaded
     bad = sorted(m for m in loaded if _top(m) in FORBIDDEN)
     assert not bad, bad
 

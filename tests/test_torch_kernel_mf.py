@@ -33,7 +33,6 @@ from matrix_factorization_tpu_torch import (
     save_model,
     train_update_test_split,
 )
-from matrix_factorization_tpu_torch.models.kernel_mf import _generator
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
 KERNELS = ["linear", "sigmoid", "rbf"]
@@ -298,8 +297,8 @@ def test_warm_start_continues_without_reinit(split):
                             m.item_vocab.encode(X_tr.item_id.to_numpy()),
                             np.asarray(y_tr, np.float32), cfg.batch_size,
                             device="cpu")
-    want, hist = sgd.sgd_train(before, data, _generator("cpu", 1, 3), cfg, 1,
-                               m.lr)
+    want, hist = sgd.sgd_train(before, data, sgd.seeded_generator("cpu", 1, 3),
+                               cfg, 1, m.lr)
     assert torch.equal(m._params.user_features, want.user_features)
     assert torch.equal(m._params.item_features, want.item_features)
     assert m.train_rmse[2] == hist[0].item()

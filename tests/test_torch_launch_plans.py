@@ -1,9 +1,9 @@
 """The launch plans of the port's redesigned kernels, on the CPU.
 
-``ops/cuda_scores.py::score_plan``, ``ops/cuda_spd.py::gj_plan`` and
-``ops/cuda_sgd.py::step_plan`` decide in Python how
-``csrc/score_catalog.cu``, ``csrc/spd_gj.cu`` and ``csrc/sgd_step.cu``
-cover a call; the kernels refuse a plan that does not match what they
+``ops/cuda_scores.py::score_plan``, ``ops/cuda_spd.py::gj_plan``,
+``ops/cuda_sgd.py::step_plan`` and ``ops/segment_sum.py::segsum_plan``
+decide in Python how ``csrc/score_catalog.cu``, ``csrc/spd_gj.cu``,
+``csrc/sgd_step.cu`` and ``csrc/segment_sum.cu`` cover a call; the kernels refuse a plan that does not match what they
 compute.
 These tests need no GPU: every plan covers its call, fits the card's
 limits, and names a shape the CUDA sources are compiled for.
@@ -15,6 +15,7 @@ from pathlib import Path
 import pytest
 
 from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, cuda_spd
+from matrix_factorization_tpu_torch.ops import segment_sum
 
 CSRC = Path(cuda_scores.__file__).resolve().parent.parent / "csrc"
 H100_SMS = 132
@@ -155,3 +156,30 @@ def test_step_plan_at_the_main_path_shapes_and_refusals():
             cuda_sgd.step_plan(*bad)
     with pytest.raises(ValueError):  # a ring that does not fit a block
         cuda_sgd.step_plan(10, 1024, H100_SMS, stages=8)
+
+
+def test_segsum_plan_names_what_the_source_is_compiled_for():
+    src = (CSRC / "segment_sum.cu").read_text()
+    assert f"constexpr int kChunk = {segment_sum.CHUNK};" in src
+    assert f"constexpr int kWarps = {segment_sum.WARPS};" in src
+    assert segment_sum.CHUNK % 32 == 0  # whole groups of 32 entries a warp
+
+
+@pytest.mark.parametrize("d", [1, 18, 33])
+@pytest.mark.parametrize("mult", [1, 2, 8, 9, 3907])
+def test_segsum_plan_covers_every_n(d, mult):
+    """Every n around a multiple of the chunk: the chunks cover the
+    stream, a warp a chunk, a finishing warp for every chunk but the last
+    and two scratch slots a chunk."""
+    C, W = segment_sum.CHUNK, segment_sum.WARPS
+    for n in range(max(1, mult * C - C - 1), mult * C + C + 2, 7):
+        p = segment_sum.segsum_plan(n, d)
+        assert p.chunk == C and (p.n_chunks - 1) * C < n <= p.n_chunks * C
+        assert (p.grid - 1) * W < p.n_chunks <= p.grid * W
+        assert (p.finish_grid - 1) * W < p.n_chunks - 1 <= p.finish_grid * W \
+            or p.n_chunks == 1 and p.finish_grid == 0
+        assert p.grid <= 2**31 - 1
+        assert p.scratch_shape == (2 * p.n_chunks, d)
+    for bad in ((0, 1), (-3, 1), (10, 0)):
+        with pytest.raises(ValueError):
+            segment_sum.segsum_plan(*bad)
