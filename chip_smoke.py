@@ -40,8 +40,9 @@ failed check ends the run with a non-zero exit:
    and library (cuBLAS GEMM + torch epilogue: f32 for f32 tables, bf16
    with f32 output for bf16 tables, and the f32 GEMM on the widened bf16
    values as ``library_f32_ms``) times with CUDA events (median, L2
-   flushed before each launch) and the bound of each shape, at B = 1, 16,
-   64 and 256, every kernel and table type.
+   flushed before each launch, then a device spin so that the window
+   holds device time only: ``Timer``) and the bound of each shape, at
+   B = 1, 16, 64 and 256, every kernel and table type.
 6. data / pack: config-3 ratings (25M unique pairs of 162,000 x 59,392,
    half stars, as ``benchmarks/run_configs.py::_gen`` makes them, plus
    4,096 held out), the headline ratings of ``bench.py`` (2M, 10,000 x
@@ -52,8 +53,11 @@ failed check ends the run with a non-zero exit:
    256, user-primary), config-3 rbf (bs 1M), a skewed config-3 batch
    (both ids drawn as floor(rows * U^2): one user run of ~5,000 entries),
    the headline linear batch (bs 131,072, Kp 128, item-primary), k=126
-   (Kp 128, no spare lane) and a frozen item side; both tables at atol =
-   rtol = 1e-5, and two runs of the kernels bitwise equal.
+   (Kp 128, no spare lane), a frozen item side and the config-1 sweep's
+   pack (first and last batch); both tables at atol = rtol = 1e-5, and
+   two runs of the kernels bitwise equal; the apply alone on the plain
+   step's deltas bitwise equal to its plain order model and to a second
+   run.
 8. train (sigmoid, rbf): config 3 through ``KernelMF.fit`` (3 epochs,
    falling train RMSE) and ``update_users`` (1,000 users, half of them
    known; the item table bitwise unchanged) with the step and apply
@@ -67,10 +71,11 @@ failed check ends the run with a non-zero exit:
 10. train_headline: ``bench.py``'s shape, updates/s over a 20-epoch
     window, median of 5, beside the card's name and power limit.
 11. sgd_kernel_time: the step and the apply on the first batch of the
-    config-3 sigmoid and rbf packs, on the skewed config-3 batch and on
-    the first batch of the headline pack: kernel, plain and library
-    (``index_add_`` for the apply) times with CUDA events, the bounds
-    computed from that batch, and its longest primary run.
+    config-3 sigmoid and rbf packs, on the skewed config-3 batch, on the
+    first batch of the headline pack and of the config-1 sweep's pack:
+    kernel, plain and library (``index_add_`` for the apply) times
+    (``Timer``), the bounds computed from that batch, and its longest
+    primary run.
 
 12. als_pack: config 3 grouped into count buckets once (by user: chunks of
     15,625 x 256; by item: 7,812 x 512).
@@ -105,7 +110,8 @@ failed check ends the run with a non-zero exit:
     segment-sum kernel against ``index_add_`` on the card (rtol 1e-5, atol
     1e-5 x the row's absolute sum), bitwise against its plain model and a
     second run: the 1M ratings by user and by item, by user with 18
-    columns, a 4,096-entry batch, a stream with one 200,000-entry segment.
+    columns, a 4,096-entry batch, a stream with one 200,000-entry segment,
+    1M entries in runs of 1-19 straddling the lanes' slices of 8.
 19. baseline: ``BaselineModel`` at config 2 by ALS (reg 0.5) and by SGD
     (lr 0.02, reg 0.02, bs 4,096), 20 epochs each: ``fit`` (falling train
     RMSE, seconds), ``update_users`` (1,000 users, half known; item biases
@@ -127,8 +133,8 @@ failed check ends the run with a non-zero exit:
     ``grid_train`` (the winner bitwise), its best and worst candidates
     against ``sgd_train`` alone (atol 1e-5).
 23. segsum_kernel_time: the segment sum's kernel, plain and library
-    (``index_add_``) times at the shapes of 18 (device time from the
-    profiler's trace, and CUDA events around the call), and their bounds.
+    (``index_add_``) times at the shapes of 18 (``Timer``), and their
+    bounds.
 
 Then the ``kernels`` line (``score_catalog``, ``sgd_step``,
 ``segment_apply``, ``spd_gj``, ``segment_sum``), the ``nvidia-smi`` line,
@@ -223,20 +229,31 @@ def ptxas_summary(logs):
 class Timer:
     """Median device time of one call, by CUDA events, the L2 cache
     flushed (a 256 MB write) before each timed call as a serving request
-    would find it cold."""
+    would find it cold. Between the flush and the start event the card
+    spins for ``SPIN_CYCLES`` (``torch.cuda._sleep``, which touches no
+    memory): the host enqueues the call while the card still spins, so
+    a wrapper's host work, when it outlasts the flush, does not fall
+    inside the timed window. Readings before this spin included that host
+    time."""
+
+    SPIN_CYCLES = 1_000_000  # ~0.5 ms at the H100's 1.98 GHz boost clock
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32,
                                  device="cuda")
 
-    def ms(self, fn, reps=25, warmup=3):
+    def ms(self, fn, reps=25, warmup=3, before=None):
+        """``before`` (default: the written flush) runs ahead of each
+        timed call, then the spin."""
         torch = self.torch
+        before = self.flush.zero_ if before is None else before
         for _ in range(warmup):
             fn()
         pairs = []
         for _ in range(reps):
-            self.flush.zero_()
+            before()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -650,12 +667,12 @@ def skewed_pack(n_users, n_items, batch_size, seed):
 
 
 def sgd_kernel_shapes(seed):
-    """(shape, cfg, pack, n_users, n_items) of the step's three measured
-    shapes without the 25M ratings (``tools/probe_kernels.py``), each
-    pack made directly from the seed: a config-3 sigmoid batch as the
+    """(shape, cfg, pack, n_users, n_items) of the step's and the apply's
+    measured shapes without the 25M ratings (``tools/probe_kernels.py``),
+    each pack made directly from the seed: a config-3 sigmoid batch as the
     25M-rating pack lays one out (two batches of uniform ratings sorted by
     user as one chunk; batch 0 is the lower half of the users), the skewed
-    config-3 batch, and the headline pack."""
+    config-3 batch, the headline pack, and the config-1 sweep's pack."""
     import numpy as np
 
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
@@ -678,6 +695,9 @@ def sgd_kernel_shapes(seed):
            sgd.pack_ratings(*headline_ratings(seed), HEAD["batch_size"],
                             order="auto", device="cuda"),
            HEAD["n_users"], HEAD["n_items"])
+    sw = sweep_inputs(seed)
+    yield ("config1_sweep_linear", sw["cfg"], sw["data"], sw["n_users"],
+           sw["n_items"])
 
 
 def longest_run(ids):
@@ -744,12 +764,15 @@ def phase_compare_sgd(torch, rng, cases):
     """Step kernel + apply kernel against the plain step on the card, from
     the same tables and batch; both tables and the step's ``dq`` at
     atol = rtol = 1e-5: both sum in f32, in different orders. The apply is
-    also held alone, both versions applying the plain step's ``dq``.
-    Returns the largest error of the step (primary table, dq) and of the
-    apply (secondary table). Two runs of the kernels from the same tables
-    must agree bitwise."""
+    also held alone, both versions applying the plain step's ``dq``, and
+    bitwise against its plain order model ``segmented_segment_sum``
+    (chunks of ``APPLY_CHUNK``) and a second run of itself. Returns the
+    largest error of the step (primary table, dq) and of the apply
+    (secondary table). Two runs of the kernels from the same tables must
+    agree bitwise."""
     from matrix_factorization_tpu_torch.ops import cuda_sgd
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
 
     worst = {"sgd_step": 0.0, "segment_apply": 0.0}
     for name, cfg, pack, k, n_users, n_items in cases:
@@ -793,13 +816,22 @@ def phase_compare_sgd(torch, rng, cases):
             step_err = max(step_err, float((dq - dq_plain).abs().max()))
             check(torch.allclose(dq, dq_plain, atol=1e-5, rtol=1e-5),
                   f"compare_sgd {name}: dq differs")
-            got = getattr(p0, sec).clone()
+            got, again, model, want = (getattr(p0, sec).clone()
+                                       for _ in range(4))
             cuda_sgd.cuda_segment_apply(got, dq_plain, b["sp"], b["ss"])
-            want = getattr(p0, sec).clone()
+            cuda_sgd.cuda_segment_apply(again, dq_plain, b["sp"], b["ss"])
+            ss.segmented_segment_sum(model, dq_plain, b["sp"], b["ss"],
+                                     chunk=cuda_sgd.APPLY_CHUNK,
+                                     layout="columns")
             cuda_sgd.plain_segment_apply(want, dq_plain, b["sp"], b["ss"])
             apply_err = float((got - want).abs().max())
+            check(torch.equal(got, again),
+                  f"compare_sgd {name}: two runs of the apply differ")
+            check(torch.equal(got, model),
+                  f"compare_sgd {name}: the apply is not its plain model")
             check(torch.allclose(got, want, atol=1e-5, rtol=1e-5),
                   f"compare_sgd {name}: the apply differs by {apply_err}")
+            del again, model
             worst["segment_apply"] = max(worst["segment_apply"], apply_err)
             out["apply_max_abs_err"] = apply_err
         else:
@@ -1486,25 +1518,28 @@ def segsum_cases(train, rng):
     """(name, ids, n_rows, d) of the segment sum at the slice's shapes:
     the 1M ratings by user and by item (the bias sums, one column), by user
     with the 18 genre columns (the content profiles), a 4,096-entry batch
-    (bias SGD's step), and a stream with one 200,000-entry segment."""
+    (bias SGD's step), a stream with one 200,000-entry segment, and 1M
+    entries in runs of 1-19 that straddle the lanes' slices of 8."""
     import numpy as np
 
     u, i, _ = train
     nu, ni = ML1M["n_users"], ML1M["n_items"]
     long_ids = np.concatenate([np.full(200_000, nu // 2),
                                rng.integers(0, nu, 300_000)])
+    straddle = np.repeat(np.arange(100_000), rng.integers(1, 20, 100_000))
     return (("ml1m_by_user", u, nu, 1), ("ml1m_by_item", i, ni, 1),
             ("ml1m_profiles_by_user", u, nu, N_GENRES),
             ("batch_4096", u[:4096], nu, 1),
-            ("long_segment", long_ids, nu, 1))
+            ("long_segment", long_ids, nu, 1),
+            ("straddle_slices", straddle, 100_000, 1))
 
 
 def phase_compare_segsum(torch, rng, train):
     """The segment-sum kernel against ``index_add_`` on the card (rtol
     1e-5, atol 1e-5 x the row's absolute sum: both sum in f32, in other
     orders), bitwise against its plain model ``segmented_segment_sum``
-    (the same adds in the same order) and against a second run. Returns
-    the largest error."""
+    in the layout ``segsum_plan`` picks (the same adds in the same order)
+    and against a second run. Returns the largest error."""
     import numpy as np
 
     from matrix_factorization_tpu_torch.ops import segment_sum as ss
@@ -1537,6 +1572,7 @@ def phase_compare_segsum(torch, rng, train):
               f"compare_segsum {name}: off index_add_ by {err}")
         emit({"phase": "compare_segsum", "case": name, "n": len(ids),
               "d": d, "rows": n_rows,
+              "layout": ss.segsum_plan(len(ids), d).layout,
               "longest_segment": longest_run(order[1]),
               "max_abs_err": err, "max_abs_sum": float(want.abs().max()),
               "seconds": time.perf_counter() - t0, "ok": True})
@@ -2129,9 +2165,10 @@ def main() -> int:
           "ptxas": ptxas})
     spilled = [k for k in ptxas if k[2] and any(
         n in k[0] for n in ("score_stream", "score_tile", "gj_inverse",
-                            "sgd_step_kernel", "step_finish", "segsum"))]
-    check(not spilled, f"the scorer, the GJ leaf, the SGD step or the segment "
-                       f"sum spills: {spilled}")
+                            "sgd_step_kernel", "step_finish", "segsum",
+                            "apply_"))]
+    check(not spilled, f"the scorer, the GJ leaf, the SGD step, the segment "
+                       f"sum or the apply spills: {spilled}")
 
     # -- serving (slice 1) -------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -2236,7 +2273,9 @@ def main() -> int:
         for name, k, pk in (("config3_sigmoid", 0, "sigmoid"),
                             ("config3_rbf", 1, "rbf"),
                             ("config3_skewed", 2, "skewed"),
-                            ("headline_linear", 3, "headline"))], timer)
+                            ("headline_linear", 3, "headline"))] + [
+        ("config1_sweep_linear", sweep_cfg, sweep_in["data"],
+         sweep_in["n_users"], sweep_in["n_items"])], timer)
 
     # -- factor ALS (slice 3) ------------------------------------------------
     packs.clear()
@@ -2316,16 +2355,18 @@ def main() -> int:
         "shape": {k: head[k] for k in ("B", "I", "Kp", "kernel", "dtype")},
         "shapes": rows, "serving": latency,
     }]
-    for name, replaces, note in (
-            ("sgd_step", "matrix_factorization_tpu/ops/pallas_sgd.py:65",
+    for name, source, replaces, note in (
+            ("sgd_step", "sgd_step.cu",
+             "matrix_factorization_tpu/ops/pallas_sgd.py:65",
              "the fused mini-batch step (_step_kernel)"),
-            ("segment_apply", "matrix_factorization_tpu/ops/segment_sgd.py:923",
+            ("segment_apply", "segment_sum.cu",
+             "matrix_factorization_tpu/ops/segment_sgd.py:923",
              "the secondary apply (tile_sec_scatter), an XLA scatter on the "
              "TPU and not a Pallas kernel; the port needs it deterministic")):
         row = sgd_rows["config3_sigmoid"][name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "matrix_factorization_tpu_torch/csrc/sgd_step.cu",
+            "source": f"matrix_factorization_tpu_torch/csrc/{source}",
             "replaces": replaces, "note": note,
             "launches": train_launches[name] + sweep_out["launches"][name],
             "launches_by_path": {"train": train_launches[name],

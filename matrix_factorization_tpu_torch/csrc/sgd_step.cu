@@ -1,13 +1,12 @@
-// One synchronous mini-batch SGD step of kernel matrix factorization, and
-// the deterministic apply of its secondary-side deltas, for Hopper (sm_90a).
+// One synchronous mini-batch SGD step of kernel matrix factorization for
+// Hopper (sm_90a).
 //
 // `mf_sgd_step` replaces the TPU kernel
 // matrix_factorization_tpu/ops/pallas_sgd.py:65 `_step_kernel` (launched by
-// `fused_tile_step` from `segment_sgd.fused_tile_deltas`). `mf_segment_apply`
-// replaces the secondary scatter that XLA does on the TPU
-// (`segment_sgd.tile_sec_scatter`); on the GPU a float-atomic scatter
-// (`index_add_`) sums in a different order on every run, and the same seed
-// must give the same bits.
+// `fused_tile_step` from `segment_sgd.fused_tile_deltas`). The deltas it
+// leaves for the secondary side (dq) are added to their table by
+// `mf_segment_apply` (csrc/segment_sum.cu), which replaces the secondary
+// scatter that XLA does on the TPU (`segment_sgd.tile_sec_scatter`).
 //
 // A batch holds n entries (prim_id, sec_id, r, w), stored sorted by the
 // primary id (the pack's per-batch sort, or a stable sort on the card).
@@ -29,14 +28,13 @@
 //
 // What bounds it on an H100 SXM: bytes; there are about 12 f32 operations
 // an entry and column. Counting each input read once and each output
-// written once, (a) reads the ids, r and w (16 B an entry), each distinct
+// written once, it reads the ids, r and w (16 B an entry), each distinct
 // secondary row (Kp*4 B) and each run's primary row, and writes that row
-// and dq (Kp*4 B an entry); (b) reads dq, perm and ids (Kp*4 + 8 B an entry)
-// and reads and writes each touched secondary row. At config 3 (MovieLens-25M
-// shape, sigmoid, bs = 2,097,152, Kp = 256, ~1.4e5 user runs and ~5.9e4 item
-// runs a batch) that is about 2.5 GB for (a) and 2.3 GB for (b): 0.76 ms and
-// 0.68 ms at 3.35 TB/s. chip_smoke.py computes both from the batch it runs.
-// dq is most of both: fusing (a) and (b) would keep it out of device memory.
+// and dq (Kp*4 B an entry). At config 3 (MovieLens-25M shape, sigmoid, bs =
+// 2,097,152, Kp = 256, ~1.4e5 user runs a batch) that is about 2.5 GB, 0.76
+// ms at 3.35 TB/s; the apply reads dq again (2.3 GB, 0.68 ms). chip_smoke.py
+// computes both from the batch it runs. dq is most of both: fusing the step
+// and the apply would keep it out of device memory.
 // That bound counts every distinct secondary row once; the step gathers a row
 // an entry (2.1 GB of gathers beside the 2.1 GB dq stream at config 3), and
 // the card's memory system gives that pattern less: on an H100 80GB HBM3 at
@@ -78,12 +76,10 @@
 //    leaves through streaming stores (st.global.cs) and the gathers carry
 //    an L2 policy that keeps half of their lines ahead of everything else,
 //    so that dq pushes fewer secondary rows out of L2.
-// (b) gives one warp to each run of `ids_sorted`, summing rows[perm[j]] in j
-// order; the pack's argsort is stable, so a run sums in batch order. Every
-// sum has a fixed order: the step is bitwise deterministic. Offsets are
-// 64-bit (j * Kp reaches 5.4e8 at bs = 2M).
-// Later work: fuse (a) and (b) so that dq never reaches device memory; (b)
-// still walks a long run with one warp.
+// Every sum has a fixed order: the step is bitwise deterministic. Offsets
+// are 64-bit (j * Kp reaches 5.4e8 at bs = 2M).
+// Later work: fuse the step and the apply so that dq never reaches device
+// memory; that kernel needs the fixed-segment split on both sides.
 
 #include <cuda_runtime.h>
 
@@ -96,7 +92,6 @@ constexpr int kSigmoid = 1;
 constexpr int kRbf = 2;
 
 constexpr int kWarps = 8;  // warps per 256-thread block
-constexpr int kBlocksPerSm = 8;  // the apply's grid cap: 64 warps an SM
 constexpr int kMaxVec = 8;  // Kp / 128 <= 8, i.e. Kp <= 1024
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may take
 
@@ -437,55 +432,6 @@ step_finish_kernel(float* __restrict__ prim_tbl,
     st4(xrow, v * 32 + lane, add4(ld4(xrow, v * 32 + lane), acc[v]));
 }
 
-template <int NV>
-__global__ void __launch_bounds__(kWarps * 32)
-segment_apply_kernel(float* __restrict__ table, const float* __restrict__ rows,
-                     const int* __restrict__ perm,
-                     const int* __restrict__ ids_sorted, long long n, int kp) {
-  const int lane = threadIdx.x & 31;
-  const long long n_warps = static_cast<long long>(gridDim.x) * kWarps;
-  for (long long j0 =
-           static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-       j0 < n; j0 += n_warps) {
-    const int id = ids_sorted[j0];
-    if (j0 > 0 && ids_sorted[j0 - 1] == id) continue;  // not the start of a run
-
-    float4 acc[NV];
-#pragma unroll
-    for (int v = 0; v < NV; ++v) acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (long long j = j0; j < n && ids_sorted[j] == id; ++j) {
-      const float* src = rows + static_cast<size_t>(perm[j]) * kp;
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        const float4 d = ld4(src, v * 32 + lane);
-        acc[v].x += d.x;
-        acc[v].y += d.y;
-        acc[v].z += d.z;
-        acc[v].w += d.w;
-      }
-    }
-    float* dst = table + static_cast<size_t>(id) * kp;
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const float4 t = ld4(dst, v * 32 + lane);
-      st4(dst, v * 32 + lane,
-          make_float4(t.x + acc[v].x, t.y + acc[v].y, t.z + acc[v].z,
-                      t.w + acc[v].w));
-    }
-  }
-}
-
-// A grid that keeps every SM full and no larger: the warps stride over the
-// entries, so one that exits early frees nothing for the others.
-inline unsigned int blocks_for(long long n) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long need = (n + kWarps - 1) / kWarps;
-  const long long cap = static_cast<long long>(sms) * kBlocksPerSm;
-  return static_cast<unsigned int>(need < cap ? need : cap);
-}
-
 template <int KERNEL, int NV>
 int launch_step(const float* mu, float* prim, const float* sec, const int* pid,
                 const int* sid, const float* r, const float* w,
@@ -583,33 +529,6 @@ extern "C" int mf_sgd_step(const void* mu, void* prim_tbl, const void* sec_tbl,
   return launch_step_for_width<kRbf>(
       nv, m, P, S, pid, sid, rr, ww, pm, sm, d, sc, n, n_segments, gamma, a, c,
       lr, reg, update_prim, grid, smem_bytes, s);
-}
-
-// table[ids_sorted[j]] += rows[perm[j]] for j in [0, n), each run of equal
-// ids summed in j order by one warp. table (rows, kp) and rows (n, kp) f32
-// row-major; perm and ids_sorted (n,) int32, ids_sorted ascending. The same
-// alignment and kp limits as mf_sgd_step; the same return convention.
-extern "C" int mf_segment_apply(void* table, const void* rows,
-                                const void* perm, const void* ids_sorted,
-                                long long n, int kp, void* stream) {
-  if (n <= 0 || kp <= 0 || kp % 128 || kp / 128 > kMaxVec)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* T = static_cast<float*>(table);
-  const float* R = static_cast<const float*>(rows);
-  const int* p = static_cast<const int*>(perm);
-  const int* ids = static_cast<const int*>(ids_sorted);
-#define MF_APPLY(NV)                                                     \
-  case NV:                                                               \
-    segment_apply_kernel<NV><<<blocks_for(n), kWarps * 32, 0, s>>>(      \
-        T, R, p, ids, n, kp);                                            \
-    break;
-  switch (kp / 128) {
-    MF_APPLY(1) MF_APPLY(2) MF_APPLY(3) MF_APPLY(4)
-    MF_APPLY(5) MF_APPLY(6) MF_APPLY(7) MF_APPLY(8)
-  }
-#undef MF_APPLY
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* mf_sgd_error_string(int code) {

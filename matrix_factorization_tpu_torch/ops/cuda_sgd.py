@@ -1,24 +1,30 @@
 """Hand-written CUDA mini-batch SGD step and deterministic secondary apply.
 
-Counterpart of ``matrix_factorization_tpu/ops/pallas_sgd.py``. The source
-``csrc/sgd_step.cu`` holds two kernels:
+Counterpart of ``matrix_factorization_tpu/ops/pallas_sgd.py``. Two
+kernels:
 
-* ``mf_sgd_step`` replaces the Pallas ``_step_kernel``: for one batch
-  sorted by the primary side's id it updates the primary table in place
-  (every row from the pre-step tables, deltas of one row summed) and
-  writes the per-entry secondary deltas ``dq`` (bs, Kp). A warp owns a
+* ``mf_sgd_step`` (``csrc/sgd_step.cu``) replaces the Pallas
+  ``_step_kernel``: for one batch sorted by the primary side's id it
+  updates the primary table in place (every row from the pre-step
+  tables, deltas of one row summed) and writes the per-entry secondary
+  deltas ``dq`` (bs, Kp). A warp owns a
   fixed segment of ``SEG_LEN`` consecutive entries; a run of equal ids
   that crosses a segment boundary is summed in pieces, which a second
   small launch of the same call adds in segment order (``step_plan``
   lays the call out, ``segmented_sgd_step`` is that summation in plain
   PyTorch);
-* ``mf_segment_apply`` adds ``dq`` to the secondary table over the
+* ``mf_segment_apply`` (``csrc/segment_sum.cu``, beside the segment sum
+  whose scheme it shares) adds ``dq`` to the secondary table over the
   pack's stable secondary argsort (``sec_perm``, ``sec_ids_sorted``), one
   writer per row and a fixed summation order, where XLA's scatter did it
   on the TPU. A float-atomic ``index_add_`` would break same-seed, same-
-  bits determinism.
+  bits determinism. A warp owns a fixed chunk of ``APPLY_CHUNK``
+  entries; a run that crosses a chunk boundary is summed in pieces that a
+  second launch adds in chunk order (``apply_plan`` lays the call out,
+  ``segment_sum.segmented_segment_sum`` is that summation in plain
+  PyTorch).
 
-The source says what bounds them and how they are laid out.
+The sources say what bounds them and how they are laid out.
 
 ``cuda_sgd_step`` and ``cuda_segment_apply`` launch the kernels and take
 only CUDA tensors. ``plain_sgd_step`` and ``plain_segment_apply`` are the
@@ -38,6 +44,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from matrix_factorization_tpu_torch.core.config import LANE, SGDConfig
+from matrix_factorization_tpu_torch.ops import segment_sum
+from matrix_factorization_tpu_torch.ops.segment_sum import _piece_sums
 
 _KERNEL_CODES = {"linear": 0, "sigmoid": 1, "rbf": 2}
 MAX_WIDTH = 8 * LANE  # the kernels hold a row in registers, Kp <= 1024
@@ -50,6 +58,9 @@ STEP_WARPS = 8  # warps a block
 STEP_MAX_BLOCKS_PER_SM = 4
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may take on sm_90
 SMEM_PER_SM = 233_472  # of which a resident block reserves 1 KB
+# The apply's chunk; csrc/segment_sum.cu is compiled for the same value
+# (MF_APPLY_CHUNK, with the segment sum's kWarps) and refuses any other.
+APPLY_CHUNK = 32  # consecutive entries one warp owns
 
 _count_lock = threading.Lock()
 step_launches = 0  # mf_sgd_step launches since import or reset_launches()
@@ -89,8 +100,6 @@ def _library():
                                     cll, ci, ci, cf, cf, cf, cf, cf, ci,
                                     vp, ci, cll, ci, ci, ci, vp]
         lib.mf_sgd_step.restype = ci
-        lib.mf_segment_apply.argtypes = [vp, vp, vp, vp, cll, ci, vp]
-        lib.mf_segment_apply.restype = ci
         lib.mf_sgd_error_string.argtypes = [ci]
         lib.mf_sgd_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -153,18 +162,6 @@ def plain_segment_apply(table: torch.Tensor, rows: torch.Tensor,
                         perm: torch.Tensor, ids_sorted: torch.Tensor) -> None:
     """``table[ids_sorted[j]] += rows[perm[j]]`` by ``index_add_``."""
     table.index_add_(0, ids_sorted.long(), rows[perm.long()])
-
-
-def _piece_sums(g: torch.Tensor, starts: torch.Tensor,
-                lengths: torch.Tensor) -> torch.Tensor:
-    """Row sums of ``g[starts[p] : starts[p] + lengths[p]]`` for every piece
-    ``p``, each added in entry order from zero (f32, one add an entry)."""
-    out = torch.zeros((starts.numel(), g.shape[1]), dtype=g.dtype,
-                      device=g.device)
-    for t in range(int(lengths.max()) if lengths.numel() else 0):
-        live = (lengths > t).nonzero().squeeze(1)
-        out[live] += g[starts[live] + t]
-    return out
 
 
 def segmented_sgd_step(cfg: SGDConfig, mu: torch.Tensor,
@@ -264,6 +261,31 @@ def step_plan(n: int, kp: int, n_sms: int = 132, seg_len: int = SEG_LEN,
                     (2 * n_segments, kp))
 
 
+class ApplyPlan(NamedTuple):
+    """How one ``mf_segment_apply`` call is laid out on the card."""
+
+    chunk: int  # entries a warp owns
+    n_chunks: int  # ceil(n / chunk)
+    grid: int  # blocks of segment_sum.WARPS warps, one warp a chunk
+    finish_grid: int  # blocks of the finishing launch (0: none)
+    scratch_shape: Tuple[int, int]  # f32 pieces of crossing runs
+
+
+def apply_plan(n: int, kp: int, chunk: int = APPLY_CHUNK) -> ApplyPlan:
+    """The launch plan of the apply for ``n`` entries of width ``kp``;
+    needs no look at the data. The scratch holds two slots of ``kp``
+    floats a chunk, as the segment sum's does. ``chunk`` other than the
+    default is for a build of the source with another ``MF_APPLY_CHUNK``
+    (``tools/probe_kernels.py``)."""
+    if n <= 0:
+        raise ValueError(f"the apply needs n > 0, got {n}")
+    _check_width(kp)
+    n_chunks = -(-n // chunk)
+    warps = segment_sum.WARPS
+    return ApplyPlan(chunk, n_chunks, -(-n_chunks // warps),
+                     -(-(n_chunks - 1) // warps), (2 * n_chunks, kp))
+
+
 _sm_counts: dict = {}
 
 
@@ -337,8 +359,9 @@ def cuda_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
 def cuda_segment_apply(table: torch.Tensor, rows: torch.Tensor,
                        perm: torch.Tensor, ids_sorted: torch.Tensor) -> None:
     """``table[ids_sorted[j]] += rows[perm[j]]`` by ``mf_segment_apply``,
-    in place, on ``table``'s stream: ``table`` (rows, Kp) and ``rows``
-    (n, Kp) f32, ``perm`` and ``ids_sorted`` (n,) int32 with
+    in place, on ``table``'s stream (the chunk launch and, when a chunk
+    follows the first, the finishing launch): ``table`` (rows, Kp) and
+    ``rows`` (n, Kp) f32, ``perm`` and ``ids_sorted`` (n,) int32 with
     ``ids_sorted`` ascending."""
     dev = table.device
     if dev.type != "cuda":
@@ -354,15 +377,18 @@ def cuda_segment_apply(table: torch.Tensor, rows: torch.Tensor,
     _check("ids_sorted", ids_sorted, dev, torch.int32, (n,))
     if n == 0:
         return
-    lib = _library()
+    plan = apply_plan(n, kp)
+    scratch = torch.empty(plan.scratch_shape, dtype=torch.float32, device=dev)
+    lib = segment_sum._library()
     rc = lib.mf_segment_apply(
         table.data_ptr(), rows.data_ptr(), perm.data_ptr(),
-        ids_sorted.data_ptr(), n, kp,
+        ids_sorted.data_ptr(), n, kp, scratch.data_ptr(), plan.chunk,
+        plan.n_chunks, plan.grid, plan.finish_grid,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"segment_apply launch failed: "
-            f"{lib.mf_sgd_error_string(rc).decode()}")
+            f"{lib.mf_segment_sum_error_string(rc).decode()}")
     _count_apply()
 
 

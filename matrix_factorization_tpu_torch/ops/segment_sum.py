@@ -4,39 +4,45 @@
 ``out[ids_sorted[j]] += vals[perm[j]]`` in place: the port's counterpart
 of ``jax.ops.segment_sum`` and ``.at[].add``, which the bias, count and
 profile reductions of ``ops/als.py`` and the content model use. On the
-card it is the hand-written kernel of ``csrc/segment_sum.cu``, whose
-source says what bounds it and how it is laid out: the stream is cut
-into chunks of ``CHUNK`` entries, a run of equal ids is summed in entry
-order from zero by the one warp that owns it, and a run that crosses a
-chunk boundary is summed in pieces that a second launch adds in chunk
-order. One writer a row, no float atomics, so the same inputs give the
-same bits. ``index_add_`` and its relatives add with float atomics on
-CUDA, in an order that changes from run to run, and appear on no CUDA
-path of the port.
+card it is the hand-written kernel ``mf_segment_sum`` of
+``csrc/segment_sum.cu``, whose source says what bounds it and how it is
+laid out: the stream is cut into chunks of ``CHUNK`` entries, a warp a
+chunk; at ``d <= ENTRIES_MAX_D`` (the bias, count and residual sums) the
+lanes own slices of ``SLICE`` entries, at wider rows they own columns.
+A run of equal ids is summed in a fixed order from zero, and a run that
+crosses a chunk boundary is summed in pieces that a second launch adds in
+chunk order. One writer a row, no float atomics, so the same inputs give
+the same bits. ``index_add_`` and its relatives add with float atomics
+on CUDA, in an order that changes from run to run, and appear on no CUDA
+path of the port. The same source holds ``mf_segment_apply``, the SGD
+step's secondary apply (``ops/cuda_sgd.py::cuda_segment_apply``), on the
+same scheme with rows of float4 lanes.
 
 ``sorted_order(ids)`` gives the ``(perm, ids_sorted)`` the sum takes: a
 stable ``torch.sort`` on the ids' device. ``plain_segment_sum`` is
 ``index_add_`` of ``vals[perm]`` at ``ids_sorted``, which on the CPU adds
 in ``j`` order; the CPU path and the comparisons on the card use it.
-``segmented_segment_sum`` is the kernel's summation in plain PyTorch, for
-the tests of its boundary logic. ``segment_sum`` picks by the tensors'
-device: a CUDA tensor always launches the kernel.
+``segmented_segment_sum`` is the kernels' summation in plain PyTorch, bit
+for bit: the tests of its boundary logic use it, and the checks on the
+card hold both kernels to it with ``torch.equal``. ``segment_sum`` picks
+by the tensors' device: a CUDA tensor always launches the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from matrix_factorization_tpu_torch.ops.cuda_sgd import _piece_sums
-
 # The launch geometry; csrc/segment_sum.cu is compiled for the same values
-# (kChunk, kWarps) and refuses any other.
+# (kChunk, kWarps, MF_ENTRIES_MAX_D) and refuses any other.
 CHUNK = 256  # consecutive entries one warp owns
+SLICE = CHUNK // 32  # consecutive entries one lane owns (entries layout)
+ENTRIES_MAX_D = 1  # widest rows the entries layout takes
 WARPS = 8  # warps a block
+LAYOUTS = ("columns", "entries")  # the C entry's layout codes 0 and 1
 
 _count_lock = threading.Lock()
 launches = 0  # mf_segment_sum calls since import or reset_launches()
@@ -64,9 +70,12 @@ def _library():
 
         lib = _build.load("segment_sum")
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mf_segment_sum.argtypes = [vp, vp, vp, vp, cll, ci, vp, ci, cll,
-                                       cll, cll, vp]
+        lib.mf_segment_sum.argtypes = [vp, vp, vp, vp, cll, ci, vp, ci, ci,
+                                       cll, cll, cll, vp]
         lib.mf_segment_sum.restype = ci
+        lib.mf_segment_apply.argtypes = [vp, vp, vp, vp, cll, ci, vp, ci, cll,
+                                         cll, cll, vp]
+        lib.mf_segment_apply.restype = ci
         lib.mf_segment_sum_error_string.argtypes = [ci]
         lib.mf_segment_sum_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -105,37 +114,70 @@ def plain_segment_sum(out: torch.Tensor, vals: torch.Tensor,
     out2.index_add_(0, ids_sorted.long(), vals2[perm.long()])
 
 
+def _piece_sums(g: torch.Tensor, starts: torch.Tensor,
+                lengths: torch.Tensor) -> torch.Tensor:
+    """Row sums of ``g[starts[p] : starts[p] + lengths[p]]`` for every piece
+    ``p``, each added in entry order from zero (f32, one add an entry)."""
+    out = torch.zeros((starts.numel(), g.shape[1]), dtype=g.dtype,
+                      device=g.device)
+    for t in range(int(lengths.max()) if lengths.numel() else 0):
+        live = (lengths > t).nonzero().squeeze(1)
+        out[live] += g[starts[live] + t]
+    return out
+
+
 def segmented_segment_sum(out: torch.Tensor, vals: torch.Tensor,
                           perm: torch.Tensor, ids_sorted: torch.Tensor,
-                          chunk: int = CHUNK) -> None:
-    """``plain_segment_sum`` with the sums taken as ``mf_segment_sum``
-    takes them: the stream cut into chunks of ``chunk`` entries, a run's
-    piece in each chunk added in entry order from zero, the pieces of a
-    run added from zero in chunk order, and the total added to ``out``'s
-    row. Plain PyTorch for the tests; the entry points never call it."""
+                          chunk: int = CHUNK,
+                          layout: Optional[str] = None) -> None:
+    """``plain_segment_sum`` with the sums taken as the kernels take them,
+    bit for bit. The stream is cut into chunks of ``chunk`` entries. In
+    the ``"columns"`` layout (``mf_segment_sum`` on wide rows, and
+    ``mf_segment_apply`` with its own chunk) a run's piece in a chunk is
+    added in entry order from zero. In the ``"entries"`` layout each chunk
+    is cut further into lane slices of ``SLICE`` entries: a run's piece in
+    a slice is added in entry order from zero, and the slice pieces of a
+    run in one chunk are added from zero in slice order. Then the chunk
+    pieces of a run are added from zero in chunk order, and the total is
+    added to ``out``'s row. ``layout=None`` takes the one ``segsum_plan``
+    gives ``mf_segment_sum`` for these rows. Plain PyTorch for the tests
+    and the checks on the card; the entry points never call it."""
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
     out2, vals2 = _as_2d(out, vals)
     n = ids_sorted.numel()
     if n == 0:
         return
+    if layout is None:
+        layout = segsum_plan(n, vals2.shape[1]).layout
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    cuts = [chunk]
+    if layout == "entries":
+        if chunk % SLICE:
+            raise ValueError(f"the entries layout cuts chunks into slices of "
+                             f"{SLICE}; chunk {chunk} is not a multiple")
+        cuts = [SLICE, chunk]
     ids = ids_sorted.long()
-    g = vals2[perm.long()]
     pos = torch.arange(n, device=ids.device)
     new_run = torch.ones(n, dtype=torch.bool, device=ids.device)
     new_run[1:] = ids[1:] != ids[:-1]
-    starts = (new_run | (pos % chunk == 0)).nonzero().squeeze(1)
-    lengths = torch.diff(starts, append=pos.new_tensor([n]))
-    pieces = _piece_sums(g, starts, lengths)
-    run_of_piece = torch.cumsum(new_run, 0)[starts] - 1
-    first = torch.ones_like(starts, dtype=torch.bool)
-    first[1:] = run_of_piece[1:] != run_of_piece[:-1]
-    run_starts = first.nonzero().squeeze(1)
-    run_lengths = torch.diff(run_starts,
-                             append=pos.new_tensor([starts.numel()]))
-    total = _piece_sums(pieces, run_starts, run_lengths)
-    rows = ids[starts[run_starts]]
-    out2[rows] = out2[rows] + total
+    run = torch.cumsum(new_run, 0) - 1
+    # level by level: the pieces of one run inside one block of `cut`
+    # entries, each summed from zero in order; the last level is the run
+    sums, head = vals2[perm.long()], pos
+    for cut in cuts + [None]:
+        r = run[head]
+        first = torch.ones_like(head, dtype=torch.bool)
+        first[1:] = r[1:] != r[:-1]
+        if cut is not None:
+            blk = head // cut
+            first[1:] |= blk[1:] != blk[:-1]
+        starts = first.nonzero().squeeze(1)
+        lengths = torch.diff(starts, append=starts.new_tensor([head.numel()]))
+        sums, head = _piece_sums(sums, starts, lengths), head[starts]
+    rows = ids[head]
+    out2[rows] = out2[rows] + sums
 
 
 # ---------------------------------------------------------------------------
@@ -146,6 +188,7 @@ def segmented_segment_sum(out: torch.Tensor, vals: torch.Tensor,
 class SegsumPlan(NamedTuple):
     """How one ``mf_segment_sum`` call is laid out on the card."""
 
+    layout: str  # "entries" (lanes over entries) or "columns"
     chunk: int  # entries a warp owns
     n_chunks: int  # ceil(n / chunk)
     grid: int  # blocks of WARPS warps, one warp a chunk
@@ -153,18 +196,23 @@ class SegsumPlan(NamedTuple):
     scratch_shape: Tuple[int, int]  # f32 pieces of crossing runs
 
 
-def segsum_plan(n: int, d: int) -> SegsumPlan:
+def segsum_plan(n: int, d: int,
+                entries_max_d: int = ENTRIES_MAX_D) -> SegsumPlan:
     """The launch plan for ``n`` entries of ``d`` columns; needs no look
     at the data, so the wrapper allocates the scratch without waiting for
-    the card. The scratch holds two slots of ``d`` floats a chunk: the
-    piece of a run that begins at the chunk's start and crosses a
-    boundary, and that of another that begins later and crosses its
-    end."""
+    the card. Rows of at most ``entries_max_d`` columns take the entries
+    layout, wider ones the columns layout. The scratch holds two slots of
+    ``d`` floats a chunk: the piece of a run that begins at the chunk's
+    start and crosses a boundary, and that of another that begins later
+    and crosses its end. ``entries_max_d`` other than the default is for
+    a build of the source with another ``MF_ENTRIES_MAX_D``
+    (``tools/probe_kernels.py``)."""
     if n <= 0 or d <= 0:
         raise ValueError(f"the segment sum needs n > 0 and d > 0, got n={n}, "
                          f"d={d}")
     n_chunks = -(-n // CHUNK)
-    return SegsumPlan(CHUNK, n_chunks, -(-n_chunks // WARPS),
+    return SegsumPlan("entries" if d <= entries_max_d else "columns", CHUNK,
+                      n_chunks, -(-n_chunks // WARPS),
                       -(-(n_chunks - 1) // WARPS), (2 * n_chunks, d))
 
 
@@ -204,8 +252,9 @@ def cuda_segment_sum(out: torch.Tensor, vals: torch.Tensor,
     lib = _library()
     rc = lib.mf_segment_sum(
         out2.data_ptr(), vals2.data_ptr(), perm.data_ptr(),
-        ids_sorted.data_ptr(), n, d, scratch.data_ptr(), plan.chunk,
-        plan.n_chunks, plan.grid, plan.finish_grid,
+        ids_sorted.data_ptr(), n, d, scratch.data_ptr(),
+        LAYOUTS.index(plan.layout), plan.chunk, plan.n_chunks, plan.grid,
+        plan.finish_grid,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segment_sum launch failed: "

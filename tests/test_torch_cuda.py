@@ -365,6 +365,57 @@ def test_sgd_wrappers_reject_what_the_kernels_do_not_take(cuda):
         cuda_sgd.cuda_segment_apply(P, rows, ids.long(), ids)
 
 
+@pytest.mark.parametrize("kp", [128, 256, 1024])
+@pytest.mark.parametrize("case", ["run_ends_at_boundary",
+                                  "run_over_three_segments", "single_run",
+                                  "one_run_of_40_segments", "ragged",
+                                  "skewed"])
+def test_segment_apply_matches_its_order_model(cuda, case, kp):
+    """The apply kernel on secondary streams whose runs end at, cross and
+    cover its fixed chunks: bitwise its plain order model
+    ``segmented_segment_sum`` (chunks of ``APPLY_CHUNK``) and a second run,
+    and within atol = rtol = 1e-5 of ``plain_segment_apply``."""
+    rng = np.random.default_rng(len(case) + kp)
+    ids, _ = _boundary_ids(case, rng)
+    n, n_rows = len(ids), int(ids.max()) + 2
+    rows = torch.from_numpy(
+        (1e-3 * rng.normal(size=(n, kp))).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(
+        rng.normal(size=(n_rows, kp)).astype(np.float32)).to(cuda)
+    perm = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    srt = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    before = cuda_sgd.apply_launches
+    got, again, model, want = (table.clone() for _ in range(4))
+    cuda_sgd.cuda_segment_apply(got, rows, perm, srt)
+    cuda_sgd.cuda_segment_apply(again, rows, perm, srt)
+    assert cuda_sgd.apply_launches == before + 2
+    ss.segmented_segment_sum(model, rows, perm, srt,
+                             chunk=cuda_sgd.APPLY_CHUNK, layout="columns")
+    cuda_sgd.plain_segment_apply(want, rows, perm, srt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, model)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_segment_apply_refuses_a_plan_it_is_not_compiled_for(cuda,
+                                                             monkeypatch):
+    table = torch.zeros(8, 128, device=cuda)
+    rows = torch.ones(100, 128, device=cuda)
+    perm, srt = ss.sorted_order(torch.arange(100, device=cuda) % 8)
+    plan = cuda_sgd.apply_plan
+    for change in ({"chunk": cuda_sgd.APPLY_CHUNK * 2}, {"n_chunks": 1},
+                   {"grid": 9}, {"finish_grid": 0}):
+        monkeypatch.setattr(cuda_sgd, "apply_plan",
+                            lambda *a, **k: plan(*a, **k)._replace(**change))
+        before = cuda_sgd.apply_launches
+        with pytest.raises(RuntimeError):
+            cuda_sgd.cuda_segment_apply(table, rows, perm, srt)
+        torch.cuda.synchronize()
+        assert cuda_sgd.apply_launches == before
+        assert torch.equal(table, torch.zeros_like(table))
+
+
 @pytest.mark.parametrize("kernel", ["linear", "sigmoid", "rbf"])
 def test_fit_on_cuda_matches_cpu(cuda, kernel):
     """The same fit on the card and on the CPU: the same initial tables
@@ -554,11 +605,16 @@ def _segsum_stream(case, rng):
         ids = np.concatenate([np.full(200_000, 3020),
                               rng.integers(0, 6040, 300_000)])
         return ids, 6040, 3
+    if case == "straddle":  # runs of 1-19 across the lanes' slices of 8
+        ids = np.repeat(np.arange(50_000), rng.integers(1, 20, 50_000))
+        return ids, 50_000, 1
+    if case == "unaligned":  # n = 2 * 256 + 13, ids and perm at offset 1
+        return np.sort(rng.integers(0, 40, 2 * 256 + 13)), 40, 1
     return np.array([2, 2, 0]), 4, 33  # tiny, d past one warp's columns
 
 
 @pytest.mark.parametrize("case", ["by_user", "by_item", "profiles", "batch",
-                                  "long", "tiny"])
+                                  "long", "tiny", "straddle", "unaligned"])
 def test_segment_sum_kernel_matches_plain(cuda, case):
     """Against ``index_add_`` (rtol 1e-5, atol 1e-5 x the row's absolute
     sum), bitwise against its plain model ``segmented_segment_sum`` (the
@@ -571,6 +627,9 @@ def test_segment_sum_kernel_matches_plain(cuda, case):
     base = torch.from_numpy(
         rng.normal(size=(n_rows, d)).astype(np.float32)).to(cuda)
     order = ss.sorted_order(ids_t)
+    if case == "unaligned":  # views 4 bytes into their storage
+        order = tuple(torch.cat([t[:1], t])[1:] for t in order)
+        assert order[0].data_ptr() % 16 == 4
     before = ss.launches
     got = base.clone()
     ss.cuda_segment_sum(got, vals, *order)
@@ -603,7 +662,7 @@ def test_segment_sum_refuses_what_it_does_not_take(cuda, monkeypatch):
     assert torch.equal(out, torch.zeros_like(out))
     plan = ss.segsum_plan
     for change in ({"chunk": ss.CHUNK // 2}, {"n_chunks": 5}, {"grid": 9},
-                   {"finish_grid": 7}):
+                   {"finish_grid": 7}, {"layout": "entries"}):
         monkeypatch.setattr(ss, "segsum_plan",
                             lambda *a, **k: plan(*a, **k)._replace(**change))
         with pytest.raises(RuntimeError):

@@ -1,10 +1,11 @@
 """The launch plans of the port's redesigned kernels, on the CPU.
 
 ``ops/cuda_scores.py::score_plan``, ``ops/cuda_spd.py::gj_plan``,
-``ops/cuda_sgd.py::step_plan`` and ``ops/segment_sum.py::segsum_plan``
-decide in Python how ``csrc/score_catalog.cu``, ``csrc/spd_gj.cu``,
-``csrc/sgd_step.cu`` and ``csrc/segment_sum.cu`` cover a call; the kernels refuse a plan that does not match what they
-compute.
+``ops/cuda_sgd.py::step_plan`` and ``apply_plan``, and
+``ops/segment_sum.py::segsum_plan`` decide in Python how
+``csrc/score_catalog.cu``, ``csrc/spd_gj.cu``, ``csrc/sgd_step.cu`` and
+``csrc/segment_sum.cu`` cover a call; the kernels refuse a plan that does
+not match what they compute.
 These tests need no GPU: every plan covers its call, fits the card's
 limits, and names a shape the CUDA sources are compiled for.
 """
@@ -162,7 +163,64 @@ def test_segsum_plan_names_what_the_source_is_compiled_for():
     src = (CSRC / "segment_sum.cu").read_text()
     assert f"constexpr int kChunk = {segment_sum.CHUNK};" in src
     assert f"constexpr int kWarps = {segment_sum.WARPS};" in src
+    assert f"#define MF_ENTRIES_MAX_D {segment_sum.ENTRIES_MAX_D}\n" in src
+    assert "constexpr int kSlice = kChunk / 32;" in src
+    assert segment_sum.SLICE * 32 == segment_sum.CHUNK  # a slice a lane
     assert segment_sum.CHUNK % 32 == 0  # whole groups of 32 entries a warp
+    # the C entry's layout codes, in the order of LAYOUTS
+    assert "layout != (d <= kEntriesMaxD ? 1 : 0)" in src
+    assert segment_sum.LAYOUTS == ("columns", "entries")
+
+
+@pytest.mark.parametrize("d", [1, 2, 18, 33, 1024])
+def test_segsum_plan_picks_the_layout_from_d_alone(d):
+    """Lanes over entries for the one-column sums, lanes over columns
+    above ``ENTRIES_MAX_D``, whatever n is; a probe build with another
+    ``MF_ENTRIES_MAX_D`` plans with the value it is given."""
+    want = "entries" if d <= segment_sum.ENTRIES_MAX_D else "columns"
+    assert segment_sum.ENTRIES_MAX_D == 1
+    for n in (1, 255, 256, 4096, 1_000_000):
+        assert segment_sum.segsum_plan(n, d).layout == want
+    assert segment_sum.segsum_plan(10, d, entries_max_d=32).layout == (
+        "entries" if d <= 32 else "columns")
+
+
+def test_apply_plan_names_what_the_source_is_compiled_for():
+    src = (CSRC / "segment_sum.cu").read_text()
+    assert f"#define MF_APPLY_CHUNK {cuda_sgd.APPLY_CHUNK}\n" in src
+    assert cuda_sgd.APPLY_CHUNK % 32 == 0 and 32 <= cuda_sgd.APPLY_CHUNK <= 256
+    rows = int(re.search(r"#define MF_APPLY_ROWS (\d+)\n", src).group(1))
+    assert rows >= 4 and 32 % rows == 0  # at least 4 rows in flight a warp
+    for nv in range(1, 9):  # every width the wrapper takes
+        assert f"case {nv}: launch_apply<{nv}>" in src
+    assert f"kMaxVec = {cuda_sgd.MAX_WIDTH // 128};" in src
+    step_src = (CSRC / "sgd_step.cu").read_text()  # the apply left it
+    assert 'extern "C" int mf_segment_apply' not in step_src
+    assert "segment_apply_kernel" not in step_src
+
+
+@pytest.mark.parametrize("kp", [128, 256, 1024])
+@pytest.mark.parametrize("mult", [1, 2, 8, 9, 128, 4096, 65_536])
+def test_apply_plan_covers_every_n(kp, mult):
+    """Every n around a multiple of the chunk: the chunks cover the batch,
+    a warp a chunk, a finishing warp for every chunk but the last and two
+    scratch slots of ``kp`` a chunk. The sweep's batch (4,096) and the
+    headline's (131,072) give 128 and 4,096 warps."""
+    C, W = cuda_sgd.APPLY_CHUNK, segment_sum.WARPS
+    for n in range(max(1, mult * C - C - 1), mult * C + C + 2, 5):
+        p = cuda_sgd.apply_plan(n, kp)
+        assert p.chunk == C and (p.n_chunks - 1) * C < n <= p.n_chunks * C
+        assert (p.grid - 1) * W < p.n_chunks <= p.grid * W
+        assert (p.finish_grid - 1) * W < p.n_chunks - 1 <= p.finish_grid * W \
+            or p.n_chunks == 1 and p.finish_grid == 0
+        assert p.grid <= 2**31 - 1
+        assert p.scratch_shape == (2 * p.n_chunks, kp)
+    assert cuda_sgd.apply_plan(4096, 128).n_chunks >= 64
+    assert cuda_sgd.apply_plan(131_072, 128).n_chunks >= 2048
+    assert cuda_sgd.apply_plan(1000, 256, chunk=64).n_chunks == 16
+    for bad in ((0, 128), (-1, 128), (10, 96), (10, 0), (10, 1152)):
+        with pytest.raises(ValueError):
+            cuda_sgd.apply_plan(*bad)
 
 
 @pytest.mark.parametrize("d", [1, 18, 33])

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Probe the catalog scorer's two paths and the SGD step's design, and
-hold the scorer, the GJ SPD leaf and the SGD step against another build
-of their sources, on one CUDA GPU.
+"""Probe the catalog scorer's two paths and the designs of the SGD step,
+the segment sum and the apply, and hold each against another build of
+its source, on one CUDA GPU.
 
-    python3 tools/probe_kernels.py [--phases paths,scorer,spd,sgd]
-        [--old-src DIR] [--variants L:STAGES[:FLAG...],...] [--out FILE]
+    python3 tools/probe_kernels.py [--phases paths,scorer,spd,sgd,segsum]
+        [--old-src DIR] [--variants L:STAGES[:FLAG...],...]
+        [--segsum-variants NAME=VALUE[:NAME=VALUE...],...] [--out FILE]
         [--seed N]
 
 1. build: the port's sources, with the ptxas lines (registers, spills).
@@ -40,6 +41,16 @@ of their sources, on one CUDA GPU.
    ``--variants 32:6,128:6,64:4:MF_GATHER_KEEP=1.0`` builds the current
    source with other segment lengths, stage counts and ``-D`` flags and
    times each at the same shapes.
+5. segsum: the segment sum at every shape of ``chip_smoke.py``'s
+   compare_segsum phase (MovieLens-1M shaped, from the seed) and the
+   apply at the first batch of each shape of 4 (rows seeded normals),
+   for the current build, for builds of ``csrc/segment_sum.cu`` with
+   other ``MF_`` constants (``--segsum-variants
+   ENTRIES_MAX_D=32,APPLY_CHUNK=64,APPLY_ROWS=8``) and, with ``--old-src
+   DIR``, for an earlier ``DIR/segment_sum.cu`` (no layout argument) and
+   the apply of an earlier ``DIR/sgd_step.cu`` (a warp a run): each
+   bitwise against its plain order model and a second run, and timed in
+   turns beside the plain version and ``index_add_``.
 
 Each result is one JSON line on stdout and in ``--out``. Needs a GPU and
 ``nvcc``; imports nothing of JAX.
@@ -137,27 +148,9 @@ def phase_paths(torch, rng, timer):
     call = lambda: sc.cuda_score_catalog(cfg, mu, pu, Q32)  # noqa: E731
     emit({"phase": "flush", "B": 1, "dtype": "float32",
           "write_flush_ms": timer.ms(call),
-          "read_flush_ms": median_ms(torch, call, timer.flush.sum),
-          "no_flush_ms": median_ms(torch, call, lambda: None),
+          "read_flush_ms": timer.ms(call, before=timer.flush.sum),
+          "no_flush_ms": timer.ms(call, before=lambda: None),
           "write_flush_ms_again": timer.ms(call)})
-
-
-def median_ms(torch, fn, before, reps=25, warmup=3):
-    """``chip_smoke.Timer.ms`` with ``before`` run ahead of each timed
-    call in place of its written flush."""
-    for _ in range(warmup):
-        fn()
-    pairs = []
-    for _ in range(reps):
-        before()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return sorted(s.elapsed_time(e) for s, e in pairs)[reps // 2]
 
 
 def phase_old_scores(torch, rng, timer, old):
@@ -420,15 +413,201 @@ def phase_sgd(torch, seed, timer, old_src, variants):
         torch.cuda.empty_cache()
 
 
+def segsum_caller(torch, lib, entries_max_d=None):
+    """``fn(out, vals, perm, ids)`` calling ``mf_segment_sum`` of ``lib``:
+    the planned interface of a build with ``MF_ENTRIES_MAX_D =
+    entries_max_d``, or (None) the earlier one without a layout."""
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
+
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mf_segment_sum.argtypes = [vp, vp, vp, vp, cll, ci, vp] + (
+        [ci] if entries_max_d is not None else []) + [ci, cll, cll, cll, vp]
+    lib.mf_segment_sum.restype = ci
+
+    def call(out, vals, perm, ids):
+        out2, vals2 = ss._as_2d(out, vals)
+        n, d = vals2.shape
+        plan = ss.segsum_plan(n, d, entries_max_d or 0)
+        scratch = torch.empty(plan.scratch_shape, device="cuda")
+        layout = ([] if entries_max_d is None
+                  else [ss.LAYOUTS.index(plan.layout)])
+        rc = lib.mf_segment_sum(
+            out2.data_ptr(), vals2.data_ptr(), perm.data_ptr(),
+            ids.data_ptr(), n, d, scratch.data_ptr(), *layout, plan.chunk,
+            plan.n_chunks, plan.grid, plan.finish_grid,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"mf_segment_sum failed: {rc}")
+
+    return call
+
+
+def apply_caller(torch, lib, chunk=None):
+    """``fn(table, rows, perm, ids)`` calling ``mf_segment_apply`` of
+    ``lib``: the planned interface of a build with ``MF_APPLY_CHUNK =
+    chunk``, or (None) the earlier one of ``sgd_step.cu`` (a warp a
+    run)."""
+    from matrix_factorization_tpu_torch.ops import cuda_sgd
+
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mf_segment_apply.argtypes = [vp, vp, vp, vp, cll, ci] + (
+        [] if chunk is None else [vp, ci, cll, cll, cll]) + [vp]
+    lib.mf_segment_apply.restype = ci
+
+    def call(table, rows, perm, ids):
+        n, kp = rows.shape
+        tail = []
+        if chunk is not None:
+            plan = cuda_sgd.apply_plan(n, kp, chunk)
+            scratch = torch.empty(plan.scratch_shape, device="cuda")
+            tail = [scratch.data_ptr(), plan.chunk, plan.n_chunks, plan.grid,
+                    plan.finish_grid]
+        rc = lib.mf_segment_apply(
+            table.data_ptr(), rows.data_ptr(), perm.data_ptr(),
+            ids.data_ptr(), n, kp, *tail,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"mf_segment_apply failed: {rc}")
+
+    return call
+
+
+def phase_segsum(torch, seed, timer, old_src, variants):
+    """The segment sum at ``chip_smoke.segsum_cases`` and the apply at
+    the first batch of each ``chip_smoke.sgd_kernel_shapes`` (its rows
+    seeded normals of the batch's shape), for the current build, builds
+    of the current source with other ``-DMF_...`` constants
+    (``variants``) and, from ``old_src``, the earlier ``segment_sum.cu``
+    and ``sgd_step.cu``: each held bitwise to its plain order model
+    ``segmented_segment_sum`` (the earlier apply: one piece a run) and to
+    a second run, and timed in turns (each build twice, in the order
+    A B .. B A), beside the plain version and ``index_add_``."""
+    import numpy as np
+
+    from matrix_factorization_tpu_torch.ops import cuda_sgd
+    from matrix_factorization_tpu_torch.ops import _build
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
+
+    jobs = {}
+    for name in ("segment_sum", "sgd_step"):
+        if old_src is not None and (old_src / f"{name}.cu").exists():
+            jobs[f"{name}_old"] = (old_src / f"{name}.cu", [])
+    consts_of = {}  # tag -> {MF_ constant: value} of a variant build
+    for spec in variants:
+        consts = dict(kv.split("=") for kv in spec.split(":"))
+        tag = "v_" + "_".join(f"{k.lower()}{v}" for k, v in consts.items())
+        consts_of[tag] = consts
+        jobs[tag] = (_build.CSRC / "segment_sum.cu",
+                     [f"-DMF_{k}={v}" for k, v in consts.items()])
+    built = build_others(jobs)
+    # tag -> (caller, chunk and layout of its order model, or None)
+    sums = {"current": (ss.cuda_segment_sum, ss.ENTRIES_MAX_D)}
+    applies = {"current": (cuda_sgd.cuda_segment_apply, cuda_sgd.APPLY_CHUNK)}
+    for tag, (lib, log) in built.items():
+        emit({"phase": "segsum_build", "tag": tag,
+              "ptxas": cs.ptxas_summary((log,))})
+        if tag == "segment_sum_old":
+            sums["old"] = (segsum_caller(torch, lib), 0)
+        elif tag == "sgd_step_old":
+            applies["old"] = (apply_caller(torch, lib), None)
+        else:
+            consts = consts_of[tag]
+            max_d = int(consts.get("ENTRIES_MAX_D", ss.ENTRIES_MAX_D))
+            chunk = int(consts.get("APPLY_CHUNK", cuda_sgd.APPLY_CHUNK))
+            sums[tag[2:]] = (segsum_caller(torch, lib, max_d), max_d)
+            applies[tag[2:]] = (apply_caller(torch, lib, chunk), chunk)
+
+    def in_turns(calls):
+        order = list(calls) + list(reversed(calls))
+        out = {}
+        for tag in order:
+            out.setdefault(tag, []).append(timer.ms(calls[tag]))
+        return out
+
+    rng = np.random.default_rng(seed)
+    train, _ = cs.ml1m_ratings(seed)
+    for name, ids, n_rows, d in cs.segsum_cases(train, rng):
+        ids_t = torch.from_numpy(np.asarray(ids, np.int32)).to("cuda")
+        vals = torch.from_numpy(rng.standard_normal(
+            (len(ids), d), dtype=np.float32)).to("cuda")
+        order = ss.sorted_order(ids_t)
+        row = {"phase": "segsum", "shape": name, "n": len(ids), "d": d,
+               "rows": n_rows}
+        row["bound_ms"], row["bound_by"] = cs.segsum_bound(order[1],
+                                                           len(ids), d)
+        for tag, (call, max_d) in sums.items():
+            got, again, model = (torch.zeros((n_rows, d), device="cuda")
+                                 for _ in range(3))
+            call(got, vals, *order)
+            call(again, vals, *order)
+            layout = ss.segsum_plan(len(ids), d, max_d).layout
+            ss.segmented_segment_sum(model, vals, *order, layout=layout)
+            row[tag] = {"layout": layout,
+                        "model_equal": bool(torch.equal(got, model)),
+                        "deterministic": bool(torch.equal(got, again))}
+        out = torch.zeros((n_rows, d), device="cuda")
+        ids_l = ids_t.long()
+        calls = {tag: (lambda c=c: c(out, vals, *order))
+                 for tag, (c, _) in sums.items()}
+        for tag, times in in_turns(calls).items():
+            row[tag]["ms"] = times
+        row["plain_ms"] = timer.ms(lambda: ss.plain_segment_sum(
+            out, vals, *order))
+        row["library_ms"] = timer.ms(lambda: out.index_add_(0, ids_l, vals))
+        emit(row)
+        del out, vals, got, again, model
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for shape, cfg, pack, n_users, n_items in cs.sgd_kernel_shapes(seed):
+        b = sgd.batch_at(pack, 0)
+        kp = cfg.padded_factors
+        n_sec = n_items if pack.primary == "user" else n_users
+        n = b["sp"].numel()
+        rows = 1e-3 * torch.randn((n, kp), device="cuda", generator=gen)
+        table = torch.randn((n_sec, kp), device="cuda", generator=gen)
+        bounds, _, runs_sec = cs.sgd_bounds(b, kp, pack.primary)
+        row = {"phase": "apply", "shape": shape, "bs": n, "Kp": kp,
+               "runs_sec": runs_sec, "longest_sec_run": cs.longest_run(b["ss"]),
+               "bound_ms": bounds["segment_apply"][0],
+               "bound_by": bounds["segment_apply"][1]}
+        for tag, (call, chunk) in applies.items():
+            got, again, model = (table.clone() for _ in range(3))
+            call(got, rows, b["sp"], b["ss"])
+            call(again, rows, b["sp"], b["ss"])
+            ss.segmented_segment_sum(model, rows, b["sp"], b["ss"],
+                                     chunk=chunk or n, layout="columns")
+            row[tag] = {"chunk": chunk,
+                        "model_equal": bool(torch.equal(got, model)),
+                        "deterministic": bool(torch.equal(got, again))}
+            del got, again, model
+            torch.cuda.empty_cache()
+        calls = {tag: (lambda c=c: c(table, rows, b["sp"], b["ss"]))
+                 for tag, (c, _) in applies.items()}
+        for tag, times in in_turns(calls).items():
+            row[tag]["ms"] = times
+        row["plain_ms"] = timer.ms(lambda: cuda_sgd.plain_segment_apply(
+            table, rows, b["sp"], b["ss"]))
+        rows_perm, ss_long = rows[b["sp"].long()], b["ss"].long()
+        row["library_ms"] = timer.ms(
+            lambda: table.index_add_(0, ss_long, rows_perm))
+        emit(row)
+        del rows, table, rows_perm, pack, b
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     global _out
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="paths,scorer,spd,sgd",
-                    help="comma-separated: paths, scorer, spd, sgd")
+    ap.add_argument("--phases", default="paths,scorer,spd,sgd,segsum",
+                    help="comma-separated: paths, scorer, spd, sgd, segsum")
     ap.add_argument("--old-src", type=Path, default=None)
     ap.add_argument("--variants", default="",
                     help="builds of the SGD step to time beside the current "
                          "one: L:STAGES[:FLAG...], comma-separated")
+    ap.add_argument("--segsum-variants", default="",
+                    help="builds of csrc/segment_sum.cu to time beside the "
+                         "current one: NAME=VALUE[:NAME=VALUE...] of its "
+                         "MF_ constants, comma-separated")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -452,7 +631,8 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__})
     sources = [name for name, used_by in (
         ("score_catalog", {"paths", "scorer"}), ("spd_gj", {"spd"}),
-        ("sgd_step", {"sgd"})) if phases & used_by]
+        ("sgd_step", {"sgd"}), ("segment_sum", {"segsum"}))
+        if phases & used_by]
     secs = _build.build(sources)
     emit({"phase": "build", "seconds": secs,
           "ptxas": cs.ptxas_summary(_build.build_logs.values())})
@@ -475,6 +655,9 @@ def main() -> int:
     if "sgd" in phases:
         phase_sgd(torch, args.seed, timer, args.old_src,
                   [v for v in args.variants.split(",") if v])
+    if "segsum" in phases:
+        phase_segsum(torch, args.seed, timer, args.old_src,
+                     [v for v in args.segsum_variants.split(",") if v])
     emit({"phase": "done", "nvidia_smi": smi})
     return 0
 
