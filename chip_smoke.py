@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, SGD training and ALS paths, its bias,
-neighbourhood and content models and its KernelMF sweep on one CUDA GPU
-and check them.
+neighbourhood and content models, its KernelMF sweep, its native host
+packs, its sparse-gram top-k CF and EASE on one CUDA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -48,6 +48,12 @@ failed check ends the run with a non-zero exit:
    4,096 held out), the headline ratings of ``bench.py`` (2M, 10,000 x
    20,000), each packed once on the card (``pack_ratings``,
    ``order='auto'``).
+6a. host_native: the host library (``csrc/host_loader.cpp``, g++) built
+   and its seconds; ``load_ratings_csv`` of a 1M-row CSV of the config-2
+   ratings, native against pandas (equal arrays); the config-3 pack
+   (``order='auto'``, bs 2,097,152) and the config-3 ALS bucket packs,
+   native against numpy (every tensor equal), seconds for each. Every
+   later pack and fit packs natively.
 7. compare_sgd: the SGD step kernel + the apply kernel against the plain
    step on the card, same tables and batch: config-3 sigmoid (bs 2M, Kp
    256, user-primary), config-3 rbf (bs 1M), a skewed config-3 batch
@@ -103,6 +109,16 @@ failed check ends the run with a non-zero exit:
 17. spd_kernel_time: the GJ leaf's kernel, plain and library
     (``torch.linalg.inv``) times at the first five shapes of 13, and
     their bounds.
+17a. cf_topk: ``BASELINE.json`` config 4 at full scale: ``TopKItemItemCF``
+    (50 neighbours) on the 25M config-3 ratings, ``fit`` seconds and peak
+    memory, one strip timed by its parts (host sort and windows, tile
+    builds + exact f32 GEMMs, cosine + stable sort, the sort alone), a
+    bulk ``predict`` of 1M seeded pairs, 64 sampled columns against a
+    float64 scipy.sparse centered cosine (values within 1e-5, ids where
+    separated by more than 1e-5), 4,096 predictions against a float64
+    replay of the formula on the fitted lists (1e-4); then user-user
+    ``similarity_topk(i, u, r, ...)`` once, timed, 16 of its columns held
+    the same way, and its strip split.
 
 18. ml1m_data / compare_segsum: MovieLens-1M-shaped ratings
     (``BASELINE.json`` config 2: 1M unique pairs of 6,040 x 3,706, half
@@ -135,10 +151,25 @@ failed check ends the run with a non-zero exit:
 23. segsum_kernel_time: the segment sum's kernel, plain and library
     (``index_add_``) times at the shapes of 18 (``Timer``), and their
     bounds.
+24. ease: EASE at MovieLens-1M shape (the config-2 ratings as implicit
+    feedback, lam 250) through ``fit`` with the GJ count zeroed just
+    before and read just after, ``B`` against float64 numpy EASE (atol
+    1e-4), the top-10 of 256 users against float64 where separated by
+    more than 1e-5, a checkpoint round trip; at the item budget (16,384
+    items, 100,000 users x 100 interactions, lam 100) ``item_gram`` and
+    ``ease_weights`` timed apart with peak memory, held by
+    ``(G + lam I)(I - B) = diag(1 / diag P)`` on 256 columns (off-diagonal
+    within 1e-3 of the diagonal).
+25. spd_kernel_time at EASE's leaves: every leaf input the two EASE fits'
+    Schur recursions handed the GJ leaf, the kernel held to its plain
+    version (atol = rtol = 1e-4) and both to the float64 inverse
+    (``|A X - I|`` < 5e-3); the kernel, plain and library times on the
+    first input of each width.
 
 Then the ``kernels`` line (``score_catalog``, ``sgd_step``,
-``segment_apply``, ``spd_gj``, ``segment_sum``), the ``nvidia-smi`` line,
-and last ``{"ok": true, "device": {...}}``.
+``segment_apply``, ``spd_gj`` with its EASE launches and shapes,
+``segment_sum``), the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2130,6 +2161,438 @@ def phase_segsum_kernel_times(torch, rng, train, timer):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The native host library, the sparse-gram top-k CF (config 4) and EASE
+# ---------------------------------------------------------------------------
+
+# BASELINE.json config 4 (benchmarks/run_configs.py:221-286): item-item and
+# user-user centered-cosine top-k CF on the config-3 ratings
+CF4 = {"n_neighbors": 50, "block": 4096, "predict_pairs": 1_000_000,
+       "oracle_columns": 64, "oracle_pairs": 4096}
+# EASE at MovieLens-1M shape (the config-2 ratings as implicit feedback,
+# the JAX model's default lam) and at the item budget, as
+# benchmarks/ease_bench.py::run_combo makes it
+EASE_ML1M = {"reg": 250.0, "users": 256, "k": 10}
+EASE_BUDGET = {"n_users": 100_000, "n_items": 16_384, "per_user": 100,
+               "reg": 100.0, "oracle_columns": 256}
+
+
+def timed(torch, fn):
+    """(result, wall seconds) of ``fn()`` ending in a device synchronise."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_host_native(torch, data3, tmpdir, seed):
+    """The host library's build; ``load_ratings_csv`` on a 1M-row CSV of the
+    config-2 ratings, native against pandas; the config-3 SGD pack
+    (``order='auto'``, bs 2,097,152) and the config-3 ALS bucket packs,
+    native against numpy: every array equal, seconds for each."""
+    import numpy as np
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch.data import loader
+    from matrix_factorization_tpu_torch.ops import _build, ials
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    out = {"phase": "host_native", "threads": loader.native_threads()}
+    out["build_seconds"] = _build.build(["host_loader"])
+    loader.host_lib()
+
+    (u, i, r), _ = ml1m_ratings(seed)
+    path = Path(tmpdir) / "ratings.csv"
+    pd.DataFrame({"userId": u, "movieId": i, "rating": r}).to_csv(path, index=False)
+    loads = {}
+    for backend in ("native", "pandas"):
+        t0 = time.perf_counter()
+        loads[backend] = loader.load_ratings_csv(path, force_backend=backend)
+        out[f"csv_{backend}_seconds"] = time.perf_counter() - t0
+    nat, pdl = loads["native"], loads["pandas"]
+    check(nat.backend == "native" and pdl.backend == "pandas", "csv backends")
+    check(all(np.array_equal(getattr(nat, f), getattr(pdl, f))
+              for f in ("user_ids", "item_ids", "ratings", "user_uniques",
+                        "item_uniques")), "native and pandas CSV loads differ")
+    check(np.array_equal(nat.user_uniques[nat.user_ids], u)
+          and np.array_equal(nat.ratings, r), "the CSV load lost ratings")
+    out["csv_rows"] = len(r)
+
+    u3, i3, r3 = data3[:3]
+    bs = CONFIG3["sigmoid"]["batch_size"]
+    packs = {}
+    for native in (True, False):
+        packs[native], out[f"pack_{'native' if native else 'numpy'}_seconds"] = timed(
+            torch, lambda: sgd.pack_ratings(u3, i3, r3, bs, order="auto",
+                                            device="cuda", native=native))
+    fields = ("user_ids", "item_ids", "ratings", "weights", "sec_perm",
+              "sec_ids_sorted")
+    check(all(torch.equal(getattr(packs[True], f), getattr(packs[False], f))
+              for f in fields) and packs[True].primary == packs[False].primary,
+          "the native config-3 pack differs from numpy's")
+    out["pack_primary"] = packs[True].primary
+    packs.clear()
+    torch.cuda.empty_cache()
+
+    buckets = {}
+    for native in (True, False):
+        buckets[native], out[f"als_pack_{'native' if native else 'numpy'}_seconds"] = timed(
+            torch, lambda: ials.group_both_sides_bucketed(
+                u3, i3, r3, N_USERS, N_ITEMS, device="cuda", native=native))
+    same = all(
+        len(a) == len(b) and all(torch.equal(s, t) for x, y in zip(a, b)
+                                 for s, t in zip(x, y))
+        for a, b in zip(buckets[True], buckets[False]))
+    check(same, "the native config-3 ALS packs differ from numpy's")
+    out["als_chunks"] = [len(side) for side in buckets[True]]
+    buckets.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def cosine_columns_f64(u, i, r, n_rows, n_cols, cols):
+    """float64 centered cosine of columns ``cols`` against every column of
+    the (n_rows, n_cols) sparse ratings (scipy.sparse), self pairs -inf:
+    (len(cols), n_cols)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    R = sp.csc_matrix((r.astype(np.float64), (u, i)), shape=(n_rows, n_cols))
+    m = np.asarray(R.sum(axis=0)).ravel() / n_rows
+    sq = np.asarray(R.multiply(R).sum(axis=0)).ravel()
+    norms = np.sqrt(np.maximum(sq - n_rows * m * m, 0.0))
+    G = (R.T @ R[:, cols]).toarray().T  # (len(cols), n_cols)
+    C = G - n_rows * m[cols][:, None] * m[None, :]
+    S = C / np.maximum(np.outer(norms[cols], norms), 1e-12)
+    S[np.arange(len(cols)), cols] = -np.inf
+    return S
+
+
+def hold_topk(sims, ids, S, tol):
+    """(max |value error|, ids checked, ids wrong) of top-k lists against
+    the float64 rows ``S``: values sorted as the oracle's; an id counts
+    where its oracle value is more than ``tol`` from its neighbours'."""
+    import numpy as np
+
+    k = sims.shape[1]
+    order = np.argsort(-S, axis=1, kind="stable")[:, :k + 1]
+    want = np.take_along_axis(S, order, axis=1)
+    err = float(np.abs(sims - want[:, :k]).max())
+    gaps = np.abs(np.diff(want, axis=1)) > tol  # gap after position t
+    sep = gaps[:, :k].copy()
+    sep[:, 1:] &= gaps[:, :k - 1]
+    checked = int(sep.sum())
+    wrong = int((ids[sep] != order[:, :k][sep]).sum())
+    return err, checked, wrong
+
+
+def strip_split(torch, rows, cols, r, n_rows, n_cols, k, block):
+    """One strip of ``similarity_topk`` timed by its parts: the host sort
+    and the device windows, the accumulation (tile builds + exact f32
+    GEMMs), the centered cosine with its stable sort, and the stable sort
+    alone, with the strip count and the GEMMs' operations."""
+    from matrix_factorization_tpu_torch.ops import sparse_gram as sg
+    from matrix_factorization_tpu_torch.ops.scoring import stable_topk
+    from matrix_factorization_tpu_torch.ops.segment_sgd import round_up
+
+    pad = round_up(n_cols, block)
+    (ub, ib, rb, counts), t_bucket = timed(
+        torch, lambda: sg._bucket_by_block(rows, cols, r, n_rows, block, "cuda"))
+    acc, t_acc = timed(torch, lambda: sg._strip_accumulate(
+        ub, ib, rb, counts, 0, block, block, pad))
+    ones = torch.ones(pad, device="cuda")
+    _, t_topk = timed(torch, lambda: sg._strip_topk(
+        acc, torch.arange(block, device="cuda"), ones, n_rows, ones, k, n_cols))
+    del acc
+    x = torch.rand((block, pad), device="cuda")
+    _, t_sort = timed(torch, lambda: stable_topk(x, k))
+    del x, ub, ib, rb
+    torch.cuda.empty_cache()
+    n_strips = -(-n_cols // block)
+    flops = 2.0 * block * block * pad * int((counts > 0).sum())
+    return {"strips": n_strips, "bucket_seconds": t_bucket,
+            "accumulate_seconds_per_strip": t_acc,
+            "topk_seconds_per_strip": t_topk, "sort_seconds_per_strip": t_sort,
+            "accumulate_tflops": flops / t_acc / 1e12,
+            "accumulate_seconds": t_acc * n_strips,
+            "topk_seconds": t_topk * n_strips}
+
+
+def phase_cf_topk(torch, rng, data3):
+    """``TopKItemItemCF`` at BASELINE config 4 (162,000 x 59,392, the 25M
+    config-3 ratings, 50 neighbours): ``fit`` seconds and peak memory, one
+    strip split into its parts, a bulk ``predict`` of 1M seeded pairs, 64
+    sampled columns against a float64 scipy.sparse centered cosine (values
+    within 1e-5, ids where separated by more than 1e-5), 4,096 predictions
+    against a float64 replay of the formula on the fitted lists (1e-4);
+    then user-user ``similarity_topk(i, u, r, ...)`` once, timed, and its
+    strip split."""
+    import numpy as np
+    import pandas as pd
+    import scipy.sparse as sp
+
+    from matrix_factorization_tpu_torch import TopKItemItemCF
+    from matrix_factorization_tpu_torch.ops import sparse_gram as sg
+
+    u, i, r = data3[:3]
+    k = CF4["n_neighbors"]
+    out = {"phase": "cf_topk", "n_users": N_USERS, "n_items": N_ITEMS,
+           "n_ratings": len(r), "n_neighbors": k}
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    torch.cuda.reset_peak_memory_stats()
+    model, out["item_fit_seconds"] = timed(torch, lambda: TopKItemItemCF(
+        n_neighbors=k, min_rating=0.5, max_rating=5.0).fit(X, pd.Series(r)))
+    out["item_fit_peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    del X
+    # dense ids; users without ratings (the top of config 3's id range, as
+    # ``_gen`` keeps the lowest of the sorted unique pairs) are not in them
+    n_u, n_i = model.n_users, model.n_items
+    out["users_rated"] = n_u
+    ud = model.user_vocab.encode(u)
+    idd = model.item_vocab.encode(i)
+    out["item_split"] = strip_split(torch, ud, idd, r, n_u, n_i, k, CF4["block"])
+
+    n = CF4["predict_pairs"]
+    qu = rng.integers(0, n_u, n).astype(np.int32)
+    qi = rng.integers(0, n_i, n).astype(np.int32)
+    model._predict_arrays(qu[:1024], qi[:1024], True)
+    (preds, possible), dt = timed(torch, lambda: model._predict_arrays(qu, qi, True))
+    check(np.isfinite(preds).all() and possible.all(), "config-4 bulk predict")
+    out.update({"predict_pairs": n, "predict_seconds": dt,
+                "predict_pairs_per_s": n / dt})
+
+    sims = model._neighbor_sims.cpu().numpy()
+    ids = model._neighbor_ids.cpu().numpy()
+    cols = np.sort(rng.choice(n_i, CF4["oracle_columns"], replace=False))
+    S = cosine_columns_f64(ud, idd, r, n_u, n_i, cols)
+    err, checked, wrong = hold_topk(sims[cols], ids[cols], S, 1e-5)
+    out.update({"columns_max_abs_err": err, "columns_ids_checked": checked,
+                "columns_ids_wrong": wrong})
+    check(err <= 1e-5, f"config-4 top-k values off float64 by {err}")
+    check(wrong == 0 and checked > 0, f"config-4 top-k ids: {wrong} of "
+                                      f"{checked} separated ids differ")
+
+    m = CF4["oracle_pairs"]
+    R = sp.csr_matrix((r.astype(np.float64), (ud, idd)), shape=(n_u, n_i))
+    means = model._means.cpu().numpy().astype(np.float64)
+    nb = ids[qi[:m]]
+    s = sims[qi[:m]].astype(np.float64)
+    rated = np.asarray(R[np.repeat(qu[:m], k), nb.ravel()]).reshape(m, k)
+    found = rated > 0
+    num = np.where(found, s * (rated - means[nb]), 0.0).sum(1)
+    den = np.where(found, np.abs(s), 0.0).sum(1)
+    base = means[qi[:m]]
+    want = np.clip(np.where(den > 0, base + num / np.maximum(den, 1e-12), base),
+                   0.5, 5.0)
+    perr = float(np.abs(preds[:m] - want).max())
+    out.update({"predict_max_abs_err": perr, "predict_neighbours_found": int(found.sum())})
+    check(perr <= 1e-4, f"config-4 predictions off the float64 replay by {perr}")
+    del model, R, S
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    (usims, uids, _, _), out["user_seconds"] = timed(
+        torch, lambda: sg.similarity_topk(i, u, r, N_ITEMS, N_USERS, k=k,
+                                          device="cuda"))
+    out["user_peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    check(usims.shape == (N_USERS, k) and np.isfinite(usims).all()
+          and (uids >= 0).all() and (uids < N_USERS).all(), "user-user top-k")
+    ucols = np.sort(rng.choice(N_USERS, 16, replace=False))
+    uerr, uchecked, uwrong = hold_topk(
+        usims[ucols], uids[ucols], cosine_columns_f64(i, u, r, N_ITEMS, N_USERS, ucols),
+        1e-5)
+    out.update({"user_columns_max_abs_err": uerr, "user_columns_ids_checked": uchecked,
+                "user_columns_ids_wrong": uwrong})
+    check(uerr <= 1e-5 and uwrong == 0, f"user-user top-k off float64: {uerr}, "
+                                        f"{uwrong} ids")
+    out["user_split"] = strip_split(torch, i, u, r, N_ITEMS, N_USERS, k, CF4["block"])
+    return out
+
+
+class LeafRecorder:
+    """Wraps ``cuda_spd.gj_inverse`` (the leaf the Schur recursion calls)
+    to keep every input it is handed, by leaf width, for holding the
+    kernel to its plain version and timing it at the path's own inputs;
+    the launches are counted by the wrapper."""
+
+    def __init__(self):
+        from matrix_factorization_tpu_torch.ops import cuda_spd
+
+        self.cuda_spd = cuda_spd
+        self.inputs = {}
+
+    def __enter__(self):
+        self.orig = self.cuda_spd.gj_inverse
+
+        def record(A):
+            self.inputs.setdefault(A.shape[-1], []).append(A.clone())
+            return self.orig(A)
+
+        self.cuda_spd.gj_inverse = record
+        return self
+
+    def __exit__(self, *exc):
+        self.cuda_spd.gj_inverse = self.orig
+
+
+def ease_f64(u, i, n_users, n_items, lam):
+    """float64 dense EASE: (X, B) with B = -P / diag(P), zero diagonal."""
+    import numpy as np
+
+    X = np.zeros((n_users, n_items))
+    X[u, i] = 1.0
+    P = np.linalg.inv(X.T @ X + lam * np.eye(n_items))
+    B = -P / np.diag(P)[None, :]
+    np.fill_diagonal(B, 0.0)
+    return X, B
+
+
+def phase_ease(torch, rng, train, tmpdir, seed):
+    """EASE at MovieLens-1M shape (the config-2 ratings as implicit
+    feedback, lam 250): ``fit`` with the GJ count zeroed just before and
+    read just after, ``B`` against float64 numpy EASE (atol 1e-4), the
+    top-10 of 256 users against the float64 top-10 where separated by
+    more than 1e-5, a checkpoint round trip; then at the item budget
+    (16,384 items, 100,000 users x 100 interactions) ``item_gram`` and
+    ``ease_weights`` timed apart with peak memory, held by the closed
+    form's identity ``(G + lam I)(I - B) = diag(1 / diag P)`` on 256
+    columns. Returns (out, GJ launches, the recorded leaf inputs)."""
+    import numpy as np
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch import EASE, load_model, save_model
+    from matrix_factorization_tpu_torch.ops import cuda_spd
+    from matrix_factorization_tpu_torch.ops import ease as ease_ops
+    from matrix_factorization_tpu_torch.ops.spd import exact_f32
+
+    u, i, r = train
+    lam = EASE_ML1M["reg"]
+    out = {"phase": "ease", "ml1m": {"n_users": ML1M["n_users"],
+                                     "n_items": ML1M["n_items"], "reg": lam}}
+    res = out["ml1m"]
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    torch.cuda.reset_peak_memory_stats()
+    cuda_spd.reset_launches()
+    with LeafRecorder() as rec_ml1m:
+        model, res["fit_seconds"] = timed(
+            torch, lambda: EASE(reg=lam).fit(X, pd.Series(r)))
+    launches = {"ml1m": cuda_spd.launches}
+    check(launches["ml1m"] > 0, "EASE fit did not launch the GJ leaf")
+    res["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    res["leaf_d"] = sorted(rec_ml1m.inputs)
+    ud = model.user_vocab.encode(u)
+    idd = model.item_vocab.encode(i)
+    Xd, B_ref = ease_f64(ud, idd, model.n_users, model.n_items, lam)
+    n_i = model.n_items
+    B = model._params.item_weights.cpu().numpy()
+    res["B_max_abs_err"] = float(np.abs(B[:n_i, :n_i] - B_ref).max())
+    check(res["B_max_abs_err"] <= 1e-4, f"EASE B off float64 by {res['B_max_abs_err']}")
+    users = np.sort(rng.choice(model.n_users, EASE_ML1M["users"], replace=False))
+    vals, idx = model._catalog_topk(users, EASE_ML1M["k"])
+    S = Xd[users] @ B_ref
+    err, checked, wrong = hold_topk(vals, idx, S, 1e-5)
+    res.update({"top10_max_abs_err": err, "top10_ids_checked": checked,
+                "top10_ids_wrong": wrong})
+    check(err <= 1e-4 and wrong == 0 and checked > 0,
+          f"EASE top-10 off float64: {err}, {wrong} of {checked} ids")
+    save_model(model, f"{tmpdir}/ease")
+    back = load_model(f"{tmpdir}/ease")
+    raw = list(model.user_vocab.raw_ids[:8])
+    check(torch.equal(back._params.item_weights, model._params.item_weights)
+          and back.recommend_batch(raw, amount=10).equals(
+              model.recommend_batch(raw, amount=10)),
+          "the reloaded EASE model differs")
+    del model, back, Xd, B_ref
+    torch.cuda.empty_cache()
+
+    cfg = EASE_BUDGET
+    res = out["budget"] = dict(cfg)
+    gen = np.random.default_rng(seed)
+    n = cfg["n_users"] * cfg["per_user"]
+    bu = np.repeat(np.arange(cfg["n_users"], dtype=np.int64), cfg["per_user"])
+    bi = gen.integers(0, cfg["n_items"], n).astype(np.int64)
+    w = np.ones(n, np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    G, res["gram_seconds"] = timed(torch, lambda: ease_ops.item_gram(
+        bu, bi, w, cfg["n_users"], cfg["n_items"], device="cuda"))
+    res["gram_peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    cuda_spd.reset_launches()
+    with LeafRecorder() as rec_budget:
+        Bt, res["inverse_seconds"] = timed(
+            torch, lambda: ease_ops.ease_weights(G, cfg["reg"]))
+    launches["budget"] = cuda_spd.launches
+    check(launches["budget"] > 0, "EASE at the budget did not launch the GJ leaf")
+    res["inverse_peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    res["leaf_d"] = sorted(rec_budget.inputs)
+    check(bool(torch.isfinite(Bt).all()) and not Bt.diagonal().any(), "EASE B at 16k")
+    cols = torch.from_numpy(np.sort(gen.choice(cfg["n_items"], cfg["oracle_columns"],
+                                               replace=False))).to("cuda")
+    A = G.clone()
+    A.diagonal().add_(cfg["reg"])
+    IB = -Bt[:, cols]
+    IB[cols, torch.arange(len(cols), device="cuda")] += 1.0
+    with exact_f32():
+        M = A @ IB  # = diag(1 / diag P) on the sampled columns
+    diag = M[cols, torch.arange(len(cols), device="cuda")].clone()
+    M[cols, torch.arange(len(cols), device="cuda")] = 0.0
+    res["identity_rel_err"] = float(M.abs().max() / diag.abs().min())
+    check(res["identity_rel_err"] <= 1e-3 and bool((diag > 0).all()),
+          f"EASE at 16k: (G + lam I)(I - B) off diagonal by {res['identity_rel_err']}")
+    del G, Bt, A, IB, M
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    leaves = {"ease_ml1m": rec_ml1m.inputs, "ease_budget": rec_budget.inputs}
+    return out, launches, leaves
+
+
+def phase_ease_leaf_times(torch, leaves, timer):
+    """The GJ leaf at every input EASE's Schur recursion handed it: the
+    kernel against its plain version (atol = rtol = 1e-4, as compare_spd)
+    and both against the float64 inverse; then the kernel, plain and
+    library (``torch.linalg.inv``) times and bounds on the first input
+    of each width. Returns (rows, the largest kernel-vs-plain error)."""
+    from matrix_factorization_tpu_torch.ops import cuda_spd
+
+    rows, worst = [], 0.0
+    for path, inputs in leaves.items():
+        for d, batch in sorted(inputs.items()):
+            err = eye_err = plain_eye_err = vs_f64 = 0.0
+            for n, A in enumerate(batch):
+                got = cuda_spd.cuda_gj_inverse(A)
+                want = cuda_spd.plain_gj_inverse(A)
+                A64 = A.double()
+                eye = torch.eye(d, dtype=torch.float64, device="cuda")
+                e = float((got - want).abs().max())
+                ok = bool(torch.isfinite(got).all()) and torch.allclose(
+                    got, want, atol=1e-4, rtol=1e-4)
+                check(ok, f"EASE leaf {path} d={d} #{n}: kernel differs from "
+                          f"plain by {e}")
+                err = max(err, e)
+                eye_err = max(eye_err, float((A64 @ got.double() - eye).abs().max()))
+                plain_eye_err = max(plain_eye_err,
+                                    float((A64 @ want.double() - eye).abs().max()))
+                vs_f64 = max(vs_f64, float(
+                    (got.double() - torch.linalg.inv(A64)).abs().max()))
+            check(eye_err < 5e-3 and plain_eye_err < 5e-3,
+                  f"EASE leaf {path} d={d}: |A X - I| too large "
+                  f"({eye_err}, plain {plain_eye_err})")
+            A = batch[0]
+            E = A.shape[0]
+            b_ms, b_by = spd_bound(E, d)
+            row = {"path": path, "E": E, "d": d, "leaves": len(batch),
+                   "max_abs_err": err, "kernel_eye_err": eye_err,
+                   "plain_eye_err": plain_eye_err, "kernel_vs_f64": vs_f64,
+                   "ms": timer.ms(lambda: cuda_spd.cuda_gj_inverse(A)),
+                   "plain_ms": timer.ms(lambda: cuda_spd.plain_gj_inverse(A)),
+                   "library_ms": timer.ms(lambda: torch.linalg.inv(A)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            emit({"phase": "spd_kernel_time", **row})
+            worst = max(worst, err)
+    return rows, worst
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2207,6 +2670,8 @@ def main() -> int:
           "config3_seconds": t_config3,
           "config3_ratings": N_RATINGS, "held_out": N_HELD_OUT,
           "config3_users_rated": int(np.unique(data3[0]).size)})
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        emit(phase_host_native(torch, data3, tmpdir, args.seed))
     packs, pack_seconds = {}, {}
     for name, (u, i, r), bs in (
             ("sigmoid", data3[:3], CONFIG3["sigmoid"]["batch_size"]),
@@ -2317,6 +2782,8 @@ def main() -> int:
     spd_launches = {"train_als": train_als["launches"],
                     "warm_start": warm["launches"]["spd_gj"],
                     "implicit": implicit["launches"]}
+    # -- sparse-gram top-k CF at config 4 ------------------------------------
+    emit(phase_cf_topk(torch, rng, data3))
     del data3
     torch.cuda.empty_cache()
 
@@ -2335,6 +2802,15 @@ def main() -> int:
     sweep_out = phase_sweep(torch, sweep_in, args.seed)
     emit(sweep_out)
     segsum_rows = phase_segsum_kernel_times(torch, rng, train1m, timer)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        ease_out, ease_launches, leaves = phase_ease(torch, rng, train1m, tmpdir,
+                                                     args.seed)
+    emit(ease_out)
+    spd_launches["ease"] = sum(ease_launches.values())
+    ease_rows, ease_worst = phase_ease_leaf_times(torch, leaves, timer)
+    spd_rows += ease_rows
+    spd_worst = max(spd_worst, ease_worst)
+    del leaves
     segsum_launches = {"baseline_als": baseline["launches"]["als"],
                        "baseline_sgd": baseline["launches"]["sgd"],
                        "content": content["launches"]}

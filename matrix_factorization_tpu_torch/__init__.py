@@ -16,10 +16,18 @@ counterpart is easy to find. It trains and serves:
   ``ItemItemCF`` (dense similarity, masked top-k neighbours) and
   ``ContentBasedRecommender`` (item-feature profiles), whose reductions
   by id are the deterministic segment-sum kernel
-  (``csrc/segment_sum.cu``).
+  (``csrc/segment_sum.cu``);
+* ``TopKItemItemCF`` and ``TopKUserUserCF`` (top-k neighbour lists from a
+  block-tiled sparse gram, for MovieLens-25M-sized catalogs) and
+  ``EASE`` (one regularized inverse of the item gram, through the
+  Gauss-Jordan leaf), with :func:`grid_search_ease`.
+
+:func:`load_ratings_csv` reads a rating file into dense ids; it and the
+rating packs run on the host library of ``csrc/host_loader.cpp``
+(threaded parsing and counting sorts).
 
 Checkpoints of either package load here (:func:`load_model`: KernelMF,
-ImplicitALS, BaselineModel), and ``predict``, ``recommend``,
+ImplicitALS, BaselineModel, EASE), and ``predict``, ``recommend``,
 ``recommend_batch`` and the :class:`CoalescingRecommender` run on the
 GPU, KernelMF's catalog scoring in a hand-written CUDA kernel
 (``csrc/score_catalog.cu``). Entry points take ``device=None``, which
@@ -32,10 +40,13 @@ from matrix_factorization_tpu_torch.core.checkpoint import (
     load_model,
     save_model,
 )
+from matrix_factorization_tpu_torch.data.loader import load_ratings_csv
 from matrix_factorization_tpu_torch.models.baseline import BaselineModel
+from matrix_factorization_tpu_torch.models.cf_topk import TopKItemItemCF, TopKUserUserCF
 from matrix_factorization_tpu_torch.models.collaborative import ItemItemCF, UserUserCF
 from matrix_factorization_tpu_torch.models.content_based import ContentBasedRecommender
-from matrix_factorization_tpu_torch.models.grid_search import grid_search_kernel_mf
+from matrix_factorization_tpu_torch.models.ease import EASE
+from matrix_factorization_tpu_torch.models.grid_search import grid_search_ease, grid_search_kernel_mf
 from matrix_factorization_tpu_torch.models.implicit import ImplicitALS
 from matrix_factorization_tpu_torch.models.kernel_mf import KernelMF
 from matrix_factorization_tpu_torch.ops.segment_sgd import params_from_numpy
@@ -46,13 +57,18 @@ __all__ = [
     "BaselineModel",
     "CoalescingRecommender",
     "ContentBasedRecommender",
+    "EASE",
     "ImplicitALS",
     "ItemItemCF",
     "KernelMF",
+    "TopKItemItemCF",
+    "TopKUserUserCF",
     "UserUserCF",
     "fit_resumable",
+    "grid_search_ease",
     "grid_search_kernel_mf",
     "load_model",
+    "load_ratings_csv",
     "params_from_numpy",
     "save_model",
     "train_update_test_split",

@@ -2,13 +2,16 @@
 
 Counterpart of ``save_model`` / ``load_model`` in
 ``matrix_factorization_tpu/core/checkpoint.py``, for ``KernelMF`` (SGD or
-ALS) and ``ImplicitALS``, whose tables are both ``MFParams``, and
-``BaselineModel``, whose state is ``BiasParams``. A checkpoint is a
+ALS) and ``ImplicitALS``, whose tables are both ``MFParams``,
+``BaselineModel``, whose state is ``BiasParams``, and ``EASE``, whose
+state is ``EASEParams`` and its users' histories. A checkpoint is a
 directory:
 
 * ``arrays.npz`` — the params' fields as host numpy: ``user_features``,
   ``item_features`` and ``global_mean`` (``MFParams``), or
-  ``user_biases``, ``item_biases`` and ``global_mean`` (``BiasParams``)
+  ``user_biases``, ``item_biases`` and ``global_mean`` (``BiasParams``),
+  or ``item_weights`` (``EASEParams``); for EASE also the history CSR as
+  ``aux_hist_indptr``, ``aux_hist_i`` and ``aux_hist_w``
 * ``meta.pkl``   — ``format_version``, ``model_class``, ``params_class``,
   the constructor ``config``, the raw user and item ids, ``train_rmse``,
   ``train_loss``, ``global_mean`` and ``epochs_done``
@@ -47,6 +50,9 @@ def save_model(model, path) -> None:
         params = model._params
         arrays = {name: getattr(params, name).detach().cpu().numpy()
                   for name in params._fields}
+        if getattr(model, "_indptr", None) is not None:
+            arrays.update(aux_hist_indptr=model._indptr,
+                          aux_hist_i=model._hist_i, aux_hist_w=model._hist_w)
         np.savez(tmp / "arrays.npz", **arrays)
         config = model.get_params()
         config.pop("device", None)
@@ -81,28 +87,34 @@ def save_model(model, path) -> None:
 def _model_classes() -> dict:
     """Model class name -> (class, the name of its params class)."""
     from matrix_factorization_tpu_torch.models.baseline import BaselineModel
+    from matrix_factorization_tpu_torch.models.ease import EASE
     from matrix_factorization_tpu_torch.models.implicit import ImplicitALS
     from matrix_factorization_tpu_torch.models.kernel_mf import KernelMF
 
     return {"KernelMF": (KernelMF, "MFParams"),
             "ImplicitALS": (ImplicitALS, "MFParams"),
-            "BaselineModel": (BaselineModel, "BiasParams")}
+            "BaselineModel": (BaselineModel, "BiasParams"),
+            "EASE": (EASE, "EASEParams")}
+
+
+def _f32_tensor(a, device):
+    """An f32 host array as a tensor on ``device``."""
+    import torch
+
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
 
 def _bias_params(npz, device):
-    import torch
-
     from matrix_factorization_tpu_torch.ops.als import BiasParams
 
-    return BiasParams(*(
-        torch.from_numpy(np.array(npz[name], dtype=np.float32)).to(device)
-        for name in BiasParams._fields))
+    return BiasParams(*(_f32_tensor(npz[name], device)
+                        for name in BiasParams._fields))
 
 
 def load_model(path, device=None):
-    """Restore a ``KernelMF``, an ``ImplicitALS`` or a ``BaselineModel``
-    from a checkpoint directory onto ``device`` (``None`` = CUDA, see
-    ``core.device``)."""
+    """Restore a ``KernelMF``, an ``ImplicitALS``, a ``BaselineModel`` or
+    an ``EASE`` from a checkpoint directory onto ``device`` (``None`` =
+    CUDA, see ``core.device``)."""
     from matrix_factorization_tpu_torch.core.ids import IdVocab
     from matrix_factorization_tpu_torch.ops.segment_sgd import params_from_numpy
 
@@ -126,6 +138,13 @@ def load_model(path, device=None):
     with np.load(path / "arrays.npz") as npz:
         if params_class == "BiasParams":
             model._params = _bias_params(npz, model._device)
+        elif params_class == "EASEParams":
+            from matrix_factorization_tpu_torch.ops.ease import EASEParams
+
+            model._params = EASEParams(_f32_tensor(npz["item_weights"], model._device))
+            model._indptr = np.asarray(npz["aux_hist_indptr"])
+            model._hist_i = np.asarray(npz["aux_hist_i"])
+            model._hist_w = np.asarray(npz["aux_hist_w"])
         else:
             model._params = params_from_numpy(
                 npz["user_features"], npz["item_features"],

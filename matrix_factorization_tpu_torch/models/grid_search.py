@@ -7,7 +7,8 @@ candidates x 5 folds, ``examples/recommender-system.ipynb`` cells 29-30);
 here every (lr, reg) candidate trains over one preprocessing pass and one
 packed rating stream (``ops/sweep.py``), on the card through the SGD step
 and apply kernels, and the winner serves through the catalog scorer.
-``grid_search_ease`` comes with EASE.
+``grid_search_ease`` sweeps EASE's ridge with one gram and one batched
+inverse.
 """
 
 from __future__ import annotations
@@ -130,4 +131,97 @@ def grid_search_kernel_mf(
         # diverged candidates (NaN) sort last, as best_index never picks them
         key=lambda d: (np.isnan(d["val_rmse"]), d["val_rmse"]),
     )
+    return model, results
+
+
+def grid_search_ease(
+    X: pd.DataFrame,
+    y: pd.Series,
+    regs: Sequence[float] = (50.0, 250.0, 1000.0),
+    holdout_per_user: int = 1,
+    k: int = 10,
+    max_eval_users: int = 2048,
+    seed: int = 0,
+    **model_kwargs,
+):
+    """Ridge sweep of :class:`~matrix_factorization_tpu_torch.models.ease.EASE`.
+
+    The item gram does not depend on lam, so the sweep is one gram and one
+    batched Schur-recursion inverse of the stacked ``G + lam I``
+    (``ops/ease.py::ease_weights_multi``). Selection is leave-``n``-out:
+    ``holdout_per_user`` interactions of every user with more than that
+    many are held out, candidates are scored by hit@``k`` on them (the
+    users' training items masked), and the winner is refit on all
+    interactions. ``model_kwargs`` go to ``EASE`` (``device`` among them).
+
+    Returns ``(best_model, results)``: the fitted EASE and dicts
+    (reg, hit_at_k) sorted best first.
+    """
+    from matrix_factorization_tpu_torch.models.ease import EASE
+    from matrix_factorization_tpu_torch.ops import ease as ease_ops
+
+    if not regs:
+        raise ValueError("regs must be non-empty")
+    if holdout_per_user < 1:
+        raise ValueError("holdout_per_user must be >= 1")
+    model = EASE(reg=float(regs[0]), **model_kwargs)
+    u, i, r = model._preprocess_fit(X, y)
+    w = model._weights(r)
+    ease_ops.check_item_budget(model.n_items)
+
+    # per-user holdout: shuffle the pairs, rank them within each user, hold
+    # the first `holdout_per_user` of each user that keeps a training item
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(len(u))
+    order = perm[np.argsort(u[perm], kind="stable")]
+    us = u[order]
+    starts = np.searchsorted(us, np.arange(model.n_users))
+    rank = np.arange(len(us)) - starts[us]
+    counts = np.bincount(u, minlength=model.n_users)
+    held = np.zeros(len(u), bool)
+    held[order] = (rank < holdout_per_user) & (counts[us] > holdout_per_user)
+    tr = ~held
+
+    G = ease_ops.item_gram(u[tr], i[tr], w[tr], model.n_users, model.n_items,
+                           model.gram_chunk_users, device=model._device)
+    B_stack = ease_ops.ease_weights_multi(G, list(regs))
+    del G
+
+    # the evaluation cohort: users with held-out items, capped
+    eval_users = np.unique(u[held])
+    if len(eval_users) > max_eval_users:
+        eval_users = rng.choice(eval_users, max_eval_users, replace=False)
+    held_items = {int(uu): set() for uu in eval_users}
+    for uu, ii in zip(u[held], i[held]):
+        if int(uu) in held_items:
+            held_items[int(uu)].add(int(ii))
+
+    # the cohort's training histories (the serving-side state)
+    model._set_histories(u[tr], i[tr], w[tr])
+    hits = np.zeros(len(regs), np.float64)
+    for lo in range(0, len(eval_users), 256):
+        cohort = eval_users[lo:lo + 256]
+        ids, ww = model._history_block(cohort)
+        for c in range(len(regs)):
+            _, idx = ease_ops.history_topk_unseen(
+                B_stack[c], ids, ww, min(k, model.n_items), model.n_items)
+            for row, uu in enumerate(cohort):
+                if held_items[int(uu)] & set(idx[row].tolist()):
+                    hits[c] += 1
+    hit_rate = hits / max(1, len(eval_users))
+    del B_stack
+
+    best = int(np.argmax(hit_rate))
+    model.reg = float(regs[best])
+    # refit the winner on all interactions
+    G_full = ease_ops.item_gram(u, i, w, model.n_users, model.n_items,
+                                model.gram_chunk_users, device=model._device)
+    model._params = ease_ops.EASEParams(ease_ops.ease_weights(G_full, model.reg))
+    model._serving_cache = None
+    model._set_histories(u, i, w)
+
+    results = sorted(
+        ({"reg": float(regs[c]), "hit_at_k": float(hit_rate[c])}
+         for c in range(len(regs))),
+        key=lambda d: -d["hit_at_k"])
     return model, results

@@ -1,10 +1,14 @@
-"""Build the port's CUDA sources and load them with ``ctypes``.
+"""Build the port's native sources and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first
-use by ``nvcc`` for Hopper into ``build/lib<name>-<hash>.so`` at the root of
-the checkout (a directory git ignores). The hash is that of the source and
-the flags, so an edited source is rebuilt and a stale library is never
-loaded. A failed build raises; nothing falls back to another path.
+Each ``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cpp`` (the host
+helpers of ``host_loader.cpp``) has a plain C interface and is compiled at
+first use, by ``nvcc`` for Hopper or by the host's ``g++``, into
+``build/lib<name>-<hash>.so`` at the root of the checkout (a directory git
+ignores). The hash is that of the source and the flags, so an edited
+source is rebuilt and a stale library is never loaded. The compiler writes
+to a temporary name that is then renamed into place, so processes that
+build at once never load a half-written library. A failed build raises;
+nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -25,10 +29,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-build_logs: Dict[str, str] = {}  # name -> nvcc output (registers, spills)
+build_logs: Dict[str, str] = {}  # name -> compiler output (registers, spills)
 
 
 def _nvcc() -> str:
@@ -39,22 +44,41 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc was not found: the CUDA kernels cannot be built")
 
 
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ was not found: the host helpers cannot be built")
+    return gxx
+
+
+def _source(name: str) -> Path:
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
+def _flags(src: Path):
+    return NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    src = _source(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(src)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
-    """Start nvcc for ``name`` unless its library is built; returns
-    (target, process or None)."""
+    """Start the compiler for ``name`` unless its library is built;
+    returns (target, process or None)."""
     out = _target(name)
     if out.exists():
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    # the pid and thread keep concurrent builders' temporaries apart
+    tmp = out.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
+    src = _source(name)
+    compiler = _nvcc() if src.suffix == ".cu" else _gxx()
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [compiler, *_flags(src), "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     return out, (proc, tmp)
@@ -68,12 +92,13 @@ def _finish(name: str, out: Path, job) -> None:
     build_logs[name] = log
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {name}.cu:\n{log}")
+        raise RuntimeError(f"the compiler failed to build "
+                           f"{_source(name).name}:\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 
 def build(names: Iterable[str]) -> float:
-    """Build the named sources, all ``nvcc`` processes at once; returns
+    """Build the named sources, all compiler processes at once; returns
     the wall seconds taken."""
     t0 = time.perf_counter()
     with _lock:
@@ -84,7 +109,8 @@ def build(names: Iterable[str]) -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` or ``.cpp``, built on
+    first use."""
     lib = _libs.get(name)
     if lib is None:
         build([name])

@@ -9,11 +9,13 @@ factors and its constant column, d = k + 1) with target
 ``r - mu - b_i``, and the solution's k + 1 values go to the user's factor
 columns and bias column. The item sweep is symmetric.
 
-Ratings are grouped per entity on the host (numpy) and padded: to one
-length over all entities (``group_by_entity``, for ``ials_train``), or
-into count buckets of power-of-two length, each chunked to a row budget
-(``group_by_entity_bucketed``, for ``ials_train_bucketed``). The packs are
-the JAX package's, byte for byte; their tensors go to the tables' device
+Ratings are grouped per entity on the host and padded: to one length
+over all entities (``group_by_entity``, for ``ials_train``), or into count
+buckets of power-of-two length, each chunked to a row budget
+(``group_by_entity_bucketed``, for ``ials_train_bucketed``). One native
+pass of ``csrc/host_loader.cpp`` places every entry (numpy's argsorts
+with ``native=False``). The packs are the JAX package's, byte for byte;
+their tensors go to the tables' device
 as int32 ids, f32 ratings and f32 masks (the JAX package's wire encoders
 existed for the TPU image's remote link). A sweep gathers the (E, L, d)
 design rows, forms the grams with one batched product, and solves with
@@ -22,12 +24,12 @@ of ``ops/cuda_spd.py`` on the GPU. The sweeps are plain functions that
 update the tables in place (the JAX package's jit caches have no
 counterpart). Every product is exact f32 unless ``gram_dtype='bf16'``.
 
-The data-parallel sweeps (``dp_*``) come with slice 6, the native pack
-helpers with the port's native host helpers (ROADMAP).
+The data-parallel sweeps (``dp_*``) come with slice 6.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -35,6 +37,7 @@ import torch
 
 from matrix_factorization_tpu_torch.core.config import SGDConfig
 from matrix_factorization_tpu_torch.core.device import resolve_device
+from matrix_factorization_tpu_torch.data.loader import host_lib
 from matrix_factorization_tpu_torch.ops.segment_sgd import (
     MFParams,
     RatingBatches,
@@ -65,13 +68,13 @@ class Bucket(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# The host packs (numpy)
+# The host packs
 # ---------------------------------------------------------------------------
 
 
 def _sorted_by_entity(ids, other_ids, ratings, n_entities: int):
     """The entries stably sorted by entity, the per-entity counts and each
-    entry's position within its entity."""
+    entry's position within its entity (the numpy packs)."""
     ids = np.asarray(ids, np.int32)
     order = np.argsort(ids, kind="stable")
     ids_s = ids[order]
@@ -83,11 +86,45 @@ def _sorted_by_entity(ids, other_ids, ratings, n_entities: int):
     return ids_s, other_s, r_s, counts, pos
 
 
-def _grouped_tensors(oi: np.ndarray, rr: np.ndarray, counts: np.ndarray,
+def _entity_counts(ids: np.ndarray, n_entities: int) -> np.ndarray:
+    """Per-entity counts by the native O(n) pass; ids outside
+    [0, n_entities) raise (the native passes index by them)."""
+    counts = np.zeros(n_entities, np.int32)
+    ids = np.ascontiguousarray(ids, np.int32)
+    if len(ids) and (int(ids.min()) < 0 or int(ids.max()) >= n_entities):
+        raise ValueError(f"entity ids must lie in [0, {n_entities})")
+    host_lib().mf_entity_counts(ids, len(ids), n_entities, counts)
+    return counts
+
+
+def _native_pools(ids, other_ids, ratings, n_entities: int, chunk_of,
+                  row_of, L_of_chunk, chunk_base, pool_size: int):
+    """One native pass (``mf_pack_grouped``) writing every entry into its
+    (chunk, row, slot) cell of the flat pools, input order kept within an
+    entity: the other-ids, ratings and mask pools."""
+    oi = np.zeros(pool_size, np.int32)
+    rr = np.zeros(pool_size, np.float32)
+    mm = np.zeros(pool_size, np.float32)
+    ids = np.ascontiguousarray(ids, np.int32)
+    host_lib().mf_pack_grouped(
+        ids, np.ascontiguousarray(other_ids, np.int32),
+        np.ascontiguousarray(ratings, np.float32), len(ids),
+        np.ascontiguousarray(chunk_of, np.int32),
+        np.ascontiguousarray(row_of, np.int32),
+        np.ascontiguousarray(L_of_chunk, np.int32),
+        np.ascontiguousarray(chunk_base, np.int64),
+        oi, rr, mm, np.zeros(n_entities, np.int32))
+    return oi, rr, mm
+
+
+def _count_mask(counts: np.ndarray, L: int) -> np.ndarray:
+    """The (E, L) mask of rows filled from the left: ``arange(L) < count``."""
+    return (np.arange(L)[None, :] < np.asarray(counts)[:, None]).astype(np.float32)
+
+
+def _grouped_tensors(oi: np.ndarray, rr: np.ndarray, mm: np.ndarray,
                      E: int, L: int, device: torch.device):
-    """(E, L) other-ids, ratings and mask on ``device``; every entity's row
-    is filled from the left, so its mask is ``arange(L) < count``."""
-    mm = (np.arange(L)[None, :] < np.asarray(counts)[:, None]).astype(np.float32)
+    """(E, L) other-ids, ratings and mask on ``device``."""
 
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype).reshape(E, L)).to(device)
@@ -96,13 +133,24 @@ def _grouped_tensors(oi: np.ndarray, rr: np.ndarray, counts: np.ndarray,
 
 
 def group_by_entity(ids: np.ndarray, other_ids: np.ndarray, ratings: np.ndarray,
-                    n_entities: int, device=None) -> GroupedRatings:
+                    n_entities: int, device=None, native: bool = True
+                    ) -> GroupedRatings:
     """(n_entities, L) padded per-entity rating lists, input order kept
     within each entity, L the largest count rounded up to 8, on ``device``
-    (``None`` = CUDA). One flat scatter of the stably sorted entries (the
-    JAX package's numpy fallback loops over entities; the bytes are
-    equal)."""
+    (``None`` = CUDA). One native pass (``mf_pack_grouped``), or with
+    ``native=False`` one flat numpy scatter of the stably sorted entries;
+    the bytes are equal."""
     dev = resolve_device(device)
+    if native:
+        counts = _entity_counts(ids, n_entities)
+        L = round_up(max(1, int(counts.max(initial=0))), 8)
+        pools = _native_pools(
+            ids, other_ids, ratings, n_entities,
+            chunk_of=np.zeros(n_entities, np.int32),
+            row_of=np.arange(n_entities, dtype=np.int32),
+            L_of_chunk=np.asarray([L], np.int32),
+            chunk_base=np.asarray([0], np.int64), pool_size=n_entities * L)
+        return GroupedRatings(*_grouped_tensors(*pools, n_entities, L, dev))
     ids_s, other_s, r_s, counts, pos = _sorted_by_entity(
         ids, other_ids, ratings, n_entities)
     L = round_up(max(1, int(counts.max(initial=0))), 8)
@@ -111,7 +159,8 @@ def group_by_entity(ids: np.ndarray, other_ids: np.ndarray, ratings: np.ndarray,
     rr = np.zeros(n_entities * L, np.float32)
     oi[flat] = other_s
     rr[flat] = r_s
-    return GroupedRatings(*_grouped_tensors(oi, rr, counts, n_entities, L, dev))
+    return GroupedRatings(*_grouped_tensors(
+        oi, rr, _count_mask(counts, L), n_entities, L, dev))
 
 
 def group_by_entity_bucketed(
@@ -121,15 +170,22 @@ def group_by_entity_bucketed(
     n_entities: int,
     max_block_rows: int = 4_000_000,
     device=None,
+    native: bool = True,
 ) -> List[Bucket]:
     """Entities with data bucketed by rating count (power-of-two L, at
     least 8), each bucket chunked so that E_b * L_b stays under
     ``max_block_rows``: a sweep's (E, L, d) gather stays bounded whatever
     the heaviest entity. Input order is kept within each entity; on
-    ``device`` (``None`` = CUDA)."""
+    ``device`` (``None`` = CUDA). The entries are placed by one native
+    pass over the raw stream (``mf_pack_grouped``, no sort), or with
+    ``native=False`` by numpy's stable argsorts and scatters; the bytes
+    are equal."""
     dev = resolve_device(device)
-    ids_s, other_s, r_s, counts, pos_in_entity = _sorted_by_entity(
-        ids, other_ids, ratings, n_entities)
+    if native:
+        counts = _entity_counts(ids, n_entities)
+    else:
+        ids_s, other_s, r_s, counts, pos_in_entity = _sorted_by_entity(
+            ids, other_ids, ratings, n_entities)
 
     active = np.nonzero(counts)[0]
     # bucket label = next power of two >= count (min 8)
@@ -147,6 +203,20 @@ def group_by_entity_bucketed(
             row_of[chunk] = np.arange(len(chunk))
             chunk_meta.append((int(L), chunk))
 
+    def bucket(chunk, L, oi, rr, mm):
+        return Bucket(torch.from_numpy(chunk.astype(np.int32)).to(dev),
+                      *_grouped_tensors(oi, rr, mm, len(chunk), L, dev))
+
+    if native:
+        sizes = np.asarray([L * len(chunk) for L, chunk in chunk_meta], np.int64)
+        base = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        oi, rr, mm = _native_pools(
+            ids, other_ids, ratings, n_entities, chunk_of, row_of,
+            np.asarray([L for L, _ in chunk_meta], np.int32), base[:-1],
+            int(sizes.sum()))
+        return [bucket(chunk, L, *(a[base[c]:base[c + 1]] for a in (oi, rr, mm)))
+                for c, (L, chunk) in enumerate(chunk_meta)]
+
     # three O(nnz) passes + a flat scatter per chunk
     entry_chunk = chunk_of[ids_s]
     entry_row = row_of[ids_s]
@@ -162,9 +232,7 @@ def group_by_entity_bucketed(
         rr = np.zeros(E * L, np.float32)
         oi[flat] = other_s[sl]
         rr[flat] = r_s[sl]
-        buckets.append(Bucket(
-            torch.from_numpy(chunk.astype(np.int32)).to(dev),
-            *_grouped_tensors(oi, rr, counts[chunk], E, L, dev)))
+        buckets.append(bucket(chunk, L, oi, rr, _count_mask(counts[chunk], L)))
     return buckets
 
 
@@ -176,11 +244,17 @@ def group_both_sides_bucketed(
     n_items: int,
     max_block_rows: int = 4_000_000,
     device=None,
+    native: bool = True,
 ) -> Tuple[List[Bucket], List[Bucket]]:
     """Both bucketed views (by user, by item): two
-    ``group_by_entity_bucketed`` calls."""
-    return (group_by_entity_bucketed(u, i, r, n_users, max_block_rows, device),
-            group_by_entity_bucketed(i, u, r, n_items, max_block_rows, device))
+    ``group_by_entity_bucketed`` calls in two threads (the native passes
+    release the interpreter lock, so the two packs overlap)."""
+    with ThreadPoolExecutor(2) as ex:
+        fu = ex.submit(group_by_entity_bucketed, u, i, r, n_users,
+                       max_block_rows, device, native)
+        fi = ex.submit(group_by_entity_bucketed, i, u, r, n_items,
+                       max_block_rows, device, native)
+        return fu.result(), fi.result()
 
 
 # ---------------------------------------------------------------------------

@@ -59,12 +59,17 @@ def catalog_scores(cfg: SGDConfig, params, n_items: int, u_dense) -> np.ndarray:
     return scores.cpu().numpy()
 
 
-def topk_harness(run, n_items: int, u_dense, k: int):
+def topk_harness(run, n_items: int, u_dense, k: int, prep=None):
     """Shared plumbing for catalog top-k: clamps ``k`` to the catalog,
-    calls ``run(u_dense, k) -> (vals, idx)`` (tensors, (B, k) each) and
-    returns them as host arrays. Only (B, k) values and indices cross to
-    the host, never the (B, n_items) scores."""
-    vals, idx = run(u_dense, min(k, n_items))
+    calls ``run(u_dense, k, *extra) -> (vals, idx)`` (tensors, (B, k)
+    each) and returns them as host arrays. Only (B, k) values and indices
+    cross to the host, never the (B, n_items) scores.
+
+    ``prep``: an optional host hook for models whose device inputs derive
+    from the user batch rather than from fixed tables (EASE's history
+    rows): ``prep(u_dense)`` returns the ``extra`` arguments of ``run``."""
+    extra = tuple(prep(u_dense)) if prep is not None else ()
+    vals, idx = run(u_dense, min(k, n_items), *extra)
     return vals.cpu().numpy(), idx.cpu().numpy()
 
 

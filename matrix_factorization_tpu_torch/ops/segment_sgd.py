@@ -40,6 +40,7 @@ import torch
 
 from matrix_factorization_tpu_torch.core.config import LANE, SUBLANE, SGDConfig
 from matrix_factorization_tpu_torch.core.device import resolve_device
+from matrix_factorization_tpu_torch.data.loader import host_lib, native_threads
 
 SLICE_6 = "slice 6 of the PyTorch port (multi-device)"
 
@@ -218,17 +219,74 @@ def block_geometry(n_users: int, n_items: int, n_ratings: int,
     return min(wu, round_up(n_users, 32)), min(wi, round_up(n_items, 32))
 
 
+def _key_count(key: np.ndarray, n_keys: Optional[int] = None) -> int:
+    """The native counting sorts index a count array by the key, so every
+    key must lie in ``[0, n_keys)`` (``n_keys`` = the largest key + 1 when
+    not given): the number of keys, or ``ValueError``. The count arrays
+    take O(n_keys) memory a thread, so the ids are meant to be dense."""
+    if not len(key):
+        return int(n_keys or 0)
+    lo, hi = int(key.min()), int(key.max())
+    n_keys = hi + 1 if n_keys is None else int(n_keys)
+    if lo < 0 or hi >= n_keys:
+        raise ValueError(f"sort keys must lie in [0, {n_keys}); got [{lo}, {hi}]")
+    return n_keys
+
+
 def sort_stream_by_key(key: np.ndarray, u: np.ndarray, i: np.ndarray,
-                       r: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(u, i, r) stably sorted by ``key``."""
+                       r: np.ndarray, n_keys: int, native: bool = True
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(u, i, r) stably sorted by the dense ``key`` in [0, n_keys): the
+    native counting sort (``mf_sort_triple_by_key``), or numpy's stable
+    argsort with ``native=False``; the bytes are equal."""
+    n = len(key)
+    if native and n:
+        u_s = np.empty(n, np.int32)
+        i_s = np.empty(n, np.int32)
+        r_s = np.empty(n, np.float32)
+        host_lib().mf_sort_triple_by_key(
+            np.ascontiguousarray(key, np.int32), np.ascontiguousarray(u, np.int32),
+            np.ascontiguousarray(i, np.int32), np.ascontiguousarray(r, np.float32),
+            n, _key_count(key, n_keys), u_s, i_s, r_s)
+        return u_s, i_s, r_s
     order = np.argsort(key, kind="stable")
     return u[order], i[order], r[order]
 
 
-def _argsort_batches(sec: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Per-batch stable (argsort perm, sorted keys) of (nb, bs) ids."""
-    ssort = np.argsort(sec, axis=1, kind="stable").astype(np.int32)
-    return ssort, np.take_along_axis(sec, ssort, axis=1)
+def _sort_ranges(u, i, r, w, starts, ends, key_is_item: bool,
+                 native: bool) -> None:
+    """Stable in-place sort of every ``[start, end)`` range of the four
+    flat columns by the user or item id: the threaded native counting
+    sort (``mf_sort_ranges``), or numpy's stable argsort per range."""
+    key = i if key_is_item else u
+    if native:
+        host_lib().mf_sort_ranges(u, i, r, w, starts, ends, len(starts),
+                                  int(key_is_item), _key_count(key),
+                                  native_threads())
+        return
+    for lo, hi in zip(starts, ends):
+        srt = np.argsort(key[lo:hi], kind="stable")
+        u[lo:hi] = u[lo:hi][srt]
+        i[lo:hi] = i[lo:hi][srt]
+        r[lo:hi] = r[lo:hi][srt]
+        w[lo:hi] = w[lo:hi][srt]
+
+
+def _argsort_batches(sec: np.ndarray, native: bool
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-batch stable (argsort perm, sorted keys) of (nb, bs) ids: the
+    threaded native counting argsort (``mf_argsort_ranges``) or numpy's."""
+    if not native:
+        ssort = np.argsort(sec, axis=1, kind="stable").astype(np.int32)
+        return ssort, np.take_along_axis(sec, ssort, axis=1)
+    nb, bs = sec.shape
+    starts = np.arange(nb, dtype=np.int64) * bs
+    perm = np.empty(nb * bs, np.int32)
+    srt = np.empty(nb * bs, np.int32)
+    host_lib().mf_argsort_ranges(
+        np.ascontiguousarray(sec.reshape(-1), np.int32), starts, starts + bs,
+        nb, _key_count(sec), perm, srt, native_threads())
+    return perm.reshape(nb, bs), srt.reshape(nb, bs)
 
 
 def pack_ratings(
@@ -244,6 +302,7 @@ def pack_ratings(
     user_block: Optional[int] = None,
     item_block: Optional[int] = None,
     device=None,
+    native: bool = True,
 ) -> RatingBatches:
     """Host-side packing into (nb, bs) blocks, shuffled once, on
     ``device`` (``None`` = CUDA).
@@ -261,6 +320,10 @@ def pack_ratings(
     stable argsort. Pads have weight 0 and repeat the tail of the real
     stream, so they keep its local id distribution. ``n_dev > 1`` (the
     device-major packs of the data-parallel trainers) comes with slice 6.
+    The shuffle's gather and every sort run in the native host library
+    (``csrc/host_loader.cpp``: threaded counting sorts); ``native=False``
+    runs numpy's instead, with equal bytes. The counting sorts take dense
+    ids: a negative id raises ``ValueError`` before it reaches them.
     """
     if n_dev > 1:
         raise NotImplementedError(f"pack_ratings(n_dev > 1) comes with {SLICE_6}")
@@ -290,11 +353,12 @@ def pack_ratings(
         # item range on each side of the cut
         user_ids, item_ids, ratings = sort_stream_by_key(
             item_ids.astype(np.int32), user_ids.astype(np.int32),
-            item_ids.astype(np.int32), ratings.astype(np.float32))
+            item_ids.astype(np.int32), ratings.astype(np.float32), ni_est,
+            native)
         cell = ((user_ids.astype(np.int64) // user_block) * nib
                 + item_ids // item_block).astype(np.int32)
         user_ids, item_ids, ratings = sort_stream_by_key(
-            cell, user_ids, item_ids, ratings)
+            cell, user_ids, item_ids, ratings, int(cell.max()) + 1, native)
         # each user-block row padded to whole batches (weight-0 tail
         # resamples), so no batch crosses a user block
         ub = user_ids // user_block
@@ -326,7 +390,7 @@ def pack_ratings(
             src += c
             dst += p
         return _pack_preformed(u2, i2, r2, w2, n, batch_size, "user",
-                               aggregate, dev)
+                               aggregate, dev, native)
     n_pad = max(batch_size, round_up(n, batch_size))
     pad = n_pad - n
     nb = n_pad // batch_size
@@ -335,10 +399,20 @@ def pack_ratings(
     r = np.empty(n_pad, np.float32)
     if shuffle_seed is not None and n > 1:
         perm = np.random.default_rng(shuffle_seed).permutation(n)
-        user_ids, item_ids, ratings = user_ids[perm], item_ids[perm], ratings[perm]
-    u[:n] = user_ids
-    i[:n] = item_ids
-    r[:n] = ratings
+        if native:  # one threaded gather straight into the padded buffers
+            host_lib().mf_gather_rows(
+                np.ascontiguousarray(user_ids, np.int32),
+                np.ascontiguousarray(item_ids, np.int32),
+                np.ascontiguousarray(ratings, np.float32),
+                perm, n, u[:n], i[:n], r[:n], native_threads())
+        else:
+            u[:n] = user_ids[perm]
+            i[:n] = item_ids[perm]
+            r[:n] = ratings[perm]
+    else:
+        u[:n] = user_ids
+        i[:n] = item_ids
+        r[:n] = ratings
     if pad:
         tail = min(n, max(pad, 1))
         u[n:] = np.resize(u[n - tail:n], pad) if n else 0
@@ -349,40 +423,35 @@ def pack_ratings(
     w[n:] = 0.0
     if order in ("item", "user") and n > 1:
         # chunk bounds are batch bounds; pads carry weight 0
-        sort_key = i if order == "item" else u
         chunks = max(1, min(item_sort_chunks, nb))
         step = -(-nb // chunks) * batch_size
-        for lo in range(0, n_pad, step):
-            hi = min(lo + step, n_pad)
-            srt = np.argsort(sort_key[lo:hi], kind="stable")
-            u[lo:hi] = u[lo:hi][srt]
-            i[lo:hi] = i[lo:hi][srt]
-            r[lo:hi] = r[lo:hi][srt]
-            w[lo:hi] = w[lo:hi][srt]
+        starts = np.arange(0, n_pad, step, dtype=np.int64)
+        _sort_ranges(u, i, r, w, starts, np.minimum(starts + step, n_pad),
+                     order == "item", native)
     primary = order if order in ("item", "user") else "item"
-    return _pack_preformed(u, i, r, w, n, batch_size, primary, aggregate, dev)
+    return _pack_preformed(u, i, r, w, n, batch_size, primary, aggregate, dev,
+                           native)
 
 
 def _pack_preformed(u, i, r, w, n_real: int, batch_size: int, primary: str,
-                    aggregate: bool, device: torch.device) -> RatingBatches:
+                    aggregate: bool, device: torch.device,
+                    native: bool) -> RatingBatches:
     """Flat padded (u, i, r, w) in final stream order -> batches, sorted
     by the primary side with the secondary argsort when ``aggregate``,
     as int32 / f32 tensors on ``device``."""
     nb = u.shape[0] // batch_size
+    extra = {}
+    if aggregate and n_real > 0:
+        starts = np.arange(nb, dtype=np.int64) * batch_size
+        _sort_ranges(u, i, r, w, starts, starts + batch_size,
+                     primary == "item", native)
+        sec = (u if primary == "item" else i).reshape(nb, batch_size)
+        ssort, ss = _argsort_batches(sec, native)
+        extra = {"sec_ids_sorted": ss, "sec_perm": ssort}
     u = u.reshape(nb, batch_size)
     i = i.reshape(nb, batch_size)
     r = r.reshape(nb, batch_size)
     w = w.reshape(nb, batch_size)
-    extra = {}
-    if aggregate and n_real > 0:
-        prim = i if primary == "item" else u
-        psort = np.argsort(prim, axis=1, kind="stable")
-        u = np.take_along_axis(u, psort, axis=1)
-        i = np.take_along_axis(i, psort, axis=1)
-        r = np.take_along_axis(r, psort, axis=1)
-        w = np.take_along_axis(w, psort, axis=1)
-        ssort, ss = _argsort_batches(u if primary == "item" else i)
-        extra = {"sec_ids_sorted": ss, "sec_perm": ssort}
 
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)

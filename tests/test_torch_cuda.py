@@ -776,3 +776,87 @@ def test_content_and_sweep_on_cuda_match_cpu(cuda):
                                      batch_orders=orders)
     torch.testing.assert_close(out["cuda"].user_features.cpu(),
                                out["cpu"].user_features, atol=1e-4, rtol=1e-4)
+
+
+def test_similarity_topk_on_cuda_matches_cpu(cuda):
+    """Half-star ratings: the gram is exact in any order, so the two
+    devices agree to the cosine's last bits; ids equal where the values
+    are separated by more than 1e-5, and a second run is bitwise equal."""
+    from matrix_factorization_tpu_torch.ops import sparse_gram
+
+    rng = np.random.default_rng(9)
+    n_users, n_items = 900, 700
+    flat = rng.choice(n_users * n_items, 30_000, replace=False)
+    u = (flat // n_items).astype(np.int32)
+    i = (flat % n_items).astype(np.int32)
+    r = (rng.integers(1, 11, len(u)) * 0.5).astype(np.float32)
+    kw = dict(k=20, user_block=256, item_tile=128)
+    got = sparse_gram.similarity_topk(u, i, r, n_users, n_items, device="cuda", **kw)
+    again = sparse_gram.similarity_topk(u, i, r, n_users, n_items, device="cuda", **kw)
+    want = sparse_gram.similarity_topk(u, i, r, n_users, n_items, device="cpu", **kw)
+    for a, b in zip(got, again):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(got[0], want[0], atol=1e-5)
+    np.testing.assert_array_equal(got[2], want[2])
+    sep = np.ones_like(got[0], bool)
+    gaps = np.abs(np.diff(want[0], axis=1)) > 1e-5
+    sep[:, 1:] &= gaps
+    sep[:, :-1] &= gaps
+    np.testing.assert_array_equal(got[1][sep], want[1][sep])
+    # user-user: the axes swapped
+    got_u = sparse_gram.similarity_topk(i, u, r, n_items, n_users, device="cuda", **kw)
+    want_u = sparse_gram.similarity_topk(i, u, r, n_items, n_users, device="cpu", **kw)
+    np.testing.assert_allclose(got_u[0], want_u[0], atol=1e-5)
+
+
+@pytest.mark.parametrize("cls", ["TopKItemItemCF", "TopKUserUserCF"])
+def test_topk_cf_on_cuda_matches_cpu(cuda, cls):
+    import matrix_factorization_tpu_torch as mf
+
+    X, y = _ml_shaped()
+    a = getattr(mf, cls)(n_neighbors=20, device="cuda").fit(X, y)
+    c = getattr(mf, cls)(n_neighbors=20, device="cpu").fit(X, y)
+    pairs = X.sample(3000, random_state=1)
+    np.testing.assert_allclose(a.predict(pairs), c.predict(pairs), atol=1e-4)
+    assert torch.equal(a._flat_q.cpu(), c._flat_q)
+
+
+def test_ease_on_cuda_matches_cpu_and_launches_the_leaf(cuda, tmp_path):
+    """B atol 1e-4 against the CPU fit (the gram is exact; the inverse
+    sums in other orders), the GJ leaf launched by the fit, a checkpoint
+    round trip on the card."""
+    import matrix_factorization_tpu_torch as mf
+
+    X, y = _ml_shaped()
+    before = cuda_spd.launches
+    a = mf.EASE(reg=50.0, device="cuda").fit(X, y)
+    assert cuda_spd.launches > before
+    c = mf.EASE(reg=50.0, device="cpu").fit(X, y)
+    np.testing.assert_allclose(a._params.item_weights.cpu().numpy(),
+                               c._params.item_weights.numpy(), atol=1e-4)
+    users = X["user_id"].unique()[:16].tolist()
+    np.testing.assert_allclose(
+        a.recommend_batch(users, amount=10)["rating_pred"],
+        c.recommend_batch(users, amount=10)["rating_pred"], atol=1e-4)
+    mf.save_model(a, tmp_path / "ease")
+    back = mf.load_model(tmp_path / "ease")
+    assert torch.equal(back._params.item_weights, a._params.item_weights)
+
+
+def test_native_packs_on_cuda_equal_numpy(cuda):
+    """The native pack and ALS pack land on the card byte-equal to the
+    numpy versions."""
+    rng = np.random.default_rng(2)
+    u = rng.integers(0, 3000, 200_000).astype(np.int32)
+    i = rng.integers(0, 1000, 200_000).astype(np.int32)
+    r = (rng.integers(1, 11, 200_000) * 0.5).astype(np.float32)
+    a = sgd.pack_ratings(u, i, r, 16_384, order="auto", device="cuda")
+    b = sgd.pack_ratings(u, i, r, 16_384, order="auto", device="cuda", native=False)
+    for name in ("user_ids", "item_ids", "ratings", "weights", "sec_perm",
+                 "sec_ids_sorted"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    for x, y in zip(ials.group_both_sides_bucketed(u, i, r, 3000, 1000, device="cuda"),
+                    ials.group_both_sides_bucketed(u, i, r, 3000, 1000, device="cuda",
+                                                   native=False)):
+        for bx, by in zip(x, y):
+            assert all(torch.equal(s, t) for s, t in zip(bx, by))

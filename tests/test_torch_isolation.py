@@ -67,6 +67,18 @@ g, res = mf.grid_search_kernel_mf(X, ry, X, ry, lrs=[0.01], regs=[0.1, 0.2],
                                   n_epochs=1, n_factors=4, batch_size=16,
                                   device="cpu")
 assert len(res) == 2 and len(g.recommend(1, amount=2)) == 2
+with tempfile.TemporaryDirectory() as d:
+    X.assign(rating=ry).to_csv(d + "/r.csv", index=False)
+    assert mf.load_ratings_csv(d + "/r.csv").backend == "native"
+for cls in (mf.TopKItemItemCF, mf.TopKUserUserCF):
+    assert len(cls(n_neighbors=3, device="cpu").fit(X, ry).predict(X)) == 60
+e = mf.EASE(reg=5.0, device="cpu").fit(X, ry)
+assert len(e.recommend(1, amount=2)) == 2
+with tempfile.TemporaryDirectory() as d:
+    mf.save_model(e, d + "/ease")
+    assert len(mf.load_model(d + "/ease", device="cpu").predict(X)) == 60
+ge, res = mf.grid_search_ease(X, ry, regs=[1.0, 10.0], device="cpu")
+assert len(res) == 2
 print("\n".join(sorted(sys.modules)))
 """
 
@@ -87,7 +99,8 @@ def test_port_runs_without_jax_modules():
     assert "matrix_factorization_tpu_torch.ops.cuda_spd" in loaded
     for name in ("ops.segment_sum", "ops.als", "ops.similarity", "ops.sweep",
                  "models.baseline", "models.collaborative",
-                 "models.content_based", "models.grid_search"):
+                 "models.content_based", "models.grid_search", "data.loader",
+                 "ops.sparse_gram", "models.cf_topk", "ops.ease", "models.ease"):
         assert f"matrix_factorization_tpu_torch.{name}" in loaded
     bad = sorted(m for m in loaded if _top(m) in FORBIDDEN)
     assert not bad, bad
