@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, SGD training and ALS paths, its bias,
 neighbourhood and content models, its KernelMF sweep, its native host
-packs, its sparse-gram top-k CF and EASE on one CUDA GPU and check them.
+packs, its sparse-gram top-k CF, EASE, BPR, SVD++, NMF and Popularity on
+one CUDA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -119,6 +120,30 @@ failed check ends the run with a non-zero exit:
     replay of the formula on the fitted lists (1e-4); then user-user
     ``similarity_topk(i, u, r, ...)`` once, timed, 16 of its columns held
     the same way, and its strip split.
+17b. bpr, svdpp, nmf: each family at the MovieLens-25M shape its JAX
+    bench uses (k=64, Kp 128, bs 1,048,576, 3 epochs) on the config-3
+    ratings (BPR takes them as positives), from one user-primary pack
+    made once: one epoch through ``mf_segment_apply`` (BPR, SVD++)
+    or ``mf_segment_sum`` (NMF) against the same epoch through their plain
+    versions on the card, same tables and draws (atol 1e-4, SVD++ 2e-4),
+    the kernel epoch twice bitwise; updates/s (median of 3 one-epoch
+    windows on the pack made once); then ``fit`` and ``update_users``
+    (1,000 users, half known; the item table, and SVD++'s Y, bitwise
+    unchanged) with the apply, segment-sum and scorer counts zeroed just
+    before and read after serving: BPR's visited loss and SVD++'s train
+    RMSE fall, NMF's never rises and its factors stay >= 0; ``predict`` on
+    the held-out pairs against a float64 replay of the served formula
+    (1e-4); ``recommend`` and a 256-user ``recommend_batch`` on the scorer,
+    top-10 sets equal to the plain scorer's; BPR's ``auc`` on the held-out
+    pairs (at chance: the ratings are uniform) and on 4,096 trained pairs
+    (> 0.5); a checkpoint round trip, bitwise.
+17c. popularity: ``Popularity`` ('mean') on the config-3 ratings: counts
+    against ``bincount``, scores against float64 (1e-4), 256 equal lists,
+    ``update_users``, a checkpoint round trip.
+17d. family_kernel_time: the apply and the segment sum on the first batch
+    of the families' pack (n = 1,048,576, d = 128) over the batch's user
+    order, its secondary order and (the apply) sorted uniform negatives:
+    kernel, plain and library (``index_add_``) times and bounds.
 
 18. ml1m_data / compare_segsum: MovieLens-1M-shaped ratings
     (``BASELINE.json`` config 2: 1M unique pairs of 6,040 x 3,706, half
@@ -168,7 +193,8 @@ failed check ends the run with a non-zero exit:
 
 Then the ``kernels`` line (``score_catalog``, ``sgd_step``,
 ``segment_apply``, ``spd_gj`` with its EASE launches and shapes,
-``segment_sum``), the ``nvidia-smi`` line, and last
+``segment_sum``; the apply's and the sum's launches and shapes on the
+families' paths beside the rest), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2593,6 +2619,389 @@ def phase_ease_leaf_times(torch, leaves, timer):
     return rows, worst
 
 
+# ---------------------------------------------------------------------------
+# The remaining model families: BPR, SVD++, NMF (every training scatter on
+# the segment-sum kernels, serving on the scorer) and Popularity
+# ---------------------------------------------------------------------------
+
+# The MovieLens-25M shape the JAX package benches these families at
+# (benchmarks/bpr_bench.py:146-151, nmf_bench.py:81-86,
+# svdpp_bench.py:171-176): k = 64 (Kp 128), bs 1,048,576; 3 epochs here, on
+# the config-3 ratings; each family's lr and reg as its bench sets them
+# (BPR: its model's defaults, as bpr_bench)
+FAM = {"n_factors": 64, "batch_size": 1_048_576, "epochs": 3}
+FAM_KW = {"BPR": {},
+          "SVDpp": {"lr": 0.005, "reg": 0.02, "min_rating": 0.5,
+                    "max_rating": 5.0},
+          "NMF": {"reg": 0.05, "min_rating": 0.5, "max_rating": 5.0}}
+FAM_TOL = {"BPR": 1e-4, "SVDpp": 2e-4, "NMF": 1e-4}  # one epoch, kernel vs plain
+
+
+def plain_scatters(fn):
+    """``fn()`` with ``cuda_sgd.segment_apply`` and ``segment_sum.segment_sum``
+    routed to their plain versions (``index_add_``) for the call."""
+    from matrix_factorization_tpu_torch.ops import cuda_sgd
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
+
+    saved = cuda_sgd.segment_apply, ss.segment_sum
+    cuda_sgd.segment_apply = cuda_sgd.plain_segment_apply
+    ss.segment_sum = lambda out, *a: (ss.plain_segment_sum(out, *a), out)[1]
+    try:
+        return fn()
+    finally:
+        cuda_sgd.segment_apply, ss.segment_sum = saved
+
+
+def family_epoch_fn(torch, family, pack, seed, n_users, n_items, ids):
+    """(run, tables): ``run(n_epochs, draws)`` trains ``family`` on ``pack``
+    from seeded tables and returns its output tables; ``draws`` True hands
+    in one batch order and negatives made once from ``seed`` (the same
+    every call), False draws them from a seeded generator. ``ids`` is the
+    (users, items) of the ratings, for the counts and weights."""
+    import numpy as np
+
+    from matrix_factorization_tpu_torch.core.config import SGDConfig
+    from matrix_factorization_tpu_torch.ops import bpr, nmf, svdpp
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    kw = FAM_KW[family]
+    cfg = SGDConfig(kernel="linear", n_factors=FAM["n_factors"],
+                    lr=kw.get("lr", 0.05), reg=kw.get("reg", 0.002),
+                    min_rating=0.5, max_rating=5.0,
+                    compute_epoch_rmse=False)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    order = [rng.permutation(pack.n_batches)]
+    if family == "NMF":
+        p0 = nmf.init_nmf_params(gen, n_users, n_items, cfg)
+        cnt = [torch.from_numpy(np.bincount(ids_, minlength=t.shape[0]).astype(
+            np.float32)).cuda() for ids_, t in ((ids[0], p0.user_features),
+                                                (ids[1], p0.item_features))]
+
+        def run(n_epochs, draws):
+            out, _ = nmf.nmf_train(p0, pack, *cnt, cfg, n_epochs, cfg.reg,
+                                   cfg.reg)
+            return out.user_features, out.item_features
+        return run, cfg
+    if family == "BPR":
+        p0 = sgd.init_params(gen, n_users, n_items, cfg, 0.0)
+        negs = [torch.randint(0, n_items, (pack.n_batches, pack.batch_size),
+                              generator=gen, device="cuda", dtype=torch.int32)]
+
+        def run(n_epochs, draws):
+            out, hist = bpr.bpr_train_tiled(
+                p0, pack, sgd.seeded_generator("cuda", seed, 9), cfg, n_epochs,
+                0.05, n_items, batch_orders=order if draws else None,
+                negatives=negs if draws else None)
+            return out.user_features, out.item_features
+        return run, cfg
+    p0 = svdpp.init_params(gen, n_users, n_items, cfg, 2.75)
+    Y = torch.zeros_like(p0.implicit_features)
+    Y[:, :cfg.n_factors] = 0.05 * torch.randn(
+        (Y.shape[0], cfg.n_factors), generator=gen, device="cuda")
+    p0 = p0._replace(implicit_features=Y)
+    wvec = torch.from_numpy(svdpp._neighbor_weights(
+        ids[0], n_users, p0.user_features.shape[0])).cuda()
+    deg = torch.from_numpy(np.bincount(ids[1], minlength=Y.shape[0]).astype(
+        np.float32)).cuda()
+
+    def run(n_epochs, draws):
+        out, _ = svdpp.svdpp_train_batched(
+            p0, pack, wvec, deg, sgd.seeded_generator("cuda", seed, 9), cfg,
+            n_epochs, cfg.lr, cfg.reg, batch_orders=order if draws else None)
+        return (out.user_features, out.item_features, out.implicit_features,
+                out.user_implicit_sums)
+    return run, cfg
+
+
+def family_serving_check(torch, model, family, held, rng, users_pool):
+    """``predict`` on the held-out pairs against a float64 numpy replay of
+    the served formula; ``recommend`` and a 256-user ``recommend_batch``
+    launch the scorer, top-10 sets equal to the plain scorer's (rows
+    without a near-tie at the cut)."""
+    import numpy as np
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch.ops import cuda_scores
+    from matrix_factorization_tpu_torch.ops.scoring import stable_topk
+
+    out = {}
+    hu, hi = held
+    preds = np.asarray(model.predict(pd.DataFrame({"user_id": hu,
+                                                   "item_id": hi})))
+    possible = np.asarray(model.predictions_possible)
+    serve = (model._cached_serving_params(model._mf_view) if family == "SVDpp"
+             else model._cached_serving_params())
+    ud = model.user_vocab.encode(hu)[possible]
+    idd = model.item_vocab.encode(hi)[possible]
+    P = serve.user_features.cpu().numpy().astype(np.float64)
+    Q = serve.item_features.cpu().numpy().astype(np.float64)
+    ref = float(serve.global_mean) + (P[ud] * Q[idd]).sum(1)
+    if family != "BPR":
+        ref = np.clip(ref, model.min_rating, model.max_rating)
+    err = float(np.abs(preds[possible] - ref).max())
+    check(np.isfinite(preds).all() and possible.sum() > len(hu) // 2,
+          f"{family} held-out predict")
+    check(err <= 1e-4, f"{family} predict differs from the float64 replay by {err}")
+    if family == "NMF":
+        fb = float(np.clip(model.global_mean, model.min_rating,
+                           model.max_rating))
+        check(bool((preds[~possible] == np.float32(fb)).all()),
+              "NMF cold pairs do not predict the global mean")
+    out.update(predict_max_abs_err=err, predict_possible=int(possible.sum()))
+    users = [int(x) for x in rng.choice(users_pool, 256, replace=False)]
+    n0 = cuda_scores.launches
+    rec = model.recommend(users[0], amount=10)
+    check(cuda_scores.launches > n0 and len(rec) == 10,
+          f"{family} recommend did not launch the scorer")
+    n0 = cuda_scores.launches
+    batch = model.recommend_batch(users, amount=10)
+    check(cuda_scores.launches > n0 and len(batch) == 2560,
+          f"{family} recommend_batch did not launch the scorer")
+    out["score_launches"] = cuda_scores.launches
+    dense = torch.as_tensor(model.user_vocab.encode(np.asarray(users)),
+                            device="cuda")
+    plain = cuda_scores.plain_score_catalog(
+        model._cfg(), serve.global_mean, serve.user_features[dense],
+        serve.item_features[:model.n_items])
+    pv, pi = (t.cpu().numpy() for t in stable_topk(plain, 11))
+    raw = np.asarray(model.item_vocab.raw_ids)
+    compared = 0
+    for row, usr in enumerate(users):
+        if pv[row, 9] - pv[row, 10] >= 1e-4:
+            compared += 1
+            got = set(batch.item_id.iloc[10 * row:10 * row + 10])
+            check(got == set(raw[pi[row, :10]]),
+                  f"{family} top-10 of user {usr} differs from plain")
+    check(compared >= 64, f"{family}: too few rows without a near-tie")
+    out["topk_rows_compared"] = compared
+    return out
+
+
+def phase_family(torch, rng, family, data3, pack, pack_seconds, tmpdir, seed):
+    """One family at the MovieLens-25M shape: one epoch through the kernels
+    against the same epoch through the plain versions on the card (the
+    kernel epoch twice, bitwise); a device epoch's updates/s on the pack
+    made once; then the main path, with the apply, segment-sum and scorer
+    counts zeroed just before and read just after: ``fit``,
+    ``update_users`` (1,000 users, half known), ``predict``, ``recommend``
+    and ``recommend_batch``; then a checkpoint round trip."""
+    import numpy as np
+    import pandas as pd
+
+    import matrix_factorization_tpu_torch as mf
+    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
+
+    u, i, r, hu, hi = data3
+    out = {"phase": family.lower(), "n_ratings": len(r), **FAM,
+           "pack_seconds": pack_seconds, "n_batches": pack.n_batches}
+    kernel_name = "segment_sum" if family == "NMF" else "segment_apply"
+
+    def count():
+        return ss.launches if family == "NMF" else cuda_sgd.apply_launches
+
+    # -- one epoch, kernels against plain, from the same tables and draws --
+    run, cfg = family_epoch_fn(torch, family, pack, seed, N_USERS, N_ITEMS,
+                               (u, i))
+    n0 = count()
+    got = run(1, True)
+    again = run(1, True)
+    check(count() > n0, f"{family}'s epoch launched no {kernel_name}")
+    plain = plain_scatters(lambda: run(1, True))
+    torch.cuda.synchronize()
+    err = max(float((a - c).abs().max()) for a, c in zip(got, plain))
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{family}'s kernel epoch is not bitwise repeatable")
+    check(err <= FAM_TOL[family],
+          f"{family}'s kernel epoch differs from plain by {err}")
+    out["epoch_vs_plain_max_abs_err"] = err
+    del got, again, plain
+
+    # -- throughput: one-epoch windows on the pack made once -------------
+    run(1, False)  # warm-up
+    windows = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(1, False)
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+    out["epoch_seconds"] = windows
+    out["updates_per_sec"] = pack.n_real / statistics.median(windows)
+    del run
+    torch.cuda.empty_cache()
+
+    # -- the main path: fit, then update_users ---------------------------
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    y = None if family == "BPR" else pd.Series(r)
+    model = getattr(mf, family)(n_factors=FAM["n_factors"],
+                                n_epochs=FAM["epochs"],
+                                batch_size=FAM["batch_size"], seed=seed,
+                                **FAM_KW[family])
+    cuda_sgd.reset_launches()
+    ss.reset_launches()
+    cuda_scores.reset_launches()
+    t0 = time.perf_counter()
+    model.fit(X, y)
+    torch.cuda.synchronize()
+    out["fit_seconds"] = time.perf_counter() - t0
+    fit_launches = count()
+    hist = model.train_loss if family == "BPR" else model.train_rmse
+    out["train_loss" if family == "BPR" else "train_rmse"] = hist
+    check(len(hist) == FAM["epochs"] and np.isfinite(hist).all(),
+          f"{family} history {hist}")
+    if family == "NMF":
+        check(all(b <= a for a, b in zip(hist, hist[1:])),
+              f"NMF train RMSE rose: {hist}")
+        check(float(model._params.user_features.min()) >= 0
+              and float(model._params.item_features.min()) >= 0,
+              "NMF factors went negative")
+    else:
+        check(hist[-1] < hist[0], f"{family} history not falling: {hist}")
+    Xu, yu = update_cohort(rng, u, N_ITEMS)
+    frozen = [model._params.item_features.clone()]
+    if family == "SVDpp":
+        frozen.append(model._params.implicit_features.clone())
+    t0 = time.perf_counter()
+    model.update_users(Xu, None if family == "BPR" else yu, n_epochs=3)
+    torch.cuda.synchronize()
+    out["update_users_seconds"] = time.perf_counter() - t0
+    out["launches"] = count()
+    out["fit_launches"] = fit_launches
+    check(fit_launches > 0 and out["launches"] > fit_launches,
+          f"{family}'s fit or update_users launched no {kernel_name}")
+    check(torch.equal(model._params.item_features, frozen[0])
+          and (family != "SVDpp"
+               or torch.equal(model._params.implicit_features, frozen[1])),
+          f"{family}'s update_users moved a frozen table")
+
+    # -- serving, AUC, checkpoint ----------------------------------------
+    out.update(family_serving_check(torch, model, family, (hu, hi), rng,
+                                    np.unique(u)))
+    if family == "BPR":
+        # the config-3 ratings are uniform: a held-out pair is a random
+        # item, so its AUC is at chance by construction; the trained pairs
+        # are what the tables must rank above random items
+        t0 = time.perf_counter()
+        out["auc_held_out"] = model.auc(pd.DataFrame({"user_id": hu,
+                                                      "item_id": hi}))
+        out["auc_seconds"] = time.perf_counter() - t0
+        k = rng.choice(len(u), N_HELD_OUT, replace=False)
+        out["auc_trained_pairs"] = model.auc(pd.DataFrame(
+            {"user_id": u[k], "item_id": i[k]}))
+        check(0.0 <= out["auc_held_out"] <= 1.0, "BPR held-out AUC")
+        check(out["auc_trained_pairs"] > 0.5,
+              f"BPR AUC on trained pairs {out['auc_trained_pairs']}")
+    t0 = time.perf_counter()
+    mf.save_model(model, f"{tmpdir}/{family}")
+    back = mf.load_model(f"{tmpdir}/{family}")
+    out["checkpoint_seconds"] = time.perf_counter() - t0
+    check(all(torch.equal(a, b) for a, b in zip(model._params, back._params)),
+          f"{family}'s checkpoint round trip is not bitwise")
+    if family == "BPR":
+        check(all(np.array_equal(a, b) for a, b in zip(model._train_pairs,
+                                                       back._train_pairs)),
+              "BPR's training pairs did not round-trip")
+    out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    del model, back, X
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_popularity(rng, data3, tmpdir):
+    """``Popularity`` (host numpy) in 'mean' mode on the config-3 ratings:
+    its statistics against ``bincount``, its scores against the damped-mean
+    formula in float64, ``recommend_batch`` (user-independent lists),
+    ``update_users`` and a checkpoint round trip."""
+    import numpy as np
+    import pandas as pd
+
+    import matrix_factorization_tpu_torch as mf
+
+    u, i, r, _, _ = data3
+    out = {"phase": "popularity"}
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    t0 = time.perf_counter()
+    m = mf.Popularity(score="mean", damping=10.0, min_rating=0.5,
+                      max_rating=5.0).fit(X, pd.Series(r))
+    out["fit_seconds"] = time.perf_counter() - t0
+    idx = m.item_vocab.encode(np.arange(N_ITEMS))
+    cnt = np.bincount(i, minlength=N_ITEMS).astype(np.float64)
+    sums = np.bincount(i, weights=r.astype(np.float64), minlength=N_ITEMS)
+    ref = (sums + 10.0 * r.astype(np.float64).mean()) / (cnt + 10.0)
+    check(np.array_equal(m._item_counts[idx], cnt), "Popularity counts")
+    err = float(np.abs(m.item_scores_[idx] - ref).max())
+    check(err <= 1e-4, f"Popularity scores differ from float64 by {err}")
+    users = [int(x) for x in rng.choice(np.unique(u), 256, replace=False)]
+    t0 = time.perf_counter()
+    batch = m.recommend_batch(users, amount=10)
+    out["recommend_batch_seconds"] = time.perf_counter() - t0
+    top = list(np.asarray(m.item_vocab.raw_ids)[
+        np.argsort(-m.item_scores_, kind="stable")[:10]])
+    check(len(batch) == 2560 and all(
+        list(batch.item_id.iloc[10 * k:10 * k + 10]) == top
+        for k in range(256)), "Popularity lists are not the catalog top-10")
+    Xu, yu = update_cohort(rng, u, N_ITEMS)
+    m.update_users(Xu, yu)
+    check(m._item_counts.sum() == len(r) + len(Xu), "Popularity update_users")
+    mf.save_model(m, f"{tmpdir}/pop")
+    back = mf.load_model(f"{tmpdir}/pop")
+    check(np.array_equal(back.item_scores_, m.item_scores_),
+          "Popularity checkpoint round trip")
+    out.update(score_max_abs_err=err, n_users=m.n_users)
+    return out
+
+
+def phase_family_kernel_times(torch, rng, pack, timer):
+    """Kernel, plain and library (one ``index_add_`` of the rows at their
+    unsorted ids, a float-atomic scatter the port never calls) times of
+    the apply and the segment sum at the families' shapes, on the first
+    batch of the families' user-primary pack (n = 1,048,576, Kp 128; NMF's
+    accumulator 2k = 128): over the batch's user order (BPR's P, SVD++'s
+    P, A and S; NMF's user side), over its secondary order (BPR's Q[i],
+    SVD++'s Q and gY; NMF's item side), and over sorted uniform negatives
+    (BPR's Q[j]); with their bounds."""
+    import numpy as np
+
+    from matrix_factorization_tpu_torch.ops import cuda_sgd
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
+
+    b = {"u": pack.user_ids[0], "i": pack.item_ids[0], "sp": pack.sec_perm[0],
+         "ss": pack.sec_ids_sorted[0]}
+    n = b["u"].numel()
+    j = torch.from_numpy(rng.integers(0, N_ITEMS, n, dtype=np.int32)).cuda()
+    kp = 128
+    vals = torch.from_numpy(rng.standard_normal((n, kp), dtype=np.float32)).cuda()
+    orders = {"user_order": (ss.identity_order(b["u"]), b["u"], N_USERS),
+              "secondary_order": ((b["sp"], b["ss"]), b["i"], N_ITEMS),
+              "negatives": (ss.sorted_order(j), j, N_ITEMS)}
+    rows = []
+    for kernel, cases in (("segment_apply", orders),
+                          ("segment_sum", {k: orders[k] for k in
+                                           ("user_order", "secondary_order")})):
+        for name, (order, raw, n_rows) in cases.items():
+            out = torch.zeros((n_rows, kp), device="cuda")
+            raw_l = raw.long()
+            if kernel == "segment_apply":
+                fns = {"": lambda: cuda_sgd.cuda_segment_apply(out, vals, *order),
+                       "plain_": lambda: cuda_sgd.plain_segment_apply(out, vals, *order)}
+            else:
+                fns = {"": lambda: ss.cuda_segment_sum(out, vals, *order),
+                       "plain_": lambda: ss.plain_segment_sum(out, vals, *order)}
+            # vals[t] belongs to the batch's entry t, whose id is raw[t]
+            fns["library_"] = lambda: out.index_add_(0, raw_l, vals)
+            b_ms, b_by = segsum_bound(order[1], n, kp)
+            row = {"name": kernel, "shape": f"families_{name}", "n": n, "d": kp,
+                   "rows": n_rows, "bound_ms": b_ms, "bound_by": b_by}
+            for key, fn in fns.items():
+                row[f"{key}ms"] = timer.ms(fn)
+            rows.append(row)
+            emit({"phase": "family_kernel_time", **row})
+    return rows
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2782,6 +3191,23 @@ def main() -> int:
     spd_launches = {"train_als": train_als["launches"],
                     "warm_start": warm["launches"]["spd_gj"],
                     "implicit": implicit["launches"]}
+    # -- BPR, SVD++, NMF and Popularity at the MovieLens-25M shape -----------
+    t0 = time.perf_counter()
+    fam_pack = sgd.pack_ratings(*data3[:3], FAM["batch_size"],
+                                shuffle_seed=args.seed, order="user",
+                                device="cuda")
+    torch.cuda.synchronize()
+    fam_pack_seconds = time.perf_counter() - t0
+    fam = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        for family in ("BPR", "SVDpp", "NMF"):
+            fam[family] = phase_family(torch, rng, family, data3, fam_pack,
+                                       fam_pack_seconds, tmpdir, args.seed)
+            emit(fam[family])
+        emit(phase_popularity(rng, data3, tmpdir))
+    fam_rows = phase_family_kernel_times(torch, rng, fam_pack, timer)
+    del fam_pack
+    torch.cuda.empty_cache()
     # -- sparse-gram top-k CF at config 4 ------------------------------------
     emit(phase_cf_topk(torch, rng, data3))
     del data3
@@ -2816,14 +3242,18 @@ def main() -> int:
                        "content": content["launches"]}
     check(all(v > 0 for v in segsum_launches.values()),
           f"a path of the slice missed the segment sum: {segsum_launches}")
+    segsum_launches["nmf"] = fam["NMF"]["launches"]
 
     kernels = [{
         "name": "score_catalog", "route": "cuda",
         "source": "matrix_factorization_tpu_torch/csrc/score_catalog.cu",
         "replaces": "matrix_factorization_tpu/ops/pallas_scores.py:34",
-        "launches": main_path_launches + sweep_out["launches"]["score_catalog"],
+        "launches": (main_path_launches + sweep_out["launches"]["score_catalog"]
+                     + sum(f["score_launches"] for f in fam.values())),
         "launches_by_path": {"serve": main_path_launches,
-                             "sweep": sweep_out["launches"]["score_catalog"]},
+                             "sweep": sweep_out["launches"]["score_catalog"],
+                             **{k.lower(): f["score_launches"]
+                                for k, f in fam.items()}},
         "max_abs_err": worst,
         "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2840,20 +3270,24 @@ def main() -> int:
              "the secondary apply (tile_sec_scatter), an XLA scatter on the "
              "TPU and not a Pallas kernel; the port needs it deterministic")):
         row = sgd_rows["config3_sigmoid"][name]
+        by_path = {"train": train_launches[name],
+                   "sweep": sweep_out["launches"][name]}
+        if name == "segment_apply":
+            by_path.update(bpr=fam["BPR"]["launches"],
+                           svdpp=fam["SVDpp"]["launches"])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"matrix_factorization_tpu_torch/csrc/{source}",
             "replaces": replaces, "note": note,
-            "launches": train_launches[name] + sweep_out["launches"][name],
-            "launches_by_path": {"train": train_launches[name],
-                                 "sweep": sweep_out["launches"][name]},
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": sgd_worst[name], "ms": row["ms"],
             "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "shape": {k: row[k] for k in ("bs", "Kp", "kernel", "primary",
                                           "runs_prim", "runs_sec")},
-            "shapes": [rows_[name] for rows_ in sgd_rows.values()]})
+            "shapes": [rows_[name] for rows_ in sgd_rows.values()],
+            "family_shapes": [r for r in fam_rows if r["name"] == name]})
     row = spd_rows[0]
     kernels.append({
         "name": "spd_gj", "route": "cuda",
@@ -2879,7 +3313,8 @@ def main() -> int:
         "ms": row["ms"], "kernel_ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-        "shape": {k: row[k] for k in ("n", "d", "rows")}, "shapes": segsum_rows})
+        "shape": {k: row[k] for k in ("n", "d", "rows")}, "shapes": segsum_rows,
+        "family_shapes": [r for r in fam_rows if r["name"] == "segment_sum"]})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

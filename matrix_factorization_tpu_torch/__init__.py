@@ -17,6 +17,11 @@ counterpart is easy to find. It trains and serves:
   ``ContentBasedRecommender`` (item-feature profiles), whose reductions
   by id are the deterministic segment-sum kernel
   (``csrc/segment_sum.cu``);
+* ``BPR`` (pairwise ranking on implicit feedback, with ``auc``),
+  ``SVDpp`` (implicit-factor terms) and ``NMF`` (multiplicative updates),
+  every scatter of their training on the deterministic segment-sum
+  kernels (``mf_segment_apply`` / ``mf_segment_sum``), and the host-side
+  ``Popularity`` baseline;
 * ``TopKItemItemCF`` and ``TopKUserUserCF`` (top-k neighbour lists from a
   block-tiled sparse gram, for MovieLens-25M-sized catalogs) and
   ``EASE`` (one regularized inverse of the item gram, through the
@@ -27,10 +32,10 @@ rating packs run on the host library of ``csrc/host_loader.cpp``
 (threaded parsing and counting sorts).
 
 Checkpoints of either package load here (:func:`load_model`: KernelMF,
-ImplicitALS, BaselineModel, EASE), and ``predict``, ``recommend``,
-``recommend_batch`` and the :class:`CoalescingRecommender` run on the
-GPU, KernelMF's catalog scoring in a hand-written CUDA kernel
-(``csrc/score_catalog.cu``). Entry points take ``device=None``, which
+ImplicitALS, BPR, SVDpp, NMF, BaselineModel, EASE, Popularity), and
+``predict``, ``recommend``, ``recommend_batch`` and the
+:class:`CoalescingRecommender` run on the GPU, the factor models' catalog
+scoring in a hand-written CUDA kernel (``csrc/score_catalog.cu``). Entry points take ``device=None``, which
 means CUDA; ``device="cpu"`` runs the plain PyTorch versions of the
 kernels instead.
 """
@@ -42,6 +47,7 @@ from matrix_factorization_tpu_torch.core.checkpoint import (
 )
 from matrix_factorization_tpu_torch.data.loader import load_ratings_csv
 from matrix_factorization_tpu_torch.models.baseline import BaselineModel
+from matrix_factorization_tpu_torch.models.bpr import BPR
 from matrix_factorization_tpu_torch.models.cf_topk import TopKItemItemCF, TopKUserUserCF
 from matrix_factorization_tpu_torch.models.collaborative import ItemItemCF, UserUserCF
 from matrix_factorization_tpu_torch.models.content_based import ContentBasedRecommender
@@ -49,11 +55,16 @@ from matrix_factorization_tpu_torch.models.ease import EASE
 from matrix_factorization_tpu_torch.models.grid_search import grid_search_ease, grid_search_kernel_mf
 from matrix_factorization_tpu_torch.models.implicit import ImplicitALS
 from matrix_factorization_tpu_torch.models.kernel_mf import KernelMF
+from matrix_factorization_tpu_torch.models.nmf import NMF
+from matrix_factorization_tpu_torch.models.popularity import Popularity
+from matrix_factorization_tpu_torch.models.svdpp import SVDpp
 from matrix_factorization_tpu_torch.ops.segment_sgd import params_from_numpy
+from matrix_factorization_tpu_torch.ops.svdpp import svdpp_params_from_numpy
 from matrix_factorization_tpu_torch.serve.coalesce import CoalescingRecommender
 from matrix_factorization_tpu_torch.utils.splits import train_update_test_split
 
 __all__ = [
+    "BPR",
     "BaselineModel",
     "CoalescingRecommender",
     "ContentBasedRecommender",
@@ -61,6 +72,9 @@ __all__ = [
     "ImplicitALS",
     "ItemItemCF",
     "KernelMF",
+    "NMF",
+    "Popularity",
+    "SVDpp",
     "TopKItemItemCF",
     "TopKUserUserCF",
     "UserUserCF",
@@ -71,5 +85,6 @@ __all__ = [
     "load_ratings_csv",
     "params_from_numpy",
     "save_model",
+    "svdpp_params_from_numpy",
     "train_update_test_split",
 ]

@@ -2,19 +2,26 @@
 
 Counterpart of ``save_model`` / ``load_model`` in
 ``matrix_factorization_tpu/core/checkpoint.py``, for ``KernelMF`` (SGD or
-ALS) and ``ImplicitALS``, whose tables are both ``MFParams``,
-``BaselineModel``, whose state is ``BiasParams``, and ``EASE``, whose
-state is ``EASEParams`` and its users' histories. A checkpoint is a
+ALS), ``ImplicitALS``, ``BPR`` and ``NMF``, whose tables are
+``MFParams``, ``SVDpp`` (``SVDppParams``), ``BaselineModel``
+(``BiasParams``), ``EASE`` (``EASEParams`` and its users' histories) and
+``Popularity`` (no params, its item statistics). A checkpoint is a
 directory:
 
 * ``arrays.npz`` — the params' fields as host numpy: ``user_features``,
-  ``item_features`` and ``global_mean`` (``MFParams``), or
+  ``item_features`` and ``global_mean`` (``MFParams``; ``SVDppParams``
+  adds ``implicit_features`` and ``user_implicit_sums``), or
   ``user_biases``, ``item_biases`` and ``global_mean`` (``BiasParams``),
-  or ``item_weights`` (``EASEParams``); for EASE also the history CSR as
-  ``aux_hist_indptr``, ``aux_hist_i`` and ``aux_hist_w``
-* ``meta.pkl``   — ``format_version``, ``model_class``, ``params_class``,
-  the constructor ``config``, the raw user and item ids, ``train_rmse``,
-  ``train_loss``, ``global_mean`` and ``epochs_done``
+  or ``item_weights`` (``EASEParams``); and the ``aux_`` arrays of the
+  state outside the params: EASE's history CSR (``aux_hist_indptr``,
+  ``aux_hist_i``, ``aux_hist_w``), BPR's training positives
+  (``aux_train_pairs_u``, ``aux_train_pairs_i``, which ``auc`` rejects as
+  negatives) and Popularity's item statistics (``aux_pop_counts``,
+  ``aux_pop_sums``)
+* ``meta.pkl``   — ``format_version``, ``model_class``, ``params_class``
+  (``None`` for Popularity), the constructor ``config``, the raw user and
+  item ids, ``train_rmse``, ``train_loss``, ``global_mean`` and
+  ``epochs_done``
 
 ``fit_resumable`` trains in segments and checkpoints after each, so an
 interrupted fit restarts from the last completed segment.
@@ -47,19 +54,17 @@ def save_model(model, path) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=path.parent))
     try:
-        params = model._params
-        arrays = {name: getattr(params, name).detach().cpu().numpy()
-                  for name in params._fields}
-        if getattr(model, "_indptr", None) is not None:
-            arrays.update(aux_hist_indptr=model._indptr,
-                          aux_hist_i=model._hist_i, aux_hist_w=model._hist_w)
-        np.savez(tmp / "arrays.npz", **arrays)
+        params = getattr(model, "_params", None)
+        arrays = {} if params is None else {
+            name: getattr(params, name).detach().cpu().numpy()
+            for name in params._fields}
+        np.savez(tmp / "arrays.npz", **arrays, **_aux_arrays(model))
         config = model.get_params()
         config.pop("device", None)
         meta = {
             "format_version": FORMAT_VERSION,
             "model_class": type(model).__name__,
-            "params_class": type(params).__name__,
+            "params_class": None if params is None else type(params).__name__,
             "config": config,
             "user_raw_ids": model.user_vocab.raw_ids,
             "item_raw_ids": model.item_vocab.raw_ids,
@@ -84,17 +89,57 @@ def save_model(model, path) -> None:
         raise
 
 
+def _aux_arrays(model) -> dict:
+    """Model state outside the params, under ``aux_`` names (the JAX
+    package's): EASE's history CSR, BPR's training positives and
+    Popularity's item statistics."""
+    aux = {}
+    if getattr(model, "_indptr", None) is not None:
+        aux.update(aux_hist_indptr=model._indptr, aux_hist_i=model._hist_i,
+                   aux_hist_w=model._hist_w)
+    pairs = getattr(model, "_train_pairs", None)
+    if pairs is not None:
+        aux.update(aux_train_pairs_u=np.asarray(pairs[0]),
+                   aux_train_pairs_i=np.asarray(pairs[1]))
+    if getattr(model, "_item_counts", None) is not None:
+        aux.update(aux_pop_counts=np.asarray(model._item_counts),
+                   aux_pop_sums=np.asarray(model._item_sums))
+    return aux
+
+
+def _restore_aux(model, npz) -> None:
+    if "aux_hist_indptr" in npz:
+        model._indptr = np.asarray(npz["aux_hist_indptr"])
+        model._hist_i = np.asarray(npz["aux_hist_i"])
+        model._hist_w = np.asarray(npz["aux_hist_w"])
+    if "aux_train_pairs_u" in npz:
+        model._train_pairs = (np.asarray(npz["aux_train_pairs_u"]),
+                              np.asarray(npz["aux_train_pairs_i"]))
+    if "aux_pop_counts" in npz:
+        model._item_counts = np.asarray(npz["aux_pop_counts"])
+        model._item_sums = np.asarray(npz["aux_pop_sums"])
+        model._recompute_scores()
+
+
 def _model_classes() -> dict:
     """Model class name -> (class, the name of its params class)."""
     from matrix_factorization_tpu_torch.models.baseline import BaselineModel
+    from matrix_factorization_tpu_torch.models.bpr import BPR
     from matrix_factorization_tpu_torch.models.ease import EASE
     from matrix_factorization_tpu_torch.models.implicit import ImplicitALS
     from matrix_factorization_tpu_torch.models.kernel_mf import KernelMF
+    from matrix_factorization_tpu_torch.models.nmf import NMF
+    from matrix_factorization_tpu_torch.models.popularity import Popularity
+    from matrix_factorization_tpu_torch.models.svdpp import SVDpp
 
     return {"KernelMF": (KernelMF, "MFParams"),
             "ImplicitALS": (ImplicitALS, "MFParams"),
+            "BPR": (BPR, "MFParams"),
+            "NMF": (NMF, "MFParams"),
+            "SVDpp": (SVDpp, "SVDppParams"),
             "BaselineModel": (BaselineModel, "BiasParams"),
-            "EASE": (EASE, "EASEParams")}
+            "EASE": (EASE, "EASEParams"),
+            "Popularity": (Popularity, None)}
 
 
 def _f32_tensor(a, device):
@@ -112,9 +157,9 @@ def _bias_params(npz, device):
 
 
 def load_model(path, device=None):
-    """Restore a ``KernelMF``, an ``ImplicitALS``, a ``BaselineModel`` or
-    an ``EASE`` from a checkpoint directory onto ``device`` (``None`` =
-    CUDA, see ``core.device``)."""
+    """Restore a model of any class ``_model_classes`` names from a
+    checkpoint directory onto ``device`` (``None`` = CUDA, see
+    ``core.device``; ``Popularity`` lives on the host and takes none)."""
     from matrix_factorization_tpu_torch.core.ids import IdVocab
     from matrix_factorization_tpu_torch.ops.segment_sgd import params_from_numpy
 
@@ -122,13 +167,15 @@ def load_model(path, device=None):
     with (path / "meta.pkl").open("rb") as f:
         meta = pickle.load(f)
     classes = _model_classes()
-    if classes.get(meta["model_class"], (None, None))[1] != meta["params_class"]:
+    if meta["model_class"] not in classes or \
+            classes[meta["model_class"]][1] != meta["params_class"]:
         raise ValueError(
             f"the PyTorch port loads {', '.join(sorted(classes))} "
             f"checkpoints only, not {meta['model_class']!r} "
             f"({meta['params_class']!r})")
     cls, params_class = classes[meta["model_class"]]
-    model = cls(**meta["config"], device=device)
+    model = (cls(**meta["config"]) if params_class is None
+             else cls(**meta["config"], device=device))
     model.user_vocab = IdVocab(meta["user_raw_ids"])
     model.item_vocab = IdVocab(meta["item_raw_ids"])
     model.train_rmse = meta["train_rmse"]
@@ -142,13 +189,20 @@ def load_model(path, device=None):
             from matrix_factorization_tpu_torch.ops.ease import EASEParams
 
             model._params = EASEParams(_f32_tensor(npz["item_weights"], model._device))
-            model._indptr = np.asarray(npz["aux_hist_indptr"])
-            model._hist_i = np.asarray(npz["aux_hist_i"])
-            model._hist_w = np.asarray(npz["aux_hist_w"])
-        else:
+        elif params_class == "SVDppParams":
+            from matrix_factorization_tpu_torch.ops.svdpp import svdpp_params_from_numpy
+
+            model._params = svdpp_params_from_numpy(
+                *(npz[name] for name in ("user_features", "item_features",
+                                         "implicit_features",
+                                         "user_implicit_sums",
+                                         "global_mean")),
+                device=model._device, cfg=model._cfg())
+        elif params_class == "MFParams":
             model._params = params_from_numpy(
                 npz["user_features"], npz["item_features"],
                 npz["global_mean"], device=model._device, cfg=model._cfg())
+        _restore_aux(model, npz)
     return model
 
 
@@ -160,7 +214,7 @@ def fit_resumable(
     total_epochs: Optional[int] = None,
     segment_epochs: int = 10,
 ):
-    """Train ``model`` (a ``KernelMF``) in checkpointed segments of
+    """Train ``model`` (a ``KernelMF`` or a ``BPR``) in checkpointed segments of
     ``segment_epochs``; resumes from ``ckpt_dir`` when it holds a
     checkpoint of the same class, from its ``_epochs_done``. Segments
     after the first continue with ``fit(warm_start=True)``. The restored

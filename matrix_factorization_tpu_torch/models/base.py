@@ -41,6 +41,42 @@ def chunked_predict(fn, u: np.ndarray, i: np.ndarray):
     return preds, possible
 
 
+def predict_on_device(params, cfg, u: np.ndarray, i: np.ndarray,
+                      bound_ratings: bool, device):
+    """``segment_sgd.predict_pairs`` of dense (u, i) on ``device``, in
+    ``chunked_predict``'s chunks; host ``(preds, possible)``."""
+    import torch
+
+    from matrix_factorization_tpu_torch.ops.segment_sgd import predict_pairs
+
+    def run(uu, ii):
+        p, ok = predict_pairs(
+            params, torch.from_numpy(uu.astype(np.int64)).to(device),
+            torch.from_numpy(ii.astype(np.int64)).to(device), cfg,
+            bound_ratings)
+        return p.cpu().numpy(), ok.cpu().numpy()
+
+    return chunked_predict(run, u, i)
+
+
+def check_mesh_args(serving_dtype, mesh, overlap_psum, dp_layout, psum_every,
+                    name: str) -> None:
+    """The JAX package's argument checks of the SGD-trained families
+    (BPR, SVD++), then ``NotImplementedError`` for a mesh."""
+    if serving_dtype not in ("float32", "bfloat16"):
+        raise ValueError("serving_dtype must be 'float32' or 'bfloat16'")
+    if overlap_psum and mesh is None:
+        raise ValueError("overlap_psum=True requires a mesh")
+    if dp_layout not in ("tiled", "flat"):
+        raise ValueError(f"unknown dp_layout {dp_layout!r}")
+    if psum_every != 1 and mesh is None:
+        raise ValueError("psum_every requires a mesh")
+    if mesh is not None:
+        from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6
+
+        raise NotImplementedError(f"{name}(mesh=) comes with {SLICE_6}")
+
+
 class RecommenderBase(ABC):
     """Abstract recommender with the reference's lifecycle contract.
 
@@ -169,14 +205,15 @@ class RecommenderBase(ABC):
         ``recommend`` for users outside the vocabulary."""
 
     # -- shared top-k plumbing ------------------------------------------------
-    def _cached_serving_params(self):
+    def _cached_serving_params(self, source=None):
         """Identity-keyed cache of the serving-path tables: the live
-        ``_params``, or a bf16 copy of them when
-        ``serving_dtype='bfloat16'``. Rebuilt whenever ``_params`` is
+        ``_params`` (or ``source()``, a model's serving view of them, as
+        SVD++'s ``P + S``), or a bf16 copy of them when
+        ``serving_dtype='bfloat16'``. Rebuilt whenever the tables are
         replaced, so identity is the staleness check."""
         import torch
 
-        p = self._params
+        p = self._params if source is None else source()
         if self.serving_dtype == "float32":
             return p
         c = getattr(self, "_serving_cache", None)

@@ -32,7 +32,7 @@ import torch
 from matrix_factorization_tpu_torch.core.config import SGDConfig
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.core.ids import check_no_duplicates
-from matrix_factorization_tpu_torch.models.base import RecommenderBase, chunked_predict
+from matrix_factorization_tpu_torch.models.base import RecommenderBase, predict_on_device
 from matrix_factorization_tpu_torch.ops import ials, scoring
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
@@ -373,16 +373,8 @@ class KernelMF(RecommenderBase):
 
     def _predict_arrays(self, u: np.ndarray, i: np.ndarray, bound_ratings: bool):
         self._require_fitted()
-        cfg = self._cfg()
-
-        def run(uu, ii):
-            p, ok = sgd.predict_pairs(
-                self._params, torch.from_numpy(uu.astype(np.int64)).to(self._device),
-                torch.from_numpy(ii.astype(np.int64)).to(self._device), cfg,
-                bound_ratings)
-            return p.cpu().numpy(), ok.cpu().numpy()
-
-        return chunked_predict(run, u, i)
+        return predict_on_device(self._params, self._cfg(), u, i,
+                                 bound_ratings, self._device)
 
     def predict(self, X: pd.DataFrame, bound_ratings: bool = True) -> list:
         if X.shape[0] == 0:

@@ -626,6 +626,14 @@ def _as_index(order, device) -> torch.Tensor:
     return torch.from_numpy(np.array(order, dtype=np.int64)).to(device)
 
 
+def draw_order(given, e: int, n: int, generator, device) -> torch.Tensor:
+    """Epoch ``e``'s permutation of ``n`` as int64 on ``device``:
+    ``given[e]`` when ``given`` (one permutation an epoch) is not None,
+    else ``torch.randperm`` from ``generator``."""
+    return _as_index(given[e] if given is not None else _perm(n, generator),
+                     device)
+
+
 def epoch(params: MFParams, data: RatingBatches, cfg: SGDConfig, lr: float,
           generator: Optional[torch.Generator] = None,
           order=None, reg: Optional[float] = None) -> MFParams:

@@ -90,6 +90,14 @@ def sorted_order(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return perm.to(torch.int32), ids_sorted.to(torch.int32)
 
 
+def identity_order(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(perm, ids_sorted)`` of ids that are already ascending (a batch of
+    a pack, by its primary side): the identity permutation and the ids,
+    both int32 on their device."""
+    return (torch.arange(ids.numel(), dtype=torch.int32, device=ids.device),
+            ids.to(torch.int32))
+
+
 def _as_2d(out: torch.Tensor, vals: torch.Tensor):
     """(rows, d) / (n, d) views of ``out`` and ``vals``; 1-D tensors are
     one column."""

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions: the
 catalog scorer, the SGD step, the secondary-side apply, the Gauss-Jordan
-SPD leaf and the segment sum; and the models of the slice that the
-segment sum carries (bias, neighbourhood and content models, the sweep)
-on the card against the CPU.
+SPD leaf and the segment sum; the models that the segment sum carries
+(bias, neighbourhood and content models, the sweep) on the card against
+the CPU; and an epoch of BPR, SVD++ and NMF through the apply and the
+segment sum against their plain versions, and those models' lifecycles.
 
 Marked ``cuda``: each test skips without a CUDA GPU (the kernel has no
 CPU mode; the CPU tests hold the plain version against the JAX package).
@@ -860,3 +861,106 @@ def test_native_packs_on_cuda_equal_numpy(cuda):
                                                    native=False)):
         for bx, by in zip(x, y):
             assert all(torch.equal(s, t) for s, t in zip(bx, by))
+
+
+# -- BPR, SVD++ and NMF: every training scatter on the segment-sum kernels --
+
+FAMILY_TOL = {"bpr": 1e-4, "svdpp": 2e-4, "nmf": 1e-4}
+
+
+def _family_epoch(family, data, tables, n_items, seed):
+    """One epoch of ``family`` on ``data`` from ``tables`` (host numpy)
+    with draws made from ``seed`` on the host: the tables it returns."""
+    from matrix_factorization_tpu_torch.ops import bpr, nmf, svdpp
+
+    dev = data.user_ids.device
+    rng = np.random.default_rng(seed)
+    order = [rng.permutation(data.n_batches)]
+    cfg = SGDConfig(kernel="linear", n_factors=64, lr=0.01, reg=0.02,
+                    min_rating=0.5, max_rating=5.0)
+    u = data.user_ids.reshape(-1).cpu().numpy()[data.weights.reshape(-1).cpu().numpy() > 0]
+    if family == "bpr":
+        negs = [rng.integers(0, n_items, (data.n_batches, data.batch_size))]
+        p = params_from_numpy(tables[0], tables[1], 0.0, device=dev)
+        out, _ = bpr.bpr_train_tiled(p, data, None, cfg, 1, 0.05, n_items,
+                                     batch_orders=order, negatives=negs)
+        return out.user_features, out.item_features
+    if family == "svdpp":
+        p = svdpp.svdpp_params_from_numpy(*tables, 3.0, device=dev)
+        wvec = svdpp._neighbor_weights(u, 3000, tables[0].shape[0])
+        deg = np.ones(tables[1].shape[0], np.float32)
+        out, _ = svdpp.svdpp_train_batched(
+            p, data, torch.from_numpy(wvec).to(dev),
+            torch.from_numpy(deg).to(dev), None, cfg, 1, 0.01, 0.02,
+            batch_orders=order)
+        return (out.user_features, out.item_features, out.implicit_features,
+                out.user_implicit_sums)
+    p = params_from_numpy(np.abs(tables[0]), np.abs(tables[1]), 0.0, device=dev)
+    cnt = [torch.from_numpy(np.bincount(
+        ids, minlength=t.shape[0]).astype(np.float32)).to(dev)
+        for ids, t in ((u, tables[0]), (np.arange(n_items), tables[1]))]
+    out, _ = nmf.nmf_train(p, data, *cnt, cfg, 1, 0.06, 0.06)
+    return out.user_features, out.item_features
+
+
+@pytest.mark.parametrize("family", ["bpr", "svdpp", "nmf"])
+def test_family_epoch_on_cuda_matches_plain_and_repeats(cuda, family,
+                                                        monkeypatch):
+    """One epoch through the kernels twice (bitwise equal), and through the
+    plain versions (``index_add_``) on the card from the same tables and
+    draws: atol 1e-4 (BPR, NMF), 2e-4 (SVD++)."""
+    rng = np.random.default_rng(6)
+    flat = rng.choice(3000 * 2000, 60_000, replace=False)
+    u = (flat // 2000).astype(np.int32)
+    i = (flat % 2000).astype(np.int32)
+    r = (rng.integers(1, 11, len(u)) * 0.5).astype(np.float32)
+    data = sgd.pack_ratings(u, i, r, 8192, order="user", device=cuda)
+    tables = [rng.normal(0, 0.1, (n, 128)).astype(np.float32)
+              for n in (3000, 2000, 2000, 3000)]
+    for t in tables[:2]:
+        t[:, 64:] = 0.0
+        t[:, 65 if t is tables[0] else 64] = 1.0
+    tables[2][:, 64:] = 0.0
+    tables[3][:, 64:] = 0.0
+    tables = tables if family == "svdpp" else tables[:2]
+    counts = (cuda_sgd.apply_launches, ss.launches)
+    got = _family_epoch(family, data, tables, 2000, 1)
+    again = _family_epoch(family, data, tables, 2000, 1)
+    launched = (cuda_sgd.apply_launches - counts[0], ss.launches - counts[1])
+    assert launched[1 if family == "nmf" else 0] > 0
+    monkeypatch.setattr(cuda_sgd, "segment_apply", cuda_sgd.plain_segment_apply)
+    monkeypatch.setattr(ss, "segment_sum", lambda out, *a: (
+        ss.plain_segment_sum(out, *a), out)[1])
+    plain = _family_epoch(family, data, tables, 2000, 1)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, plain):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(),
+                                   atol=FAMILY_TOL[family])
+
+
+@pytest.mark.parametrize("family", ["BPR", "SVDpp", "NMF"])
+def test_family_models_on_cuda(cuda, family, tmp_path):
+    """fit twice (bitwise), ``update_users`` with the item side bitwise
+    unchanged, ``recommend_batch`` on the scorer, a checkpoint round trip
+    on the card (bitwise)."""
+    import matrix_factorization_tpu_torch as mf
+
+    X, y = _ml_shaped()
+    kw = dict(n_factors=16, n_epochs=3, batch_size=1024)
+    cls = getattr(mf, family)
+    a = cls(device="cuda", **kw).fit(X, y)
+    b = cls(device="cuda", **kw).fit(X, y)
+    for s, t in zip(a._params, b._params):
+        assert torch.equal(s, t)
+    Q = a._params.item_features.clone()
+    upd = X.iloc[:40].assign(user_id=10_000 + np.arange(40) // 2)
+    a.update_users(upd, y.iloc[:40], n_epochs=2)
+    assert torch.equal(a._params.item_features, Q)
+    before = cuda_scores.launches
+    rec = a.recommend_batch(X.user_id.unique()[:8].tolist(), amount=5)
+    assert cuda_scores.launches > before and len(rec) == 40
+    mf.save_model(a, tmp_path / family)
+    back = mf.load_model(tmp_path / family)
+    for s, t in zip(a._params, back._params):
+        assert torch.equal(s, t)

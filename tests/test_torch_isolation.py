@@ -79,6 +79,18 @@ with tempfile.TemporaryDirectory() as d:
     assert len(mf.load_model(d + "/ease", device="cpu").predict(X)) == 60
 ge, res = mf.grid_search_ease(X, ry, regs=[1.0, 10.0], device="cpu")
 assert len(res) == 2
+fams = [mf.BPR(n_factors=4, n_epochs=2, batch_size=16, device="cpu").fit(X),
+        mf.SVDpp(n_factors=4, n_epochs=2, batch_size=16, device="cpu").fit(X, ry),
+        mf.NMF(n_factors=4, n_epochs=2, batch_size=16, device="cpu").fit(X, ry),
+        mf.Popularity(score="mean").fit(X, ry)]
+assert fams[0].auc(X.iloc[:10], n_neg=3) >= 0
+for m in fams:
+    m.update_users(X.iloc[::9][:4].assign(user_id=95), ry.iloc[:4])
+    assert len(m.recommend_batch([1, 95], amount=2)) == 4
+    with tempfile.TemporaryDirectory() as d:
+        mf.save_model(m, d + "/m")
+        back = mf.load_model(d + "/m", device="cpu")
+        assert back.predict(X.iloc[:5]) == m.predict(X.iloc[:5])
 print("\n".join(sorted(sys.modules)))
 """
 
@@ -100,7 +112,9 @@ def test_port_runs_without_jax_modules():
     for name in ("ops.segment_sum", "ops.als", "ops.similarity", "ops.sweep",
                  "models.baseline", "models.collaborative",
                  "models.content_based", "models.grid_search", "data.loader",
-                 "ops.sparse_gram", "models.cf_topk", "ops.ease", "models.ease"):
+                 "ops.sparse_gram", "models.cf_topk", "ops.ease", "models.ease",
+                 "ops.bpr", "models.bpr", "ops.svdpp", "models.svdpp",
+                 "ops.nmf", "models.nmf", "models.popularity"):
         assert f"matrix_factorization_tpu_torch.{name}" in loaded
     bad = sorted(m for m in loaded if _top(m) in FORBIDDEN)
     assert not bad, bad
