@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, SGD training and ALS paths, its bias,
 neighbourhood and content models, its KernelMF sweep, its native host
-packs, its sparse-gram top-k CF, EASE, BPR, SVD++, NMF and Popularity on
-one CUDA GPU and check them.
+packs, its sparse-gram top-k CF, EASE, BPR, SVD++, NMF and Popularity, and
+the recipe recommender's serving path on one CUDA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -113,7 +113,7 @@ failed check ends the run with a non-zero exit:
 17a. cf_topk: ``BASELINE.json`` config 4 at full scale: ``TopKItemItemCF``
     (50 neighbours) on the 25M config-3 ratings, ``fit`` seconds and peak
     memory, one strip timed by its parts (host sort and windows, tile
-    builds + exact f32 GEMMs, cosine + stable sort, the sort alone), a
+    builds + exact f32 GEMMs, cosine + ``stable_topk``, the top-k alone), a
     bulk ``predict`` of 1M seeded pairs, 64 sampled columns against a
     float64 scipy.sparse centered cosine (values within 1e-5, ids where
     separated by more than 1e-5), 4,096 predictions against a float64
@@ -190,6 +190,32 @@ failed check ends the run with a non-zero exit:
     version (atol = rtol = 1e-4) and both to the float64 inverse
     (``|A X - I|`` < 5e-3); the kernel, plain and library times on the
     first input of each width.
+
+26. recipe_serve: the recipe recommender at RecipeNLG's catalog
+    (2,231,142 recipes): a dense index of 2,231,142 x 512 (the first 3,706
+    rows ``hash_embed`` of seeded recipe texts, the rest seeded unit rows)
+    on the card; a ``KernelMF`` (linear, k=200, Kp 256) fitted there by SGD
+    on the config-2 ratings (3 epochs, bs 131,072; the step and apply counts
+    zeroed just before, read just after), the step and apply held against
+    the plain step on that fit's own pack (its first and last batch, as
+    compare_sgd holds them), pickled to ``model.pkl``; a
+    ``TorchLogisticRegression`` reranker trained there on ``featurize`` rows
+    of ``generate_queries`` over 200 recipes; the service loaded by
+    ``from_artifacts`` (index, model, reranker) with a seeded metadata
+    frame; ``search_topk`` of 64 queries at k 10 and at ``candidate_k``
+    500, and ``search_topk_batch`` of 256, against a float64 numpy top-k on
+    the host (``np.partition`` then ``np.lexsort``; values within 1e-5,
+    positions equal except where scores tie within 1e-6 at the cut), their
+    device times (``Timer``) against the bytes / operations bound; 64
+    hybrid ``recommend`` calls (k 10, ``candidate_k`` 500, alpha 0.5; model
+    scores not the zeros fallback, within 1e-5 of the model loaded on the
+    CPU; the scores the blend), p50 / p99; 4 ``plan_meals`` with the
+    reranker and avoid terms at the default diversity penalty (no avoided
+    ingredient, no repeat within a meal; repeats across meals, which the
+    planner allows as JAX's does, counted); the HTTP
+    routes' statuses; the batched TF-IDF scores of 64 queries at
+    ``vocab_block`` 1,024 on a seeded l2-normalized 2,231,142 x 50,000 CSR
+    (32 terms a row) within 1e-5 of scipy's product, and their top-10.
 
 Then the ``kernels`` line (``score_catalog``, ``sgd_step``,
 ``segment_apply``, ``spd_gj`` with its EASE launches and shapes,
@@ -2315,7 +2341,7 @@ def hold_topk(sims, ids, S, tol):
 def strip_split(torch, rows, cols, r, n_rows, n_cols, k, block):
     """One strip of ``similarity_topk`` timed by its parts: the host sort
     and the device windows, the accumulation (tile builds + exact f32
-    GEMMs), the centered cosine with its stable sort, and the stable sort
+    GEMMs), the centered cosine with its top-k, and ``stable_topk``
     alone, with the strip count and the GEMMs' operations."""
     from matrix_factorization_tpu_torch.ops import sparse_gram as sg
     from matrix_factorization_tpu_torch.ops.scoring import stable_topk
@@ -3002,6 +3028,513 @@ def phase_family_kernel_times(torch, rng, pack, timer):
 
 
 
+# ---------------------------------------------------------------------------
+# The recipe recommender's serving path at RecipeNLG's catalog
+# ---------------------------------------------------------------------------
+
+# RecipeNLG's full_dataset.csv (2,231,142 recipes; the reference's
+# prepare_recipes_full_dataset.py), the hash_embed width (512), the TF-IDF
+# index's max_features (50,000, build_tfidf_index); the model is config 3's
+# KernelMF width (linear, k = 200) on the config-2 ratings, whose 3,706
+# items are the first 3,706 recipes
+RECIPE = {"n_items": 2_231_142, "dim": 512, "n_known": 3_706,
+          "vocab": 50_000, "terms": 32, "queries": 64, "batch": 256,
+          "k": 10, "candidate_k": 500, "alpha": 0.5, "vocab_block": 1_024,
+          "reranker_seeds": 200, "n_factors": 200, "epochs": 3,
+          "batch_size": 131_072, "lr": 0.01, "reg": 0.02}
+RECIPE_WORDS = (
+    "chicken breast", "rice", "tofu", "salmon", "beef", "egg", "milk",
+    "peanut butter", "walnut", "lettuce", "potato", "carrot", "noodle",
+    "curry paste", "cheese", "butter", "lentils", "black beans", "spinach",
+    "greek yogurt", "shrimp", "flour", "soy sauce", "olive oil", "garlic",
+    "onion", "tomato", "mushroom", "pork loin", "turkey", "chickpeas",
+    "broccoli", "honey", "oats", "cod", "quinoa")
+RECIPE_STYLE = ("smoky", "spicy", "creamy", "crispy", "light", "hearty",
+                "zesty", "golden", "rustic", "quick")
+RECIPE_DISH = ("bowl", "stew", "salad", "bake", "stir fry", "soup", "wrap",
+               "skillet", "casserole", "curry")
+RECIPE_VERB = ("grill", "bake", "boil", "steam", "fry", "simmer", "roast")
+
+
+def recipe_texts(rng, n_known, n_items):
+    """Seeded recipe texts in the JAX pipeline's "title / ingredients /
+    directions" form: full ones for the first ``n_known``, short ones for
+    the rest. Returns (texts, titles of the known recipes)."""
+    import numpy as np
+
+    W, S, D, V = RECIPE_WORDS, RECIPE_STYLE, RECIPE_DISH, RECIPE_VERB
+    texts, titles = [], []
+    for i in range(n_known):
+        ings = rng.choice(len(W), size=int(rng.integers(3, 7)), replace=False)
+        title = f"{S[rng.integers(len(S))]} {W[ings[0]]} {D[rng.integers(len(D))]} {i}"
+        verb = V[rng.integers(len(V))]
+        texts.append(f"title: {title}\ningredients: "
+                     f"{'; '.join(W[j] for j in ings)}\ndirections: {verb} "
+                     f"{int(rng.integers(5, 120))} minutes")
+        titles.append(title)
+    rest = n_items - n_known
+    a, b = rng.integers(0, len(W), rest), rng.integers(0, len(W), rest)
+    v, m = rng.integers(0, len(V), rest), rng.integers(5, 120, rest)
+    texts += [f"title: recipe {i}\ningredients: {W[x]}; {W[y]}\ndirections: "
+              f"{V[z]} {t} minutes" for i, x, y, z, t in
+              zip(range(n_known, n_items), a.tolist(), b.tolist(), v.tolist(),
+                  m.tolist())]
+    return texts, titles
+
+
+class HashVectorizer:
+    """A TF-IDF vectorizer stand-in (this script needs no sklearn): tokens
+    hashed (crc32) into ``vocab`` columns, term counts, l2-normalized CSR
+    rows, as ``TfidfVectorizer.transform`` gives them."""
+
+    def __init__(self, vocab):
+        self.vocab = vocab
+
+    def transform(self, queries):
+        import re
+        import zlib
+
+        import numpy as np
+        import scipy.sparse as sp
+
+        rows, cols = [], []
+        for r, q in enumerate(queries):
+            for tok in re.findall(r"[a-z0-9]+", q.lower()):
+                rows.append(r)
+                cols.append(zlib.crc32(tok.encode()) % self.vocab)
+        m = sp.csr_matrix((np.ones(len(rows)), (rows, cols)),
+                          shape=(len(queries), self.vocab))
+        m.sum_duplicates()
+        norms = np.sqrt(np.asarray(m.multiply(m).sum(1)).ravel())
+        return sp.csr_matrix(sp.diags(1.0 / np.maximum(norms, 1e-12)) @ m)
+
+
+def tfidf_catalog(rng, n_items, vocab, terms):
+    """A seeded l2-normalized CSR of ``n_items`` x ``vocab``, ``terms``
+    distinct columns a row (an arithmetic progression from a random start:
+    unique by construction, as a CSR's (row, col) pairs are)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    start = rng.integers(0, vocab, n_items)
+    step = rng.integers(1, vocab // terms, n_items)
+    cols = (start[:, None] + step[:, None] * np.arange(terms)) % vocab
+    vals = rng.uniform(0.1, 1.0, (n_items, terms)).astype(np.float32)
+    vals /= np.linalg.norm(vals, axis=1, keepdims=True)
+    return sp.csr_matrix(
+        (vals.ravel(), cols.ravel().astype(np.int32),
+         np.arange(0, n_items * terms + 1, terms, dtype=np.int64)),
+        shape=(n_items, vocab))
+
+
+def f64_topk_positions(s, k):
+    """The top-``k`` positions of one float64 score row, by score
+    descending then position ascending: ``np.partition`` finds the k-th
+    score, ``np.lexsort`` orders every score at or above it (the same
+    order as ``np.lexsort((np.arange(n), -s))[:k]``, without sorting the
+    whole row)."""
+    import numpy as np
+
+    n = s.shape[0]
+    k = min(k, n)
+    t = np.partition(s, n - k)[n - k]
+    cand = np.flatnonzero(s >= t)
+    return cand[np.lexsort((cand, -s[cand]))][:k]
+
+
+def host_f64_topk(emb, Q, k, chunk=131_072):
+    """float64 scores of every item against every query, on the host, and
+    each query's top-k positions (``f64_topk_positions``). Returns (scores
+    (B, n), positions (B, k), seconds)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    Q64 = Q.astype(np.float64)
+    S = np.empty((Q.shape[0], emb.shape[0]), np.float64)
+    for lo in range(0, emb.shape[0], chunk):
+        S[:, lo:lo + chunk] = Q64 @ emb[lo:lo + chunk].astype(np.float64).T
+    pos = np.stack([f64_topk_positions(s, k) for s in S])
+    return S, pos, time.perf_counter() - t0
+
+
+def hold_search(vals, pos, S, want, tol=1e-5, tie=1e-6):
+    """Device top-k against the host float64 one (``S`` (B, n)): values
+    within ``tol`` of the float64 scores at both position lists; positions equal except where
+    the float64 scores tie within ``tie`` (``want`` holds k + 1 positions).
+    Returns the largest value error."""
+    import numpy as np
+
+    err = 0.0
+    k = pos.shape[1]
+    for j in range(pos.shape[0]):
+        s = S[j]
+        err = max(err, float(np.abs(vals[j] - s[pos[j]]).max()),
+                  float(np.abs(vals[j] - s[want[j, :k]]).max()))
+        gap = np.abs(np.diff(s[want[j]])) > tie
+        sep = np.concatenate([[True], gap[:-1]]) & gap
+        bad = np.flatnonzero((pos[j] != want[j, :k]) & sep)
+        check(bad.size == 0, f"query {j}: positions {pos[j][bad]} differ from "
+                             f"the float64 top-k {want[j, :k][bad]}")
+    check(err < tol, f"search values off the float64 scores by {err}")
+    return err
+
+
+def reranker_rows(index, texts, meta, rng_seed, n_seeds):
+    """Weak-supervision rows as the JAX pipeline's ``train_reranker`` makes
+    them: queries from seed recipes, the seed's hit positive, three hard
+    negatives from the same top-30."""
+    import random
+
+    import numpy as np
+
+    from matrix_factorization_tpu_torch.rank.reranker import featurize, generate_queries
+    from matrix_factorization_tpu_torch.retrieval import search
+
+    rng = random.Random(rng_seed)
+    X, y = [], []
+    for seed_id in range(n_seeds):
+        for q in generate_queries(texts[seed_id], rng):
+            cand = search.search_topk_pos(
+                index, search.encode_query_for_index(index, q), 30)
+            hit = next((c for c in cand if c[1] == seed_id), None)
+            if hit is None:
+                continue
+            X.append(featurize(q, texts[hit[0]], hit[2], meta.loc[str(seed_id)]))
+            y.append(1)
+            negs = [c for c in cand if c[1] != seed_id]
+            rng.shuffle(negs)
+            for p, nid, s in negs[:3]:
+                X.append(featurize(q, texts[p], s, meta.loc[str(nid)]))
+                y.append(0)
+    return np.vstack(X), np.asarray(y, np.int32)
+
+
+def http_statuses(svc, user, query):
+    """One pass over the HTTP routes on 127.0.0.1:0: the statuses of
+    ``tests/test_serve_checkpoint.py::test_http_api`` (and the batch and
+    plan routes)."""
+    import urllib.error
+    import urllib.request
+
+    from matrix_factorization_tpu_torch.serve.api import serve
+
+    httpd = serve(svc, "127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def status(path, body=None):
+        req = urllib.request.Request(base + path, data=None if body is None
+                                     else json.dumps(body).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, None
+
+    try:
+        got = {
+            "health": status("/health"),
+            "recommend": status("/recommend", {"query": query, "user_id": user,
+                                               "k": 5}),
+            "missing_query": status("/recommend", {}),
+            "k_out_of_bounds": status("/recommend", {"query": "x", "k": 999}),
+            "unknown_path": status("/nope"),
+            "batch": status("/recommend_batch", {"queries": [query, "rice"],
+                                                 "k": 3}),
+            "plan": status("/plan", {"meals": ["午餐"], "per_meal_k": 2,
+                                     "avoid": ["peanut"], "use_reranker": False}),
+            "bad_plan": status("/plan", {"nope": 1}),
+        }
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=60)
+    check(not th.is_alive(), "the HTTP server thread did not stop")
+    want = {"health": 200, "recommend": 200, "missing_query": 422,
+            "k_out_of_bounds": 422, "unknown_path": 404, "batch": 200,
+            "plan": 200, "bad_plan": 422}
+    codes = {k: v[0] for k, v in got.items()}
+    check(codes == want, f"HTTP statuses {codes}, want {want}")
+    check(got["health"][1]["n_items"] == len(svc.index.item_ids)
+          and len(got["recommend"][1]["results"]) == 5
+          and len(got["batch"][1]["results"]) == 2
+          and got["plan"][1]["plan"], "HTTP bodies")
+    return codes
+
+
+def phase_recipe_serve(torch, rng, train, tmpdir, seed, timer):
+    """The recipe recommender's serving path at RecipeNLG's catalog: a
+    2,231,142 x 512 dense index on the card, a KernelMF fitted there by SGD
+    (the step and apply counts zeroed just before the fit and read just
+    after), a reranker trained there, the service loaded from its artifacts
+    (``item_index.pkl``, ``model.pkl``, ``reranker.pkl``), 64 hybrid
+    ``recommend`` calls, 4 ``plan_meals``, the HTTP routes, and the batched
+    TF-IDF path on a 2,231,142 x 50,000 CSR."""
+    import pickle
+
+    import numpy as np
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch import KernelMF
+    from matrix_factorization_tpu_torch.core.artifacts import load_pickle
+    from matrix_factorization_tpu_torch.ops import cuda_sgd
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+    from matrix_factorization_tpu_torch.rank import hybrid
+    from matrix_factorization_tpu_torch.rank.recipe_features import (
+        contains_any, expand_avoid_terms, featurize_item_text)
+    from matrix_factorization_tpu_torch.rank.reranker import (
+        FEATURE_NAMES, TorchLogisticRegression, rerank_scores)
+    from matrix_factorization_tpu_torch.retrieval import index as rindex
+    from matrix_factorization_tpu_torch.retrieval import search, sparse_scoring
+    from matrix_factorization_tpu_torch.retrieval.encode import hash_embed
+    from matrix_factorization_tpu_torch.serve.planner import PlanRequest, plan_meals
+    from matrix_factorization_tpu_torch.serve.service import RecommendService
+
+    R = RECIPE
+    n, dim, n_known = R["n_items"], R["dim"], R["n_known"]
+    out = {"phase": "recipe_serve", "n_items": n, "dim": dim, "n_known": n_known}
+    tmp = Path(tmpdir)
+
+    # -- catalog: texts, embeddings (unit rows, hash_embed of the known) ---
+    t0 = time.perf_counter()
+    texts, titles = recipe_texts(rng, n_known, n)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    E = torch.randn((n, dim), generator=g, device="cuda")
+    E /= E.norm(dim=1, keepdim=True)
+    E[:n_known] = torch.from_numpy(hash_embed(texts[:n_known], dim=dim)).cuda()
+    emb = E.cpu().numpy()
+    del E
+    meta = pd.DataFrame([featurize_item_text(t) for t in texts[:n_known]])
+    rest = n - n_known
+    meta = pd.concat([meta[["time_min", "protein_score", "low_calorie_score",
+                            "ingredients_count"]], pd.DataFrame({
+        "time_min": rng.integers(5, 120, rest).astype(float),
+        "protein_score": rng.integers(0, 4, rest).astype(float),
+        "low_calorie_score": rng.uniform(0, 5, rest),
+        "ingredients_count": rng.integers(2, 12, rest)})], ignore_index=True)
+    meta.index = [str(i) for i in range(n)]
+    out["data_seconds"] = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    index = rindex.build_dense_index(list(range(n)), texts, emb, normalize=False)
+    dev_emb = search.device_embeddings(index)
+    torch.cuda.synchronize()
+    out["index_build_seconds"] = time.perf_counter() - t0
+    out["index_device_bytes"] = torch.cuda.memory_allocated() - mem0
+    out["memory_allocated_bytes"] = torch.cuda.memory_allocated()
+    check(out["index_device_bytes"] >= n * dim * 4, "the index is not on the card")
+
+    # -- the model: KernelMF by SGD on the card, the counts zeroed ---------
+    u, i, r = train
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    model = KernelMF(n_factors=R["n_factors"], kernel="linear", lr=R["lr"],
+                     reg=R["reg"], batch_size=R["batch_size"], min_rating=0.5,
+                     max_rating=5.0, seed=seed)
+    cuda_sgd.reset_launches()
+    t0 = time.perf_counter()
+    model.fit(X, pd.Series(r), n_epochs=R["epochs"])
+    torch.cuda.synchronize()
+    out["fit_seconds"] = time.perf_counter() - t0
+    out["launches"] = {"sgd_step": cuda_sgd.step_launches,
+                       "segment_apply": cuda_sgd.apply_launches}
+    check(all(v > 0 for v in out["launches"].values()),
+          f"the fit missed a kernel: {out['launches']}")
+    hist = model.train_rmse
+    out["train_rmse"] = hist
+    check(len(hist) == R["epochs"] and hist[-1] < hist[0], f"train RMSE {hist}")
+    out["Kp"] = int(model._params.item_features.shape[1])
+    # the step and the apply against the plain step at this fit's own
+    # shape (linear, Kp 256, bs 131,072), on the pack fit made: its first
+    # batch and its last (which holds pads)
+    cfg = model._cfg()
+    pack = sgd.pack_ratings(model.user_vocab.encode(u), model.item_vocab.encode(i),
+                            np.asarray(r, np.float32), cfg.batch_size,
+                            order=model.epoch_order, device="cuda")
+    out["compare_sgd"] = phase_compare_sgd(torch, rng, [
+        (f"recipe_linear_k200_batch{b}", cfg, pack, b, model.n_users,
+         model.n_items) for b in (0, pack.n_batches - 1)])
+    del pack
+
+    # -- the reranker, trained on the card ---------------------------------
+    t0 = time.perf_counter()
+    Xr, yr = reranker_rows(index, texts, meta, seed, R["reranker_seeds"])
+    clf = TorchLogisticRegression().fit(Xr, yr)
+    out["reranker_seconds"] = time.perf_counter() - t0
+    out["reranker_rows"] = int(len(yr))
+    out["reranker_accuracy"] = float((clf.predict(Xr) == yr).mean())
+    check(np.isfinite(clf.coef_).all() and out["reranker_accuracy"] > 0.5,
+          f"reranker accuracy {out['reranker_accuracy']}")
+
+    # -- artifacts and the service ------------------------------------------
+    t0 = time.perf_counter()
+    rindex.save_item_index(index, tmp / "item_index.pkl")
+    with (tmp / "model.pkl").open("wb") as f:
+        pickle.dump(model, f)
+    with (tmp / "reranker.pkl").open("wb") as f:
+        pickle.dump({"model_type": "logreg", "index_type": "dense",
+                     "feature_names": FEATURE_NAMES, "model": clf}, f)
+    out["artifact_save_seconds"] = time.perf_counter() - t0
+    out["item_index_pkl_bytes"] = (tmp / "item_index.pkl").stat().st_size
+    t0 = time.perf_counter()
+    svc = RecommendService.from_artifacts(tmp)
+    out["service_load_seconds"] = time.perf_counter() - t0
+    (tmp / "item_index.pkl").unlink()
+    del index, emb, dev_emb
+    index = svc.index
+    svc.meta = meta
+    check(svc.health() == {"status": "ok", "index_type": "dense", "n_items": n,
+                           "has_model": True, "has_reranker": True},
+          f"health {svc.health()}")
+    check(svc.model._params.item_features.device.type == "cuda",
+          "the loaded model is not on the card")
+    check(isinstance(svc.reranker["model"], TorchLogisticRegression),
+          "reranker type")
+    cpu_model = load_pickle(tmp / "model.pkl", device="cpu")
+    t0 = time.perf_counter()
+    emb_dev = search.device_embeddings(index)
+    torch.cuda.synchronize()
+    out["index_device_copy_seconds"] = time.perf_counter() - t0
+
+    # -- search against the host float64 top-k -------------------------------
+    k = R["k"]
+    Q = np.stack([search.encode_query_for_index(index, t)
+                  for t in titles[:R["batch"]]])
+    S, want, host_s = host_f64_topk(index.embeddings, Q, k + 1)
+    out["host_f64_seconds"] = host_s
+    out["host_f64_ms_per_query"] = host_s / len(Q) * 1e3
+    vals = np.zeros((R["queries"], k), np.float32)
+    pos = np.zeros((R["queries"], k), np.int64)
+    for j in range(R["queries"]):
+        rows = search.search_topk_pos(index, Q[j], k)
+        pos[j] = [p for p, _, _ in rows]
+        vals[j] = [s for _, _, s in rows]
+    out["search_max_abs_err"] = hold_search(vals, pos, S[:R["queries"]],
+                                            want[:R["queries"]])
+    # the service's own depth: candidate_k rows of every query
+    ck = R["candidate_k"]
+    cvals = np.zeros((R["queries"], ck), np.float32)
+    cpos = np.zeros((R["queries"], ck), np.int64)
+    for j in range(R["queries"]):
+        rows = search.search_topk_pos(index, Q[j], ck)
+        cpos[j] = [p for p, _, _ in rows]
+        cvals[j] = [s for _, _, s in rows]
+    cwant = np.stack([f64_topk_positions(S[j], ck + 1)
+                      for j in range(R["queries"])])
+    out["search_candidate_k_max_abs_err"] = hold_search(
+        cvals, cpos, S[:R["queries"]], cwant)
+    out["search_self_hit"] = float(np.mean(pos[:, 0] == np.arange(R["queries"])))
+    bvals, bpos = search.search_topk_batch(index, Q, k)
+    out["batch_max_abs_err"] = hold_search(bvals, bpos, S, want)
+    del S
+
+    q1 = torch.from_numpy(Q[:1]).cuda()
+    qb = torch.from_numpy(Q).cuda()
+    b_bytes = n * dim * 4 / HBM_BYTES_PER_S * 1e3
+    out["search_ms"] = timer.ms(lambda: search.dense_topk(emb_dev, q1, k))
+    out["search_bound_ms"] = max(b_bytes, 2 * n * dim / PEAK_FLOPS["float32"] * 1e3)
+    out["search_batch_ms"] = timer.ms(lambda: search.dense_topk(emb_dev, qb, k),
+                                      reps=10)
+    out["search_batch_bound_ms"] = max(
+        b_bytes, 2 * len(Q) * n * dim / PEAK_FLOPS["float32"] * 1e3)
+    host = []
+    for j in range(R["queries"]):
+        t0 = time.perf_counter()
+        search.search_topk(index, Q[j], k)
+        host.append((time.perf_counter() - t0) * 1e3)
+    out["search_host_p50_ms"] = float(np.percentile(host, 50))
+
+    # -- 64 hybrid recommend calls -------------------------------------------
+    users = rng.choice(np.unique(u), R["queries"], replace=False).tolist()
+    lat, err = [], 0.0
+    for j, user in enumerate(users):
+        t0 = time.perf_counter()
+        res = svc.recommend(titles[j], user_id=user, k=k,
+                            candidate_k=R["candidate_k"], alpha=R["alpha"])
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(len(res) == k and all(x["reason"].startswith("hybrid") for x in res),
+              f"recommend {j}: {res[:1]}")
+        cands = search.search_topk(index, search.encode_query_for_index(
+            index, titles[j]), R["candidate_k"])
+        ids = [c[0] for c in cands]
+        ms = hybrid.model_scores(svc.model, user, ids)
+        ms_cpu = hybrid.model_scores(cpu_model, user, ids)
+        check(np.any(ms != 0), f"recommend {j}: model scores are the zeros fallback")
+        err = max(err, float(np.abs(ms - ms_cpu).max()))
+        blended = hybrid.blend(ms, np.asarray([c[1] for c in cands], np.float32),
+                               R["alpha"])
+        check(np.allclose(np.sort(blended)[::-1][:k], [x["score"] for x in res],
+                          atol=1e-6), f"recommend {j}: scores are not the blend")
+    check(err < 1e-5, f"model scores on the card off the CPU model's by {err}")
+    out["model_scores_vs_cpu"] = err
+    out["recommend_p50_ms"] = float(np.percentile(lat, 50))
+    out["recommend_p99_ms"] = float(np.percentile(lat, 99))
+
+    # -- 4 meal plans with the reranker and avoid terms ----------------------
+    # at the planner's default diversity penalty; the greedy never picks a
+    # candidate twice in a meal, while across meals only the carried-over
+    # penalty holds a repeat back (JAX's semantics), so those are counted
+    plans, cross = [], 0
+    t0 = time.perf_counter()
+    for goal, avoid in (("增肌/高蛋白", ["milk"]), ("减脂/低卡", ["peanut"]),
+                        ("控糖/低碳", ["egg"]), ("", ["beef", "pork"])):
+        req = PlanRequest(goal=goal, avoid=avoid, per_meal_k=3, candidate_k=100,
+                          alpha=0.3, user_id=users[0], use_reranker=True)
+        rows = plan_meals(svc, req)
+        terms = expand_avoid_terms(avoid, enable=True)
+        check(len(rows) == 3 * len(req.meals), f"plan {goal} {avoid}: {len(rows)} rows")
+        check(not any(contains_any(index.texts[x["item_id"]], terms) for x in rows),
+              f"plan {goal} {avoid}: an avoided ingredient")
+        for meal in req.meals:
+            ids = [x["item_id"] for x in rows if x["meal"] == meal]
+            check(len(ids) == len(set(ids)), f"plan {goal} {avoid}: a repeat in {meal}")
+        ids = [x["item_id"] for x in rows]
+        cross += len(ids) - len(set(ids))
+        plans.append(len(rows))
+    out["plan_seconds"] = time.perf_counter() - t0
+    out["plan_rows"] = plans
+    out["plan_cross_meal_repeats"] = cross
+    cand = search.search_topk_pos(index, Q[0], 20)
+    rr = rerank_scores(svc.reranker, titles[0],
+                       [(index.texts[p], s) for p, _, s in cand],
+                       {str(c[1]): meta.loc[str(c[1])] for c in cand},
+                       [c[1] for c in cand])
+    check(rr.shape == (20,) and np.isfinite(rr).all(), "rerank_scores")
+
+    out["http"] = http_statuses(svc, users[0], titles[0])
+
+    # -- the batched TF-IDF path at the catalog's size ------------------------
+    t0 = time.perf_counter()
+    M = tfidf_catalog(rng, n, R["vocab"], R["terms"])
+    tix = rindex.TfidfItemIndex(item_ids=index.item_ids, texts=index.texts,
+                                vectorizer=HashVectorizer(R["vocab"]), matrix=M)
+    out["tfidf_data_seconds"] = time.perf_counter() - t0
+    qs = titles[:R["queries"]]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scores = sparse_scoring.tfidf_scores_device(tix, qs, vocab_block=R["vocab_block"])
+    torch.cuda.synchronize()
+    out["tfidf_scores_seconds"] = time.perf_counter() - t0
+    got = scores.cpu().numpy()
+    del scores
+    ref = np.ascontiguousarray((M @ tix.vectorizer.transform(qs).T).toarray().T)
+    out["tfidf_max_abs_err"] = float(np.abs(got - ref).max())
+    check(out["tfidf_max_abs_err"] < 1e-5,
+          f"TF-IDF scores off scipy's by {out['tfidf_max_abs_err']}")
+    tvals, tpos = sparse_scoring.tfidf_batch_topk(tix, qs, k,
+                                                  vocab_block=R["vocab_block"])
+    twant = np.stack([f64_topk_positions(ref[j].astype(np.float64), k + 1)
+                      for j in range(len(qs))])
+    hold_search(tvals, tpos, ref, twant)
+    out["tfidf_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del got, ref, M, tix
+    svc.model = svc.reranker = None
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3237,6 +3770,12 @@ def main() -> int:
     spd_rows += ease_rows
     spd_worst = max(spd_worst, ease_worst)
     del leaves
+    # -- the recipe recommender's serving path at RecipeNLG's catalog --------
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        recipe = phase_recipe_serve(torch, rng, train1m, tmpdir, args.seed, timer)
+    emit(recipe)
+    for name in sgd_worst:
+        sgd_worst[name] = max(sgd_worst[name], recipe["compare_sgd"][name])
     segsum_launches = {"baseline_als": baseline["launches"]["als"],
                        "baseline_sgd": baseline["launches"]["sgd"],
                        "content": content["launches"]}
@@ -3271,7 +3810,8 @@ def main() -> int:
              "TPU and not a Pallas kernel; the port needs it deterministic")):
         row = sgd_rows["config3_sigmoid"][name]
         by_path = {"train": train_launches[name],
-                   "sweep": sweep_out["launches"][name]}
+                   "sweep": sweep_out["launches"][name],
+                   "recipe_serve": recipe["launches"][name]}
         if name == "segment_apply":
             by_path.update(bpr=fam["BPR"]["launches"],
                            svdpp=fam["SVDpp"]["launches"])

@@ -38,6 +38,13 @@ ImplicitALS, BPR, SVDpp, NMF, BaselineModel, EASE, Popularity), and
 scoring in a hand-written CUDA kernel (``csrc/score_catalog.cu``). Entry points take ``device=None``, which
 means CUDA; ``device="cpu"`` runs the plain PyTorch versions of the
 kernels instead.
+
+Around the models, as in the JAX package: the recipe recommender's
+serving path (``retrieval`` — dense and TF-IDF item indexes, device top-k;
+``rank`` — features, hard filters, diversity, hybrid blend, the reranker;
+``serve.service.RecommendService``, ``serve.planner.plan_meals`` and the
+HTTP API of ``serve.api``), ``data.synthetic`` and ``utils.metrics``.
+With sklearn importable the models are sklearn estimators.
 """
 
 from matrix_factorization_tpu_torch.core.checkpoint import (
@@ -46,6 +53,7 @@ from matrix_factorization_tpu_torch.core.checkpoint import (
     save_model,
 )
 from matrix_factorization_tpu_torch.data.loader import load_ratings_csv
+from matrix_factorization_tpu_torch.models.base import RecommenderBase
 from matrix_factorization_tpu_torch.models.baseline import BaselineModel
 from matrix_factorization_tpu_torch.models.bpr import BPR
 from matrix_factorization_tpu_torch.models.cf_topk import TopKItemItemCF, TopKUserUserCF
@@ -74,6 +82,7 @@ __all__ = [
     "KernelMF",
     "NMF",
     "Popularity",
+    "RecommenderBase",
     "SVDpp",
     "TopKItemItemCF",
     "TopKUserUserCF",

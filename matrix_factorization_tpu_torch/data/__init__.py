@@ -1,1 +1,2 @@
-"""Rating-file loading and the native host helpers (``data.loader``)."""
+"""Rating-file loading and the native host helpers (``data.loader``), and
+synthetic rating data (``data.synthetic``)."""

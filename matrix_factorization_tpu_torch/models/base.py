@@ -5,9 +5,16 @@ reference's ``RecommenderBase`` surface (``recommender_base.py:14-271``):
 the ``fit / predict / recommend / update_users`` lifecycle, arbitrary
 hashable ids remapped to dense ints (unknown ids are ``-1``, cold start),
 and full-catalog ``recommend`` / ``recommend_batch`` over one device
-top-k. ``get_params`` follows sklearn's convention (every constructor
-argument, read back from the attribute of the same name), which the
-checkpoint's ``config`` records.
+top-k. With sklearn importable the base is sklearn's ``BaseEstimator``
+and ``RegressorMixin``, as in the JAX package (``clone``,
+``set_params``, ``score``, ``GridSearchCV``); without it (sklearn is
+optional) ``get_params`` is the port's own, with sklearn's convention
+(every constructor argument, read back from the attribute of the same
+name), which the checkpoint's ``config`` records.
+
+A model pickles its tensors as host tensors (a CUDA pickle does not load
+on a host without CUDA) and puts them back on the device named where it
+is unpickled (``core.device.load_device``), else on its own ``device``.
 """
 
 from __future__ import annotations
@@ -19,6 +26,14 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import pandas as pd
 
+try:  # sklearn is optional; BaseEstimator enables GridSearchCV compat
+    from sklearn.base import BaseEstimator, RegressorMixin
+
+    _SKLEARN_BASES: tuple = (BaseEstimator, RegressorMixin)
+except ImportError:
+    _SKLEARN_BASES = ()
+
+from matrix_factorization_tpu_torch.core.device import load_device_for, to_device
 from matrix_factorization_tpu_torch.core.ids import IdVocab, check_no_duplicates
 
 _MAX_PREDICT_CHUNK = 8192
@@ -77,7 +92,7 @@ def check_mesh_args(serving_dtype, mesh, overlap_psum, dp_layout, psum_every,
         raise NotImplementedError(f"{name}(mesh=) comes with {SLICE_6}")
 
 
-class RecommenderBase(ABC):
+class RecommenderBase(*_SKLEARN_BASES, ABC):
     """Abstract recommender with the reference's lifecycle contract.
 
     Data contract (reference ``recommender_base.py``): ``X`` is a DataFrame
@@ -92,17 +107,39 @@ class RecommenderBase(ABC):
         self.user_vocab: IdVocab = IdVocab()
         self.item_vocab: IdVocab = IdVocab()
 
-    @classmethod
-    def _get_param_names(cls) -> list:
-        sig = inspect.signature(cls.__init__)
-        return sorted(
-            p.name for p in sig.parameters.values()
-            if p.name != "self"
-            and p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD))
+    if not _SKLEARN_BASES:
+        @classmethod
+        def _get_param_names(cls) -> list:
+            sig = inspect.signature(cls.__init__)
+            return sorted(
+                p.name for p in sig.parameters.values()
+                if p.name != "self"
+                and p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD))
 
-    def get_params(self) -> dict:
-        """Constructor arguments by name (sklearn's convention)."""
-        return {name: getattr(self, name) for name in self._get_param_names()}
+        def get_params(self, deep: bool = True) -> dict:
+            """Constructor arguments by name (sklearn's convention; no
+            parameter is itself an estimator, so ``deep`` changes
+            nothing)."""
+            return {name: getattr(self, name)
+                    for name in self._get_param_names()}
+
+    # -- pickling: host tensors in the pickle, the load device after -------
+    def __getstate__(self):
+        sup = getattr(super(), "__getstate__", None)
+        state = dict(sup() if sup is not None else self.__dict__)
+        return {k: to_device(v, "cpu") for k, v in state.items()}
+
+    def __setstate__(self, state):
+        sup = getattr(super(), "__setstate__", None)
+        if sup is not None:
+            sup(state)
+        else:
+            self.__dict__.update(state)
+        if "_device" in self.__dict__:
+            device, dev = load_device_for(self.__dict__.get("device"))
+            self.device, self._device = device, dev
+            for k, v in list(self.__dict__.items()):
+                self.__dict__[k] = to_device(v, dev)
 
     # -- reference-parity id surface ---------------------------------------
     @property

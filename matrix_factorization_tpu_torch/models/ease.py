@@ -165,11 +165,14 @@ class EASE(RecommenderBase):
         return preds.tolist()
 
     def _predict_dense(self, u, i, bound_ratings):
+        """``recommend``'s path for a user outside the vocabulary: float64
+        scores, as the JAX model's generic path (``predict``'s Python
+        floats) gives them."""
         preds, possible = self._pair_scores(np.asarray(u, np.int64),
                                             np.asarray(i, np.int64))
         if bound_ratings:
             preds = np.clip(preds, self.min_rating, self.max_rating)
-        return preds, possible
+        return preds.astype(np.float64), possible
 
     def update_users(self, X: pd.DataFrame, y: pd.Series, lr: float = 0.0,
                      n_epochs: int = 0, verbose: int = 0):

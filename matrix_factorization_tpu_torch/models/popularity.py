@@ -15,6 +15,39 @@ import pandas as pd
 from matrix_factorization_tpu_torch.models.base import RecommenderBase
 
 
+class _ScoreMode(str):
+    """The ranking mode read back from ``Popularity.score``: equal to the
+    string the constructor took, and callable as sklearn's
+    ``score(X, y)`` (R^2 of ``predict``), which the constructor's
+    argument of the same name would otherwise hide."""
+
+    def __new__(cls, mode, model):
+        obj = super().__new__(cls, mode)
+        obj._model = model
+        return obj
+
+    def __call__(self, X, y, sample_weight=None):
+        try:
+            from sklearn.base import RegressorMixin
+        except ImportError as e:
+            raise TypeError("Popularity.score(X, y) needs sklearn") from e
+        return RegressorMixin.score(self._model, X, y, sample_weight=sample_weight)
+
+
+class _ScoreParam:
+    """Data descriptor of ``Popularity.score``: stores the constructor's
+    argument unchanged (sklearn's ``clone`` checks identity) and reads it
+    back as a :class:`_ScoreMode`."""
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return self
+        return _ScoreMode(obj.__dict__["_score_mode"], obj)
+
+    def __set__(self, obj, value):
+        obj.__dict__["_score_mode"] = value
+
+
 class Popularity(RecommenderBase):
     """Non-personalized popularity ranker.
 
@@ -35,6 +68,14 @@ class Popularity(RecommenderBase):
             raise ValueError(f"score must be 'count' or 'mean', got {score!r}")
         self.score = score
         self.damping = damping
+
+    score = _ScoreParam()
+
+    def get_params(self, deep: bool = True) -> dict:
+        """sklearn's parameters, ``score`` as the constructor took it."""
+        params = super().get_params(deep=deep)
+        params["score"] = self._score_mode
+        return params
 
     def _recompute_scores(self) -> None:
         if self.score == "mean":

@@ -36,13 +36,78 @@ def score_catalog(cfg: SGDConfig, mu: torch.Tensor, pu: torch.Tensor,
     raise ValueError(f"no catalog scorer for device {pu.device}")
 
 
+# score blocks up to this size take the sort body of ``stable_topk``,
+# larger ones the selection body; a row of the selection body whose cut
+# ties more than ``SELECT_MAX_TIED`` scores is sorted whole
+# (``tools/time_topk.py``)
+SORT_MAX_SCORES = 1 << 22
+SELECT_MAX_TIED = 4096
+
+
+def _sort_topk(s: torch.Tensor, k: int):
+    """``stable_topk`` of (rows, n) scores by a stable sort of whole rows
+    (``-0.0`` sorted as ``0.0``)."""
+    _, idx = torch.sort(s + 0.0, dim=-1, descending=True, stable=True)
+    idx = idx[:, :k]
+    return s.gather(-1, idx), idx
+
+
+def _order(vals: torch.Tensor, idx: torch.Tensor):
+    """(rows, w) candidates ordered by score descending, then position
+    ascending (``-0.0`` as ``0.0``, a NaN first)."""
+    o = idx.argsort(dim=-1)
+    vals, idx = vals.gather(-1, o), idx.gather(-1, o)
+    o = (vals + 0.0).argsort(dim=-1, descending=True, stable=True)
+    return vals.gather(-1, o), idx.gather(-1, o)
+
+
+def _select_topk(s: torch.Tensor, k: int):
+    """``stable_topk`` of (rows, n) scores by ``torch.topk``, whose order
+    among ties is unstated. Its pick is the rule's where no more than k
+    scores lie at or above the k-th (IEEE compared, a NaN counting as
+    above). A row where more do, a tie straddling the cut, is taken again
+    with every score at or above its k-th (a ``torch.topk`` as wide as
+    the widest such row, or the whole row sorted past
+    ``SELECT_MAX_TIED``). Then the k are ordered by score and position."""
+    vals, idx = torch.topk(s, k, dim=-1, sorted=True)
+    if k:
+        at_or_above = (~(s < vals[:, -1:])).sum(-1)
+        rows = (at_or_above > k).nonzero().flatten()
+        if rows.numel():
+            m = s[rows]
+            wide = int(at_or_above[rows].max())
+            if wide <= SELECT_MAX_TIED:
+                tv, ti = _order(*torch.topk(m, wide, dim=-1, sorted=False))
+            else:
+                tv, ti = _sort_topk(m, k)
+            vals[rows], idx[rows] = tv[:, :k], ti[:, :k]
+    return _order(vals, idx)
+
+
 def stable_topk(scores: torch.Tensor, k: int):
     """Top-``k`` along the last axis, descending, ties to the lower index
     (the order of ``lax.top_k`` and of the reference's stable
-    sort-then-head, ``recommender_base.py:259-260``). ``torch.topk``
-    promises no order among ties on CUDA, so this is a stable sort."""
-    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    sort-then-head, ``recommender_base.py:259-260``): the one tie rule of
+    every top-k in the port, exact and the same on every device. ``-0.0``
+    counts as ``0.0``; a NaN ranks first. ``k`` is clamped to the axis.
+
+    Blocks of up to ``SORT_MAX_SCORES`` scores take ``_sort_topk``, larger
+    ones ``_select_topk``: on the H100 the sort wins at one row of 2.2M
+    scores and at small blocks, the selection at 60 rows and more
+    (``tools/time_topk.py``). f32 scores (f16 / bf16 widen exactly);
+    other dtypes raise."""
+    if scores.dtype in (torch.float16, torch.bfloat16):
+        vals, idx = stable_topk(scores.float(), k)
+        return vals.to(scores.dtype), idx
+    if scores.dtype != torch.float32:
+        raise TypeError(f"stable_topk takes float32 scores, not {scores.dtype}")
+    n = scores.shape[-1]
+    k = min(k, n)
+    s = scores.reshape(-1, n)
+    body = _sort_topk if s.numel() <= SORT_MAX_SCORES else _select_topk
+    vals, idx = body(s, k)
+    lead = scores.shape[:-1]
+    return vals.reshape(*lead, k), idx.reshape(*lead, k)
 
 
 def _user_rows(P: torch.Tensor, u_dense) -> torch.Tensor:

@@ -1,0 +1,139 @@
+"""Query encoding + top-k search over item indexes (PyTorch port).
+
+Counterpart of ``matrix_factorization_tpu/retrieval/search.py``, with its
+return shapes ``[(item_id, sim)]`` / ``[(pos, item_id, sim)]``
+(reference ``retrieval.py:64-115``). Dense scoring is ``emb @ q`` in f32
+(TF32 off) on the device, against a device copy of the embeddings cached
+per index and device; TF-IDF single queries score on the host
+(``index.matrix @ q.T``: a query touches only its own term columns).
+
+**Tie rule.** Every top-k here orders by score descending, then by
+position ascending (``ops/scoring.py::stable_topk``, the port's one
+top-k): a tie at the cut keeps the lower positions. The JAX
+single-query path (``argpartition``, then an unstable ``argsort``) leaves
+tied positions in no stated order; on tie-free scores the two agree.
+
+``mesh=`` (the JAX package's item-sharded search) comes with slice 6 of
+the port and raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import weakref
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from matrix_factorization_tpu_torch.core.device import resolve_device
+from matrix_factorization_tpu_torch.ops.scoring import stable_topk
+from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6
+from matrix_factorization_tpu_torch.ops.spd import exact_f32
+from matrix_factorization_tpu_torch.retrieval.encode import embed_texts
+from matrix_factorization_tpu_torch.retrieval.index import (
+    DenseItemIndex,
+    TfidfItemIndex,
+)
+
+IndexT = Union[DenseItemIndex, TfidfItemIndex]
+
+# weak-keyed: entries die with their index (no id-reuse staleness, no
+# device-memory leak across index reloads); one copy per device
+_device_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+# scores of a (B, n_items) block taken at once: the block and its 64-bit
+# keys take ~20 bytes a score, ~2.7 GB at this budget
+_TOPK_ELEMS = 1 << 27
+
+
+def _no_mesh(mesh, name: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(f"{name}(mesh=) comes with {SLICE_6}")
+
+
+def device_embeddings(index: DenseItemIndex, device=None) -> torch.Tensor:
+    """The index's (n_items, dim) f32 embeddings on ``device`` (``None`` =
+    CUDA), copied once per index and device."""
+    dev = resolve_device(device)
+    per_device = _device_cache.setdefault(index, {})
+    arr = per_device.get(dev)
+    if arr is None:
+        arr = torch.from_numpy(
+            np.ascontiguousarray(index.embeddings, np.float32)).to(dev)
+        per_device[dev] = arr
+    return arr
+
+
+def dense_topk(emb: torch.Tensor, q: torch.Tensor, k: int):
+    """(B, k) scores and positions of ``q @ emb.T`` on ``emb``'s device,
+    in row blocks of at most ``_TOPK_ELEMS`` scores (device tensors)."""
+    n = emb.shape[0]
+    rows = max(1, _TOPK_ELEMS // max(n, 1))
+    vals, idx = [], []
+    with exact_f32():
+        for lo in range(0, q.shape[0], rows):
+            s = q[lo:lo + rows] @ emb.T
+            v, i = stable_topk(s, k)
+            vals.append(v)
+            idx.append(i)
+    return torch.cat(vals), torch.cat(idx)
+
+
+def encode_query(text: str, model_name: Optional[str] = None,
+                 dim: int = 512) -> np.ndarray:
+    return embed_texts([text], model_name=model_name, dim=dim)[0]
+
+
+def encode_query_for_index(
+    index: IndexT, text: str, model_name: Optional[str] = None
+) -> object:
+    """TF-IDF -> sparse vector via the fitted vectorizer; dense -> embedding
+    (reference retrieval.py:70-77)."""
+    if isinstance(index, TfidfItemIndex):
+        return index.vectorizer.transform([text])
+    dim = index.embeddings.shape[1]
+    return encode_query(text, model_name=model_name, dim=dim)
+
+
+def search_topk(index: IndexT, query_vec: object, k: int, mesh=None,
+                device=None) -> List[Tuple[object, float]]:
+    rows = search_topk_pos(index, query_vec, k, mesh=mesh, device=device)
+    return [(item_id, sim) for _, item_id, sim in rows]
+
+
+def search_topk_pos(
+    index: IndexT, query_vec: object, k: int, mesh=None, device=None
+) -> List[Tuple[int, object, float]]:
+    """Top-``k`` rows ``(pos, item_id, sim)`` of one query. Dense indexes
+    score and take the top-k on ``device`` (``None`` = CUDA), only k
+    values and positions reaching the host; TF-IDF on the host."""
+    _no_mesh(mesh, "search_topk")
+    if k <= 0:
+        return []
+    if isinstance(index, TfidfItemIndex):
+        s = index.matrix @ query_vec.T
+        if hasattr(s, "toarray"):
+            s = s.toarray()
+        vals, top = stable_topk(
+            torch.from_numpy(np.asarray(s, np.float32).ravel()), k)
+        vals, top = vals.numpy(), top.numpy()
+    else:
+        vals, top = search_topk_batch(
+            index, np.asarray(query_vec, np.float32).reshape(1, -1), k,
+            device=device)
+        vals, top = vals[0], top[0]
+    return [(int(i), index.item_ids[int(i)], float(v))
+            for i, v in zip(top, vals)]
+
+
+def search_topk_batch(
+    index: DenseItemIndex, query_vecs: np.ndarray, k: int, mesh=None,
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Batched device top-k for serving: (scores, positions), (B, k) host
+    arrays, under the module's tie rule."""
+    _no_mesh(mesh, "search_topk_batch")
+    emb = device_embeddings(index, device)
+    q = torch.from_numpy(np.ascontiguousarray(query_vecs, np.float32))
+    vals, idx = dense_topk(emb, q.to(emb.device), min(k, emb.shape[0]))
+    return vals.cpu().numpy(), idx.cpu().numpy()

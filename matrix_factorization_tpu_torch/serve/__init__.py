@@ -1,1 +1,2 @@
-"""Serving: request coalescing over a fitted model."""
+"""Serving: request coalescing over a fitted model, the artifact-backed
+recommend service, the meal planner and the HTTP API."""

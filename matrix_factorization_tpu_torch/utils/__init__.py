@@ -1,1 +1,1 @@
-"""Host-side utilities of the port (splits)."""
+"""Host-side utilities of the port (splits, metrics)."""

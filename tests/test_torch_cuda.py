@@ -964,3 +964,107 @@ def test_family_models_on_cuda(cuda, family, tmp_path):
     back = mf.load_model(tmp_path / family)
     for s, t in zip(a._params, back._params):
         assert torch.equal(s, t)
+
+
+def _f64_topk(emb, q, k):
+    """Host float64 scores and their top-k positions under the port's tie
+    rule (score descending, then position ascending)."""
+    s = emb.astype(np.float64) @ q.astype(np.float64)
+    return s, np.lexsort((np.arange(len(s)), -s))[:k]
+
+
+@pytest.mark.parametrize("B", [1, 64])
+def test_dense_search_on_cuda_matches_host_f64(cuda, B):
+    """``search_topk_batch`` / ``search_topk_pos`` on the card against a
+    float64 numpy top-k on the host: values within 1e-5, positions equal
+    except where the f64 scores tie within 1e-6 at the cut."""
+    from matrix_factorization_tpu_torch.retrieval import index, search
+
+    rng = np.random.default_rng(B)
+    emb = rng.standard_normal((200_003, 128), dtype=np.float32)
+    ix = index.build_dense_index(list(range(len(emb))), [""] * len(emb), emb)
+    Q = ix.embeddings[rng.integers(0, len(emb), B)] + 0.01
+    vals, pos = search.search_topk_batch(ix, Q, 50, device="cuda")
+    for r in range(B):
+        s, want = _f64_topk(ix.embeddings, Q[r], 51)
+        np.testing.assert_allclose(vals[r], s[pos[r]], atol=1e-5)
+        np.testing.assert_allclose(vals[r], s[want[:50]], atol=1e-5)
+        gap = np.abs(np.diff(s[want])) > 1e-6
+        sep = (np.concatenate([[True], gap[:-1]]) & gap)
+        assert (pos[r] == want[:50])[sep].all()
+    # exact ties (small dyadic values: every sum exact in any order) keep
+    # the lower positions, at the cut too
+    tied = rng.integers(-4, 5, (1_000, 16)).astype(np.float32) / 8
+    tied[[7, 500, 999]] = tied[3]
+    tix = index.build_dense_index(list(range(1_000)), [""] * 1_000, tied,
+                                  normalize=False)
+    rows = search.search_topk_pos(tix, tied[3], 3, device="cuda")
+    assert [r[0] for r in rows] == [3, 7, 500]
+
+
+@pytest.mark.parametrize("body", ["_sort_topk", "_select_topk",
+                                  "_select_topk_sorting_ties"])
+@pytest.mark.parametrize("scores", ["small_ints", "signed_zeros", "nans",
+                                    "steps_wide"])
+def test_stable_topk_bodies_on_cuda_are_the_tie_rule(cuda, scores, body,
+                                                     monkeypatch):
+    """Both bodies of ``ops/scoring.py::stable_topk`` on the card against
+    ``np.lexsort`` (score descending, then position ascending, a NaN
+    first), exactly: ties inside the k and at the cut, ``-0.0`` beside
+    ``0.0``, NaNs, and rows wider than a sort's small-segment path."""
+    from matrix_factorization_tpu_torch.ops import scoring
+
+    rng = np.random.default_rng(["small_ints", "signed_zeros", "nans",
+                                 "steps_wide"].index(scores))
+    B, n = (6, 300_001) if scores == "steps_wide" else (9, 4_099)
+    s = rng.integers(-3, 4, (B, n)).astype(np.float32)
+    if scores == "steps_wide":
+        s = (np.round(rng.standard_normal((B, n)) * 64) / 64).astype(np.float32)
+    if scores == "signed_zeros":
+        s[(s == 0) & (rng.random((B, n)) < 0.5)] = -0.0
+    if scores == "nans":
+        s[rng.random((B, n)) < 0.01] = np.nan
+    if body == "_select_topk_sorting_ties":
+        monkeypatch.setattr(scoring, "SELECT_MAX_TIED", 0)
+        body = "_select_topk"
+    key = np.where(np.isnan(s), -np.inf, -(s + 0.0))
+    for k in (1, 10, 50):
+        v, i = getattr(scoring, body)(torch.from_numpy(s).cuda(), k)
+        want = np.stack([np.lexsort((np.arange(n), row))[:k] for row in key])
+        np.testing.assert_array_equal(i.cpu().numpy(), want)
+        np.testing.assert_array_equal(v.cpu().numpy(),
+                                      np.take_along_axis(s, want, 1))
+
+
+def test_tfidf_blocks_on_cuda_match_scipy(cuda):
+    """The batched TF-IDF path on the card (non-accumulating block writes,
+    f32 block products) against scipy's CSR product: within 1e-5."""
+    import scipy.sparse as sp
+
+    from matrix_factorization_tpu_torch.retrieval import index, sparse_scoring
+
+    rng = np.random.default_rng(0)
+    n, vocab, per_row = 30_011, 5_000, 16
+    start = rng.integers(0, vocab, n)
+    step = rng.integers(1, vocab // per_row, n)
+    cols = (start[:, None] + step[:, None] * np.arange(per_row)) % vocab
+    M = sp.csr_matrix((rng.uniform(0.1, 1.0, n * per_row).astype(np.float32),
+                       cols.ravel(), np.arange(0, n * per_row + 1, per_row)),
+                      shape=(n, vocab))
+    M = sp.csr_matrix(M.multiply(1.0 / np.sqrt(M.multiply(M).sum(1))))
+
+    class Vec:
+        def transform(self, queries):
+            return M[[int(q) for q in queries]]
+
+    ix = index.TfidfItemIndex(item_ids=list(range(n)), texts=[""] * n,
+                              vectorizer=Vec(), matrix=M)
+    queries = [str(q) for q in rng.integers(0, n, 24)]
+    got = sparse_scoring.tfidf_batch_scores(ix, queries, vocab_block=512,
+                                            device="cuda")
+    want = (M @ Vec().transform(queries).T).toarray().T
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    vals, pos = sparse_scoring.tfidf_batch_topk(ix, queries, 5, vocab_block=512,
+                                                device="cuda")
+    assert [pos[r, 0] for r in range(24)] == [int(q) for q in queries]
+    np.testing.assert_allclose(vals[:, 0], 1.0, atol=1e-5)

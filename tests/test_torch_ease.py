@@ -146,6 +146,26 @@ def test_recommend_predict_and_update_users_match_jax():
     assert got["item_id"].tolist() == want["item_id"].tolist()
 
 
+def test_unknown_user_rating_pred_dtype_matches_jax():
+    """A user outside the vocabulary scores every item 0.0; JAX's generic
+    path gives those as float64, and so does the port, in ``recommend``
+    and in ``recommend_batch`` with a known user beside it."""
+    X, y = _toy(seed=4)
+    m = EASE(reg=5.0, device="cpu").fit(X, y)
+    j = JEASE(reg=5.0).fit(X, y)
+    uid = X["user_id"].iloc[0]
+    for got, want in (
+            (m.recommend(user="GHOST", amount=4), j.recommend(user="GHOST", amount=4)),
+            (m.recommend_batch(["GHOST", uid], amount=4),
+             j.recommend_batch(["GHOST", uid], amount=4))):
+        ghost_got = got[got["user_id"] == "GHOST"]["rating_pred"]
+        ghost_want = want[want["user_id"] == "GHOST"]["rating_pred"]
+        assert ghost_got.dtype == ghost_want.dtype == np.float64
+        assert got["rating_pred"].dtype == want["rating_pred"].dtype
+        assert got["item_id"].tolist() == want["item_id"].tolist()
+        np.testing.assert_allclose(got["rating_pred"], want["rating_pred"], atol=5e-4)
+
+
 def test_bf16_serving_and_guards():
     X, y = _toy(seed=6)
     m32 = EASE(reg=5.0, device="cpu").fit(X, y)

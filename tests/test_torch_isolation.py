@@ -91,6 +91,58 @@ for m in fams:
         mf.save_model(m, d + "/m")
         back = mf.load_model(d + "/m", device="cpu")
         assert back.predict(X.iloc[:5]) == m.predict(X.iloc[:5])
+import json, pickle, random, threading, urllib.request
+from matrix_factorization_tpu_torch.data.synthetic import lowrank_ratings
+from matrix_factorization_tpu_torch.utils.metrics import rmse, topk_report
+from matrix_factorization_tpu_torch.retrieval import index as rix, search
+from matrix_factorization_tpu_torch.retrieval.encode import hash_embed
+from matrix_factorization_tpu_torch.retrieval.sparse_scoring import tfidf_batch_topk
+from matrix_factorization_tpu_torch.rank import filters, diversity, hybrid
+from matrix_factorization_tpu_torch.rank import recipe_features as rf
+from matrix_factorization_tpu_torch.rank import reranker as rr
+from matrix_factorization_tpu_torch.serve.service import RecommendService
+from matrix_factorization_tpu_torch.serve.planner import PlanRequest, plan_meals
+from matrix_factorization_tpu_torch.serve.api import serve
+Xs, ys = lowrank_ratings(n_users=12, n_items=10, seed=1)
+assert rmse(ys, ys) == 0.0 and topk_report({1: [2]}, {1: {2}}, 1)["precision"] == 1.0
+texts = [f"title: dish {i}\ningredients: egg; rice; p{i % 3}\ndirections: fry {i + 5} minutes"
+         for i in range(12)]
+ids = [f"r{i}" for i in range(12)]
+dense = rix.build_dense_index(ids, texts, hash_embed(texts, dim=64))
+tf = rix.build_tfidf_index(ids, texts, min_df=1)
+assert len(search.search_topk(dense, search.encode_query_for_index(dense, "dish 3"), 4, device="cpu")) == 4
+assert tfidf_batch_topk(tf, ["egg rice", "p1"], 3, vocab_block=4, device="cpu")[1].shape == (2, 3)
+cands = search.search_topk_pos(dense, search.encode_query_for_index(dense, "rice"), 6, device="cpu")
+cands = filters.apply_hard_filters(cands, texts, avoid_terms=rf.expand_avoid_terms(["milk"], enable=True))
+feats = [rr.featurize(q, texts[p], s) for q in rr.generate_queries(texts[0], random.Random(0))
+         for p, _, s in cands]
+clf = rr.TorchLogisticRegression(max_iter=5, device="cpu").fit(
+    np.vstack(feats), np.arange(len(feats)) % 2)
+mlp = rr.TorchMLPReranker(hidden=4, max_iter=3, device="cpu").fit(
+    np.vstack(feats), np.arange(len(feats)) % 2)
+assert diversity.select_diverse_greedy(base_score=np.ones(3), cand_sets=[{"a"}, {"a"}, {"b"}],
+                                       n=2, diversity_penalty=1.0)[0] == [0, 2]
+with tempfile.TemporaryDirectory() as d:
+    rix.save_item_index(dense, d + "/item_index.pkl")
+    X2 = pd.DataFrame({"user_id": np.arange(48) // 8, "item_id": [ids[j % 12] for j in range(48)]})
+    with open(d + "/model.pkl", "wb") as f:
+        pickle.dump(mf.KernelMF(n_factors=3, n_epochs=1, batch_size=16, device="cpu").fit(
+            X2, pd.Series(rng.uniform(1, 5, 48))), f)
+    with open(d + "/reranker.pkl", "wb") as f:
+        pickle.dump({"model": clf}, f)
+    svc = RecommendService.from_artifacts(d, device="cpu")
+    assert svc.health()["has_model"] and svc.health()["has_reranker"]
+    res = svc.recommend("egg rice", user_id=1, k=3)
+    assert len(res) == 3 and res[0]["reason"].startswith("hybrid")
+    assert hybrid.model_scores(svc.model, 1, ids[:3]).any()
+    assert plan_meals(svc, PlanRequest(meals=["早餐"], per_meal_k=2, user_id=1))
+    httpd = serve(svc, "127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    with urllib.request.urlopen(f"http://127.0.0.1:{httpd.server_address[1]}/health") as r:
+        assert json.loads(r.read())["n_items"] == 12
+    httpd.shutdown()
+    httpd.server_close()
 print("\n".join(sorted(sys.modules)))
 """
 
@@ -114,7 +166,13 @@ def test_port_runs_without_jax_modules():
                  "models.content_based", "models.grid_search", "data.loader",
                  "ops.sparse_gram", "models.cf_topk", "ops.ease", "models.ease",
                  "ops.bpr", "models.bpr", "ops.svdpp", "models.svdpp",
-                 "ops.nmf", "models.nmf", "models.popularity"):
+                 "ops.nmf", "models.nmf", "models.popularity",
+                 "data.synthetic", "utils.metrics", "core.artifacts",
+                 "retrieval.encode", "retrieval.index", "retrieval.search",
+                 "retrieval.sparse_scoring", "rank.recipe_features",
+                 "rank.filters", "rank.diversity", "rank.hybrid",
+                 "rank.reranker", "serve.service", "serve.planner",
+                 "serve.api"):
         assert f"matrix_factorization_tpu_torch.{name}" in loaded
     bad = sorted(m for m in loaded if _top(m) in FORBIDDEN)
     assert not bad, bad

@@ -177,6 +177,53 @@ def test_ties_break_to_the_lower_index():
     assert ti.tolist() == [[1, 2, 4, 0, 5]]
 
 
+@pytest.mark.parametrize("body", ["stable_topk", "_sort_topk", "_select_topk",
+                                  "_select_topk_sorting_ties"])
+@pytest.mark.parametrize("scores", ["normal", "small_ints", "masked",
+                                    "signed_zeros", "nans"])
+def test_stable_topk_is_the_tie_rule(scores, body, monkeypatch):
+    """``stable_topk`` and both its bodies against ``np.lexsort`` (score
+    descending, then position ascending; a NaN first), exactly, for every k
+    from 0 past the row length: rows with and without a tie at the cut in
+    one batch (the selection body keeps the library top-k's pick on the
+    first, takes every score at or above the cut on the second, by a wider
+    top-k or, past ``SELECT_MAX_TIED``, a sort), ``-inf`` masks, ``-0.0``
+    beside ``0.0``, NaNs, and a 1-D row."""
+    rng = np.random.default_rng(["normal", "small_ints", "masked",
+                                 "signed_zeros", "nans"].index(scores))
+    B, n = 7, 33
+    if scores == "normal":
+        s = rng.normal(size=(B, n)).astype(np.float32)
+        s[1, 5:9] = s[1, 20]  # a run of ties somewhere in one row
+    else:
+        s = rng.integers(-3, 4, (B, n)).astype(np.float32)
+    if scores == "masked":
+        s[rng.random((B, n)) < 0.5] = -np.inf
+    if scores == "signed_zeros":
+        s[(s == 0) & (rng.random((B, n)) < 0.5)] = -0.0
+    if scores == "nans":
+        s[rng.random((B, n)) < 0.2] = np.nan
+        s[2] = np.nan  # a row whose cut falls among NaNs
+    if body == "_select_topk_sorting_ties":
+        monkeypatch.setattr(scoring, "SELECT_MAX_TIED", 0)
+        body = "_select_topk"
+    fn = getattr(scoring, body)
+    t = torch.from_numpy(s)
+    key = np.where(np.isnan(s), -np.inf, -(s + 0.0))  # NaN first
+    for k in range(n + 2):
+        kk = min(k, n)
+        v, i = (fn(t, k) if body == "stable_topk" else fn(t, kk))
+        want = np.stack([np.lexsort((np.arange(n), row))[:kk] for row in key])
+        np.testing.assert_array_equal(i.numpy(), want)
+        np.testing.assert_array_equal(v.numpy(), np.take_along_axis(s, want, 1))
+        if body == "stable_topk":
+            v1, i1 = fn(t[3], k)
+            assert torch.equal(i1, i[3])
+            np.testing.assert_array_equal(v1.numpy(), v[3].numpy())
+    with pytest.raises(TypeError):
+        scoring.stable_topk(t.double(), 3)
+
+
 @pytest.mark.parametrize("kernel", ["linear", "sigmoid", "rbf"])
 def test_kernel_forwards_match_jax(kernel):
     rng = np.random.default_rng(6)
