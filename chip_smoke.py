@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, SGD training and ALS paths, its bias,
 neighbourhood and content models, its KernelMF sweep, its native host
-packs, its sparse-gram top-k CF, EASE, BPR, SVD++, NMF and Popularity, and
-the recipe recommender's serving path on one CUDA GPU and check them.
+packs, its sparse-gram top-k CF, EASE, BPR, SVD++, NMF and Popularity, the
+recipe recommender's serving path and the batch pipeline on one CUDA GPU
+and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -217,6 +218,35 @@ failed check ends the run with a non-zero exit:
     ``vocab_block`` 1,024 on a seeded l2-normalized 2,231,142 x 50,000 CSR
     (32 terms a row) within 1e-5 of scipy's product, and their top-10.
 
+27. pipeline: the batch pipeline end to end, every stage through its
+    ``main()`` with no ``--platform`` (the default device, the card): config
+    3's 25M ratings (item ids written as strings, as the MovieLens stage
+    writes them) and 59,392 seeded recipe texts in; ``build_recipe_metadata``,
+    ``build_structured_features``, ``build_item_embeddings --dim 512``,
+    ``export_artifacts`` (the dense index), ``train`` of config 3's sigmoid
+    KernelMF (k=200, bs 2,097,152, 3 epochs), ``evaluate`` of 2,000 users
+    inside ``utils.profiling.trace`` (the first 200 lists against a float64
+    numpy top-k of the model's tables with the same known items excluded,
+    users whose 10th and 11th scores tie within 1e-5 skipped and counted;
+    the metrics recomputed from every list equal to the stage's JSON; the
+    trace's scorer kernels equal to the scorer's launch count; the
+    device's busy share of the trace's window read from it); the same
+    ``train`` (a narrow sigmoid KernelMF) and ``evaluate`` on 100,000
+    seeded low-rank ratings (2,000 x 1,000), whose held-out items the model
+    ranks high: the recomputed metrics equal to the JSON and above 0
+    (config 3's uniform draws hit nothing at k 10), the first 200 lists
+    held as above;
+    ``evaluate_hybrid`` (64 of its batched profile top-k against a float64
+    ``np.lexsort`` top-k, ties within 1e-5 allowed), ``train_reranker`` as
+    logreg then mlp, ``evaluate_llm``, ``serve.app`` (one plan, no repeat
+    within a meal), then ``train --model baseline --method als`` (its
+    biases, made by 12 segment sums over the 25M entries, within 1e-5 of
+    a float64 numpy replay of the same sweeps) and ``evaluate`` again;
+    each stage's file checked with its rows; seconds
+    per stage, ``fit`` seconds, ``evaluate`` users/s, peak device memory,
+    host RSS and the launches of the scorer, the step, the apply and the
+    segment sum, each stage's counted apart.
+
 Then the ``kernels`` line (``score_catalog``, ``sgd_step``,
 ``segment_apply``, ``spd_gj`` with its EASE launches and shapes,
 ``segment_sum``; the apply's and the sum's launches and shapes on the
@@ -229,6 +259,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -553,6 +584,27 @@ def phase_serve(torch, rng, kernel, tmpdir, launches):
     return model, out
 
 
+def device_time(events):
+    """The device's work in a Chrome trace's ``events``: its kernel, copy
+    and memset intervals ((start, end, name), microseconds, by start), the
+    milliseconds of each name, and the busy microseconds (the union of the
+    intervals)."""
+    ev = sorted((e["ts"], e["ts"] + e["dur"], e["name"])
+                for e in events if e.get("ph") == "X"
+                and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    by_name, busy_us, cur = {}, 0.0, None
+    for t_start, t_end, name in ev:
+        by_name[name] = by_name.get(name, 0.0) + (t_end - t_start) / 1e3
+        if cur is None or t_start > cur[1]:
+            busy_us += 0 if cur is None else cur[1] - cur[0]
+            cur = [t_start, t_end]
+        else:
+            cur[1] = max(cur[1], t_end)
+    if cur is not None:
+        busy_us += cur[1] - cur[0]
+    return ev, by_name, busy_us
+
+
 def _device_share(torch, fn, calls, match=None):
     """Run ``fn`` over ``calls`` under ``torch.profiler`` and read the
     exported trace: the device time per call, the device's busy share
@@ -572,19 +624,7 @@ def _device_share(torch, fn, calls, match=None):
     with tempfile.TemporaryDirectory() as d:
         prof.export_chrome_trace(f"{d}/trace.json")
         trace = json.loads(Path(f"{d}/trace.json").read_text())
-    ev = sorted((e["ts"], e["ts"] + e["dur"], e["name"])
-                for e in trace["traceEvents"] if e.get("ph") == "X"
-                and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    by_name, busy_us, cur = {}, 0.0, None
-    for t_start, t_end, name in ev:
-        by_name[name] = by_name.get(name, 0.0) + (t_end - t_start) / 1e3
-        if cur is None or t_start > cur[1]:
-            busy_us += 0 if cur is None else cur[1] - cur[0]
-            cur = [t_start, t_end]
-        else:
-            cur[1] = max(cur[1], t_end)
-    if cur is not None:
-        busy_us += cur[1] - cur[0]
+    ev, by_name, busy_us = device_time(trace["traceEvents"])
     dev_ms = sum(by_name.values())
     span_us = ev[-1][1] - ev[0][0] if ev else 0.0
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
@@ -3535,6 +3575,435 @@ def phase_recipe_serve(torch, rng, train, tmpdir, seed, timer):
     return out
 
 
+# the batch pipeline at MovieLens-25M (config 3's ratings) over a recipe
+# catalog of the same width: the stages' argv as the JAX e2e test gives
+# them, no --platform (the default device), in run_all's order with the
+# dense index in the TF-IDF index's place
+PIPE = {"dim": 512, "max_users": 2_000, "k": 10, "held": 200, "profiles": 64,
+        "tie": 1e-5, "candidate_k": 100, "reranker_seeds": 200,
+        "query": "chicken rice dinner"}
+PIPE_TRAIN = ["--model", "kernel_mf", "--kernel", "sigmoid", "--factors", "200",
+              "--lr", "0.01", "--reg", "0.005", "--batch-size", "2097152",
+              "--epochs", "3"]
+# hits for the metric check: low-rank seeded ratings (few reach the 4.0
+# positive threshold, so a user's held-out items are their two highest
+# rated, which a fitted model ranks near the top; chance would be 0.2% a
+# slot) and a narrow sigmoid KernelMF
+PIPE_SIGNAL_DATA = {"n_users": 2_000, "n_items": 1_000, "n_factors": 8,
+                    "density": 0.05}
+PIPE_SIGNAL = ["--model", "kernel_mf", "--kernel", "sigmoid", "--factors", "32",
+               "--lr", "0.01", "--batch-size", "8192", "--epochs", "10"]
+PIPE_BASELINE_KW = {"reg": 0.005, "n_epochs": 5}
+SCORER_KERNELS = ("score_stream_kernel", "score_tile_kernel")
+
+
+def run_cli(module, argv):
+    """``module.main()`` with ``argv``, as the JAX pipeline tests drive a
+    stage; returns what it printed."""
+    import contextlib
+    import io
+
+    old = sys.argv
+    sys.argv = [module.__name__] + argv
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            module.main()
+    finally:
+        sys.argv = old
+    return buf.getvalue()
+
+
+class Recorded:
+    """Within the block, ``module.name`` is wrapped: each call's
+    arguments, result and seconds are kept in ``calls`` (``keep`` of them
+    at most), and ``on_result`` may replace the result."""
+
+    def __init__(self, module, name, keep=None, on_result=None):
+        self.module, self.name, self.keep = module, name, keep
+        self.on_result = on_result
+        self.calls, self.seconds = [], 0.0
+
+    def __enter__(self):
+        inner = self.inner = getattr(self.module, self.name)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = inner(*args, **kwargs)
+            self.seconds += time.perf_counter() - t0
+            if self.on_result is not None:
+                out = self.on_result(out)
+            if self.keep is None or len(self.calls) < self.keep:
+                self.calls.append((args, kwargs, out))
+            return out
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+        return False
+
+
+def record_recommend(model, calls):
+    """``model`` with its ``recommend`` calls kept in ``calls``: (user,
+    known items, recommended ids, their scores)."""
+    import numpy as np
+
+    inner = model.recommend
+
+    def recommend(user, amount=10, items_known=None, **kw):
+        out = inner(user=user, amount=amount, items_known=items_known, **kw)
+        calls.append((user, list(items_known or ()), list(out["item_id"]),
+                      out["rating_pred"].to_numpy(np.float64)))
+        return out
+
+    model.recommend = recommend
+    return model
+
+
+def f64_scores(cfg, mu, p, Q):
+    """float64 scores of one user row ``p`` against the item rows ``Q``
+    under the model's kernel (``ops/cuda_scores.py::plain_score_catalog``'s
+    formula)."""
+    import numpy as np
+
+    dots = Q @ p
+    if cfg.kernel == "linear":
+        return mu + dots
+    if cfg.kernel == "sigmoid":
+        return cfg.a + cfg.c / (1.0 + np.exp(-(mu + dots)))
+    sq = np.maximum(p @ p + (Q * Q).sum(1) - 2.0 * dots, 0.0)
+    return cfg.a + cfg.c * np.exp(-cfg.gamma * sq)
+
+
+def topk_metrics(ratings, calls, k):
+    """precision, recall and ndcg@k of the recorded ``recommend`` calls, as
+    ``eval/topk_eval.py`` defines them: a user's relevant items are the
+    ones of their ``ratings`` rows that were not passed as known."""
+    import numpy as np
+
+    hist = (ratings[ratings["user_id"].isin([c[0] for c in calls])]
+            .groupby("user_id")["item_id"].agg(set))
+    ps, rs, ns = [], [], []
+    for user, known, rec, _ in calls:
+        rel = hist[user] - set(known)
+        hits = np.asarray([it in rel for it in rec], np.float64)
+        ps.append(hits.mean() if hits.size else 0.0)
+        rs.append(hits.sum() / max(1, len(rel)))
+        dcg = float(np.sum(hits / np.log2(np.arange(2, hits.size + 2))))
+        n_ideal = min(k, int(hits.sum()))
+        ns.append(dcg / float(np.sum(1.0 / np.log2(np.arange(2, n_ideal + 2))))
+                  if n_ideal else 0.0)
+    return float(np.mean(ps)), float(np.mean(rs)), float(np.mean(ns))
+
+
+def hold_recommended(model, calls, n_held, tie):
+    """The first ``n_held`` recorded lists against a float64 numpy top-k of
+    the model's own tables with the same known items excluded (score
+    descending, then item position ascending): where the 10th and 11th
+    float64 scores are more than ``tie`` apart, positions equal except
+    among ties within the list and scores within 1e-5 (``hold_search``).
+    Returns (users held, users skipped at a tied cut, largest error)."""
+    import numpy as np
+
+    cfg, p = model._cfg(), model._params
+    n_items = model.n_items
+    Q = p.item_features[:n_items].double().cpu().numpy()
+    mu = float(p.global_mean)
+    k = len(calls[0][2])
+    S, want, got_pos, got_val, skipped = [], [], [], [], 0
+    for user, known, rec, vals in calls[:n_held]:
+        u = int(model.user_vocab.encode(np.asarray([user], dtype=object))[0])
+        s = f64_scores(cfg, mu, p.user_features[u].double().cpu().numpy(), Q)
+        s[model.item_vocab.encode(np.asarray(known, dtype=object))] = -np.inf
+        w = f64_topk_positions(s, k + 1)
+        if s[w[k - 1]] - s[w[k]] <= tie:
+            skipped += 1
+            continue
+        S.append(s)
+        want.append(w)
+        got_pos.append(model.item_vocab.encode(np.asarray(rec, dtype=object)))
+        got_val.append(vals)
+    check(S, "every held user's top-k cut ties")
+    err = hold_search(np.stack(got_val), np.stack(got_pos), np.stack(S),
+                      np.stack(want), tol=1e-5, tie=tie)
+    return len(S), skipped, err
+
+
+def trace_summary(trace_dir, names):
+    """The Chrome trace in ``trace_dir``: its kernel events whose name holds
+    one of ``names`` (count, device milliseconds), the device's busy
+    milliseconds (``device_time``) and the trace's window in milliseconds
+    (its first event's start to its last event's end, host or device)."""
+    files = sorted(Path(trace_dir).glob("trace_*.json"))
+    check(len(files) == 1, f"{len(files)} trace files in {trace_dir}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    ev, by_name, busy_us = device_time(events)
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("ph") == "X"]
+    window_us = max(t for _, t in spans) - min(s for s, _ in spans)
+    n = sum(1 for e in events if e.get("cat") == "kernel"
+            and any(x in e.get("name", "") for x in names))
+    ms = sum(t for x, t in by_name.items() if any(y in x for y in names))
+    return {"kernels": n, "kernel_ms": ms, "device_busy_ms": busy_us / 1e3,
+            "window_ms": window_us / 1e3}
+
+
+def host_rss_mib():
+    """(current, peak) resident set of this process, MiB: ``VmRSS`` of
+    ``/proc/self/status`` and ``getrusage``'s ``ru_maxrss``."""
+    import resource
+
+    rss = None
+    for line in Path("/proc/self/status").read_text().splitlines():
+        key, _, val = line.partition(":")
+        if key == "VmRSS":
+            rss = int(val.split()[0]) / 1024
+    return rss, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def pipeline_launches():
+    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, segment_sum
+
+    return {"score_catalog": cuda_scores.launches,
+            "sgd_step": cuda_sgd.step_launches,
+            "segment_apply": cuda_sgd.apply_launches,
+            "segment_sum": segment_sum.launches}
+
+
+def phase_pipeline(torch, rng, data3, tmpdir, seed):
+    """The batch pipeline end to end on the card, every stage through its
+    ``main()`` with no ``--platform``: config 3's 25M ratings (item ids
+    written as strings) and 59,392 seeded recipe texts in, the recipe
+    metadata, structured features, 512-wide embeddings and dense index, a
+    config-3 sigmoid KernelMF, ``evaluate`` (traced), ``evaluate_hybrid``,
+    both rerankers, ``evaluate_llm``, the app's plan, then
+    ``BaselineModel`` by ALS (held to ``bias_als_oracle``) and ``evaluate``
+    again; between them ``train`` and ``evaluate`` on low-rank ratings
+    (from ``seed``), whose lists hit. The launch counts are zeroed
+    just before the first stage and read after each."""
+    import numpy as np
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch.core.artifacts import load_pickle
+    from matrix_factorization_tpu_torch.data.synthetic import lowrank_ratings
+    from matrix_factorization_tpu_torch.eval import hybrid_eval
+    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, segment_sum
+    from matrix_factorization_tpu_torch.pipeline import (
+        build_item_embeddings, build_recipe_metadata, build_structured_features,
+        evaluate, evaluate_hybrid, evaluate_llm, export_artifacts, train,
+        train_reranker)
+    from matrix_factorization_tpu_torch.rank.reranker import (
+        TorchLogisticRegression, TorchMLPReranker)
+    from matrix_factorization_tpu_torch.retrieval.index import load_item_index
+    from matrix_factorization_tpu_torch.serve import app
+    from matrix_factorization_tpu_torch.utils.profiling import trace
+
+    P = PIPE
+    root = Path(tmpdir) / "pipeline"
+    data, feats, art = root / "data", root / "features", root / "artifacts"
+    data.mkdir(parents=True)
+    out = {"phase": "pipeline", "n_ratings": int(len(data3[0])),
+           "n_items": N_ITEMS, "dim": P["dim"]}
+
+    # -- inputs: ratings.parquet (str item ids) and items.parquet ----------
+    t0 = time.perf_counter()
+    names = np.asarray([str(j) for j in range(N_ITEMS)], dtype=object)
+    ratings = pd.DataFrame({"user_id": data3[0].astype(np.int64),
+                            "item_id": names[data3[1]], "rating": data3[2]})
+    ratings.to_parquet(data / "ratings.parquet", index=False)
+    texts, _ = recipe_texts(rng, N_ITEMS, N_ITEMS)
+    pd.DataFrame({"item_id": names, "text": texts}).to_parquet(
+        data / "items.parquet", index=False)
+    out["input_seconds"] = time.perf_counter() - t0
+    n_users = int(ratings["user_id"].nunique())
+
+    torch.cuda.reset_peak_memory_stats()
+    for reset in (cuda_scores.reset_launches, cuda_sgd.reset_launches,
+                  segment_sum.reset_launches):
+        reset()
+    seconds, launches, printed = {}, {}, {}
+
+    def stage(name, module, argv, at=root):
+        before = pipeline_launches()
+        t0 = time.perf_counter()
+        printed[name] = run_cli(module, ([] if at is None else ["--root", str(at)])
+                                + argv)
+        seconds[name] = time.perf_counter() - t0
+        after = pipeline_launches()
+        launches[name] = {k: after[k] - before[k] for k in after}
+
+    def last_json(name):
+        return json.loads([x for x in printed[name].splitlines()
+                           if x.startswith(("{", "["))][-1])
+
+    def evaluate_recorded(name, at, frame):
+        """``evaluate`` on ``at``'s model, its ``recommend`` lists kept; the
+        metrics recomputed from them (``frame``: the ratings it read) must
+        equal the stage's JSON. Returns (the model, the lists, the JSON,
+        ``evaluate_topk``'s seconds)."""
+        recs = []
+        with Recorded(evaluate, "load_pickle",
+                      on_result=lambda m: record_recommend(m, recs)) as ld, \
+                Recorded(evaluate, "evaluate_topk") as ev:
+            stage(name, evaluate, ["--k", str(P["k"]),
+                                   "--max-users", str(P["max_users"])], at=at)
+        res = last_json(name)
+        check(res["n_users"] == len(recs) > 0, f"{name} {res}, {len(recs)} lists")
+        got = topk_metrics(frame, recs, P["k"])
+        want = (res["precision"], res["recall"], res["ndcg"])
+        check(np.allclose(got, want, rtol=0, atol=1e-12),
+              f"{name}: metrics from the lists {got} != the stage's {want}")
+        return ld.calls[0][2], recs, res, ev.seconds
+
+    stage("build_recipe_metadata", build_recipe_metadata, [])
+    meta = pd.read_parquet(feats / "recipe_meta.parquet")
+    check(len(meta) == N_ITEMS and meta["item_id"].tolist() == names.tolist(),
+          f"recipe_meta: {len(meta)} rows")
+    stage("build_structured_features", build_structured_features, [])
+    uf = pd.read_parquet(feats / "user_features.parquet")
+    itf = pd.read_parquet(feats / "item_features.parquet")
+    check(len(uf) == n_users and len(itf) == N_ITEMS
+          and int(uf["rating_count"].sum()) == len(ratings),
+          f"structured features: {len(uf)} users, {len(itf)} items")
+    stage("build_item_embeddings", build_item_embeddings, ["--dim", str(P["dim"])])
+    emb_df = pd.read_parquet(feats / "items_emb.parquet")
+    check(emb_df.shape == (N_ITEMS, P["dim"] + 1), f"items_emb {emb_df.shape}")
+    del emb_df
+    stage("export_artifacts", export_artifacts, [])
+    index = load_item_index(art / "item_index.pkl")
+    check(len(index.item_ids) == N_ITEMS
+          and index.embeddings.shape == (N_ITEMS, P["dim"]),
+          f"item_index: {len(index.item_ids)} x {index.embeddings.shape}")
+
+    # -- the config-3 KernelMF, then evaluate inside the trace ----------------
+    with Recorded(train, "train_model") as fit:
+        stage("train_kernel_mf", train, PIPE_TRAIN)
+    out["fit_seconds"] = fit.seconds
+    trace_dir = root / "trace"
+    with trace(str(trace_dir)):
+        before = cuda_scores.launches
+        model, recs, res, eval_seconds = evaluate_recorded("evaluate", root,
+                                                           ratings)
+        eval_launches = cuda_scores.launches - before
+    check(model._params.item_features.device.type == "cuda"
+          and model._params.user_features.device.type == "cuda",
+          "the loaded model is not on the card")
+    hist = model.train_rmse
+    check(len(hist) == 3 and hist[-1] < hist[0], f"train RMSE {hist}")
+    out["train_rmse"] = hist
+    out["evaluate"] = res
+    out["evaluate_users_per_s"] = res["n_users"] / eval_seconds
+    out["evaluate_topk_seconds"] = eval_seconds
+    held, skipped, err = hold_recommended(model, recs, P["held"], P["tie"])
+    out["evaluate_held_users"], out["evaluate_skipped_tied_cut"] = held, skipped
+    out["evaluate_max_abs_err"] = err
+    tr = trace_summary(trace_dir, SCORER_KERNELS)
+    out["evaluate_trace"] = dict(tr, scorer_launches=eval_launches,
+                                 device_busy_share=tr["device_busy_ms"] / tr["window_ms"])
+    check(tr["kernels"] == eval_launches >= res["n_users"],
+          f"the trace holds {tr['kernels']} scorer kernels, the counter {eval_launches}")
+    del recs, model
+    shutil.rmtree(trace_dir)
+
+    # -- hits the metric check can see: config 3's draws are uniform, so its
+    # top-10 lists hit nothing; low-rank ratings go through the same two
+    # stages -----------------------------------------------------------------
+    sig = root / "signal"
+    (sig / "data").mkdir(parents=True)
+    Xs, ys = lowrank_ratings(seed=seed, **PIPE_SIGNAL_DATA)
+    sig_ratings = Xs.assign(item_id=Xs["item_id"].astype(str), rating=ys)
+    sig_ratings.to_parquet(sig / "data" / "ratings.parquet", index=False)
+    stage("train_signal", train, PIPE_SIGNAL, at=sig)
+    model, recs, res, _ = evaluate_recorded("evaluate_signal", sig, sig_ratings)
+    out["evaluate_signal"] = res
+    check(min(res["precision"], res["recall"], res["ndcg"]) > 0,
+          f"the signal run's lists hit nothing: {res}")
+    out["evaluate_signal_held_users"], _, out["evaluate_signal_max_abs_err"] = (
+        hold_recommended(model, recs, P["held"], P["tie"]))
+    del recs, model
+
+    # -- hybrid, rerankers, judge, app ----------------------------------------
+    with Recorded(hybrid_eval, "_profile_topk", keep=1) as prof:
+        stage("evaluate_hybrid", evaluate_hybrid, [
+            "--alpha", "0.5", "--candidate-k", str(P["candidate_k"]),
+            "--max-users", str(P["max_users"])])
+    rep = last_json("evaluate_hybrid")
+    out["evaluate_hybrid"] = rep
+    check(len(rep) == 2 and all(v["n_users"] > 0 for v in rep.values()),
+          f"evaluate_hybrid {rep}")
+    args, kw, (sims, pos) = prof.calls[0]
+    prof64 = np.stack(args[1][:P["profiles"]]).astype(np.float64)
+    S = prof64 @ index.embeddings.astype(np.float64).T
+    kk = kw["k"]
+    want = np.stack([f64_topk_positions(s, kk + 1) for s in S])
+    out["hybrid_profile_k"] = int(kk)
+    out["hybrid_max_abs_err"] = hold_search(sims[:P["profiles"]], pos[:P["profiles"]],
+                                            S, want, tol=1e-5, tie=P["tie"])
+    del S, prof
+    for kind, cls, extra in (("logreg", TorchLogisticRegression, []),
+                             ("mlp", TorchMLPReranker, ["--model-type", "mlp"])):
+        stage(f"train_reranker_{kind}", train_reranker, [
+            "--n-seed-items", str(P["reranker_seeds"]), "--log-every", "0"] + extra)
+        payload = load_pickle(art / "reranker.pkl")
+        check(payload["model_type"] == kind and isinstance(payload["model"], cls)
+              and payload["train_stats"]["n_samples"] > 0,
+              f"reranker payload {kind}: {payload['train_stats']}")
+        out[f"reranker_{kind}_samples"] = payload["train_stats"]["n_samples"]
+    stage("evaluate_llm", evaluate_llm, [
+        "--query", P["query"], "--must-include", "chicken", "--avoid", "peanut"])
+    report = json.loads((art / "llm_eval_report.json").read_text())
+    check(report["n_cases"] == 1, f"llm report {report['n_cases']} cases")
+    out["llm"] = {k: report[k] for k in ("avg_relevance", "violation_rate",
+                                         "diversity")}
+    stage("app", app, ["--artifacts", str(art), "--features", str(feats),
+                       "--query", P["query"], "--json"], at=None)
+    rows = last_json("app")
+    check(rows, "the app planned nothing")
+    for meal in {r["meal"] for r in rows}:
+        ids = [r["item_id"] for r in rows if r["meal"] == meal]
+        check(len(ids) == len(set(ids)), f"the plan repeats an item in {meal}")
+    out["app_rows"] = len(rows)
+
+    # -- run_all's default model, then evaluate again -------------------------
+    with Recorded(train, "train_model") as fit:
+        stage("train_baseline", train, ["--model", "baseline", "--method", "als",
+                                        "--epochs", str(PIPE_BASELINE_KW["n_epochs"]),
+                                        "--reg", str(PIPE_BASELINE_KW["reg"])])
+    out["baseline_fit_seconds"] = fit.seconds
+    base_model = load_pickle(art / "model.pkl")
+    check(base_model.train_rmse[-1] < base_model.train_rmse[0],
+          f"baseline train RMSE {base_model.train_rmse}")
+    # the fit's segment sums at 25M entries, held through the biases they
+    # made: float64 numpy of the same closed-form sweeps, atol 1e-5
+    t0 = time.perf_counter()
+    bu, bi = bias_als_oracle(base_model, (ratings["user_id"], ratings["item_id"],
+                                          ratings["rating"]), PIPE_BASELINE_KW)
+    out["baseline_oracle_seconds"] = time.perf_counter() - t0
+    err = max(float(np.abs(base_model.user_biases - bu).max()),
+              float(np.abs(base_model.item_biases - bi).max()))
+    out["baseline_oracle_max_abs_err"] = err
+    check(err <= 1e-5, f"baseline ALS at 25M off its float64 oracle by {err}")
+    del base_model, bu, bi
+    with Recorded(evaluate, "evaluate_topk") as ev:
+        stage("evaluate_baseline", evaluate, ["--k", str(P["k"]),
+                                              "--max-users", str(P["max_users"])])
+    out["evaluate_baseline"] = last_json("evaluate_baseline")
+    out["evaluate_baseline_users_per_s"] = (out["evaluate_baseline"]["n_users"]
+                                            / ev.seconds)
+
+    out["seconds"] = seconds
+    out["launches_by_stage"] = {k: v for k, v in launches.items() if any(v.values())}
+    total = {k: sum(v[k] for v in launches.values()) for k in pipeline_launches()}
+    out["launches"] = total
+    check(all(v > 0 for v in total.values()), f"the pipeline missed a kernel: {total}")
+    out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["host_rss_mib"], out["host_peak_rss_mib"] = host_rss_mib()
+    shutil.rmtree(root)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3743,7 +4212,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     # -- sparse-gram top-k CF at config 4 ------------------------------------
     emit(phase_cf_topk(torch, rng, data3))
-    del data3
     torch.cuda.empty_cache()
 
     # -- bias, neighbourhood and content models, the sweep -----------------
@@ -3774,6 +4242,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         recipe = phase_recipe_serve(torch, rng, train1m, tmpdir, args.seed, timer)
     emit(recipe)
+    # -- the batch pipeline at MovieLens-25M -----------------------------------
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        pipeline = phase_pipeline(torch, rng, data3, tmpdir, args.seed)
+    emit(pipeline)
+    del data3
+    pipe_launches = pipeline["launches"]
     for name in sgd_worst:
         sgd_worst[name] = max(sgd_worst[name], recipe["compare_sgd"][name])
     segsum_launches = {"baseline_als": baseline["launches"]["als"],
@@ -3782,17 +4256,20 @@ def main() -> int:
     check(all(v > 0 for v in segsum_launches.values()),
           f"a path of the slice missed the segment sum: {segsum_launches}")
     segsum_launches["nmf"] = fam["NMF"]["launches"]
+    segsum_launches["pipeline"] = pipe_launches["segment_sum"]
 
     kernels = [{
         "name": "score_catalog", "route": "cuda",
         "source": "matrix_factorization_tpu_torch/csrc/score_catalog.cu",
         "replaces": "matrix_factorization_tpu/ops/pallas_scores.py:34",
         "launches": (main_path_launches + sweep_out["launches"]["score_catalog"]
-                     + sum(f["score_launches"] for f in fam.values())),
+                     + sum(f["score_launches"] for f in fam.values())
+                     + pipe_launches["score_catalog"]),
         "launches_by_path": {"serve": main_path_launches,
                              "sweep": sweep_out["launches"]["score_catalog"],
                              **{k.lower(): f["score_launches"]
-                                for k, f in fam.items()}},
+                                for k, f in fam.items()},
+                             "pipeline": pipe_launches["score_catalog"]},
         "max_abs_err": worst,
         "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -3811,7 +4288,8 @@ def main() -> int:
         row = sgd_rows["config3_sigmoid"][name]
         by_path = {"train": train_launches[name],
                    "sweep": sweep_out["launches"][name],
-                   "recipe_serve": recipe["launches"][name]}
+                   "recipe_serve": recipe["launches"][name],
+                   "pipeline": pipe_launches[name]}
         if name == "segment_apply":
             by_path.update(bpr=fam["BPR"]["launches"],
                            svdpp=fam["SVDpp"]["launches"])

@@ -43,8 +43,12 @@ Around the models, as in the JAX package: the recipe recommender's
 serving path (``retrieval`` — dense and TF-IDF item indexes, device top-k;
 ``rank`` — features, hard filters, diversity, hybrid blend, the reranker;
 ``serve.service.RecommendService``, ``serve.planner.plan_meals`` and the
-HTTP API of ``serve.api``), ``data.synthetic`` and ``utils.metrics``.
-With sklearn importable the models are sklearn estimators.
+HTTP API of ``serve.api``), ``data.synthetic`` and ``utils.metrics``; the
+batch pipeline that writes the service's artifacts (``pipeline.*``, each
+stage a CLI with ``--platform {cpu,cuda}``), the offline evaluation
+(``eval.*``), the meal-planner frontends (``serve.app``) and
+``utils.profiling``. With sklearn importable the models are sklearn
+estimators.
 """
 
 from matrix_factorization_tpu_torch.core.checkpoint import (

@@ -1,13 +1,21 @@
-"""Typed configuration of the kernel-MF model (PyTorch port).
+"""Typed configuration of the kernel-MF model and the batch pipeline
+(PyTorch port).
 
 Counterpart of ``matrix_factorization_tpu/core/config.py``: the same
 ``SGDConfig`` fields and derived widths, so that a table written by the
-JAX package has the width the port expects.
+JAX package has the width the port expects, and copies of the pipeline's
+directory contract (``Paths``) and schema guard. ``MeshConfig`` comes with
+slice 6 of the port (multi-device).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import json
+import os
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Dict
 
 
 def _round_up(x: int, m: int) -> int:
@@ -54,3 +62,43 @@ class SGDConfig:
     def c(self) -> float:
         """Rescale range for sigmoid/rbf kernels (reference kernels.py:68)."""
         return self.max_rating - self.min_rating
+
+
+@dataclass
+class Paths:
+    """Directory contract for the batch pipeline (reference common.py:7-28)."""
+
+    root: Path
+    data: Path = field(init=False)
+    features: Path = field(init=False)
+    artifacts: Path = field(init=False)
+
+    def __post_init__(self):
+        self.root = Path(self.root)
+        self.data = self.root / "data"
+        self.features = self.root / "features"
+        self.artifacts = self.root / "artifacts"
+
+    def ensure(self) -> "Paths":
+        for p in (self.data, self.features, self.artifacts):
+            p.mkdir(parents=True, exist_ok=True)
+        return self
+
+
+def require_columns(df, columns, name: str = "dataframe") -> None:
+    """Schema guard used by every pipeline stage (reference common.py:31-34)."""
+    missing = [c for c in columns if c not in df.columns]
+    if missing:
+        raise ValueError(f"{name} is missing required columns: {missing}")
+
+
+def config_to_dict(cfg: Any) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
+
+
+def save_config(cfg: Any, path: os.PathLike) -> None:
+    Path(path).write_text(json.dumps(config_to_dict(cfg), indent=2, default=str))
+
+
+def load_json(path: os.PathLike) -> Dict[str, Any]:
+    return json.loads(Path(path).read_text())

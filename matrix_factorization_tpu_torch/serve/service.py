@@ -75,7 +75,7 @@ class RecommendService:
         if not index_path.exists():
             raise FileNotFoundError(
                 f"Missing {index_path}. Build it first, e.g.: python -m "
-                "matrix_factorization_tpu.pipeline.build_tfidf_index"
+                "matrix_factorization_tpu_torch.pipeline.build_tfidf_index"
             )
         index = load_item_index(index_path)
         model = _load_optional(artifacts_dir / "model.pkl", device)

@@ -17,6 +17,7 @@ import pandas as pd
 import pytest
 import torch
 
+from chip_smoke import run_cli
 from matrix_factorization_tpu_torch import ImplicitALS, KernelMF, params_from_numpy
 from matrix_factorization_tpu_torch.core.config import SGDConfig
 from matrix_factorization_tpu_torch.core.ids import IdVocab
@@ -1068,3 +1069,32 @@ def test_tfidf_blocks_on_cuda_match_scipy(cuda):
                                                 device="cuda")
     assert [pos[r, 0] for r in range(24)] == [int(q) for q in queries]
     np.testing.assert_allclose(vals[:, 0], 1.0, atol=1e-5)
+
+
+def test_pipeline_train_and_evaluate_default_to_cuda(cuda, tmp_path):
+    """The pipeline's ``train`` then ``evaluate`` with no ``--platform``:
+    the model trains on the card, ``model.pkl`` loads back onto it, and
+    ``evaluate``'s recommendations launch the catalog scorer."""
+    import json
+
+    from matrix_factorization_tpu_torch.core.artifacts import load_pickle
+    from matrix_factorization_tpu_torch.pipeline import evaluate, train
+
+    X, y = _ml_shaped()
+    (tmp_path / "data").mkdir()
+    X.assign(item_id=X["item_id"].astype(str), rating=y).to_parquet(
+        tmp_path / "data" / "ratings.parquet", index=False)
+
+    def run(module, argv):
+        return run_cli(module, ["--root", str(tmp_path)] + argv)
+
+    run(train, ["--model", "kernel_mf", "--kernel", "sigmoid", "--factors", "16",
+                "--epochs", "3", "--lr", "0.01", "--batch-size", "2048"])
+    model = load_pickle(tmp_path / "artifacts" / "model.pkl")
+    assert model._params.item_features.device.type == "cuda"
+    assert model.train_rmse[-1] < model.train_rmse[0]
+    before = cuda_scores.launches
+    res = json.loads(run(evaluate, ["--k", "10", "--positive-threshold", "3.0",
+                                    "--max-users", "50"]).strip().splitlines()[-1])
+    assert res["n_users"] > 0
+    assert cuda_scores.launches - before >= res["n_users"]

@@ -143,6 +143,25 @@ with tempfile.TemporaryDirectory() as d:
         assert json.loads(r.read())["n_items"] == 12
     httpd.shutdown()
     httpd.server_close()
+from matrix_factorization_tpu_torch.utils.profiling import Timer, trace
+from matrix_factorization_tpu_torch.eval import evaluator, hybrid_eval, judge, topk_eval
+from matrix_factorization_tpu_torch.serve import app
+from matrix_factorization_tpu_torch.pipeline import (
+    build_item_embeddings, build_recipe_metadata, build_structured_features,
+    build_text_enrichment, build_tfidf_index, common, download_movielens_small,
+    evaluate, evaluate_hybrid, evaluate_llm, export_artifacts, prepare_data,
+    prepare_recipes, prepare_steam, run_all, train, train_reranker)
+with tempfile.TemporaryDirectory() as d:
+    with trace(d + "/tr"), Timer() as t:
+        sys.argv = ["run_all", "--root", d + "/w", "--synthetic", "--epochs", "1",
+                    "--skip-reranker", "--platform", "cpu"]
+        run_all.main()
+    ev = X.assign(rating=ry.to_numpy())
+    assert topk_eval.evaluate_topk(ev, b, k=3, positive_threshold=1.0).n_users > 0
+    assert hybrid_eval.evaluate_hybrid(ev.assign(item_id=ev["item_id"].map(lambda j: ids[j])),
+                                       dense, alpha=0.0, k=3, candidate_k=5,
+                                       positive_threshold=1.0, device="cpu").n_users > 0
+    assert judge.evaluate_case(index=dense, query="egg rice", k=3, device="cpu").items
 print("\n".join(sorted(sys.modules)))
 """
 
@@ -172,7 +191,14 @@ def test_port_runs_without_jax_modules():
                  "retrieval.sparse_scoring", "rank.recipe_features",
                  "rank.filters", "rank.diversity", "rank.hybrid",
                  "rank.reranker", "serve.service", "serve.planner",
-                 "serve.api"):
+                 "serve.api", "utils.profiling", "eval.topk_eval",
+                 "eval.evaluator", "eval.judge", "eval.hybrid_eval",
+                 "serve.app", "pipeline.common", "pipeline.run_all",
+                 "pipeline.train", "pipeline.evaluate",
+                 "pipeline.evaluate_hybrid", "pipeline.evaluate_llm",
+                 "pipeline.train_reranker", "pipeline.export_artifacts",
+                 "pipeline.build_item_embeddings", "pipeline.prepare_recipes",
+                 "pipeline.prepare_steam", "pipeline.prepare_data"):
         assert f"matrix_factorization_tpu_torch.{name}" in loaded
     bad = sorted(m for m in loaded if _top(m) in FORBIDDEN)
     assert not bad, bad
