@@ -2,8 +2,8 @@
 """Drive the PyTorch port's serving, SGD training and ALS paths, its bias,
 neighbourhood and content models, its KernelMF sweep, its native host
 packs, its sparse-gram top-k CF, EASE, BPR, SVD++, NMF and Popularity, the
-recipe recommender's serving path and the batch pipeline on one CUDA GPU
-and check them.
+recipe recommender's serving path, the batch pipeline and multi-device
+KernelMF on one CUDA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -246,6 +246,33 @@ failed check ends the run with a non-zero exit:
     per stage, ``fit`` seconds, ``evaluate`` users/s, peak device memory,
     host RSS and the launches of the scorer, the step, the apply and the
     segment sum, each stage's counted apart.
+
+28. parallel: multi-device KernelMF on ``torch.distributed``. (a) NCCL at
+    world size 1 in this process (a ``FileStore`` under ``build/``; NCCL
+    refuses two ranks on one GPU), config 3 sigmoid at full scale (bs
+    2,097,152, 3 epochs, orders given): ``dp_fit`` tiled with the
+    item-primary pack (``'shuffle'``: the step's accumulator mode) and
+    the user-primary pack, then ``ShardedCatalog`` serving 256 users'
+    top-10 (ids equal to ``recommend_batch``'s top-k, scores 1e-5), the
+    step, apply and scorer counts zeroed just before and read just after;
+    each synchronous fit held to ``sgd_train`` on the same pack, tables
+    and orders (history rtol 1e-5, held-out RMSE 1e-3, tables after one
+    epoch 2e-5); fit and pack seconds, updates/s of the dp trainer beside
+    ``sgd_train``'s (one-epoch windows), ``psum_every='auto'`` and
+    ``overlap_psum`` (falling RMSE, held-out RMSE, one epoch against the
+    same trainer with the plain step and apply at 2e-5), a profiled epoch
+    (the NCCL kernels' device time), peak memory. (c) parallel_kernels:
+    the step's accumulator mode against its plain version (1e-5) on config
+    3's item-primary batch and a 2D cell's batch (config 2's shape, 2 x 2,
+    bs 65,536), the apply into a zeroed delta table (bitwise its plain
+    order model), with device times and bounds. (b) gloo ranks sharing the
+    card (``spawn_world``, every rank on cuda:0), config 3's width on
+    config 2's ratings (bs 65,536, 2 epochs): a world of 2 (one-batch
+    epoch against the single-device step on the union batch at 2e-5;
+    ``KernelMF(mesh=make_mesh(2))`` flat and tiled, twice each: the same
+    bits, Q's replicas bit-equal, RMSE falling) and a world of 4
+    (``make_mesh(2, 2)``, ``dp_tp_fit``, ``keep_sharded`` serving equal to
+    the single-device top-10 of the gathered tables).
 
 Then the ``kernels`` line (``score_catalog``, ``sgd_step``,
 ``segment_apply``, ``spd_gj`` with its EASE launches and shapes,
@@ -2704,18 +2731,21 @@ FAM_TOL = {"BPR": 1e-4, "SVDpp": 2e-4, "NMF": 1e-4}  # one epoch, kernel vs plai
 
 
 def plain_scatters(fn):
-    """``fn()`` with ``cuda_sgd.segment_apply`` and ``segment_sum.segment_sum``
-    routed to their plain versions (``index_add_``) for the call."""
+    """``fn()`` with ``cuda_sgd.sgd_step``, ``cuda_sgd.segment_apply`` and
+    ``segment_sum.segment_sum`` routed to their plain versions (gathers and
+    ``index_add_``) for the call: the trainers reach them through those
+    names."""
     from matrix_factorization_tpu_torch.ops import cuda_sgd
     from matrix_factorization_tpu_torch.ops import segment_sum as ss
 
-    saved = cuda_sgd.segment_apply, ss.segment_sum
+    saved = cuda_sgd.sgd_step, cuda_sgd.segment_apply, ss.segment_sum
+    cuda_sgd.sgd_step = cuda_sgd.plain_sgd_step
     cuda_sgd.segment_apply = cuda_sgd.plain_segment_apply
     ss.segment_sum = lambda out, *a: (ss.plain_segment_sum(out, *a), out)[1]
     try:
         return fn()
     finally:
-        cuda_sgd.segment_apply, ss.segment_sum = saved
+        cuda_sgd.sgd_step, cuda_sgd.segment_apply, ss.segment_sum = saved
 
 
 def family_epoch_fn(torch, family, pack, seed, n_users, n_items, ids):
@@ -4004,6 +4034,513 @@ def phase_pipeline(torch, rng, data3, tmpdir, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Multi-device KernelMF on torch.distributed
+# ---------------------------------------------------------------------------
+
+# phase (a): NCCL at world size 1, config 3 sigmoid; phase (b): gloo ranks on
+# the one card at config 2's shape and config 3's width
+PAR = {"epochs": 3, "gloo_bs": 65_536, "gloo_epochs": 2, "serve_users": 256,
+       "k": 10, "lr": 0.01}
+
+
+def table_err(a, b):
+    return max(float((a.user_features - b.user_features).abs().max()),
+               float((a.item_features - b.item_features).abs().max()))
+
+
+def heldout_rmse(torch, params, cfg, hu, hi, hr):
+    import numpy as np
+
+    from matrix_factorization_tpu_torch.ops.segment_sgd import predict_pairs
+
+    pred, _ = predict_pairs(params, torch.from_numpy(hu.astype(np.int64)).cuda(),
+                            torch.from_numpy(hi.astype(np.int64)).cuda(), cfg,
+                            True)
+    return float(np.sqrt(np.mean((pred.cpu().numpy().astype(np.float64)
+                                  - hr) ** 2)))
+
+
+def phase_parallel_nccl(torch, rng, data3, held_r, seed, store_dir):
+    """(a) NCCL at world size 1 in this process, config 3 sigmoid at full
+    scale: ``dp_fit`` tiled with the item-primary pack (``'shuffle'``, the
+    step's accumulator mode) and the user-primary pack, given orders, 3
+    epochs (each fit's seconds and its own pack's, read through a wrapper
+    of ``pack_ratings``), then ``ShardedCatalog`` serving; the counts are
+    zeroed just before and read just after. Then the synchronous fits held to
+    ``sgd_train`` on the same pack, tables and orders (history rtol 1e-5,
+    held-out RMSE 1e-3, tables after one epoch 2e-5), ``psum_every='auto'``
+    and ``overlap_psum`` (falling RMSE; one epoch held to the same trainer
+    with the plain step and apply, 2e-5), updates/s beside the single-device
+    trainer's, and the all-reduce's device time in a profiled epoch.
+    Returns (out, the shuffle and user packs)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, scoring
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+    from matrix_factorization_tpu_torch.parallel import distributed as pdist
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+    from matrix_factorization_tpu_torch.parallel.serving import ShardedCatalog
+
+    u, i, r, hu, hi = data3
+    bs, E = CONFIG3["sigmoid"]["batch_size"], PAR["epochs"]
+    cfg = sgd_cfg("sigmoid", N_FACTORS, PAR["lr"], bs)
+    out = {"phase": "parallel_nccl", "backend": "nccl", "world_size": 1,
+           "n_ratings": len(r), "batch_size": bs, "epochs": E}
+    dist.init_process_group("nccl", init_method=f"file://{store_dir}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda:0"))
+    try:
+        mesh = make_mesh(1)
+        p0 = sgd.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                             N_USERS, N_ITEMS, cfg, float(r.mean()),
+                             user_capacity=sgd.round_up(N_USERS, 8))
+        nb = -(-len(r) // bs)
+        orng = np.random.default_rng(seed)
+        flat_orders = [orng.permutation(nb) for _ in range(E)]
+        orders = [[o] for o in flat_orders]
+
+        # -- the main path: dp_fit, then the sharded catalog ----------------
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_sgd.reset_launches()
+        cuda_scores.reset_launches()
+        fits, pack_seconds = {}, []
+        pack_ratings = sgd.pack_ratings
+
+        def timed_pack(*a, **k):  # the fit's own pack, timed where it runs
+            t = time.perf_counter()
+            out_ = pack_ratings(*a, **k)
+            torch.cuda.synchronize()
+            pack_seconds.append(time.perf_counter() - t)
+            return out_
+
+        for order in ("shuffle", "user"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sgd.pack_ratings = timed_pack
+            try:
+                local, hist = pdist.dp_fit(u, i, r, N_USERS, N_ITEMS, cfg, E,
+                                           cfg.lr, mesh, seed=seed,
+                                           layout="tiled", pack_order=order,
+                                           params=p0, orders=orders,
+                                           device="cuda")
+            finally:
+                sgd.pack_ratings = pack_ratings
+            torch.cuda.synchronize()
+            fits[order] = (local, hist, time.perf_counter() - t0,
+                           pack_seconds[-1])
+        served = fits["shuffle"][0]
+        cat = ShardedCatalog(served, N_ITEMS, cfg, mesh)
+        ud = rng.choice(N_USERS, PAR["serve_users"], replace=False).astype(np.int32)
+        vals, idx = cat.topk(served.user_features[torch.from_numpy(ud).cuda()],
+                             PAR["k"])
+        launches = {"sgd_step": cuda_sgd.step_launches,
+                    "sgd_step_acc": cuda_sgd.acc_launches,
+                    "segment_apply": cuda_sgd.apply_launches,
+                    "score_catalog": cuda_scores.launches}
+        out["launches"] = launches
+        out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        check(all(v > 0 for v in launches.values()),
+              f"the parallel path missed a kernel: {launches}")
+        wv, wi = scoring.catalog_topk(cfg, served, N_ITEMS, ud, PAR["k"])
+        check(np.array_equal(idx, wi), "the sharded catalog's top-10 ids differ "
+                                       "from recommend_batch's")
+        out["serve_max_abs_err"] = float(np.abs(vals - wv).max())
+        check(out["serve_max_abs_err"] <= 1e-5, "sharded catalog scores differ")
+
+        # -- the synchronous fits against sgd_train on the same pack --------
+        packs = {}
+        for order in ("shuffle", "user"):
+            local, hist, fit_s, pack_s = fits[order]
+            pack = sgd.pack_ratings(u, i, r, bs, shuffle_seed=seed, order=order,
+                                    device="cuda")
+            ref, href = sgd.sgd_train(p0, pack, None, cfg, E, cfg.lr,
+                                      batch_orders=flat_orders)
+            href = href.cpu().numpy()
+            rel = float(np.max(np.abs(hist - href) / href))
+            h_dp = heldout_rmse(torch, local, cfg, hu, hi, held_r)
+            h_ref = heldout_rmse(torch, ref, cfg, hu, hi, held_r)
+            check(rel <= 1e-5, f"dp_fit {order}: RMSE history off by {rel}")
+            check(abs(h_dp - h_ref) <= 1e-3, f"dp_fit {order}: held-out RMSE "
+                                             f"{h_dp} against {h_ref}")
+            check(hist[-1] < hist[0], f"dp_fit {order}: RMSE not falling {hist}")
+            one, _ = pdist.dp_sgd_train_tiled(pdist.place_params(p0, mesh), pack,
+                                              cfg, 1, cfg.lr, mesh,
+                                              orders=orders[:1])
+            ref1, _ = sgd.sgd_train(p0, pack, None, cfg, 1, cfg.lr,
+                                    batch_orders=flat_orders[:1])
+            err1 = table_err(one, ref1)
+            check(err1 <= 2e-5, f"dp {order}: one epoch off by {err1}")
+            out[f"sync_{order}"] = {
+                "primary": pack.primary, "fit_seconds": fit_s,
+                "pack_seconds": pack_s, "pack_share": pack_s / fit_s,
+                "train_rmse": hist.tolist(), "single_device_rmse": href.tolist(),
+                "rmse_max_rel_err": rel, "heldout_rmse": h_dp,
+                "single_device_heldout_rmse": h_ref,
+                "one_epoch_max_abs_err": err1}
+            packs[order] = pack
+            del ref, one, ref1
+        del fits
+        pack = packs["shuffle"]
+
+        # -- updates/s: the dp trainer and sgd_train, one-epoch windows
+        # without the RMSE pass (as the train phase times them) ------------
+        fast = dataclasses.replace(cfg, compute_epoch_rmse=False)
+        for tag, run in (
+                ("dp", lambda: pdist.dp_sgd_train_tiled(
+                    pdist.place_params(p0, mesh), pack, fast, 1, cfg.lr, mesh,
+                    orders=orders[:1])),
+                ("single_device", lambda: sgd.sgd_train(
+                    p0, pack, None, fast, 1, cfg.lr,
+                    batch_orders=flat_orders[:1]))):
+            run()
+            windows = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                windows.append(time.perf_counter() - t0)
+            out[f"{tag}_epoch_seconds"] = windows
+            out[f"{tag}_updates_per_sec"] = pack.n_real / statistics.median(windows)
+
+        # -- the windowed and overlapped schedules ---------------------------
+        for tag, kw in (("auto", {"psum_every": "auto"}),
+                        ("overlap", {"overlap_psum": True})):
+            p3, h3 = pdist.dp_sgd_train_tiled(pdist.place_params(p0, mesh), pack,
+                                              cfg, E, cfg.lr, mesh,
+                                              orders=orders, **kw)
+            h3 = h3.cpu().numpy()
+            check(h3[-1] < h3[0], f"{tag}: train RMSE not falling {h3}")
+            k1, _ = pdist.dp_sgd_train_tiled(pdist.place_params(p0, mesh), pack,
+                                             cfg, 1, cfg.lr, mesh,
+                                             orders=orders[:1], **kw)
+            pl1, _ = plain_scatters(lambda kw=kw: pdist.dp_sgd_train_tiled(
+                pdist.place_params(p0, mesh), pack, cfg, 1, cfg.lr, mesh,
+                orders=orders[:1], **kw))
+            err = table_err(k1, pl1)
+            check(err <= 2e-5, f"{tag}: one epoch against plain off by {err}")
+            out[tag] = {"train_rmse": h3.tolist(),
+                        "heldout_rmse": heldout_rmse(torch, p3, cfg, hu, hi,
+                                                     held_r),
+                        "epoch_vs_plain_max_abs_err": err,
+                        "window": pdist._check_psum_every(kw.get("psum_every", 1),
+                                                          pack.n_batches)}
+            del p3, k1, pl1
+            torch.cuda.empty_cache()
+
+        # -- where a dp epoch's device time goes: the all-reduce -------------
+        out["epoch_profile"] = _device_share(
+            torch, lambda _: pdist.dp_sgd_train_tiled(
+                pdist.place_params(p0, mesh), pack, fast, 1, cfg.lr, mesh,
+                orders=orders[:1]), [0], match="nccl")
+    finally:
+        dist.destroy_process_group()
+    return out, packs
+
+
+def gloo_inputs(train1m, seed):
+    """What every gloo rank gets: the config-2-shaped ratings, config 3's
+    width, seeded whole initial tables and the 256 users to serve."""
+    import numpy as np
+
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    u, i, r = train1m
+    cfg = sgd_cfg("sigmoid", N_FACTORS, PAR["lr"], PAR["gloo_bs"])
+    rng = np.random.default_rng(seed)
+    ucap = sgd.round_up(ML1M["n_users"], 8 * 2)
+    P0 = ext_tables(rng, ucap, cfg, "user")
+    Q0 = ext_tables(rng, sgd.round_up(ML1M["n_items"], 8), cfg, "item")
+    users = rng.choice(np.unique(u), PAR["serve_users"], replace=False)
+    return {"train": (u, i, r), "P0": P0, "Q0": Q0, "mu": float(r.mean()),
+            "users": users, "seed": seed}
+
+
+def parallel_gloo_rank(rank, world, inp):
+    """One gloo rank on cuda:0. World 2 (a 2 x 1 mesh): one one-batch epoch
+    of ``dp_sgd_train`` from the given tables, then ``KernelMF(mesh=)``
+    flat and tiled, each fitted twice. World 4 (2 x 2): ``KernelMF`` with
+    ``keep_sharded=True`` (``dp_tp_fit``), ``recommend_batch`` through the
+    sharded catalog beside the single-device top-k of the gathered tables.
+    Returns host arrays and the rank's kernel launches."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from matrix_factorization_tpu_torch import KernelMF, params_from_numpy
+    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, scoring
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+    from matrix_factorization_tpu_torch.parallel import distributed as pdist
+    from matrix_factorization_tpu_torch.parallel.mesh import device_index, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    u, i, r = inp["train"]
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    y = pd.Series(r)
+    kw = dict(n_factors=N_FACTORS, kernel="sigmoid", lr=PAR["lr"], reg=0.005,
+              gamma=1.0 / N_FACTORS, min_rating=0.5, max_rating=5.0,
+              batch_size=PAR["gloo_bs"], n_epochs=PAR["gloo_epochs"],
+              seed=inp["seed"])
+    cuda_sgd.reset_launches()
+    cuda_scores.reset_launches()
+    out = {"rank": rank}
+    t0 = time.perf_counter()
+    if world == 2:
+        mesh = make_mesh(2)
+        d = device_index(mesh)
+        ucap = inp["P0"].shape[0]
+        su, si, sr, sw, n_pad = pdist.shard_ratings_by_user(u, i, r, ucap, 2, 1)
+        cfg = sgd_cfg("sigmoid", N_FACTORS, PAR["lr"], n_pad)
+        p0 = params_from_numpy(inp["P0"], inp["Q0"], inp["mu"], device="cuda")
+        loc, _ = pdist.dp_sgd_train(
+            pdist.place_params(p0, mesh),
+            pdist.local_ratings((su, si, sr, sw), d, 2, "cuda"), cfg, 1,
+            cfg.lr, mesh, len(r), orders=[[[0], [0]]])
+        whole = pdist.gather_params(loc, mesh, q_sharded=False)
+        out["one_batch"] = (whole.user_features.cpu().numpy(),
+                            whole.item_features.cpu().numpy())
+        for layout in ("flat", "tiled"):
+            runs = [KernelMF(mesh=mesh, dp_layout=layout, **kw).fit(X, y)
+                    for _ in range(2)]
+            out[layout] = {
+                "train_rmse": runs[0].train_rmse,
+                "same_bits": all(torch.equal(getattr(runs[0]._params, f),
+                                             getattr(runs[1]._params, f))
+                                 for f in ("user_features", "item_features")),
+                "Q": runs[0]._params.item_features.cpu().numpy()}
+    else:
+        mesh = make_mesh(2, 2)
+        m = KernelMF(mesh=mesh, keep_sharded=True, **kw).fit(X, y)
+        users = list(inp["users"])
+        recs = m.recommend_batch(users, amount=PAR["k"], bound_ratings=False)
+        whole = m._whole_params()
+        sv, si_ = scoring.catalog_topk(m._cfg(), whole, m.n_items,
+                                       m.user_vocab.encode(np.asarray(users)),
+                                       PAR["k"])
+        items = np.asarray(m.item_vocab.raw_ids)
+        out["two_d"] = {
+            "train_rmse": m.train_rmse,
+            "held_rows": (m._sharding, m._params.user_features.shape[0],
+                          m._params.item_features.shape[0],
+                          whole.user_features.shape[0],
+                          whole.item_features.shape[0]),
+            "rec_items": recs["item_id"].to_numpy().reshape(len(users), -1),
+            "rec_scores": recs["rating_pred"].to_numpy().reshape(len(users), -1),
+            "single_items": items[si_], "single_scores": sv,
+            "Q": whole.item_features.cpu().numpy()}
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {"sgd_step": cuda_sgd.step_launches,
+                       "sgd_step_acc": cuda_sgd.acc_launches,
+                       "segment_apply": cuda_sgd.apply_launches,
+                       "score_catalog": cuda_scores.launches}
+    return out
+
+
+def phase_parallel_gloo(torch, train1m, seed):
+    """(b) gloo ranks sharing the card (NCCL refuses two ranks on one GPU),
+    every rank on cuda:0, by ``parallel.launch.spawn_world``: a world of 2
+    and one of 4 (``parallel_gloo_rank``). Checks: the one-batch epoch
+    equals the single-device step on the union batch (2e-5); every
+    rank's Q bit-equal; two fits of one seed bit-equal; train RMSE falls;
+    under ``keep_sharded`` each rank holds half of P and half of Q; the
+    sharded top-10 equals the single-device top-10 of the gathered tables
+    (ids, scores 1e-5)."""
+    import numpy as np
+
+    from matrix_factorization_tpu_torch import params_from_numpy
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+    from matrix_factorization_tpu_torch.parallel.launch import spawn_world
+
+    inp = gloo_inputs(train1m, seed)
+    out = {"phase": "parallel_gloo", "backend": "gloo", "device": "cuda:0",
+           "n_ratings": len(inp["train"][2]), "batch_size": PAR["gloo_bs"],
+           "epochs": PAR["gloo_epochs"]}
+    worlds = {}
+    for world in (2, 4):
+        t0 = time.perf_counter()
+        worlds[world] = spawn_world(parallel_gloo_rank, world, "gloo", "cuda:0",
+                                    args=(inp,), timeout=600)
+        out[f"world{world}_seconds"] = time.perf_counter() - t0
+    w2, w4 = worlds[2], worlds[4]
+
+    # one global step on 2 ranks = the single-device step on the union batch
+    u, i, r = inp["train"]
+    p0 = params_from_numpy(inp["P0"], inp["Q0"], inp["mu"], device="cuda")
+    cfg = sgd_cfg("sigmoid", N_FACTORS, PAR["lr"], len(r))
+    b = {"u": torch.from_numpy(u).cuda(), "i": torch.from_numpy(i).cuda(),
+         "r": torch.from_numpy(r).cuda(), "w": torch.ones(len(r), device="cuda")}
+    sgd.minibatch_update(p0, b, cfg, cfg.lr, "user")
+    P1, Q1 = w2[0]["one_batch"]
+    err = max(float(np.abs(P1 - p0.user_features.cpu().numpy()).max()),
+              float(np.abs(Q1 - p0.item_features.cpu().numpy()).max()))
+    out["one_batch_max_abs_err"] = err
+    check(err <= 2e-5, f"gloo one-batch epoch off the union step by {err}")
+    for layout in ("flat", "tiled"):
+        hist = w2[0][layout]["train_rmse"]
+        check(hist[-1] < hist[0], f"gloo {layout}: RMSE not falling {hist}")
+        check(all(rk[layout]["same_bits"] for rk in w2),
+              f"gloo {layout}: two fits of one seed differ")
+        check(all(np.array_equal(rk[layout]["Q"], w2[0][layout]["Q"])
+                  for rk in w2), f"gloo {layout}: the replicas of Q differ")
+        out[layout] = {"train_rmse": hist}
+    t = w4[0]["two_d"]
+    check(t["train_rmse"][-1] < t["train_rmse"][0],
+          f"gloo 2D: RMSE not falling {t['train_rmse']}")
+    tag, p_rows, q_rows, p_all, q_all = t["held_rows"]
+    check(tag == "2d" and 2 * p_rows == p_all and 2 * q_rows == q_all,
+          f"gloo 2D: keep_sharded holds {t['held_rows']}, not its shards")
+    check(all(np.array_equal(rk["two_d"]["Q"], t["Q"]) for rk in w4),
+          "gloo 2D: the gathered Q differs across ranks")
+    check(all(np.array_equal(rk["two_d"]["rec_items"], t["rec_items"])
+              for rk in w4), "gloo 2D: the ranks served different lists")
+    check(np.array_equal(t["rec_items"], t["single_items"]),
+          "gloo 2D: the sharded top-10 ids differ from the single-device's")
+    serve_err = float(np.abs(t["rec_scores"] - t["single_scores"]).max())
+    check(serve_err <= 1e-5, f"gloo 2D: sharded scores off by {serve_err}")
+    out["two_d"] = {"train_rmse": t["train_rmse"], "serve_max_abs_err": serve_err,
+                    "held_rows": t["held_rows"]}
+    out["rank_seconds"] = {w: [rk["seconds"] for rk in worlds[w]] for w in worlds}
+    out["launches"] = {k: sum(rk["launches"][k] for w in worlds.values()
+                              for rk in w)
+                       for k in w2[0]["launches"]}
+    check(all(v > 0 for v in out["launches"].values()),
+          f"the gloo ranks missed a kernel: {out['launches']}")
+    return out
+
+
+def acc_bounds(b, kp, primary):
+    """(bound_ms, bound_by, bytes) of the step's accumulator mode on this
+    batch: the in-place step's bytes plus a read of each run's row of
+    ``prim_out`` (its primary row is read from the table and its delta
+    row read and written in ``prim_out``)."""
+    bounds, runs_prim, runs_sec = sgd_bounds(b, kp, primary)
+    nbytes = bounds["sgd_step"][2] + runs_prim * kp * 4
+    n = b["u"].numel()
+    tb, to = nbytes / HBM_BYTES_PER_S, 12 * n * kp / PEAK_FLOPS["float32"]
+    return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations", nbytes,
+            runs_prim, runs_sec)
+
+
+def cell_batch(torch, train1m, bs):
+    """The first batch of 2D cell (0, 0) of the config-2-shaped ratings on a
+    2 x 2 mesh, sorted by user on the card with its secondary argsort, as
+    ``dp_tp_sgd_train`` hands it to the step."""
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+    from matrix_factorization_tpu_torch.parallel import distributed as pdist
+
+    u, i, r = train1m
+    ucap = sgd.round_up(ML1M["n_users"], 16)
+    icap = sgd.round_up(ML1M["n_items"], 16)
+    su, si, sr, sw, n_pad = pdist.shard_ratings_2d(u, i, r, ucap, icap, 2, 2, bs)
+    cols = [torch.from_numpy(a[:bs].copy()).cuda() for a in (su, si, sr, sw)]
+    uu, order = torch.sort(cols[0], stable=True)
+    ii, rr, ww = (c[order] for c in cols[1:])
+    ss, sp = torch.sort(ii, stable=True)
+    return ({"u": uu, "i": ii, "r": rr, "w": ww, "sp": sp.to(torch.int32),
+             "ss": ss}, ucap // 2, icap // 2)
+
+
+def phase_parallel_kernels(torch, rng, packs, train1m, timer):
+    """(c) The kernels against their plain versions at the shapes the
+    parallel path hands them (atol = rtol = 1e-5): the step's accumulator
+    mode on the first batch of config 3's item-primary pack (n 2,097,152)
+    and on a 2D cell's batch (n 65,536, user-primary), the primary table
+    unchanged and ``dq`` equal to the plain step's; the apply into a zeroed
+    delta table on config 3's user-primary batch and on the cell batch,
+    bitwise against its plain order model. Then device times: the
+    accumulator mode at both shapes and the apply into the zeroed table at
+    config 3 (kernel, plain, library ``index_add_``), with their bounds."""
+    from matrix_factorization_tpu_torch.ops import cuda_sgd
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
+
+    cfg3 = sgd_cfg("sigmoid", N_FACTORS, PAR["lr"], CONFIG3["sigmoid"]["batch_size"])
+    cell, cu, ci = cell_batch(torch, train1m, PAR["gloo_bs"])
+    shapes = [("config3_item_primary", cfg3, sgd.batch_at(packs["shuffle"], 0),
+               "item", N_USERS, N_ITEMS),
+              ("config3_user_primary", cfg3, sgd.batch_at(packs["user"], 0),
+               "user", N_USERS, N_ITEMS),
+              ("two_d_cell", sgd_cfg("sigmoid", N_FACTORS, PAR["lr"],
+                                     PAR["gloo_bs"]), cell, "user", cu, ci)]
+    worst = {"sgd_step": 0.0, "segment_apply": 0.0}
+    rows = []
+
+    def zero(t):  # the L2 flush, then the delta table zeroed as a window starts
+        timer.flush.zero_()
+        t.zero_()
+
+    for name, cfg, b, primary, n_users, n_items in shapes:
+        p = random_params(torch, rng, cfg, n_users, n_items)
+        args, _, S = step_args(p, b, cfg, primary)
+        prim_tbl = args[2]
+        before = prim_tbl.clone()
+        acc_k, acc_p = torch.zeros_like(prim_tbl), torch.zeros_like(prim_tbl)
+        dq_k = cuda_sgd.cuda_sgd_step(*args, prim_out=acc_k)
+        dq_p = cuda_sgd.plain_sgd_step(*args, prim_out=acc_p)
+        torch.cuda.synchronize()
+        check(torch.equal(prim_tbl, before),
+              f"parallel_kernels {name}: the accumulator mode wrote the table")
+        step_err = max(float((acc_k - acc_p).abs().max()),
+                       float((dq_k - dq_p).abs().max()))
+        check(torch.allclose(acc_k, acc_p, atol=1e-5, rtol=1e-5)
+              and torch.allclose(dq_k, dq_p, atol=1e-5, rtol=1e-5),
+              f"parallel_kernels {name}: the accumulator mode off by {step_err}")
+        zk, zp, zm = (torch.zeros_like(S) for _ in range(3))
+        cuda_sgd.cuda_segment_apply(zk, dq_p, b["sp"], b["ss"])
+        cuda_sgd.plain_segment_apply(zp, dq_p, b["sp"], b["ss"])
+        ss.segmented_segment_sum(zm, dq_p, b["sp"], b["ss"],
+                                 chunk=cuda_sgd.APPLY_CHUNK, layout="columns")
+        apply_err = float((zk - zp).abs().max())
+        check(torch.equal(zk, zm) and torch.allclose(zk, zp, atol=1e-5,
+                                                     rtol=1e-5),
+              f"parallel_kernels {name}: the apply into dQ off by {apply_err}")
+        worst["sgd_step"] = max(worst["sgd_step"], step_err)
+        worst["segment_apply"] = max(worst["segment_apply"], apply_err)
+        row = {"phase": "parallel_kernels", "shape": name, "bs": b["u"].numel(),
+               "primary": primary, "step_acc_max_abs_err": step_err,
+               "apply_into_zeros_max_abs_err": apply_err}
+        if name != "config3_user_primary":
+            bms, bby, nbytes, runs_prim, runs_sec = acc_bounds(
+                b, cfg.padded_factors, primary)
+            row.update({
+                "name": "sgd_step_acc",
+                "ms": timer.ms(lambda: cuda_sgd.cuda_sgd_step(
+                    *args, prim_out=acc_k)),
+                "in_place_ms": timer.ms(lambda: cuda_sgd.cuda_sgd_step(*args)),
+                "plain_ms": timer.ms(lambda: cuda_sgd.plain_sgd_step(
+                    *args, prim_out=acc_p)),
+                "library_ms": None, "bound_ms": bms, "bound_by": bby,
+                "bound_bytes": nbytes, "runs_prim": runs_prim,
+                "runs_sec": runs_sec, "Kp": cfg.padded_factors})
+        else:
+            bounds, runs_prim, runs_sec = sgd_bounds(b, cfg.padded_factors,
+                                                     primary)
+            ss_long, dq_perm = b["ss"].long(), dq_p[b["sp"].long()]
+            row.update({
+                "name": "segment_apply_into_zeros",
+                "ms": timer.ms(lambda: cuda_sgd.cuda_segment_apply(
+                    zk, dq_p, b["sp"], b["ss"]), before=lambda: zero(zk)),
+                "plain_ms": timer.ms(lambda: cuda_sgd.plain_segment_apply(
+                    zp, dq_p, b["sp"], b["ss"]), before=lambda: zero(zp)),
+                "library_ms": timer.ms(lambda: zm.index_add_(0, ss_long, dq_perm),
+                                       before=lambda: zero(zm)),
+                "bound_ms": bounds["segment_apply"][0],
+                "bound_by": bounds["segment_apply"][1],
+                "bound_bytes": bounds["segment_apply"][2],
+                "runs_prim": runs_prim, "runs_sec": runs_sec,
+                "Kp": cfg.padded_factors})
+            del ss_long, dq_perm
+        emit(row)
+        rows.append(row)
+        del p, args, S, acc_k, acc_p, dq_k, dq_p, zk, zp, zm, before
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4246,6 +4783,22 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         pipeline = phase_pipeline(torch, rng, data3, tmpdir, args.seed)
     emit(pipeline)
+    # -- multi-device KernelMF on torch.distributed ----------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        par_nccl, par_packs = phase_parallel_nccl(
+            torch, rng, data3, r3[N_RATINGS:], args.seed, tmpdir)
+    par_nccl["seconds"] = time.perf_counter() - t0
+    emit(par_nccl)
+    par_rows, par_worst = phase_parallel_kernels(torch, rng, par_packs,
+                                                 train1m, timer)
+    del par_packs
+    torch.cuda.empty_cache()
+    par_gloo = phase_parallel_gloo(torch, train1m, args.seed)
+    par_gloo["seconds"] = time.perf_counter() - t0 - par_nccl["seconds"]
+    emit(par_gloo)
+    par_launches = {k: (par_nccl["launches"][k], par_gloo["launches"][k])
+                    for k in ("sgd_step", "segment_apply", "score_catalog")}
     del data3
     pipe_launches = pipeline["launches"]
     for name in sgd_worst:
@@ -4264,12 +4817,15 @@ def main() -> int:
         "replaces": "matrix_factorization_tpu/ops/pallas_scores.py:34",
         "launches": (main_path_launches + sweep_out["launches"]["score_catalog"]
                      + sum(f["score_launches"] for f in fam.values())
-                     + pipe_launches["score_catalog"]),
+                     + pipe_launches["score_catalog"]
+                     + sum(par_launches["score_catalog"])),
         "launches_by_path": {"serve": main_path_launches,
                              "sweep": sweep_out["launches"]["score_catalog"],
                              **{k.lower(): f["score_launches"]
                                 for k, f in fam.items()},
-                             "pipeline": pipe_launches["score_catalog"]},
+                             "pipeline": pipe_launches["score_catalog"],
+                             "parallel": par_launches["score_catalog"][0],
+                             "parallel_gloo": par_launches["score_catalog"][1]},
         "max_abs_err": worst,
         "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -4289,7 +4845,9 @@ def main() -> int:
         by_path = {"train": train_launches[name],
                    "sweep": sweep_out["launches"][name],
                    "recipe_serve": recipe["launches"][name],
-                   "pipeline": pipe_launches[name]}
+                   "pipeline": pipe_launches[name],
+                   "parallel": par_launches[name][0],
+                   "parallel_gloo": par_launches[name][1]}
         if name == "segment_apply":
             by_path.update(bpr=fam["BPR"]["launches"],
                            svdpp=fam["SVDpp"]["launches"])
@@ -4298,14 +4856,21 @@ def main() -> int:
             "source": f"matrix_factorization_tpu_torch/csrc/{source}",
             "replaces": replaces, "note": note,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": sgd_worst[name], "ms": row["ms"],
+            "max_abs_err": max(sgd_worst[name], par_worst[name]),
+            "ms": row["ms"],
             "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "shape": {k: row[k] for k in ("bs", "Kp", "kernel", "primary",
                                           "runs_prim", "runs_sec")},
             "shapes": [rows_[name] for rows_ in sgd_rows.values()],
-            "family_shapes": [r for r in fam_rows if r["name"] == name]})
+            "family_shapes": [r for r in fam_rows if r["name"] == name],
+            "parallel_shapes": [r for r in par_rows
+                                if r["name"].startswith(name)],
+            **({"accumulator_launches": {
+                "parallel": par_nccl["launches"]["sgd_step_acc"],
+                "parallel_gloo": par_gloo["launches"]["sgd_step_acc"]}}
+               if name == "sgd_step" else {})})
     row = spd_rows[0]
     kernels.append({
         "name": "spd_gj", "route": "cuda",

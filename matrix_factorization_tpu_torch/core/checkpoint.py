@@ -47,19 +47,25 @@ FORMAT_VERSION = 1
 
 
 def save_model(model, path) -> None:
-    """Checkpoint a fitted model to a directory (atomic)."""
+    """Checkpoint a fitted model to a directory (atomic). A model that
+    keeps only a rank's shards (``KernelMF(keep_sharded=True)`` fit on a
+    mesh) is gathered first, a collective: every rank calls
+    ``save_model`` and rank 0 writes."""
+    params = model._whole_params() if hasattr(model, "_whole_params") \
+        else getattr(model, "_params", None)
+    if getattr(model, "_sharding", None) is not None and _rank() not in (None, 0):
+        return
     path = Path(path)
     # the temp dir must live on the same filesystem as the target or the
     # final rename fails (EXDEV); create missing parents up front
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=path.parent))
     try:
-        params = getattr(model, "_params", None)
         arrays = {} if params is None else {
             name: getattr(params, name).detach().cpu().numpy()
             for name in params._fields}
         np.savez(tmp / "arrays.npz", **arrays, **_aux_arrays(model))
-        config = model.get_params()
+        config = strip_runtime_config(model.get_params())
         config.pop("device", None)
         meta = {
             "format_version": FORMAT_VERSION,
@@ -87,6 +93,25 @@ def save_model(model, path) -> None:
     except Exception:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
+
+
+def strip_runtime_config(config: dict) -> dict:
+    """``config`` without what ties it to a mesh (JAX
+    ``_strip_runtime_config``): a ``DeviceMesh`` is a runtime object, so
+    the mesh becomes None and the flags that need one (``overlap_psum``,
+    ``keep_sharded``, ``psum_every``) their defaults, which a constructor
+    without a mesh accepts. (JAX keeps ``psum_every``, whose checkpoints
+    then refuse to load.) A model that should train or serve on a mesh
+    again is given one after loading."""
+    if config.get("mesh") is None:
+        return config
+    config = dict(config)
+    config["mesh"] = None
+    for flag, default in (("overlap_psum", False), ("keep_sharded", False),
+                          ("psum_every", 1)):
+        if flag in config:
+            config[flag] = default
+    return config
 
 
 def _aux_arrays(model) -> dict:
@@ -218,13 +243,19 @@ def fit_resumable(
     ``segment_epochs``; resumes from ``ckpt_dir`` when it holds a
     checkpoint of the same class, from its ``_epochs_done``. Segments
     after the first continue with ``fit(warm_start=True)``. The restored
-    model keeps the caller's ``device``."""
+    model keeps the caller's ``device`` and mesh (meshes are never
+    checkpointed). Under ``torch.distributed`` with a mesh, every rank
+    trains and rank 0 alone writes the checkpoint (every rank calls
+    ``save_model`` when the model keeps shards, which it gathers)."""
     ckpt_dir = Path(ckpt_dir)
     total = total_epochs or model.n_epochs
     start = 0
+    mesh = getattr(model, "mesh", None)
     if (ckpt_dir / "meta.pkl").exists():
         restored = load_model(ckpt_dir, device=getattr(model, "device", None))
         if type(restored) is type(model):
+            if mesh is not None and hasattr(restored, "mesh"):
+                restored.mesh = mesh
             model = restored
             start = model._epochs_done
     while start < total:
@@ -232,5 +263,18 @@ def fit_resumable(
         model.fit(X, y, n_epochs=step, warm_start=start > 0)
         start += step
         model._epochs_done = start
-        save_model(model, ckpt_dir)
+        if mesh is None or _rank() == 0 or getattr(model, "_sharding", None):
+            save_model(model, ckpt_dir)
+        if mesh is not None and _rank() is not None:
+            import torch.distributed as dist
+
+            dist.barrier()  # no rank looks for the checkpoint before it is written
     return model
+
+
+def _rank():
+    """This process's rank, or None outside a ``torch.distributed``
+    world."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else None

@@ -78,6 +78,18 @@
 //    so that dq pushes fewer secondary rows out of L2.
 // Every sum has a fixed order: the step is bitwise deterministic. Offsets
 // are 64-bit (j * Kp reaches 5.4e8 at bs = 2M).
+//
+// The accumulator mode (`mf_sgd_step_acc`): the primary rows are read from
+// prim_tbl, which stays as it is, and each run's summed delta is added to
+// its row of a second table, prim_out (out[prim] += acc; a crossing run's
+// pieces are added there by the second launch, in segment order). It is the
+// `agg` output of the TPU kernel (pallas_sgd.py:167) that the data-parallel
+// trainers of matrix_factorization_tpu/parallel/distributed.py add to the
+// side they write: the window's item-delta table when the pack is
+// item-primary, or either side's delta table in the 2D trainer, where both
+// tables are read frozen for a window. One writer a row and the same fixed
+// order as the in-place mode; without prim_out the kernel is the in-place
+// step, bit for bit.
 // Later work: fuse the step and the apply so that dq never reaches device
 // memory; that kernel needs the fixed-segment split on both sides.
 
@@ -184,9 +196,9 @@ sgd_step_kernel(const float* __restrict__ mu_ptr, float* __restrict__ prim_tbl,
                 const int* __restrict__ sec_ids, const float* __restrict__ r,
                 const float* __restrict__ w, const float* __restrict__ pmask,
                 const float* __restrict__ smask, float* __restrict__ dq,
-                float* __restrict__ scratch, long long n, long long n_segments,
-                float gamma, float a, float c, float lr, float reg,
-                int update_prim) {
+                float* __restrict__ scratch, float* __restrict__ prim_out,
+                long long n, long long n_segments, float gamma, float a,
+                float c, float lr, float reg, int update_prim) {
   constexpr int kRow4 = NV * 32;  // 16-byte words a row
   constexpr int kp = NV * 128;
   constexpr unsigned kFull = 0xffffffffu;
@@ -365,10 +377,15 @@ sgd_step_kernel(const float* __restrict__ mu_ptr, float* __restrict__ prim_tbl,
                         static_cast<size_t>(2 * s + (piece_begin != 0)) * kp;
 #pragma unroll
           for (int v = 0; v < NV; ++v) st4(slot, v * 32 + lane, acc[v]);
-        } else {
+        } else if (prim_out == nullptr) {
 #pragma unroll
           for (int v = 0; v < NV; ++v)
             st4(xrow, v * 32 + lane, add4(x[v], acc[v]));
+        } else {
+          float* orow = prim_out + static_cast<size_t>(pids[e]) * kp;
+#pragma unroll
+          for (int v = 0; v < NV; ++v)
+            st4(orow, v * 32 + lane, add4(ld4(orow, v * 32 + lane), acc[v]));
         }
       }
     }
@@ -378,11 +395,12 @@ sgd_step_kernel(const float* __restrict__ mu_ptr, float* __restrict__ prim_tbl,
 // The second launch of a step: one warp a segment. The warp whose segment
 // holds the start of a run that reaches into the next segment adds the
 // run's pieces in segment order (its own slot first, then the head slot of
-// every later segment the run begins) to the pre-step row and writes it.
+// every later segment the run begins) to the pre-step row and writes it;
+// in the accumulator mode (`out` is prim_out) it adds them to the run's row
+// of prim_out instead.
 template <int NV>
 __global__ void __launch_bounds__(kWarps * 32)
-step_finish_kernel(float* __restrict__ prim_tbl,
-                   const int* __restrict__ prim_ids,
+step_finish_kernel(float* __restrict__ out, const int* __restrict__ prim_ids,
                    const float* __restrict__ scratch, long long n_segments) {
   constexpr int kp = NV * 128;
   constexpr unsigned kFull = 0xffffffffu;
@@ -426,7 +444,7 @@ step_finish_kernel(float* __restrict__ prim_tbl,
     for (int v = 0; v < NV; ++v)
       acc[v] = add4(acc[v], ld4(piece, v * 32 + lane));
   }
-  float* xrow = prim_tbl + static_cast<size_t>(id) * kp;
+  float* xrow = out + static_cast<size_t>(id) * kp;
 #pragma unroll
   for (int v = 0; v < NV; ++v)
     st4(xrow, v * 32 + lane, add4(ld4(xrow, v * 32 + lane), acc[v]));
@@ -436,9 +454,10 @@ template <int KERNEL, int NV>
 int launch_step(const float* mu, float* prim, const float* sec, const int* pid,
                 const int* sid, const float* r, const float* w,
                 const float* pm, const float* sm, float* dq, float* scratch,
-                long long n, long long n_segments, float gamma, float a,
-                float c, float lr, float reg, int update_prim, int grid,
-                int smem_bytes, cudaStream_t stream) {
+                float* prim_out, long long n, long long n_segments,
+                float gamma, float a, float c, float lr, float reg,
+                int update_prim, int grid, int smem_bytes,
+                cudaStream_t stream) {
   if (smem_bytes != step_smem_bytes(NV) || smem_bytes > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = sgd_step_kernel<KERNEL, NV>;
@@ -446,13 +465,13 @@ int launch_step(const float* mu, float* prim, const float* sec, const int* pid,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   kernel<<<grid, kWarps * 32, smem_bytes, stream>>>(
-      mu, prim, sec, pid, sid, r, w, pm, sm, dq, scratch, n, n_segments, gamma,
-      a, c, lr, reg, update_prim);
+      mu, prim, sec, pid, sid, r, w, pm, sm, dq, scratch, prim_out, n,
+      n_segments, gamma, a, c, lr, reg, update_prim);
   if (update_prim && n_segments > 1) {
     const long long blocks = (n_segments - 1 + kWarps - 1) / kWarps;
     step_finish_kernel<NV>
         <<<static_cast<unsigned int>(blocks), kWarps * 32, 0, stream>>>(
-            prim, pid, scratch, n_segments);
+            prim_out == nullptr ? prim : prim_out, pid, scratch, n_segments);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -470,6 +489,48 @@ int launch_step_for_width(int nv, Args... args) {
     case 8: return launch_step<KERNEL, 8>(args...);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int run_step(const void* mu, void* prim_tbl, const void* sec_tbl,
+             const void* prim_ids, const void* sec_ids, const void* r,
+             const void* w, const void* pmask, const void* smask, void* dq,
+             void* prim_out, long long n, int kp, int kernel, float gamma,
+             float a, float c, float lr, float reg, int update_prim,
+             void* scratch, int seg_len, long long n_segments, int grid,
+             int smem_bytes, int stages, void* stream) {
+  if (kernel < kLinear || kernel > kRbf || n <= 0 || kp <= 0 || kp % 128 ||
+      kp / 128 > kMaxVec)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (seg_len != kSegLen || stages != kStages ||
+      n_segments != (n + kSegLen - 1) / kSegLen || grid < 1 ||
+      grid > (n_segments + kWarps - 1) / kWarps ||
+      (update_prim && scratch == nullptr) || prim_out == prim_tbl)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nv = kp / 128;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mu);
+  float* P = static_cast<float*>(prim_tbl);
+  const float* S = static_cast<const float*>(sec_tbl);
+  const int* pid = static_cast<const int*>(prim_ids);
+  const int* sid = static_cast<const int*>(sec_ids);
+  const float* rr = static_cast<const float*>(r);
+  const float* ww = static_cast<const float*>(w);
+  const float* pm = static_cast<const float*>(pmask);
+  const float* sm = static_cast<const float*>(smask);
+  float* d = static_cast<float*>(dq);
+  float* sc = static_cast<float*>(scratch);
+  float* o = static_cast<float*>(prim_out);
+  if (kernel == kLinear)
+    return launch_step_for_width<kLinear>(
+        nv, m, P, S, pid, sid, rr, ww, pm, sm, d, sc, o, n, n_segments, gamma,
+        a, c, lr, reg, update_prim, grid, smem_bytes, s);
+  if (kernel == kSigmoid)
+    return launch_step_for_width<kSigmoid>(
+        nv, m, P, S, pid, sid, rr, ww, pm, sm, d, sc, o, n, n_segments, gamma,
+        a, c, lr, reg, update_prim, grid, smem_bytes, s);
+  return launch_step_for_width<kRbf>(
+      nv, m, P, S, pid, sid, rr, ww, pm, sm, d, sc, o, n, n_segments, gamma, a,
+      c, lr, reg, update_prim, grid, smem_bytes, s);
 }
 
 }  // namespace
@@ -497,38 +558,31 @@ extern "C" int mf_sgd_step(const void* mu, void* prim_tbl, const void* sec_tbl,
                            float reg, int update_prim, void* scratch,
                            int seg_len, long long n_segments, int grid,
                            int smem_bytes, int stages, void* stream) {
-  if (kernel < kLinear || kernel > kRbf || n <= 0 || kp <= 0 || kp % 128 ||
-      kp / 128 > kMaxVec)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (seg_len != kSegLen || stages != kStages ||
-      n_segments != (n + kSegLen - 1) / kSegLen || grid < 1 ||
-      grid > (n_segments + kWarps - 1) / kWarps ||
-      (update_prim && scratch == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int nv = kp / 128;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* m = static_cast<const float*>(mu);
-  float* P = static_cast<float*>(prim_tbl);
-  const float* S = static_cast<const float*>(sec_tbl);
-  const int* pid = static_cast<const int*>(prim_ids);
-  const int* sid = static_cast<const int*>(sec_ids);
-  const float* rr = static_cast<const float*>(r);
-  const float* ww = static_cast<const float*>(w);
-  const float* pm = static_cast<const float*>(pmask);
-  const float* sm = static_cast<const float*>(smask);
-  float* d = static_cast<float*>(dq);
-  float* sc = static_cast<float*>(scratch);
-  if (kernel == kLinear)
-    return launch_step_for_width<kLinear>(
-        nv, m, P, S, pid, sid, rr, ww, pm, sm, d, sc, n, n_segments, gamma, a,
-        c, lr, reg, update_prim, grid, smem_bytes, s);
-  if (kernel == kSigmoid)
-    return launch_step_for_width<kSigmoid>(
-        nv, m, P, S, pid, sid, rr, ww, pm, sm, d, sc, n, n_segments, gamma, a,
-        c, lr, reg, update_prim, grid, smem_bytes, s);
-  return launch_step_for_width<kRbf>(
-      nv, m, P, S, pid, sid, rr, ww, pm, sm, d, sc, n, n_segments, gamma, a, c,
-      lr, reg, update_prim, grid, smem_bytes, s);
+  return run_step(mu, prim_tbl, sec_tbl, prim_ids, sec_ids, r, w, pmask, smask,
+                  dq, nullptr, n, kp, kernel, gamma, a, c, lr, reg,
+                  update_prim, scratch, seg_len, n_segments, grid, smem_bytes,
+                  stages, stream);
+}
+
+// `mf_sgd_step` in the accumulator mode: the same arguments, plus prim_out,
+// a (rows, kp) f32 table other than prim_tbl. prim_tbl is only read; each
+// run's summed primary delta is added to its row of prim_out (when
+// update_prim is set).
+extern "C" int mf_sgd_step_acc(const void* mu, const void* prim_tbl,
+                               const void* sec_tbl, const void* prim_ids,
+                               const void* sec_ids, const void* r,
+                               const void* w, const void* pmask,
+                               const void* smask, void* dq, long long n,
+                               int kp, int kernel, float gamma, float a,
+                               float c, float lr, float reg, int update_prim,
+                               void* scratch, int seg_len,
+                               long long n_segments, int grid, int smem_bytes,
+                               int stages, void* prim_out, void* stream) {
+  if (prim_out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run_step(mu, const_cast<void*>(prim_tbl), sec_tbl, prim_ids, sec_ids,
+                  r, w, pmask, smask, dq, prim_out, n, kp, kernel, gamma, a, c,
+                  lr, reg, update_prim, scratch, seg_len, n_segments, grid,
+                  smem_bytes, stages, stream);
 }
 
 extern "C" const char* mf_sgd_error_string(int code) {

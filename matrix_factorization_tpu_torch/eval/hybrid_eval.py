@@ -35,7 +35,7 @@ from matrix_factorization_tpu_torch.eval.topk_eval import (
     pick_test_items,
     users_and_histories,
 )
-from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6
+from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6_GRAM
 from matrix_factorization_tpu_torch.rank.hybrid import minmax, model_scores
 from matrix_factorization_tpu_torch.retrieval.index import (
     DenseItemIndex,
@@ -95,7 +95,7 @@ def evaluate_hybrid(
     }
 
     if mesh is not None:
-        raise NotImplementedError(f"evaluate_hybrid(mesh=) comes with {SLICE_6}")
+        raise NotImplementedError(f"evaluate_hybrid(mesh=) comes with {SLICE_6_GRAM}")
     users, by_user = users_and_histories(ratings, max_users)
     rng = np.random.RandomState(seed)
 

@@ -15,6 +15,7 @@ name), which the checkpoint's ``config`` records.
 A model pickles its tensors as host tensors (a CUDA pickle does not load
 on a host without CUDA) and puts them back on the device named where it
 is unpickled (``core.device.load_device``), else on its own ``device``.
+A mesh is a runtime object and is not pickled (``strip_runtime_config``).
 """
 
 from __future__ import annotations
@@ -87,9 +88,9 @@ def check_mesh_args(serving_dtype, mesh, overlap_psum, dp_layout, psum_every,
     if psum_every != 1 and mesh is None:
         raise ValueError("psum_every requires a mesh")
     if mesh is not None:
-        from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6
+        from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6_FAMILIES
 
-        raise NotImplementedError(f"{name}(mesh=) comes with {SLICE_6}")
+        raise NotImplementedError(f"{name}(mesh=) comes with {SLICE_6_FAMILIES}")
 
 
 class RecommenderBase(*_SKLEARN_BASES, ABC):
@@ -123,10 +124,21 @@ class RecommenderBase(*_SKLEARN_BASES, ABC):
             return {name: getattr(self, name)
                     for name in self._get_param_names()}
 
+    def _whole_params(self):
+        """The model's whole tables (``KernelMF`` gathers the shards it
+        keeps under ``keep_sharded``, a collective)."""
+        return getattr(self, "_params", None)
+
     # -- pickling: host tensors in the pickle, the load device after -------
     def __getstate__(self):
+        from matrix_factorization_tpu_torch.core.checkpoint import strip_runtime_config
+
         sup = getattr(super(), "__getstate__", None)
-        state = dict(sup() if sup is not None else self.__dict__)
+        state = strip_runtime_config(dict(sup() if sup is not None else self.__dict__))
+        if "_topk_catalog" in state:  # derived from a mesh: never pickled
+            state["_topk_catalog"] = None
+        if state.get("_sharding") is not None:  # a rank's shards: pickle the whole
+            state["_params"], state["_sharding"] = self._whole_params(), None
         return {k: to_device(v, "cpu") for k, v in state.items()}
 
     def __setstate__(self, state):
@@ -270,9 +282,14 @@ class RecommenderBase(*_SKLEARN_BASES, ABC):
         return set(kd[kd >= 0].tolist())
 
     def _topk_fetch(self):
-        """The (u_dense, k) -> (vals, idx) top-k fetcher, or None: models
-        with a device catalog expose ``_catalog_topk`` (scoring and top-k
-        on the device; only (B, k) values and indices reach the host)."""
+        """The (u_dense, k) -> (vals, idx) top-k fetcher, or None. A
+        sharded catalog (``_topk_catalog``, ``KernelMF(keep_sharded=True)``)
+        comes first; models with a device catalog expose ``_catalog_topk``
+        (scoring and top-k on the device). Either way only (B, k) values
+        and indices reach the host."""
+        topk_cat = getattr(self, "_topk_catalog", None)
+        if topk_cat is not None:
+            return lambda ud, k: topk_cat.topk(self._topk_user_rows(ud), k)
         return getattr(self, "_catalog_topk", None)
 
     def _topk_row_frame(self, user, vals_row, idx_row, excluded, amount,

@@ -57,7 +57,7 @@ class BaselineModel(RecommenderBase):
             raise ValueError("Method param must be either 'sgd' or 'als'")
         if mesh is not None:
             raise NotImplementedError(
-                f"BaselineModel(mesh=) comes with {sgd.SLICE_6}")
+                f"BaselineModel(mesh=) comes with {sgd.SLICE_6_ALS}")
         super().__init__(min_rating=min_rating, max_rating=max_rating, verbose=verbose)
         self._device = resolve_device(device)
         self.device = device

@@ -34,7 +34,7 @@ import torch
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.data.loader import host_lib
 from matrix_factorization_tpu_torch.models.base import RecommenderBase, chunked_predict
-from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6
+from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6_GRAM
 from matrix_factorization_tpu_torch.ops.sparse_gram import similarity_topk
 
 
@@ -90,7 +90,7 @@ class _TopKNeighborCF(RecommenderBase):
     ):
         if mesh is not None:
             raise NotImplementedError(
-                f"{type(self).__name__}(mesh=) comes with {SLICE_6}")
+                f"{type(self).__name__}(mesh=) comes with {SLICE_6_GRAM}")
         super().__init__(min_rating=min_rating, max_rating=max_rating,
                          verbose=verbose)
         self._device = resolve_device(device)

@@ -27,7 +27,7 @@ import torch
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.models.base import RecommenderBase
 from matrix_factorization_tpu_torch.ops import similarity as simops
-from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6
+from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6_GRAM
 
 _PREDICT_CHUNK = 4096
 
@@ -51,7 +51,7 @@ class _NeighborhoodCF(RecommenderBase):
             raise ValueError(f"Unknown similarity metric: {similarity_metric}")
         if mesh is not None:
             raise NotImplementedError(
-                f"{type(self).__name__}(mesh=) comes with {SLICE_6}")
+                f"{type(self).__name__}(mesh=) comes with {SLICE_6_GRAM}")
         super().__init__(min_rating=min_rating, max_rating=max_rating, verbose=verbose)
         self._device = resolve_device(device)
         self.device = device

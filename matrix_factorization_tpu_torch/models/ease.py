@@ -24,7 +24,7 @@ from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.models.base import RecommenderBase
 from matrix_factorization_tpu_torch.ops import ease as ease_ops
 from matrix_factorization_tpu_torch.ops.scoring import stable_topk, topk_harness
-from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6
+from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6_GRAM
 
 _SCORE_COHORT = 256  # users scored at once by predict
 
@@ -54,7 +54,7 @@ class EASE(RecommenderBase):
         if serving_dtype not in ("float32", "bfloat16"):
             raise ValueError("serving_dtype must be 'float32' or 'bfloat16'")
         if mesh is not None:
-            raise NotImplementedError(f"EASE(mesh=) comes with {SLICE_6}")
+            raise NotImplementedError(f"EASE(mesh=) comes with {SLICE_6_GRAM}")
         super().__init__(min_rating=min_rating, max_rating=max_rating,
                          verbose=verbose)
         self._device = resolve_device(device)

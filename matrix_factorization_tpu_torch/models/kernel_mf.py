@@ -1,11 +1,14 @@
 """Kernel matrix factorization, r_ui ~= K(p_u, q_i) for K in
 {linear, sigmoid, rbf} (PyTorch port).
 
-Counterpart of ``matrix_factorization_tpu/models/kernel_mf.py``, single
-device: ``fit`` (with ``warm_start``), ``update_users``, ``predict``,
-``recommend`` and ``recommend_batch``, trained by mini-batch SGD,
-``method='als'`` (exact alternation, ``ops/ials.py``) or SGD after
-``als_warm_start`` ALS sweeps. A model is trained here or arrives fitted
+Counterpart of ``matrix_factorization_tpu/models/kernel_mf.py``: ``fit``
+(with ``warm_start``), ``update_users``, ``predict``, ``recommend`` and
+``recommend_batch``, trained by mini-batch SGD, ``method='als'`` (exact
+alternation, ``ops/ials.py``) or SGD after ``als_warm_start`` ALS sweeps.
+With a ``mesh`` (``parallel/mesh.py``) whose data axes hold more than one
+rank, ``fit`` trains data-parallel on ``torch.distributed``
+(``parallel/distributed.py``): every rank of the mesh calls it with the
+same ratings. A model is trained here or arrives fitted
 through ``core.checkpoint.load_model`` (a checkpoint of either package) or
 ``ops.segment_sgd.params_from_numpy``. On the GPU, SGD runs the
 hand-written step and apply kernels of ``ops/cuda_sgd.py``, the ALS solves
@@ -35,6 +38,7 @@ from matrix_factorization_tpu_torch.core.ids import check_no_duplicates
 from matrix_factorization_tpu_torch.models.base import RecommenderBase, predict_on_device
 from matrix_factorization_tpu_torch.ops import ials, scoring
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+from matrix_factorization_tpu_torch.parallel.mesh import data_size_of, model_size_of
 
 
 def _als_needs_buckets(u, i, n_users: int, n_items: int,
@@ -47,6 +51,11 @@ def _als_needs_buckets(u, i, n_users: int, n_items: int,
 
 
 class KernelMF(RecommenderBase):
+    # None: ``_params`` are the whole tables; "1d" / "2d": this rank's
+    # shards of a ``keep_sharded`` mesh fit (a class default for pickles
+    # made before the attribute)
+    _sharding: Optional[str] = None
+
     def __init__(
         self,
         n_factors: int = 100,
@@ -81,8 +90,26 @@ class KernelMF(RecommenderBase):
         ``recommend_batch``), which halves the bytes they stream; sums stay
         f32 and ``predict`` reads the f32 tables. ``device``: where the
         tables live, ``None`` meaning CUDA (``RuntimeError`` without a
-        GPU). ``mesh`` raises ``NotImplementedError`` until slice 6 ports
-        it; ``keep_sharded`` needs a mesh.
+        GPU; under ``torchrun``, the rank's current device).
+
+        ``mesh`` (a ``DeviceMesh`` from ``parallel.mesh.make_mesh``): with
+        more than one rank on its data axes a fresh SGD ``fit`` trains with
+        ``parallel.distributed.dp_tp_fit`` when the model axis is > 1, else
+        ``dp_fit`` (``dp_layout``, and ``epoch_order`` as the pack order;
+        ``'block'`` raises when the fit starts, as a single-device layout),
+        then every rank holds the gathered tables. ``keep_sharded`` (needs a
+        mesh) keeps the tables in their training shardings instead: a rank
+        holds its P rows (over the data axes) and Q (whole under
+        ``dp_fit``, its model shard under ``dp_tp_fit``), and serves
+        ``recommend`` / ``recommend_batch`` through a
+        ``parallel.serving.ShardedCatalog``: each rank scores its shard of
+        the catalog, and the queried users' rows are gathered by one
+        all-reduce. Every rank must then make the same calls, as they are
+        collectives: ``predict``, the table views, ``update_users``, a
+        continued fit, ``save_model`` and pickling gather the whole tables
+        for the call (``_whole_params``).
+        ``overlap_psum`` and ``psum_every`` are the trainers'. ALS on a
+        data mesh > 1 raises ``NotImplementedError`` (a later slice).
 
         ``method='als'``: exact alternating least squares for factors and
         biases (linear kernel), ``reg_scale`` 'absolute' or 'per_obs' (see
@@ -147,8 +174,9 @@ class KernelMF(RecommenderBase):
             raise ValueError("serving_dtype must be 'float32' or 'bfloat16'")
         if dp_layout not in ("auto", "tiled", "flat"):
             raise ValueError("dp_layout must be 'auto', 'tiled' or 'flat'")
-        if mesh is not None:
-            raise NotImplementedError(f"KernelMF(mesh=) comes with {sgd.SLICE_6}")
+        if method == "als" and mesh is not None and data_size_of(mesh) > 1:
+            raise NotImplementedError(
+                f"KernelMF(method='als', mesh=) comes with {sgd.SLICE_6_ALS}")
         super().__init__(min_rating=min_rating, max_rating=max_rating, verbose=verbose)
         self._device = resolve_device(device)
         self.device = device
@@ -174,6 +202,8 @@ class KernelMF(RecommenderBase):
         self.dp_layout = dp_layout
         self.serving_dtype = serving_dtype
         self._params: Optional[sgd.MFParams] = None
+        self._sharding = None
+        self._topk_catalog = None  # ShardedCatalog under keep_sharded
         self._serving_cache = None  # (source MFParams, bf16 MFParams)
         self.train_rmse: list = []
 
@@ -196,15 +226,50 @@ class KernelMF(RecommenderBase):
             compute_epoch_rmse=compute_epoch_rmse,
         )
 
+    # -- where the tables live ------------------------------------------------
+    def _shards_kept(self) -> bool:
+        """Whether this model keeps only a rank's shards of its tables:
+        ``keep_sharded`` on a mesh of more than one data rank."""
+        return (self.keep_sharded and self.mesh is not None
+                and data_size_of(self.mesh) > 1)
+
+    def _whole_params(self) -> Optional[sgd.MFParams]:
+        """The whole tables: ``_params``, or, while the rank holds only its
+        shards (``_sharding``), their all-gather over the mesh's groups, a
+        collective that every rank makes."""
+        if self._sharding is None:
+            return self._params
+        from matrix_factorization_tpu_torch.parallel.distributed import gather_params
+
+        return gather_params(self._params, self.mesh,
+                             q_sharded=self._sharding == "2d")
+
+    def _set_whole(self, params: sgd.MFParams) -> None:
+        """Take whole tables as the model's: as they are, or, when shards
+        are kept, this rank's shards of them in the mesh fit's layout (Q
+        cut over the model axis when it is > 1)."""
+        from matrix_factorization_tpu_torch.parallel import distributed as dist_sgd
+
+        if not self._shards_kept():
+            self._params, self._sharding = params, None
+        elif model_size_of(self.mesh) > 1:
+            self._params = dist_sgd.place_params_2d(params, self.mesh)
+            self._sharding = "2d"
+        else:
+            self._params = dist_sgd.place_params(params, self.mesh)
+            self._sharding = "1d"
+
     # -- capacity -----------------------------------------------------------
     def _ensure_user_capacity(self, n_needed: int,
                               generator: torch.Generator) -> None:
-        """Grow the user table to hold ``n_needed`` rows (by half again,
-        rounded to 1024), the new rows fresh from ``generator``."""
+        """Grow the (whole) user table to hold ``n_needed`` rows (by half
+        again, rounded to 1024, or to 1024 a data rank when shards are
+        kept), the new rows fresh from ``generator``."""
         cap = self._params.user_features.shape[0]
         if n_needed <= cap:
             return
-        new_cap = sgd.round_up(max(n_needed, int(cap * 1.5) + 1), 1024)
+        quantum = 1024 * (data_size_of(self.mesh) if self._shards_kept() else 1)
+        new_cap = sgd.round_up(max(n_needed, int(cap * 1.5) + 1), quantum)
         fresh = sgd.fresh_user_rows(
             generator, new_cap - cap, self._cfg(), self.init_mean, self.init_sd)
         self._params = self._params._replace(
@@ -223,8 +288,17 @@ class KernelMF(RecommenderBase):
         The initial tables come from a generator seeded with ``seed``; the
         epochs' batch orders from one seeded with (``seed``, epochs done
         so far + 1), so a continued fit draws fresh orders.
-        ``train_rmse`` gains one entry an epoch."""
+        ``train_rmse`` gains one entry an epoch.
+
+        A fresh fit with a mesh of more than one data rank trains
+        data-parallel (see ``__init__``); a continuation trains each rank's
+        copy of the gathered tables on its device, as the JAX package's
+        continuation takes the single-device branch; under
+        ``keep_sharded`` it starts from the gathered tables, keeps its
+        shards of the result and rebuilds the catalog from them."""
         cfg = self._cfg()
+        # any fit outdates the sharded catalog: it holds a copy of Q
+        self._topk_catalog = None
         if warm_start and self._params is not None:
             users = X["user_id"].to_numpy()
             items = X["item_id"].to_numpy()
@@ -232,7 +306,7 @@ class KernelMF(RecommenderBase):
             u = self.user_vocab.encode(users, strict=True)
             i = self.item_vocab.encode(items, strict=True)
             r = np.asarray(y, dtype=np.float32)
-            params = self._params
+            params = self._whole_params()
         else:
             u, i, r = self._preprocess_fit(X, y)
             self.global_mean = float(np.mean(r))
@@ -242,13 +316,16 @@ class KernelMF(RecommenderBase):
                 self.init_mean, self.init_sd)
             self.train_rmse = []
         n_epochs = n_epochs or self.n_epochs
-        if self.method == "als":
+        if self.mesh is not None and not warm_start and data_size_of(self.mesh) > 1:
+            rmse_hist = self._fit_mesh(u, i, r, cfg, n_epochs)
+        elif self.method == "als":
             # the pack only feeds the RMSE pass: no per-batch sorts
             data = sgd.pack_ratings(u, i, r, cfg.batch_size,
                                     order=self.epoch_order, aggregate=False,
                                     device=self._device)
             params, rmse_hist = self._als(params, u, i, r, cfg, data,
                                           n_epochs, self.reg_scale)
+            self._set_whole(params)
         else:
             data = sgd.pack_ratings(u, i, r, cfg.batch_size,
                                     order=self.epoch_order, device=self._device)
@@ -258,12 +335,67 @@ class KernelMF(RecommenderBase):
                                            len(self.train_rmse) + 1)
             params, rmse_hist = sgd.sgd_train(params, data, shuffle, cfg,
                                               n_epochs, self.lr)
-        self._params = params
+            self._set_whole(params)
+        if self.keep_sharded:
+            self._rebuild_serving_catalog()
         self.train_rmse = list(self.train_rmse) + rmse_hist.cpu().tolist()
         if self.verbose:
             for e, v in enumerate(self.train_rmse):
                 print(f"Epoch {e + 1} train RMSE: {v:.4f}")
         return self
+
+    def _fit_mesh(self, u, i, r, cfg, n_epochs) -> torch.Tensor:
+        """The data-parallel fit of every rank; then the rank keeps its
+        shards (``keep_sharded``) or the whole tables, all-gathered over
+        the mesh's groups. Returns the train-RMSE history."""
+        from matrix_factorization_tpu_torch.parallel import distributed as dist_sgd
+
+        if self.epoch_order == "block":
+            raise ValueError(
+                "epoch_order='block' is a single-device layout; a mesh fit "
+                "packs device-major (use 'shuffle', 'item', 'user' or 'auto')")
+        kw = dict(seed=self.seed, init_mean=self.init_mean,
+                  init_sd=self.init_sd, overlap_psum=self.overlap_psum,
+                  psum_every=self.psum_every, device=self._device)
+        two_d = model_size_of(self.mesh) > 1
+        if two_d:
+            local, hist = dist_sgd.dp_tp_fit(
+                u, i, r, self.n_users, self.n_items, cfg, n_epochs, self.lr,
+                self.mesh, **kw)
+        else:
+            local, hist = dist_sgd.dp_fit(
+                u, i, r, self.n_users, self.n_items, cfg, n_epochs, self.lr,
+                self.mesh, layout=self.dp_layout, pack_order=self.epoch_order,
+                **kw)
+        if self.keep_sharded:
+            self._params, self._sharding = local, ("2d" if two_d else "1d")
+        else:
+            self._params = dist_sgd.gather_params(local, self.mesh, q_sharded=two_d)
+            self._sharding = None
+        return torch.from_numpy(hist)
+
+    def _rebuild_serving_catalog(self) -> None:
+        """(Re)build this rank's ``ShardedCatalog`` from the item table it
+        holds (the ``keep_sharded`` serving state; derived, never
+        checkpointed): from ``dp_tp_fit``'s model shard it all-gathers Q
+        over the model group first."""
+        from matrix_factorization_tpu_torch.parallel.serving import ShardedCatalog
+
+        self._require_fitted()
+        self._topk_catalog = ShardedCatalog(
+            self._params, self.n_items, self._cfg(), self.mesh,
+            dtype=torch.bfloat16 if self.serving_dtype == "bfloat16" else None,
+            q_sharded=self._sharding == "2d")
+
+    def _topk_user_rows(self, u_dense: np.ndarray) -> torch.Tensor:
+        """(B, Kp) extended user rows for the sharded top-k: from the
+        rank's P shard, one all-reduce over the data group assembles them
+        (``gather_table_rows``) when shards are kept."""
+        if self._sharding is None:
+            return scoring._user_rows(self._params.user_features, u_dense)
+        from matrix_factorization_tpu_torch.parallel.distributed import gather_table_rows
+
+        return gather_table_rows(self._params.user_features, u_dense, self.mesh)
 
     def _als(self, params, u, i, r, cfg, data, n_epochs, reg_scale):
         """``n_epochs`` ALS epochs on (u, i, r): count-bucketed sweeps when
@@ -316,6 +448,7 @@ class KernelMF(RecommenderBase):
         history."""
         self._require_fitted()
         u, i, r, known_users, _new_users = self._preprocess_update(X, y)
+        self._params, self._sharding = self._whole_params(), None
         self._ensure_user_capacity(
             self.n_users, sgd.seeded_generator(self._device, self.seed + 1, 0))
 
@@ -339,7 +472,7 @@ class KernelMF(RecommenderBase):
             params, rmse_hist = sgd.sgd_train(
                 self._params, data,
                 sgd.seeded_generator("cpu", self.seed + 1, 2), cfg, n_epochs, lr)
-        self._params = params
+        self._set_whole(params)
         self.train_rmse = rmse_hist.cpu().tolist()
         if verbose:
             for e, v in enumerate(self.train_rmse):
@@ -373,7 +506,7 @@ class KernelMF(RecommenderBase):
 
     def _predict_arrays(self, u: np.ndarray, i: np.ndarray, bound_ratings: bool):
         self._require_fitted()
-        return predict_on_device(self._params, self._cfg(), u, i,
+        return predict_on_device(self._whole_params(), self._cfg(), u, i,
                                  bound_ratings, self._device)
 
     def predict(self, X: pd.DataFrame, bound_ratings: bool = True) -> list:
@@ -392,8 +525,9 @@ class KernelMF(RecommenderBase):
     # -- catalog serving ----------------------------------------------------
     def _catalog_scores_batch(self, u_dense: np.ndarray) -> np.ndarray:
         """(B, n_items) unbounded scores for a whole user cohort."""
-        return scoring.catalog_scores(self._cfg(), self._cached_serving_params(),
-                                      self.n_items, u_dense)
+        return scoring.catalog_scores(
+            self._cfg(), self._cached_serving_params(self._whole_params),
+            self.n_items, u_dense)
 
     def _catalog_scores(self, u_dense: int) -> np.ndarray:
         """Unbounded scores of every known item for one user."""
@@ -402,26 +536,27 @@ class KernelMF(RecommenderBase):
     def _catalog_topk(self, u_dense: np.ndarray, k: int):
         """Top-``k`` catalog scores per user; only (B, k) values and
         indices reach the host (``ops.scoring.catalog_topk``)."""
-        return scoring.catalog_topk(self._cfg(), self._cached_serving_params(),
-                                    self.n_items, u_dense, k)
+        return scoring.catalog_topk(
+            self._cfg(), self._cached_serving_params(self._whole_params),
+            self.n_items, u_dense, k)
 
     # -- reference-parity parameter views ------------------------------------
     # (biases live in extension columns of the factor tables — see
     # ops/segment_sgd.py module docstring)
     @property
     def user_features(self) -> np.ndarray:
-        return self._params.user_features[: self.n_users, : self.n_factors].cpu().numpy()
+        return self._whole_params().user_features[: self.n_users, : self.n_factors].cpu().numpy()
 
     @property
     def item_features(self) -> np.ndarray:
-        return self._params.item_features[: self.n_items, : self.n_factors].cpu().numpy()
+        return self._whole_params().item_features[: self.n_items, : self.n_factors].cpu().numpy()
 
     @property
     def user_biases(self) -> np.ndarray:
         col = sgd.bias_col(self._cfg(), "user")
-        return self._params.user_features[: self.n_users, col].cpu().numpy()
+        return self._whole_params().user_features[: self.n_users, col].cpu().numpy()
 
     @property
     def item_biases(self) -> np.ndarray:
         col = sgd.bias_col(self._cfg(), "item")
-        return self._params.item_features[: self.n_items, col].cpu().numpy()
+        return self._whole_params().item_features[: self.n_items, col].cpu().numpy()

@@ -56,7 +56,7 @@ class NMF(RecommenderBase):
         if init_low < 0 or init_high <= init_low:
             raise ValueError("need 0 <= init_low < init_high")
         if mesh is not None:
-            raise NotImplementedError(f"NMF(mesh=) comes with {sgd.SLICE_6}")
+            raise NotImplementedError(f"NMF(mesh=) comes with {sgd.SLICE_6_FAMILIES}")
         super().__init__(min_rating=min_rating, max_rating=max_rating,
                          verbose=verbose)
         self._device = resolve_device(device)

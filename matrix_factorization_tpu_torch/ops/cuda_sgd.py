@@ -12,7 +12,11 @@ kernels:
   that crosses a segment boundary is summed in pieces, which a second
   small launch of the same call adds in segment order (``step_plan``
   lays the call out, ``segmented_sgd_step`` is that summation in plain
-  PyTorch);
+  PyTorch). Given ``prim_out`` (the accumulator mode, the TPU step's
+  ``agg`` output), it leaves the primary table as it is and adds each
+  run's summed delta to that run's row of ``prim_out`` instead: the
+  data-parallel trainers (``parallel/distributed.py``) read a table frozen
+  for a window and collect its deltas apart;
 * ``mf_segment_apply`` (``csrc/segment_sum.cu``, beside the segment sum
   whose scheme it shares) adds ``dq`` to the secondary table over the
   pack's stable secondary argsort (``sec_perm``, ``sec_ids_sorted``), one
@@ -64,19 +68,21 @@ APPLY_CHUNK = 32  # consecutive entries one warp owns
 
 _count_lock = threading.Lock()
 step_launches = 0  # mf_sgd_step launches since import or reset_launches()
+acc_launches = 0  # of which in the accumulator mode (prim_out)
 apply_launches = 0  # mf_segment_apply launches, likewise
 
 
 def reset_launches() -> None:
-    global step_launches, apply_launches
+    global step_launches, acc_launches, apply_launches
     with _count_lock:
-        step_launches = apply_launches = 0
+        step_launches = acc_launches = apply_launches = 0
 
 
-def _count_step() -> None:
-    global step_launches
+def _count_step(acc: bool) -> None:
+    global step_launches, acc_launches
     with _count_lock:
         step_launches += 1
+        acc_launches += int(acc)
 
 
 def _count_apply() -> None:
@@ -100,6 +106,9 @@ def _library():
                                     cll, ci, ci, cf, cf, cf, cf, cf, ci,
                                     vp, ci, cll, ci, ci, ci, vp]
         lib.mf_sgd_step.restype = ci
+        lib.mf_sgd_step_acc.argtypes = (
+            list(lib.mf_sgd_step.argtypes[:-1]) + [vp, vp])
+        lib.mf_sgd_step_acc.restype = ci
         lib.mf_sgd_error_string.argtypes = [ci]
         lib.mf_sgd_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -137,11 +146,14 @@ def plain_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
                    sec_ids: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
                    pmask: torch.Tensor, smask: torch.Tensor, lr: float,
                    reg: float, update_prim: bool = True,
-                   write_dq: bool = True) -> Optional[torch.Tensor]:
+                   write_dq: bool = True,
+                   prim_out: Optional[torch.Tensor] = None
+                   ) -> Optional[torch.Tensor]:
     """The step of ``cuda_sgd_step`` as gather + row math + ``index_add_``
     (``segment_sgd._minibatch_update``'s per-side deltas). The forward and
     gradients are symmetric in the two sides, so the primary rows go in as
-    ``pu`` whichever side they are."""
+    ``pu`` whichever side they are. With ``prim_out`` the primary deltas
+    are added to it, and ``prim_tbl`` is only read."""
     from matrix_factorization_tpu_torch.ops.segment_sgd import (
         ext_forward_and_rowgrads)
 
@@ -152,7 +164,8 @@ def plain_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
     rw = reg * w
     if update_prim:
         g = (err[:, None] * dx + rw[:, None] * x) * pmask[None, :]
-        prim_tbl.index_add_(0, prim_ids.long(), -lr * g)
+        target = prim_tbl if prim_out is None else prim_out
+        target.index_add_(0, prim_ids.long(), -lr * g)
     if not write_dq:
         return None
     return -lr * ((err[:, None] * dy + rw[:, None] * y) * smask[None, :])
@@ -170,14 +183,16 @@ def segmented_sgd_step(cfg: SGDConfig, mu: torch.Tensor,
                        r: torch.Tensor, w: torch.Tensor, pmask: torch.Tensor,
                        smask: torch.Tensor, lr: float, reg: float,
                        update_prim: bool = True, write_dq: bool = True,
-                       seg_len: int = SEG_LEN) -> Optional[torch.Tensor]:
+                       seg_len: int = SEG_LEN,
+                       prim_out: Optional[torch.Tensor] = None
+                       ) -> Optional[torch.Tensor]:
     """``plain_sgd_step`` with the primary deltas summed as ``mf_sgd_step``
     sums them: the batch is cut into segments of ``seg_len`` entries, the
     deltas of a run of equal primary ids are added in entry order inside
     each segment, and the pieces of a run that crosses segment boundaries
-    are then added in segment order before the pre-step row. Plain
-    PyTorch for the tests of the boundary logic; the entry points never
-    call it."""
+    are then added in segment order before the pre-step row (or, with
+    ``prim_out``, to the run's row of ``prim_out``). Plain PyTorch for the
+    tests of the boundary logic; the entry points never call it."""
     from matrix_factorization_tpu_torch.ops.segment_sgd import (
         ext_forward_and_rowgrads)
 
@@ -207,7 +222,8 @@ def segmented_sgd_step(cfg: SGDConfig, mu: torch.Tensor,
                                  append=pos.new_tensor([starts.numel()]))
         total = _piece_sums(pieces, run_starts, run_lengths)
         rows = ids[starts[run_starts]]
-        prim_tbl[rows] = prim_tbl[rows] + total
+        target = prim_tbl if prim_out is None else prim_out
+        target[rows] = target[rows] + total
     if not write_dq:
         return None
     return -lr * ((err[:, None] * dy + rw[:, None] * y) * smask[None, :])
@@ -302,7 +318,9 @@ def cuda_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
                   sec_ids: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
                   pmask: torch.Tensor, smask: torch.Tensor, lr: float,
                   reg: float, update_prim: bool = True,
-                  write_dq: bool = True) -> Optional[torch.Tensor]:
+                  write_dq: bool = True,
+                  prim_out: Optional[torch.Tensor] = None
+                  ) -> Optional[torch.Tensor]:
     """One step of ``mf_sgd_step`` on ``prim_tbl``'s stream: the segment
     launch and, when the primary side is updated, the launch that
     finishes the runs crossing a segment boundary.
@@ -311,8 +329,11 @@ def cuda_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
     and ``w`` (n,) f32; tables (rows, Kp) and masks (Kp,) f32; ``mu`` one
     f32 on the card (read by the kernel, so the call never syncs). Ids are
     not bounds-checked (that would sync): they come from the vocabulary.
-    Updates ``prim_tbl`` in place unless ``update_prim`` is false; returns
-    the secondary deltas (n, Kp), or None when ``write_dq`` is false."""
+    Updates ``prim_tbl`` in place unless ``update_prim`` is false, or,
+    given ``prim_out`` (a table of ``prim_tbl``'s shape, another tensor),
+    adds the primary deltas to it and only reads ``prim_tbl``
+    (``mf_sgd_step_acc``); returns the secondary deltas (n, Kp), or None
+    when ``write_dq`` is false."""
     if cfg.kernel not in _KERNEL_CODES:
         raise ValueError(f"unknown kernel {cfg.kernel!r}")
     dev = prim_tbl.device
@@ -332,6 +353,10 @@ def cuda_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
         _check(name, t, dev, dt, (n,))
     _check("pmask", pmask, dev, f32, (kp,))
     _check("smask", smask, dev, f32, (kp,))
+    if prim_out is not None:
+        _check("prim_out", prim_out, dev, f32, prim_tbl.shape)
+        if prim_out.data_ptr() == prim_tbl.data_ptr():
+            raise ValueError("prim_out must be another tensor than prim_tbl")
     dq = torch.empty((n, kp), dtype=f32, device=dev) if write_dq else None
     if n == 0:
         return dq
@@ -339,7 +364,7 @@ def cuda_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
     scratch = (torch.empty(plan.scratch_shape, dtype=f32, device=dev)
                if update_prim else None)
     lib = _library()
-    rc = lib.mf_sgd_step(
+    args = [
         mu.data_ptr(), prim_tbl.data_ptr(), sec_tbl.data_ptr(),
         prim_ids.data_ptr(), sec_ids.data_ptr(), r.data_ptr(), w.data_ptr(),
         pmask.data_ptr(), smask.data_ptr(),
@@ -347,12 +372,16 @@ def cuda_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
         _KERNEL_CODES[cfg.kernel], float(cfg.gamma), float(cfg.a),
         float(cfg.c), float(lr), float(reg), int(bool(update_prim)),
         scratch.data_ptr() if scratch is not None else None, plan.seg_len,
-        plan.n_segments, plan.grid, plan.smem_bytes, plan.stages,
-        torch.cuda.current_stream(dev).cuda_stream)
+        plan.n_segments, plan.grid, plan.smem_bytes, plan.stages]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if prim_out is None:
+        rc = lib.mf_sgd_step(*args, stream)
+    else:
+        rc = lib.mf_sgd_step_acc(*args, prim_out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
             f"sgd_step launch failed: {lib.mf_sgd_error_string(rc).decode()}")
-    _count_step()
+    _count_step(prim_out is not None)
     return dq
 
 
@@ -398,7 +427,8 @@ def cuda_segment_apply(table: torch.Tensor, rows: torch.Tensor,
 
 
 def sgd_step(cfg: SGDConfig, mu, prim_tbl, sec_tbl, prim_ids, sec_ids, r, w,
-             pmask, smask, lr, reg, update_prim=True, write_dq=True):
+             pmask, smask, lr, reg, update_prim=True, write_dq=True,
+             prim_out=None):
     """``cuda_sgd_step`` for CUDA tables, ``plain_sgd_step`` for CPU
     tables; any other device raises."""
     if prim_tbl.device.type == "cuda":
@@ -408,7 +438,7 @@ def sgd_step(cfg: SGDConfig, mu, prim_tbl, sec_tbl, prim_ids, sec_ids, r, w,
     else:
         raise ValueError(f"no SGD step for device {prim_tbl.device}")
     return fn(cfg, mu, prim_tbl, sec_tbl, prim_ids, sec_ids, r, w, pmask,
-              smask, lr, reg, update_prim, write_dq)
+              smask, lr, reg, update_prim, write_dq, prim_out)
 
 
 def segment_apply(table, rows, perm, ids_sorted) -> None:

@@ -42,7 +42,13 @@ from matrix_factorization_tpu_torch.core.config import LANE, SUBLANE, SGDConfig
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.data.loader import host_lib, native_threads
 
-SLICE_6 = "slice 6 of the PyTorch port (multi-device)"
+# the later slices of the port's multi-device layer (slice 6), named by the
+# mesh paths that still raise
+SLICE_6_ALS = ("slice 6b of the PyTorch port (ALS, iALS and the bias models "
+               "on a mesh)")
+SLICE_6_FAMILIES = "slice 6c of the PyTorch port (BPR, SVD++ and NMF on a mesh)"
+SLICE_6_GRAM = ("slice 6d of the PyTorch port (EASE, the sparse gram, CF and "
+                "retrieval on a mesh)")
 
 
 class MFParams(NamedTuple):
@@ -299,6 +305,8 @@ def pack_ratings(
     aggregate: bool = True,
     item_sort_chunks: int = 8,
     n_dev: int = 1,
+    users_per_dev: Optional[int] = None,
+    segment: Optional[int] = None,
     user_block: Optional[int] = None,
     item_block: Optional[int] = None,
     device=None,
@@ -318,24 +326,38 @@ def pack_ratings(
     ``aggregate`` stores every batch sorted by the primary side (the
     chunk-sort side, ``item`` for ``shuffle``) with the secondary side's
     stable argsort. Pads have weight 0 and repeat the tail of the real
-    stream, so they keep its local id distribution. ``n_dev > 1`` (the
-    device-major packs of the data-parallel trainers) comes with slice 6.
+    stream, so they keep its local id distribution.
+
+    ``n_dev > 1`` packs device-major for the data-parallel trainers
+    (``parallel/distributed.py``): device d owns users ``[d *
+    users_per_dev, (d + 1) * users_per_dev)``, its user ids are local to
+    it, each device's ratings are shuffled apart (``default_rng((
+    shuffle_seed, d))``) and padded to one whole number of batches common
+    to all (batches ``[d * nb_local, (d + 1) * nb_local)`` are device d's),
+    and the chunk sorts stay inside a device's segment; ``'auto'`` then
+    compares ``users_per_dev`` with the item ids, and ``'block'`` raises.
+    ``segment=d`` packs device d's segment alone: its batches of the
+    whole pack byte for byte (``n_real`` stays the whole stream's), at
+    1 / n_dev of the host work, so each rank packs only its own.
     The shuffle's gather and every sort run in the native host library
     (``csrc/host_loader.cpp``: threaded counting sorts); ``native=False``
     runs numpy's instead, with equal bytes. The counting sorts take dense
     ids: a negative id raises ``ValueError`` before it reaches them.
     """
-    if n_dev > 1:
-        raise NotImplementedError(f"pack_ratings(n_dev > 1) comes with {SLICE_6}")
     dev = resolve_device(device)
     n = int(len(ratings))
     if order == "auto" and n > 0:
-        order = "user" if int(user_ids.max()) > int(item_ids.max()) else "item"
+        max_u = (users_per_dev - 1 if n_dev > 1 and users_per_dev
+                 else int(user_ids.max()))
+        order = "user" if max_u > int(item_ids.max()) else "item"
     elif order == "auto":
         order = "item"
     if order not in ("shuffle", "item", "user", "block"):
         raise ValueError(f"unknown pack order {order!r}")
     if order == "block" and n > 1:
+        if n_dev > 1:
+            raise ValueError("order='block' is a single-device layout; "
+                             "the dp trainers use device-major packs")
         nu_est = int(user_ids.max()) + 1
         ni_est = int(item_ids.max()) + 1
         if user_block is None or item_block is None:
@@ -391,24 +413,67 @@ def pack_ratings(
             dst += p
         return _pack_preformed(u2, i2, r2, w2, n, batch_size, "user",
                                aggregate, dev, native)
+    if segment is not None and not 0 <= segment < n_dev:
+        raise ValueError(f"segment {segment} is not a device of {n_dev}")
+    n_segs = n_dev if segment is None else 1
+    if n_dev > 1:
+        if not users_per_dev:
+            raise ValueError("n_dev > 1 needs users_per_dev")
+        u, i, r, w = _device_major(user_ids, item_ids, ratings, batch_size,
+                                   shuffle_seed, n_dev, users_per_dev, native,
+                                   segment)
+    else:
+        u, i, r, w = _shuffled_padded(user_ids, item_ids, ratings, batch_size,
+                                      shuffle_seed, native)
+    n_pad = len(u)
+    nb = n_pad // batch_size
+    if order in ("item", "user") and n > 1:
+        # chunk bounds are batch bounds and never cross a device segment;
+        # pads carry weight 0
+        nb_local = nb // n_segs
+        chunks = max(1, min(item_sort_chunks, nb_local))
+        step = -(-nb_local // chunks) * batch_size
+        seg = nb_local * batch_size
+        rel = np.arange(0, seg, step, dtype=np.int64)
+        offs = np.arange(n_segs, dtype=np.int64)[:, None] * seg
+        starts = (offs + rel[None, :]).reshape(-1)
+        ends = (offs + np.minimum(rel + step, seg)[None, :]).reshape(-1)
+        _sort_ranges(u, i, r, w, starts, ends, order == "item", native)
+    primary = order if order in ("item", "user") else "item"
+    return _pack_preformed(u, i, r, w, n, batch_size, primary, aggregate, dev,
+                           native)
+
+
+def _gather_into(user_ids, item_ids, ratings, perm, u, i, r,
+                 native: bool) -> None:
+    """``(u, i, r)[:] = (user_ids, item_ids, ratings)[perm]``: one
+    threaded native gather, or numpy's."""
+    if native:
+        host_lib().mf_gather_rows(
+            np.ascontiguousarray(user_ids, np.int32),
+            np.ascontiguousarray(item_ids, np.int32),
+            np.ascontiguousarray(ratings, np.float32),
+            perm, len(perm), u, i, r, native_threads())
+    else:
+        u[:] = user_ids[perm]
+        i[:] = item_ids[perm]
+        r[:] = ratings[perm]
+
+
+def _shuffled_padded(user_ids, item_ids, ratings, batch_size: int,
+                     shuffle_seed, native: bool):
+    """The single-device stream: shuffled once, padded to whole batches
+    with weight-0 repeats of its tail."""
+    n = int(len(ratings))
     n_pad = max(batch_size, round_up(n, batch_size))
     pad = n_pad - n
-    nb = n_pad // batch_size
     u = np.empty(n_pad, np.int32)
     i = np.empty(n_pad, np.int32)
     r = np.empty(n_pad, np.float32)
     if shuffle_seed is not None and n > 1:
         perm = np.random.default_rng(shuffle_seed).permutation(n)
-        if native:  # one threaded gather straight into the padded buffers
-            host_lib().mf_gather_rows(
-                np.ascontiguousarray(user_ids, np.int32),
-                np.ascontiguousarray(item_ids, np.int32),
-                np.ascontiguousarray(ratings, np.float32),
-                perm, n, u[:n], i[:n], r[:n], native_threads())
-        else:
-            u[:n] = user_ids[perm]
-            i[:n] = item_ids[perm]
-            r[:n] = ratings[perm]
+        _gather_into(user_ids, item_ids, ratings, perm, u[:n], i[:n], r[:n],
+                     native)
     else:
         u[:n] = user_ids
         i[:n] = item_ids
@@ -421,16 +486,54 @@ def pack_ratings(
     w = np.empty(n_pad, np.float32)
     w[:n] = 1.0
     w[n:] = 0.0
-    if order in ("item", "user") and n > 1:
-        # chunk bounds are batch bounds; pads carry weight 0
-        chunks = max(1, min(item_sort_chunks, nb))
-        step = -(-nb // chunks) * batch_size
-        starts = np.arange(0, n_pad, step, dtype=np.int64)
-        _sort_ranges(u, i, r, w, starts, np.minimum(starts + step, n_pad),
-                     order == "item", native)
-    primary = order if order in ("item", "user") else "item"
-    return _pack_preformed(u, i, r, w, n, batch_size, primary, aggregate, dev,
-                           native)
+    return u, i, r, w
+
+
+def _device_major(user_ids, item_ids, ratings, batch_size: int, shuffle_seed,
+                  n_dev: int, users_per_dev: int, native: bool,
+                  segment: Optional[int] = None):
+    """The device-major stream of ``pack_ratings(n_dev > 1)``: device d's
+    segment holds its users' ratings (local user ids), shuffled apart and
+    padded with weight-0 repeats of its own tail to the common length.
+    With ``segment``, that device's segment alone (its ratings picked out
+    in stream order, which is what the stable sort by device gives it)."""
+    dev = (np.asarray(user_ids).astype(np.int64) // users_per_dev).astype(np.int32)
+    cols = (np.asarray(user_ids, np.int32), np.asarray(item_ids, np.int32),
+            np.asarray(ratings, np.float32))
+    counts = np.bincount(dev, minlength=n_dev)
+    if segment is None:
+        us, is_, rs = sort_stream_by_key(dev, *cols, n_dev, native)
+        devs = range(n_dev)
+    else:
+        sel = np.flatnonzero(dev == segment)
+        us, is_, rs = (a[sel] for a in cols)
+        devs = [segment]
+    n_pad_local = max(batch_size, round_up(max(int(counts.max()), 1), batch_size))
+    n_pad = len(devs) * n_pad_local
+    u = np.zeros(n_pad, np.int32)
+    i = np.zeros(n_pad, np.int32)
+    r = np.zeros(n_pad, np.float32)
+    w = np.zeros(n_pad, np.float32)
+    start = 0
+    for s, d in enumerate(devs):
+        c = int(counts[d])
+        sl, off = slice(start, start + c), s * n_pad_local
+        out = slice(off, off + c)
+        if shuffle_seed is not None and c > 1:
+            perm = np.random.default_rng((shuffle_seed, d)).permutation(c)
+            _gather_into(us[sl], is_[sl], rs[sl], perm, u[out], i[out], r[out],
+                         native)
+        else:
+            u[out], i[out], r[out] = us[sl], is_[sl], rs[sl]
+        u[out] -= d * users_per_dev
+        w[out] = 1.0
+        padl = n_pad_local - c
+        if padl and c:  # weight-0 repeats of the device's own tail
+            tail = min(c, padl)
+            u[off + c:off + n_pad_local] = np.resize(u[off + c - tail:off + c], padl)
+            i[off + c:off + n_pad_local] = np.resize(i[off + c - tail:off + c], padl)
+        start += c
+    return u, i, r, w
 
 
 def _pack_preformed(u, i, r, w, n_real: int, batch_size: int, primary: str,
@@ -546,7 +649,8 @@ def sgd_minibatch_step(params: MFParams, u: torch.Tensor, i: torch.Tensor,
 
 def minibatch_update(params: MFParams, b: dict, cfg: SGDConfig, lr: float,
                      primary: str, masks: Optional[dict] = None,
-                     reg: Optional[float] = None) -> MFParams:
+                     reg: Optional[float] = None,
+                     write: Optional[dict] = None) -> MFParams:
     """One synchronous mini-batch update, IN PLACE on ``params``' tables
     (which it returns): the counterpart of the JAX ``_minibatch_update``.
 
@@ -560,12 +664,23 @@ def minibatch_update(params: MFParams, b: dict, cfg: SGDConfig, lr: float,
     side (``cfg.update_item_params`` / ``update_user_params`` false) is
     neither written nor, for the secondary side, given deltas. ``masks``
     may carry the ``user`` and ``item`` update masks on the tables'
-    device; ``reg``, when given, replaces ``cfg.reg``."""
+    device; ``reg``, when given, replaces ``cfg.reg``.
+
+    ``write`` (the data-parallel trainers, ``parallel/distributed.py``)
+    maps each side to the table its deltas are added to, in place of the
+    side's own table: the step reads ``params``' tables as they stand
+    before it, and a side whose ``write`` is another table (a window's
+    delta table) is only read (the step kernel's accumulator mode on the
+    primary side, the apply into that table on the secondary side). A
+    side whose ``write`` is None is frozen."""
     from matrix_factorization_tpu_torch.ops import cuda_sgd
 
     prim_is_user = primary == "user"
     prim_side, sec_side = ("user", "item") if prim_is_user else ("item", "user")
-    upd = {"user": cfg.update_user_params, "item": cfg.update_item_params}
+    tables = {"user": params.user_features, "item": params.item_features}
+    out = tables if write is None else write
+    upd = {"user": cfg.update_user_params and out["user"] is not None,
+           "item": cfg.update_item_params and out["item"] is not None}
     if not (upd["user"] or upd["item"]):
         return params
     u, i, r, w = b["u"], b["i"], b["r"], b["w"]
@@ -577,17 +692,18 @@ def minibatch_update(params: MFParams, b: dict, cfg: SGDConfig, lr: float,
         sec_ids, r, w = sec_ids[order], r[order], w[order]
         ss, sp = torch.sort(sec_ids, stable=True)
         sp = sp.to(torch.int32)
-    tables = {"user": params.user_features, "item": params.item_features}
     dev = tables["user"].device
     if masks is None:
         masks = {s: mask_tensor(cfg, s, dev) for s in ("user", "item")}
+    prim_out = out[prim_side]
     dq = cuda_sgd.sgd_step(
         cfg, params.global_mean, tables[prim_side], tables[sec_side],
         prim_ids, sec_ids, r, w, masks[prim_side], masks[sec_side], lr,
         cfg.reg if reg is None else reg,
-        update_prim=upd[prim_side], write_dq=upd[sec_side])
+        update_prim=upd[prim_side], write_dq=upd[sec_side],
+        prim_out=None if prim_out is tables[prim_side] else prim_out)
     if upd[sec_side]:
-        cuda_sgd.segment_apply(tables[sec_side], dq, sp, ss)
+        cuda_sgd.segment_apply(out[sec_side], dq, sp, ss)
     return params
 
 

@@ -40,7 +40,7 @@ import torch
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.data.loader import host_lib
 from matrix_factorization_tpu_torch.ops.scoring import stable_topk
-from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6, round_up
+from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6_GRAM, round_up
 from matrix_factorization_tpu_torch.ops.spd import exact_f32
 
 
@@ -169,7 +169,7 @@ def similarity_topk(
     are numpy ``bincount``s, as in the JAX package, so the means and norms
     are equal to its."""
     if mesh is not None:
-        raise NotImplementedError(f"similarity_topk(mesh=) comes with {SLICE_6}")
+        raise NotImplementedError(f"similarity_topk(mesh=) comes with {SLICE_6_GRAM}")
     dev = resolve_device(device)
     u = np.asarray(u, np.int32)
     i = np.asarray(i, np.int32)

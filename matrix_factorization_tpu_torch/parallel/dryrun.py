@@ -1,0 +1,89 @@
+"""One step of each multi-device path on tiny shapes, over a world of ranks.
+
+The KernelMF part of ``__graft_entry__.dryrun_multichip`` (the JAX
+package's multi-device smoke run): on ``n_devices`` ranks started by
+``parallel/launch.py::spawn_world``, one data-parallel epoch flat,
+overlapped and tiled, one 2D epoch and one sharded-catalog top-k. Later
+slices add their families. Run it as
+
+    python -m matrix_factorization_tpu_torch.parallel.dryrun 4 [gloo|nccl] [cuda:0|cpu]
+
+Every rank runs on the GPU unless the caller names the CPU (``cpu`` here,
+``device='cpu'`` from Python); without a GPU that raises.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+
+
+def _rank(rank: int, world: int, device: str) -> dict:
+    import torch
+
+    from matrix_factorization_tpu_torch.core.config import SGDConfig
+    from matrix_factorization_tpu_torch.parallel import distributed as pdist
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+    from matrix_factorization_tpu_torch.parallel.serving import ShardedCatalog
+
+    n_model = 2 if world % 2 == 0 and world >= 4 else 1
+    mesh = make_mesh(world)
+    mesh2 = make_mesh(world // n_model, n_model)
+    rng = np.random.default_rng(0)
+    n_users, n_items, n = 16 * world, 40, 512
+    u = rng.integers(0, n_users, n).astype(np.int32)
+    i = rng.integers(0, n_items, n).astype(np.int32)
+    r = rng.uniform(1, 5, n).astype(np.float32)
+    cfg = SGDConfig(kernel="linear", n_factors=16, batch_size=64, lr=0.05,
+                    reg=0.02)
+    fit = dict(n_epochs=1, lr=cfg.lr, device=device)
+    out = {}
+    for tag, kw in (("flat", {"layout": "flat"}),
+                    ("overlap", {"layout": "flat", "overlap_psum": True}),
+                    ("tiled", {"layout": "tiled", "pack_order": "shuffle"})):
+        local, hist = pdist.dp_fit(u, i, r, n_users, n_items, cfg,
+                                   mesh=mesh, **fit, **kw)
+        out[tag] = hist
+    whole = pdist.gather_params(local, mesh, q_sharded=False)
+    out["Q"] = whole.item_features.cpu().numpy()
+    local2, out["2d"] = pdist.dp_tp_fit(u, i, r, n_users, n_items, cfg,
+                                        mesh=mesh2, **fit)
+    cat = ShardedCatalog(local2, n_items, cfg, mesh2, q_sharded=n_model > 1)
+    pu = pdist.gather_params(local2, mesh2, n_model > 1).user_features[:8]
+    out["topk"] = cat.topk(pu, 5)
+    out["device"] = str(torch.device(device))
+    return out
+
+
+def dryrun_multichip(n_devices: int, backend: str = "gloo",
+                     device=None) -> dict:
+    """The dry run on ``n_devices`` ranks of ``backend``, every rank on
+    ``device`` (``None``: ``cuda:0``, raising without a GPU); raises if a rank fails, a history is not finite, the
+    replicas of Q differ or the ranks' top-k differ. Returns rank 0's
+    results."""
+    from matrix_factorization_tpu_torch.parallel.launch import spawn_world, world_device
+
+    device = world_device(device)
+    ranks = spawn_world(_rank, n_devices, backend, device, args=(device,))
+    first = ranks[0]
+    for rk in ranks:
+        for tag in ("flat", "overlap", "tiled", "2d"):
+            if not np.isfinite(rk[tag]).all():
+                raise AssertionError(f"{tag}: the train RMSE is not finite")
+        if not np.array_equal(rk["Q"], first["Q"]):
+            raise AssertionError("the replicas of Q differ across ranks")
+        for a, b in zip(rk["topk"], first["topk"]):
+            if not np.array_equal(a, b):
+                raise AssertionError("the ranks' top-k differ")
+    if first["topk"][1].max() >= 40:
+        raise AssertionError("the top-k named a padding row")
+    return first
+
+
+if __name__ == "__main__":
+    n = int(sys.argv[1]) if len(sys.argv) > 1 else 2
+    res = dryrun_multichip(n, *sys.argv[2:4])
+    print(f"dryrun_multichip OK: {n} ranks, epoch rmse flat "
+          f"{res['flat'][-1]:.4f}, 2D {res['2d'][-1]:.4f}, top-k ids "
+          f"{res['topk'][1][0].tolist()}")

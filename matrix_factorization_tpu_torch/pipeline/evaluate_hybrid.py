@@ -13,7 +13,7 @@ import pandas as pd
 
 from matrix_factorization_tpu_torch.core.artifacts import load_pickle
 from matrix_factorization_tpu_torch.eval.hybrid_eval import evaluate_hybrid
-from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6
+from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6_GRAM
 from matrix_factorization_tpu_torch.pipeline.common import add_paths_arg, cli_setup
 from matrix_factorization_tpu_torch.retrieval.index import load_item_index
 
@@ -35,7 +35,7 @@ def main() -> None:
                         "(comes with slice 6 of the port; > 0 raises)")
     a = p.parse_args()
     if a.mesh_devices:
-        raise NotImplementedError(f"--mesh-devices comes with {SLICE_6}")
+        raise NotImplementedError(f"--mesh-devices comes with {SLICE_6_GRAM}")
     paths = cli_setup(a)
     ratings = pd.read_parquet(paths.data / "ratings.parquet")
     index = load_item_index(paths.artifacts / "item_index.pkl")

@@ -27,7 +27,7 @@ import torch
 
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.ops.scoring import stable_topk
-from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6
+from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6_GRAM
 from matrix_factorization_tpu_torch.ops.spd import exact_f32
 from matrix_factorization_tpu_torch.retrieval.encode import embed_texts
 from matrix_factorization_tpu_torch.retrieval.index import (
@@ -48,7 +48,7 @@ _TOPK_ELEMS = 1 << 27
 
 def _no_mesh(mesh, name: str) -> None:
     if mesh is not None:
-        raise NotImplementedError(f"{name}(mesh=) comes with {SLICE_6}")
+        raise NotImplementedError(f"{name}(mesh=) comes with {SLICE_6_GRAM}")
 
 
 def device_embeddings(index: DenseItemIndex, device=None) -> torch.Tensor:

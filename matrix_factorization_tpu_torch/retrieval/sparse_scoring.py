@@ -37,7 +37,7 @@ import torch
 
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.ops.scoring import stable_topk
-from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6
+from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6_GRAM
 from matrix_factorization_tpu_torch.ops.spd import exact_f32
 from matrix_factorization_tpu_torch.retrieval.index import TfidfItemIndex
 
@@ -113,7 +113,7 @@ def tfidf_batch_topk(
     """Top-k (scores, positions) per query, computed on the device; only
     (B, k) reaches the host."""
     if mesh is not None:
-        raise NotImplementedError(f"tfidf_batch_topk(mesh=) comes with {SLICE_6}")
+        raise NotImplementedError(f"tfidf_batch_topk(mesh=) comes with {SLICE_6_GRAM}")
     scores = tfidf_scores_device(index, queries, vocab_block, device)
     vals, idx = stable_topk(scores, k)
     return vals.cpu().numpy(), idx.cpu().numpy()

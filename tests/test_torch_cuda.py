@@ -1098,3 +1098,46 @@ def test_pipeline_train_and_evaluate_default_to_cuda(cuda, tmp_path):
                                     "--max-users", "50"]).strip().splitlines()[-1])
     assert res["n_users"] > 0
     assert cuda_scores.launches - before >= res["n_users"]
+
+
+@pytest.mark.parametrize("case", ["run_ends_at_boundary",
+                                  "run_over_three_segments",
+                                  "one_run_of_40_segments", "ragged",
+                                  "skewed"])
+@pytest.mark.parametrize("kernel", ["linear", "sigmoid", "rbf"])
+def test_sgd_step_accumulator_mode(cuda, kernel, case):
+    """``prim_out``: the kernel leaves the primary table as it was, adds
+    the same deltas as the plain accumulator (atol = rtol = 1e-5) and, into
+    a copy of the pre-step table, gives the in-place step's bits; ``dq``
+    is the in-place step's."""
+    cfg = SGDConfig(kernel=kernel, n_factors=200, gamma=1 / 200,
+                    min_rating=0.5, max_rating=5.0, reg=0.01)
+    rng = np.random.default_rng(len(case))
+    prim, pad = _boundary_ids(case, rng)
+    P, S, batch, pm, sm, mu = _step_inputs(cfg, prim, 600, 700, rng, cuda, pad)
+    lr = 1e-3
+    tail = (S, *batch, pm, sm, lr, cfg.reg)
+    Pk = P.clone()
+    dq = cuda_sgd.cuda_sgd_step(cfg, mu, Pk, *tail)
+    frozen, acc, acc_plain = P.clone(), torch.zeros_like(P), torch.zeros_like(P)
+    dq_acc = cuda_sgd.cuda_sgd_step(cfg, mu, frozen, *tail, prim_out=acc)
+    cuda_sgd.plain_sgd_step(cfg, mu, P.clone(), *tail, prim_out=acc_plain)
+    onto = P.clone()
+    cuda_sgd.cuda_sgd_step(cfg, mu, P.clone(), *tail, prim_out=onto)
+    torch.cuda.synchronize()
+    assert torch.equal(frozen, P) and torch.equal(dq_acc, dq)
+    torch.testing.assert_close(acc, acc_plain, atol=1e-5, rtol=1e-5)
+    assert torch.equal(onto, Pk)
+    with pytest.raises(ValueError, match="another tensor"):
+        cuda_sgd.cuda_sgd_step(cfg, mu, frozen, *tail, prim_out=frozen)
+
+
+def test_gloo_world_on_one_gpu(cuda):
+    """Two gloo ranks share the card (NCCL refuses two ranks on one GPU):
+    the dry run's data-parallel, 2D and sharded top-k paths on CUDA
+    tensors."""
+    from matrix_factorization_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    res = dryrun_multichip(2, "gloo", "cuda:0")
+    assert res["device"] == "cuda:0"
+    assert np.isfinite(res["flat"]).all() and np.isfinite(res["2d"]).all()

@@ -162,6 +162,23 @@ with tempfile.TemporaryDirectory() as d:
                                        dense, alpha=0.0, k=3, candidate_k=5,
                                        positive_threshold=1.0, device="cpu").n_users > 0
     assert judge.evaluate_case(index=dense, query="egg rice", k=3, device="cpu").items
+import torch.distributed as dist
+from matrix_factorization_tpu_torch.parallel import distributed as pdist
+from matrix_factorization_tpu_torch.parallel.dryrun import dryrun_multichip
+from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+assert np.isfinite(dryrun_multichip(2, device="cpu")["2d"]).all()
+with tempfile.TemporaryDirectory() as d:
+    dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=0,
+                            world_size=1)
+    mesh = make_mesh()
+    k = mf.KernelMF(n_factors=4, n_epochs=1, batch_size=16, mesh=mesh,
+                    keep_sharded=True, device="cpu").fit(X, ry)
+    assert len(k.recommend_batch([1, 2], amount=3)) == 6
+    _, hist = pdist.dp_fit(X.user_id.to_numpy(), X.item_id.to_numpy(),
+                           ry.to_numpy(), 9, 7, k._cfg(), 1, 0.01, mesh,
+                           layout="tiled", device="cpu")
+    assert np.isfinite(hist).all()
+    dist.destroy_process_group()
 print("\n".join(sorted(sys.modules)))
 """
 
@@ -198,7 +215,9 @@ def test_port_runs_without_jax_modules():
                  "pipeline.evaluate_hybrid", "pipeline.evaluate_llm",
                  "pipeline.train_reranker", "pipeline.export_artifacts",
                  "pipeline.build_item_embeddings", "pipeline.prepare_recipes",
-                 "pipeline.prepare_steam", "pipeline.prepare_data"):
+                 "pipeline.prepare_steam", "pipeline.prepare_data",
+                 "parallel.mesh", "parallel.launch", "parallel.distributed",
+                 "parallel.topk", "parallel.serving", "parallel.dryrun"):
         assert f"matrix_factorization_tpu_torch.{name}" in loaded
     bad = sorted(m for m in loaded if _top(m) in FORBIDDEN)
     assert not bad, bad

@@ -203,8 +203,9 @@ def test_port_checkpoint_loads_into_jax(fitted, data, kernel, tmp_path):
 
 
 def test_training_and_later_slices_raise(fitted, data):
-    """Training is ported (slice 2), ALS and its warm start too (slice 3);
-    meshes wait for slice 6, and the message names the slice."""
+    """Training is ported (slice 2), ALS and its warm start too (slice 3),
+    SGD on a mesh too (slice 6); ALS on a data mesh of more than one rank
+    waits for a later part of slice 6, and the message names it."""
     m = load_model(fitted["linear"][1], device="cpu")
     X, y = data
     m.fit(X, y, n_epochs=1)
@@ -213,9 +214,12 @@ def test_training_and_later_slices_raise(fitted, data):
     assert len(m.train_rmse) == 1
     assert KernelMF(device="cpu", method="als").method == "als"
     assert KernelMF(device="cpu", als_warm_start=2).als_warm_start == 2
-    for kw in ({"mesh": object()}, {"mesh": object(), "keep_sharded": True}):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            KernelMF(device="cpu", **kw)
+    data2 = _mesh_stub(2, 1)
+    with pytest.raises(NotImplementedError, match="slice 6b"):
+        KernelMF(device="cpu", method="als", mesh=data2)
+    assert KernelMF(device="cpu", method="als", mesh=_mesh_stub(1, 2)).mesh
+    for kw in ({"mesh": data2}, {"mesh": data2, "keep_sharded": True}):
+        assert KernelMF(device="cpu", **kw).mesh is data2
     for kw in ({"kernel": "cubic"}, {"serving_dtype": "float16"},
                {"keep_sharded": True}, {"method": "als", "kernel": "rbf"},
                {"psum_every": 4}):
@@ -225,6 +229,86 @@ def test_training_and_later_slices_raise(fitted, data):
         KernelMF(device="cpu").recommend(1)
     with pytest.raises(RuntimeError, match="not fitted"):
         KernelMF(device="cpu").update_users(X, y)
+
+
+def _mesh_stub(n_data, n_model):
+    """What the argument checks read of a mesh: its axis names and sizes
+    (a ``DeviceMesh`` needs a world of that many ranks)."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(mesh_dim_names=("data", "model"),
+                           shape=(n_data, n_model))
+
+
+def test_mesh_argument_checks_match_jax():
+    """JAX's checks of the mesh flags (``kernel_mf.py:186-218``): the same
+    arguments are refused by both packages, with the same message."""
+    stub = _mesh_stub(2, 1)
+    cases = [{"overlap_psum": True}, {"psum_every": 4},
+             {"psum_every": "auto"}, {"keep_sharded": True},
+             {"dp_layout": "diagonal"},
+             {"als_warm_start": 1, "mesh": stub},
+             {"overlap_psum": True, "method": "als", "mesh": stub},
+             {"psum_every": "auto", "method": "als", "mesh": stub}]
+    for kw in cases:
+        with pytest.raises(ValueError) as want:
+            JaxKernelMF(**kw)
+        with pytest.raises(ValueError) as got:
+            KernelMF(device="cpu", **kw)
+        assert str(got.value) == str(want.value), kw
+    m = KernelMF(device="cpu", mesh=stub, overlap_psum=True,
+                 psum_every="epoch", keep_sharded=True, dp_layout="flat")
+    assert (m.overlap_psum, m.psum_every, m.keep_sharded) == (True, "epoch",
+                                                              True)
+
+
+@pytest.fixture
+def world_of_one(tmp_path):
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_checkpoint_and_resume_on_one_rank(split, tmp_path, world_of_one):
+    """A model with a mesh checkpoints without it (the mesh and the flags
+    that need one are stripped, as JAX's ``_strip_runtime_config`` does,
+    and the pickle holds no ``DeviceMesh``); ``fit_resumable`` gives the
+    restored model the caller's mesh. On one rank the fit itself is the
+    single-device fit (a data mesh of 1), as in the JAX package."""
+    import pickle
+
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
+    train = split[:2]
+    mesh = make_mesh()
+    kw = dict(n_factors=6, n_epochs=2, lr=0.05, reg=0.02, batch_size=128,
+              min_rating=1.0, max_rating=5.0, device="cpu", mesh=mesh)
+    m = KernelMF(keep_sharded=True, psum_every="auto", **kw)
+    m.fit(*train)
+    assert m._topk_catalog is not None
+    plain = KernelMF(**{**kw, "mesh": None}).fit(*train)
+    np.testing.assert_array_equal(m.user_features, plain.user_features)
+    u0 = train[0]["user_id"].iloc[0]
+    _assert_same_frame(m.recommend(u0, amount=6), plain.recommend(u0, amount=6))
+    save_model(m, tmp_path / "ckpt")
+    back = load_model(tmp_path / "ckpt", device="cpu")
+    assert back.mesh is None and not back.keep_sharded
+    assert back.psum_every == 1 and not back.overlap_psum
+    np.testing.assert_array_equal(back.predict(train[0]), m.predict(train[0]))
+    restored = pickle.loads(pickle.dumps(m))
+    assert restored.mesh is None and restored._topk_catalog is None
+    resumed = fit_resumable(KernelMF(**kw), *train, tmp_path / "resume",
+                            total_epochs=2, segment_epochs=1)
+    assert resumed.mesh is mesh and resumed._epochs_done == 2
+    again = fit_resumable(KernelMF(**{**kw, "n_epochs": 3}), *train,
+                          tmp_path / "resume", segment_epochs=1)
+    assert again.mesh is mesh and again._epochs_done == 3
+    assert len(again.train_rmse) == 3
 
 
 def test_default_device_needs_cuda(fitted, monkeypatch):

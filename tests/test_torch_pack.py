@@ -99,9 +99,18 @@ def test_tiny_and_empty_packs():
 
 
 def test_multi_device_pack_names_its_slice():
+    """The device-major pack is ported (tests/test_torch_parallel_pack.py
+    holds it to JAX's); like JAX's it needs ``users_per_dev`` and refuses
+    the single-device ``block`` layout, and an unknown order raises."""
     u, i, r = _ratings(100, 10, 10, seed=0, half_stars=True)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(ValueError, match="users_per_dev"):
         sgd.pack_ratings(u, i, r, 16, n_dev=2, device="cpu")
+    with pytest.raises(ValueError, match="single-device"):
+        sgd.pack_ratings(u, i, r, 16, n_dev=2, users_per_dev=8,
+                         order="block", device="cpu")
+    got = sgd.pack_ratings(u, i, r, 16, n_dev=2, users_per_dev=8,
+                           device="cpu")
+    assert got.n_batches % 2 == 0 and got.weights.sum().item() == 100
     with pytest.raises(ValueError, match="order"):
         sgd.pack_ratings(u, i, r, 16, order="diagonal", device="cpu")
 

@@ -439,3 +439,49 @@ def test_segmented_step_sums_pieces_in_segment_order():
         cuda_sgd.segmented_sgd_step(cfg, torch.tensor(0.0), Pk, S, ids, sec, r,
                                     torch.ones(n), mask, mask, 1.0, 0.0,
                                     seg_len=0)
+
+
+def _acc_step(step, cfg, P, Q, b, primary, prim_out):
+    """One step of ``step`` with the primary deltas added to ``prim_out``;
+    returns (primary table after, prim_out, dq)."""
+    tabs = {"user": torch.from_numpy(P.copy()), "item": torch.from_numpy(Q.copy())}
+    prim, sec = ("user", "item") if primary == "user" else ("item", "user")
+    t = {k: torch.from_numpy(v) for k, v in b.items()}
+    ids = {"user": t["u"], "item": t["i"]}
+    dq = step(cfg, torch.tensor(3.0), tabs[prim], tabs[sec], ids[prim],
+              ids[sec], t["r"], t["w"],
+              torch.from_numpy(sgd.update_mask(cfg, prim)),
+              torch.from_numpy(sgd.update_mask(cfg, sec)), LR, cfg.reg,
+              prim_out=prim_out)
+    return tabs[prim], prim_out, dq
+
+
+@pytest.mark.parametrize("case", BOUNDARY_CASES)
+@pytest.mark.parametrize("seg_len", [4, 32])
+@pytest.mark.parametrize("kernel", ["linear", "sigmoid", "rbf"])
+def test_prim_out_is_the_in_place_delta(kernel, seg_len, case):
+    """The accumulator mode of ``plain_sgd_step`` and of
+    ``segmented_sgd_step`` (the kernel's summation): the primary table is
+    only read, ``prim_out`` started from zeros gains the in-place result
+    minus the pre-step table (1e-6: one rounding of the subtraction), and
+    ``prim_out`` started from the pre-step table gains the in-place bits,
+    runs that cross segment boundaries included; ``dq`` is the same."""
+    cfg, jcfg = _cfgs(kernel)
+    P, Q = _tables(jcfg, 32, 32)
+    steps = {"plain": cuda_sgd.plain_sgd_step,
+             "segmented": lambda *a, **k: cuda_sgd.segmented_sgd_step(
+                 *a, **k, seg_len=seg_len)}
+    for primary in ("user", "item"):
+        b = _boundary_batch(case, seg_len, primary)
+        pre = P if primary == "user" else Q
+        for name, step in steps.items():
+            inplace, _, dq0 = _acc_step(step, cfg, P, Q, b, primary, None)
+            zeros = torch.zeros(pre.shape)
+            tbl, out, dq = _acc_step(step, cfg, P, Q, b, primary, zeros)
+            np.testing.assert_array_equal(tbl.numpy(), pre)
+            np.testing.assert_allclose(out.numpy(), inplace.numpy() - pre,
+                                       atol=1e-6, rtol=0, err_msg=name)
+            assert torch.equal(dq, dq0)
+            _, out, _ = _acc_step(step, cfg, P, Q, b, primary,
+                                  torch.from_numpy(pre.copy()))
+            assert torch.equal(out, inplace), name

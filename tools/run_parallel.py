@@ -1,0 +1,90 @@
+#!/usr/bin/env python3
+"""Run ``chip_smoke.py``'s ``parallel`` phase alone on one CUDA GPU.
+
+    python3 tools/run_parallel.py [--seed N] [--out FILE]
+
+Builds the port's kernels, makes config 3's 25M ratings (with the held-out
+pairs) and config 2's 1M (``chip_smoke.gen_ratings`` /
+``ml1m_ratings``, as the full run makes them) and runs the phase with its
+checks: ``phase_parallel_nccl`` (NCCL at world size 1, config 3),
+``phase_parallel_kernels`` and ``phase_parallel_gloo`` (gloo ranks on the
+card). Prints the card's name and power limit, then the phase's JSON
+lines, also written to ``--out``. A failed check exits non-zero. Needs a
+GPU; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("run_parallel: no CUDA device is available", file=sys.stderr)
+        return 1
+    from matrix_factorization_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    lines = [{"phase": "device", "nvidia_smi": smi}]
+    t0 = time.perf_counter()
+    lines.append({"phase": "build", "seconds": _build.build(
+        sorted(p.stem for p in _build.CSRC.glob("*.cu")))})
+    t1 = time.perf_counter()
+    u, i, r = cs.gen_ratings(cs.N_USERS, cs.N_ITEMS, cs.N_RATINGS + cs.N_HELD_OUT,
+                             args.seed)
+    n = cs.N_RATINGS
+    data3 = (u[:n], i[:n], r[:n], u[n:], i[n:])
+    train1m, _ = cs.ml1m_ratings(args.seed)
+    lines.append({"phase": "data", "seconds": time.perf_counter() - t1})
+    rng = np.random.default_rng(args.seed)
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        out, packs = cs.phase_parallel_nccl(torch, rng, data3, r[n:], args.seed,
+                                            tmp)
+    lines.append(out)
+    rows, worst = cs.phase_parallel_kernels(torch, rng, packs, train1m,
+                                            cs.Timer(torch))
+    lines += rows
+    lines.append({"phase": "parallel_kernels_worst", **worst})
+    del packs
+    torch.cuda.empty_cache()
+    lines.append(cs.phase_parallel_gloo(torch, train1m, args.seed))
+    lines.append({"phase": "done", "parallel_seconds": time.perf_counter() - t2,
+                  "seconds": time.perf_counter() - t0})
+    for obj in lines:
+        print(json.dumps(obj), flush=True)
+    if args.out:
+        Path(args.out).write_text("".join(json.dumps(o) + "\n" for o in lines))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except cs.SmokeFailure as e:
+        print(f"run_parallel: {e}", file=sys.stderr)
+        sys.exit(1)
