@@ -3,7 +3,7 @@
 neighbourhood and content models, its KernelMF sweep, its native host
 packs, its sparse-gram top-k CF, EASE, BPR, SVD++, NMF and Popularity, the
 recipe recommender's serving path, the batch pipeline and multi-device
-KernelMF on one CUDA GPU and check them.
+KernelMF (SGD and ALS), bias models and NMF on one CUDA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -247,7 +247,8 @@ failed check ends the run with a non-zero exit:
     host RSS and the launches of the scorer, the step, the apply and the
     segment sum, each stage's counted apart.
 
-28. parallel: multi-device KernelMF on ``torch.distributed``. (a) NCCL at
+28. parallel: multi-device KernelMF, the bias models and NMF on
+    ``torch.distributed``. (a) NCCL at
     world size 1 in this process (a ``FileStore`` under ``build/``; NCCL
     refuses two ranks on one GPU), config 3 sigmoid at full scale (bs
     2,097,152, 3 epochs, orders given): ``dp_fit`` tiled with the
@@ -272,18 +273,45 @@ failed check ends the run with a non-zero exit:
     ``KernelMF(mesh=make_mesh(2))`` flat and tiled, twice each: the same
     bits, Q's replicas bit-equal, RMSE falling) and a world of 4
     (``make_mesh(2, 2)``, ``dp_tp_fit``, ``keep_sharded`` serving equal to
-    the single-device top-10 of the gathered tables).
+    the single-device top-10 of the gathered tables); then both worlds fit
+    on ``make_mesh(W)``, twice from one seed, ``KernelMF(method='als')``
+    (k=200, reg 0.1 per observation; the second fit ``keep_sharded``),
+    ``BaselineModel`` by ALS and by SGD (BASE's arguments) and ``NMF``
+    (k=64, bs 1,048,576), 3 epochs each: every rank's tables bit-equal, the
+    two fits bit-equal, ALS within 1e-4 of the single-device fit (tables
+    and history) with ``keep_sharded`` serving the whole tables' lists, bias
+    ALS within 1e-5, bias SGD within 1e-5 of a float64 replay of its own
+    pack and batch orders, NMF at JAX's bars (history rtol 2e-4, tables rtol 2e-3,
+    predictions 1e-3), and every
+    kernel of the path (the GJ leaf and the segment sum too) launched on
+    some rank. (d) parallel_als, in the same NCCL world of one rank: the
+    single-device references first (``ials_train_bucketed``,
+    ``als_train``, ``nmf_train``), then with the GJ, segment-sum and scorer
+    counts zeroed just before and read just after: ``dp_ials_train_bucketed``
+    at config 3 (k=200, reg 0.1 per observation, 3 sweeps; bit-equal to
+    ``ials_train_bucketed``, else within 1e-6 with the flag recorded, and as
+    many GJ launches), ``dp_als_train`` on config 3 (reg 0.005, 5 epochs;
+    1e-5 of ``als_train`` and of float64), ``dp_bias_sgd_train`` on config 2
+    (BASE's SGD, 3 epochs, seeded batch orders; 1e-5 of a float64 replay of
+    the same orders; seconds a step and the all-reduces' share of the host
+    time), ``dp_nmf_train`` (k=64, bs 1,048,576, 3 epochs on config 3; rtol
+    1e-5 of ``nmf_train``, bit equality recorded) and ``ShardedCatalog``
+    serving 256 users' top-10 of the dp ALS tables (ids equal to
+    ``catalog_topk``'s, scores 1e-5); then the sweep's median seconds and a
+    profiled sweep (the all-gather's device time).
 
 Then the ``kernels`` line (``score_catalog``, ``sgd_step``,
 ``segment_apply``, ``spd_gj`` with its EASE launches and shapes,
 ``segment_sum``; the apply's and the sum's launches and shapes on the
-families' paths beside the rest), the ``nvidia-smi`` line, and last
+families' paths beside the rest, and each kernel's launches on the
+parallel paths), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -1755,13 +1783,23 @@ def bias_als_oracle(model, train, kw):
     u, i, r = train
     uu = model.user_vocab.encode(np.asarray(u, dtype=object))
     ii = model.item_vocab.encode(np.asarray(i, dtype=object))
+    return bias_als_f64(uu, ii, r, model.n_users, model.n_items, kw["reg"],
+                        kw["n_epochs"])
+
+
+def bias_als_f64(uu, ii, r, nu, ni, reg, n_epochs):
+    """float64 numpy of the closed-form bias ALS on dense ids: from zero
+    biases, ``n_epochs`` sweeps of the user half, then the item half with
+    the fresh user biases; an id without ratings keeps its bias. Returns
+    (user, item) biases."""
+    import numpy as np
+
     rr = np.asarray(r, np.float64)
-    mu, reg = rr.mean(), kw["reg"]
-    nu, ni = model.n_users, model.n_items
+    mu = rr.mean()
     cu = np.bincount(uu, minlength=nu).astype(np.float64)
     ci = np.bincount(ii, minlength=ni).astype(np.float64)
     bu, bi = np.zeros(nu), np.zeros(ni)
-    for _ in range(kw["n_epochs"]):
+    for _ in range(n_epochs):
         bu = np.where(cu > 0, np.bincount(uu, rr - mu - bi[ii], nu)
                       / (reg + cu), bu)
         bi = np.where(ci > 0, np.bincount(ii, rr - mu - bu[uu], ni)
@@ -1788,21 +1826,60 @@ def bias_sgd_oracle(torch, model, X, y, kw, seed):
                                                         data.weights))
     n_pad = len(uf)
     nb = max(1, n_pad // kw["batch_size"])
-    mu = float(model._params.global_mean)
-    lr, reg = kw["lr"], kw["reg"]
-    bu = np.zeros(model.n_users)
-    bi = np.zeros(model.n_items)
     gen = sgd.seeded_generator(model._device, seed, 0)
-    for _ in range(kw["n_epochs"]):
-        perm = torch.randperm(n_pad, generator=gen,
-                              device=gen.device).cpu().numpy()
-        for uu, ii, rr, ww in zip(*(a[perm].reshape(nb, -1)
-                                    for a in (uf, if_, rf, wf))):
+    visits = [torch.randperm(n_pad, generator=gen, device=gen.device)
+              .cpu().numpy().reshape(nb, -1) for _ in range(kw["n_epochs"])]
+    return bias_sgd_f64((uf, if_, rf, wf), visits,
+                        float(model._params.global_mean), kw["lr"], kw["reg"],
+                        model.n_users, model.n_items)
+
+
+def bias_sgd_f64(stream, visits, mu, lr, reg, nu, ni):
+    """float64 numpy of synchronous mini-batch bias SGD from zero biases
+    over the flat padded ``stream`` (u, i, r, w): ``visits`` holds one
+    (nb, bs) array of stream indices an epoch, its rows the batches in
+    visit order; every entry of a batch reads the pre-step biases and
+    each side's deltas are summed by id. Returns (user, item) biases."""
+    import numpy as np
+
+    uf, if_, rf, wf = stream
+    bu, bi = np.zeros(nu), np.zeros(ni)
+    for visit in visits:
+        for uu, ii, rr, ww in zip(*(a[visit] for a in (uf, if_, rf, wf))):
             pu, pi = bu[uu], bi[ii]
             err = (rr - (mu + pu + pi)) * ww
-            bu += np.bincount(uu, lr * (err - reg * ww * pu), len(bu))
-            bi += np.bincount(ii, lr * (err - reg * ww * pi), len(bi))
+            bu += np.bincount(uu, lr * (err - reg * ww * pu), nu)
+            bi += np.bincount(ii, lr * (err - reg * ww * pi), ni)
     return bu, bi
+
+
+def bias_sgd_mesh_f64(model, X, y, kw, seed, world):
+    """float64 numpy of the bias SGD that ``BaselineModel(mesh=)`` runs on
+    ``world`` data ranks from zero biases: the host pack at
+    ``round_up(batch_size, world)`` (``aggregate=False``), epoch ``e``'s
+    batch order from ``seeded_generator('cpu', seed, 0, e)``, replayed whole
+    by ``bias_sgd_f64`` (the ranks' column slices of a batch make up the
+    batch). ``model`` gives the id encoding and the global mean. Returns
+    (user, item) biases."""
+    import numpy as np
+    import torch
+
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+
+    u = model.user_vocab.encode(X["user_id"].to_numpy())
+    i = model.item_vocab.encode(X["item_id"].to_numpy())
+    data = sgd.pack_ratings(u, i, np.asarray(y, np.float32),
+                            sgd.round_up(kw["batch_size"], world),
+                            aggregate=False, device="cpu")
+    stream = (data.user_ids.reshape(-1).long().numpy(),
+              data.item_ids.reshape(-1).long().numpy(),
+              data.ratings.reshape(-1).double().numpy(),
+              data.weights.reshape(-1).double().numpy())
+    index = np.arange(stream[0].size).reshape(data.n_batches, -1)
+    visits = [index[torch.randperm(data.n_batches, generator=sgd.seeded_generator(
+        "cpu", seed, 0, e)).numpy()] for e in range(kw["n_epochs"])]
+    return bias_sgd_f64(stream, visits, float(model._params.global_mean),
+                        kw["lr"], kw["reg"], model.n_users, model.n_items)
 
 
 def update_cohort(rng, u, n_items, per_user=100):
@@ -4061,9 +4138,25 @@ def heldout_rmse(torch, params, cfg, hu, hi, hr):
                                   - hr) ** 2)))
 
 
-def phase_parallel_nccl(torch, rng, data3, held_r, seed, store_dir):
-    """(a) NCCL at world size 1 in this process, config 3 sigmoid at full
-    scale: ``dp_fit`` tiled with the item-primary pack (``'shuffle'``, the
+@contextlib.contextmanager
+def nccl_world(torch, store_dir):
+    """A ``torch.distributed`` world of this process alone on NCCL (NCCL
+    refuses two ranks on one GPU), rendezvous through a ``FileStore`` in
+    ``store_dir``; destroyed on exit."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{store_dir}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda:0"))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel_nccl(torch, rng, data3, held_r, seed):
+    """(a) NCCL at world size 1 in this process (inside ``nccl_world``),
+    config 3 sigmoid at full scale: ``dp_fit`` tiled with the item-primary pack (``'shuffle'``, the
     step's accumulator mode) and the user-primary pack, given orders, 3
     epochs (each fit's seconds and its own pack's, read through a wrapper
     of ``pack_ratings``), then ``ShardedCatalog`` serving; the counts are
@@ -4075,7 +4168,6 @@ def phase_parallel_nccl(torch, rng, data3, held_r, seed, store_dir):
     trainer's, and the all-reduce's device time in a profiled epoch.
     Returns (out, the shuffle and user packs)."""
     import numpy as np
-    import torch.distributed as dist
 
     from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, scoring
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
@@ -4088,156 +4180,150 @@ def phase_parallel_nccl(torch, rng, data3, held_r, seed, store_dir):
     cfg = sgd_cfg("sigmoid", N_FACTORS, PAR["lr"], bs)
     out = {"phase": "parallel_nccl", "backend": "nccl", "world_size": 1,
            "n_ratings": len(r), "batch_size": bs, "epochs": E}
-    dist.init_process_group("nccl", init_method=f"file://{store_dir}/store",
-                            rank=0, world_size=1,
-                            device_id=torch.device("cuda:0"))
-    try:
-        mesh = make_mesh(1)
-        p0 = sgd.init_params(torch.Generator(device="cuda").manual_seed(seed),
-                             N_USERS, N_ITEMS, cfg, float(r.mean()),
-                             user_capacity=sgd.round_up(N_USERS, 8))
-        nb = -(-len(r) // bs)
-        orng = np.random.default_rng(seed)
-        flat_orders = [orng.permutation(nb) for _ in range(E)]
-        orders = [[o] for o in flat_orders]
+    mesh = make_mesh(1)
+    p0 = sgd.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                         N_USERS, N_ITEMS, cfg, float(r.mean()),
+                         user_capacity=sgd.round_up(N_USERS, 8))
+    nb = -(-len(r) // bs)
+    orng = np.random.default_rng(seed)
+    flat_orders = [orng.permutation(nb) for _ in range(E)]
+    orders = [[o] for o in flat_orders]
 
-        # -- the main path: dp_fit, then the sharded catalog ----------------
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        cuda_sgd.reset_launches()
-        cuda_scores.reset_launches()
-        fits, pack_seconds = {}, []
-        pack_ratings = sgd.pack_ratings
+    # -- the main path: dp_fit, then the sharded catalog ----------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_sgd.reset_launches()
+    cuda_scores.reset_launches()
+    fits, pack_seconds = {}, []
+    pack_ratings = sgd.pack_ratings
 
-        def timed_pack(*a, **k):  # the fit's own pack, timed where it runs
-            t = time.perf_counter()
-            out_ = pack_ratings(*a, **k)
-            torch.cuda.synchronize()
-            pack_seconds.append(time.perf_counter() - t)
-            return out_
+    def timed_pack(*a, **k):  # the fit's own pack, timed where it runs
+        t = time.perf_counter()
+        out_ = pack_ratings(*a, **k)
+        torch.cuda.synchronize()
+        pack_seconds.append(time.perf_counter() - t)
+        return out_
 
-        for order in ("shuffle", "user"):
+    for order in ("shuffle", "user"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sgd.pack_ratings = timed_pack
+        try:
+            local, hist = pdist.dp_fit(u, i, r, N_USERS, N_ITEMS, cfg, E,
+                                       cfg.lr, mesh, seed=seed,
+                                       layout="tiled", pack_order=order,
+                                       params=p0, orders=orders,
+                                       device="cuda")
+        finally:
+            sgd.pack_ratings = pack_ratings
+        torch.cuda.synchronize()
+        fits[order] = (local, hist, time.perf_counter() - t0,
+                       pack_seconds[-1])
+    served = fits["shuffle"][0]
+    cat = ShardedCatalog(served, N_ITEMS, cfg, mesh)
+    ud = rng.choice(N_USERS, PAR["serve_users"], replace=False).astype(np.int32)
+    vals, idx = cat.topk(served.user_features[torch.from_numpy(ud).cuda()],
+                         PAR["k"])
+    launches = {"sgd_step": cuda_sgd.step_launches,
+                "sgd_step_acc": cuda_sgd.acc_launches,
+                "segment_apply": cuda_sgd.apply_launches,
+                "score_catalog": cuda_scores.launches}
+    out["launches"] = launches
+    out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    check(all(v > 0 for v in launches.values()),
+          f"the parallel path missed a kernel: {launches}")
+    wv, wi = scoring.catalog_topk(cfg, served, N_ITEMS, ud, PAR["k"])
+    check(np.array_equal(idx, wi), "the sharded catalog's top-10 ids differ "
+                                   "from recommend_batch's")
+    out["serve_max_abs_err"] = float(np.abs(vals - wv).max())
+    check(out["serve_max_abs_err"] <= 1e-5, "sharded catalog scores differ")
+
+    # -- the synchronous fits against sgd_train on the same pack --------
+    packs = {}
+    for order in ("shuffle", "user"):
+        local, hist, fit_s, pack_s = fits[order]
+        pack = sgd.pack_ratings(u, i, r, bs, shuffle_seed=seed, order=order,
+                                device="cuda")
+        ref, href = sgd.sgd_train(p0, pack, None, cfg, E, cfg.lr,
+                                  batch_orders=flat_orders)
+        href = href.cpu().numpy()
+        rel = float(np.max(np.abs(hist - href) / href))
+        h_dp = heldout_rmse(torch, local, cfg, hu, hi, held_r)
+        h_ref = heldout_rmse(torch, ref, cfg, hu, hi, held_r)
+        check(rel <= 1e-5, f"dp_fit {order}: RMSE history off by {rel}")
+        check(abs(h_dp - h_ref) <= 1e-3, f"dp_fit {order}: held-out RMSE "
+                                         f"{h_dp} against {h_ref}")
+        check(hist[-1] < hist[0], f"dp_fit {order}: RMSE not falling {hist}")
+        one, _ = pdist.dp_sgd_train_tiled(pdist.place_params(p0, mesh), pack,
+                                          cfg, 1, cfg.lr, mesh,
+                                          orders=orders[:1])
+        ref1, _ = sgd.sgd_train(p0, pack, None, cfg, 1, cfg.lr,
+                                batch_orders=flat_orders[:1])
+        err1 = table_err(one, ref1)
+        check(err1 <= 2e-5, f"dp {order}: one epoch off by {err1}")
+        out[f"sync_{order}"] = {
+            "primary": pack.primary, "fit_seconds": fit_s,
+            "pack_seconds": pack_s, "pack_share": pack_s / fit_s,
+            "train_rmse": hist.tolist(), "single_device_rmse": href.tolist(),
+            "rmse_max_rel_err": rel, "heldout_rmse": h_dp,
+            "single_device_heldout_rmse": h_ref,
+            "one_epoch_max_abs_err": err1}
+        packs[order] = pack
+        del ref, one, ref1
+    del fits
+    pack = packs["shuffle"]
+
+    # -- updates/s: the dp trainer and sgd_train, one-epoch windows
+    # without the RMSE pass (as the train phase times them) ------------
+    fast = dataclasses.replace(cfg, compute_epoch_rmse=False)
+    for tag, run in (
+            ("dp", lambda: pdist.dp_sgd_train_tiled(
+                pdist.place_params(p0, mesh), pack, fast, 1, cfg.lr, mesh,
+                orders=orders[:1])),
+            ("single_device", lambda: sgd.sgd_train(
+                p0, pack, None, fast, 1, cfg.lr,
+                batch_orders=flat_orders[:1]))):
+        run()
+        windows = []
+        for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            sgd.pack_ratings = timed_pack
-            try:
-                local, hist = pdist.dp_fit(u, i, r, N_USERS, N_ITEMS, cfg, E,
-                                           cfg.lr, mesh, seed=seed,
-                                           layout="tiled", pack_order=order,
-                                           params=p0, orders=orders,
-                                           device="cuda")
-            finally:
-                sgd.pack_ratings = pack_ratings
-            torch.cuda.synchronize()
-            fits[order] = (local, hist, time.perf_counter() - t0,
-                           pack_seconds[-1])
-        served = fits["shuffle"][0]
-        cat = ShardedCatalog(served, N_ITEMS, cfg, mesh)
-        ud = rng.choice(N_USERS, PAR["serve_users"], replace=False).astype(np.int32)
-        vals, idx = cat.topk(served.user_features[torch.from_numpy(ud).cuda()],
-                             PAR["k"])
-        launches = {"sgd_step": cuda_sgd.step_launches,
-                    "sgd_step_acc": cuda_sgd.acc_launches,
-                    "segment_apply": cuda_sgd.apply_launches,
-                    "score_catalog": cuda_scores.launches}
-        out["launches"] = launches
-        out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
-        check(all(v > 0 for v in launches.values()),
-              f"the parallel path missed a kernel: {launches}")
-        wv, wi = scoring.catalog_topk(cfg, served, N_ITEMS, ud, PAR["k"])
-        check(np.array_equal(idx, wi), "the sharded catalog's top-10 ids differ "
-                                       "from recommend_batch's")
-        out["serve_max_abs_err"] = float(np.abs(vals - wv).max())
-        check(out["serve_max_abs_err"] <= 1e-5, "sharded catalog scores differ")
-
-        # -- the synchronous fits against sgd_train on the same pack --------
-        packs = {}
-        for order in ("shuffle", "user"):
-            local, hist, fit_s, pack_s = fits[order]
-            pack = sgd.pack_ratings(u, i, r, bs, shuffle_seed=seed, order=order,
-                                    device="cuda")
-            ref, href = sgd.sgd_train(p0, pack, None, cfg, E, cfg.lr,
-                                      batch_orders=flat_orders)
-            href = href.cpu().numpy()
-            rel = float(np.max(np.abs(hist - href) / href))
-            h_dp = heldout_rmse(torch, local, cfg, hu, hi, held_r)
-            h_ref = heldout_rmse(torch, ref, cfg, hu, hi, held_r)
-            check(rel <= 1e-5, f"dp_fit {order}: RMSE history off by {rel}")
-            check(abs(h_dp - h_ref) <= 1e-3, f"dp_fit {order}: held-out RMSE "
-                                             f"{h_dp} against {h_ref}")
-            check(hist[-1] < hist[0], f"dp_fit {order}: RMSE not falling {hist}")
-            one, _ = pdist.dp_sgd_train_tiled(pdist.place_params(p0, mesh), pack,
-                                              cfg, 1, cfg.lr, mesh,
-                                              orders=orders[:1])
-            ref1, _ = sgd.sgd_train(p0, pack, None, cfg, 1, cfg.lr,
-                                    batch_orders=flat_orders[:1])
-            err1 = table_err(one, ref1)
-            check(err1 <= 2e-5, f"dp {order}: one epoch off by {err1}")
-            out[f"sync_{order}"] = {
-                "primary": pack.primary, "fit_seconds": fit_s,
-                "pack_seconds": pack_s, "pack_share": pack_s / fit_s,
-                "train_rmse": hist.tolist(), "single_device_rmse": href.tolist(),
-                "rmse_max_rel_err": rel, "heldout_rmse": h_dp,
-                "single_device_heldout_rmse": h_ref,
-                "one_epoch_max_abs_err": err1}
-            packs[order] = pack
-            del ref, one, ref1
-        del fits
-        pack = packs["shuffle"]
-
-        # -- updates/s: the dp trainer and sgd_train, one-epoch windows
-        # without the RMSE pass (as the train phase times them) ------------
-        fast = dataclasses.replace(cfg, compute_epoch_rmse=False)
-        for tag, run in (
-                ("dp", lambda: pdist.dp_sgd_train_tiled(
-                    pdist.place_params(p0, mesh), pack, fast, 1, cfg.lr, mesh,
-                    orders=orders[:1])),
-                ("single_device", lambda: sgd.sgd_train(
-                    p0, pack, None, fast, 1, cfg.lr,
-                    batch_orders=flat_orders[:1]))):
             run()
-            windows = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                windows.append(time.perf_counter() - t0)
-            out[f"{tag}_epoch_seconds"] = windows
-            out[f"{tag}_updates_per_sec"] = pack.n_real / statistics.median(windows)
+            torch.cuda.synchronize()
+            windows.append(time.perf_counter() - t0)
+        out[f"{tag}_epoch_seconds"] = windows
+        out[f"{tag}_updates_per_sec"] = pack.n_real / statistics.median(windows)
 
-        # -- the windowed and overlapped schedules ---------------------------
-        for tag, kw in (("auto", {"psum_every": "auto"}),
-                        ("overlap", {"overlap_psum": True})):
-            p3, h3 = pdist.dp_sgd_train_tiled(pdist.place_params(p0, mesh), pack,
-                                              cfg, E, cfg.lr, mesh,
-                                              orders=orders, **kw)
-            h3 = h3.cpu().numpy()
-            check(h3[-1] < h3[0], f"{tag}: train RMSE not falling {h3}")
-            k1, _ = pdist.dp_sgd_train_tiled(pdist.place_params(p0, mesh), pack,
-                                             cfg, 1, cfg.lr, mesh,
-                                             orders=orders[:1], **kw)
-            pl1, _ = plain_scatters(lambda kw=kw: pdist.dp_sgd_train_tiled(
-                pdist.place_params(p0, mesh), pack, cfg, 1, cfg.lr, mesh,
-                orders=orders[:1], **kw))
-            err = table_err(k1, pl1)
-            check(err <= 2e-5, f"{tag}: one epoch against plain off by {err}")
-            out[tag] = {"train_rmse": h3.tolist(),
-                        "heldout_rmse": heldout_rmse(torch, p3, cfg, hu, hi,
-                                                     held_r),
-                        "epoch_vs_plain_max_abs_err": err,
-                        "window": pdist._check_psum_every(kw.get("psum_every", 1),
-                                                          pack.n_batches)}
-            del p3, k1, pl1
-            torch.cuda.empty_cache()
+    # -- the windowed and overlapped schedules ---------------------------
+    for tag, kw in (("auto", {"psum_every": "auto"}),
+                    ("overlap", {"overlap_psum": True})):
+        p3, h3 = pdist.dp_sgd_train_tiled(pdist.place_params(p0, mesh), pack,
+                                          cfg, E, cfg.lr, mesh,
+                                          orders=orders, **kw)
+        h3 = h3.cpu().numpy()
+        check(h3[-1] < h3[0], f"{tag}: train RMSE not falling {h3}")
+        k1, _ = pdist.dp_sgd_train_tiled(pdist.place_params(p0, mesh), pack,
+                                         cfg, 1, cfg.lr, mesh,
+                                         orders=orders[:1], **kw)
+        pl1, _ = plain_scatters(lambda kw=kw: pdist.dp_sgd_train_tiled(
+            pdist.place_params(p0, mesh), pack, cfg, 1, cfg.lr, mesh,
+            orders=orders[:1], **kw))
+        err = table_err(k1, pl1)
+        check(err <= 2e-5, f"{tag}: one epoch against plain off by {err}")
+        out[tag] = {"train_rmse": h3.tolist(),
+                    "heldout_rmse": heldout_rmse(torch, p3, cfg, hu, hi,
+                                                 held_r),
+                    "epoch_vs_plain_max_abs_err": err,
+                    "window": pdist._check_psum_every(kw.get("psum_every", 1),
+                                                      pack.n_batches)}
+        del p3, k1, pl1
+        torch.cuda.empty_cache()
 
-        # -- where a dp epoch's device time goes: the all-reduce -------------
-        out["epoch_profile"] = _device_share(
-            torch, lambda _: pdist.dp_sgd_train_tiled(
-                pdist.place_params(p0, mesh), pack, fast, 1, cfg.lr, mesh,
-                orders=orders[:1]), [0], match="nccl")
-    finally:
-        dist.destroy_process_group()
+    # -- where a dp epoch's device time goes: the all-reduce -------------
+    out["epoch_profile"] = _device_share(
+        torch, lambda _: pdist.dp_sgd_train_tiled(
+            pdist.place_params(p0, mesh), pack, fast, 1, cfg.lr, mesh,
+            orders=orders[:1]), [0], match="nccl")
     return out, packs
 
 
@@ -4259,19 +4345,80 @@ def gloo_inputs(train1m, seed):
             "users": users, "seed": seed}
 
 
+# the slice-6b models on the gloo ranks, config 2's shape: KernelMF ALS at
+# config 3's width (ALS's k, reg and reg_scale), the bias models with BASE's
+# arguments and NMF with FAM's, each for GLOO_6B_EPOCHS
+GLOO_6B_EPOCHS = 3
+
+
+def gloo_6b_models():
+    """(name, class name, keyword arguments) of the slice-6b models that
+    every gloo world fits on the mesh and the phase fits on one device."""
+    als_kw = dict(method="als", kernel="linear", n_factors=ALS["n_factors"],
+                  reg=ALS["reg"], reg_scale=ALS["reg_scale"], min_rating=0.5,
+                  max_rating=5.0, n_epochs=GLOO_6B_EPOCHS)
+    base = {m: dict(min_rating=0.5, max_rating=5.0,
+                    **{**kw, "n_epochs": GLOO_6B_EPOCHS})
+            for m, kw in BASE.items()}
+    nmf_kw = dict(n_factors=FAM["n_factors"], batch_size=FAM["batch_size"],
+                  n_epochs=GLOO_6B_EPOCHS, **FAM_KW["NMF"])
+    return (("als", "KernelMF", als_kw), ("bias_als", "BaselineModel", base["als"]),
+            ("bias_sgd", "BaselineModel", base["sgd"]), ("nmf", "NMF", nmf_kw))
+
+
+def gloo_6b_rank(world, inp, X, y):
+    """The slice-6b models on this rank, on ``make_mesh(world)``: each fitted
+    twice from one seed (KernelMF ALS the second time with
+    ``keep_sharded``), ``predict`` of the first 4,096 pairs, and for
+    KernelMF ``recommend`` and ``recommend_batch`` (256 users) of both
+    fits. Returns host arrays per model."""
+    import numpy as np
+    import torch
+
+    import matrix_factorization_tpu_torch as port
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(world)
+    users = list(inp["users"])
+    res = {}
+    for name, cls, kw in gloo_6b_models():
+        kw = dict(kw, seed=inp["seed"], mesh=mesh)
+        first = getattr(port, cls)(**kw).fit(X, y)
+        again = getattr(port, cls)(**kw, **(
+            {"keep_sharded": True} if name == "als" else {})).fit(X, y)
+        p = first._params
+        tables = [t.cpu().numpy() for t in p]
+        out = {"tables": tables, "train_rmse": first.train_rmse,
+               "same_bits": all(torch.equal(a, b)
+                                for a, b in zip(p, again._params)),
+               "predict": np.asarray(first.predict(X.iloc[:4096]))}
+        if name == "als":
+            out.update(
+                one=first.recommend(users[0], amount=PAR["k"]),
+                batch=first.recommend_batch(users, amount=PAR["k"],
+                                            bound_ratings=False),
+                kept_batch=again.recommend_batch(users, amount=PAR["k"],
+                                                 bound_ratings=False),
+                kept=(again._sharding, again._topk_catalog is not None))
+        res[name] = out
+    return res
+
+
 def parallel_gloo_rank(rank, world, inp):
     """One gloo rank on cuda:0. World 2 (a 2 x 1 mesh): one one-batch epoch
     of ``dp_sgd_train`` from the given tables, then ``KernelMF(mesh=)``
     flat and tiled, each fitted twice. World 4 (2 x 2): ``KernelMF`` with
     ``keep_sharded=True`` (``dp_tp_fit``), ``recommend_batch`` through the
     sharded catalog beside the single-device top-k of the gathered tables.
-    Returns host arrays and the rank's kernel launches."""
+    Both worlds then fit the slice-6b models (``gloo_6b_rank``). Returns
+    host arrays and the rank's kernel launches."""
     import numpy as np
     import pandas as pd
     import torch
 
     from matrix_factorization_tpu_torch import KernelMF, params_from_numpy
-    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, scoring
+    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, cuda_spd, scoring
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
     from matrix_factorization_tpu_torch.parallel import distributed as pdist
     from matrix_factorization_tpu_torch.parallel.mesh import device_index, make_mesh
@@ -4284,8 +4431,8 @@ def parallel_gloo_rank(rank, world, inp):
               gamma=1.0 / N_FACTORS, min_rating=0.5, max_rating=5.0,
               batch_size=PAR["gloo_bs"], n_epochs=PAR["gloo_epochs"],
               seed=inp["seed"])
-    cuda_sgd.reset_launches()
-    cuda_scores.reset_launches()
+    for counter in (cuda_sgd, cuda_scores, cuda_spd, ss):
+        counter.reset_launches()
     out = {"rank": rank}
     t0 = time.perf_counter()
     if world == 2:
@@ -4333,10 +4480,16 @@ def parallel_gloo_rank(rank, world, inp):
             "Q": whole.item_features.cpu().numpy()}
     torch.cuda.synchronize()
     out["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["6b"] = gloo_6b_rank(world, inp, X, y)
+    torch.cuda.synchronize()
+    out["6b_seconds"] = time.perf_counter() - t0
     out["launches"] = {"sgd_step": cuda_sgd.step_launches,
                        "sgd_step_acc": cuda_sgd.acc_launches,
                        "segment_apply": cuda_sgd.apply_launches,
-                       "score_catalog": cuda_scores.launches}
+                       "score_catalog": cuda_scores.launches,
+                       "spd_gj": cuda_spd.launches,
+                       "segment_sum": ss.launches}
     return out
 
 
@@ -4403,12 +4556,100 @@ def phase_parallel_gloo(torch, train1m, seed):
     check(serve_err <= 1e-5, f"gloo 2D: sharded scores off by {serve_err}")
     out["two_d"] = {"train_rmse": t["train_rmse"], "serve_max_abs_err": serve_err,
                     "held_rows": t["held_rows"]}
+    out["6b"] = check_gloo_6b(torch, inp, worlds)
     out["rank_seconds"] = {w: [rk["seconds"] for rk in worlds[w]] for w in worlds}
+    out["rank_6b_seconds"] = {w: [rk["6b_seconds"] for rk in worlds[w]]
+                              for w in worlds}
     out["launches"] = {k: sum(rk["launches"][k] for w in worlds.values()
                               for rk in w)
                        for k in w2[0]["launches"]}
     check(all(v > 0 for v in out["launches"].values()),
           f"the gloo ranks missed a kernel: {out['launches']}")
+    return out
+
+
+def check_gloo_6b(torch, inp, worlds):
+    """The slice-6b models of every gloo world against the same models fit
+    on one device here: every rank's tables bit-equal to rank 0's, two fits
+    of one seed bit-equal; KernelMF ALS within 1e-4 of the single-device
+    fit (tables and RMSE history; JAX ``tests/test_ials.py:179-183``), its
+    ``keep_sharded`` lists those of the whole tables; bias ALS within 1e-5;
+    bias SGD within 1e-5 of a float64 replay of the mesh fit's own pack
+    and batch orders (``bias_sgd_mesh_f64``; the single-device fit visits
+    other orders, so its RMSE and the global mean's are only recorded
+    beside it); NMF at JAX's bars (``tests/test_nmf.py:181-186``: history
+    rtol 2e-4 / atol 2e-5, tables rtol 2e-3 / atol 2e-4, predictions
+    1e-3)."""
+    import numpy as np
+    import pandas as pd
+
+    import matrix_factorization_tpu_torch as port
+
+    u, i, r = inp["train"]
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    y = pd.Series(r)
+    rmse_mean = float(np.sqrt(np.mean((r.astype(np.float64) - r.mean()) ** 2)))
+    single, replay = {}, {}
+    for name, cls, kw in gloo_6b_models():
+        m = getattr(port, cls)(seed=inp["seed"], **kw).fit(X, y)
+        single[name] = ([t.cpu().numpy() for t in m._params], m.train_rmse,
+                        np.asarray(m.predict(X.iloc[:4096])))
+        if name == "bias_sgd":
+            replay = {w: bias_sgd_mesh_f64(m, X, y, kw, inp["seed"], w)
+                      for w in worlds}
+        del m
+    torch.cuda.empty_cache()
+    out = {}
+    for world, ranks in worlds.items():
+        res = {}
+        for name in single:
+            got = ranks[0]["6b"][name]
+            check(all(np.array_equal(a, b) for rk in ranks
+                      for a, b in zip(rk["6b"][name]["tables"], got["tables"])),
+                  f"gloo {world} {name}: the replicas differ across ranks")
+            check(all(rk["6b"][name]["same_bits"] for rk in ranks),
+                  f"gloo {world} {name}: two fits of one seed differ")
+            tables, hist, pred = single[name]
+            rows = [min(a.shape[0], b.shape[0])
+                    for a, b in zip(got["tables"][:2], tables[:2])]
+            err = max(float(np.abs(a[:n] - b[:n]).max()) for a, b, n in
+                      zip(got["tables"][:2], tables[:2], rows))
+            herr = float(np.abs(np.asarray(got["train_rmse"])
+                                - np.asarray(hist)).max())
+            res[name] = {"max_abs_err_single_device": err,
+                         "rmse_max_abs_err_single_device": herr,
+                         "train_rmse": got["train_rmse"]}
+            if name == "als":
+                check(err <= 1e-4 and herr <= 1e-4,
+                      f"gloo {world} mesh ALS off the single-device fit by "
+                      f"{err} (history {herr})")
+                b, kb = got["batch"], got["kept_batch"]
+                check(got["kept"] == (None, True)
+                      and b["item_id"].tolist() == kb["item_id"].tolist()
+                      and np.allclose(b["rating_pred"], kb["rating_pred"],
+                                      atol=1e-5, rtol=0)
+                      and len(got["one"]) == PAR["k"],
+                      f"gloo {world} mesh ALS: keep_sharded serves otherwise")
+            elif name == "bias_als":
+                check(err <= 1e-5, f"gloo {world} bias ALS off by {err}")
+            elif name == "bias_sgd":
+                fbu, fbi = replay[world]
+                ferr = max(float(np.abs(got["tables"][0][:len(fbu)] - fbu).max()),
+                           float(np.abs(got["tables"][1][:len(fbi)] - fbi).max()))
+                res[name].update(max_abs_err_float64=ferr,
+                                 single_device_rmse=hist,
+                                 global_mean_rmse=rmse_mean)
+                check(ferr <= 1e-5, f"gloo {world} bias SGD off the float64 "
+                                    f"replay of its orders by {ferr}")
+            else:
+                ok = (np.allclose(got["train_rmse"], hist, rtol=2e-4, atol=2e-5)
+                      and all(np.allclose(a[:n], b[:n], rtol=2e-3, atol=2e-4)
+                              for a, b, n in zip(got["tables"][:2], tables[:2],
+                                                 rows))
+                      and np.allclose(got["predict"], pred, rtol=1e-3,
+                                      atol=1e-3))
+                check(ok, f"gloo {world} NMF off the single-device fit by {err}")
+        out[f"world{world}"] = res
     return out
 
 
@@ -4539,6 +4780,244 @@ def phase_parallel_kernels(torch, rng, packs, train1m, timer):
         del p, args, S, acc_k, acc_p, dq_k, dq_p, zk, zp, zm, before
         torch.cuda.empty_cache()
     return rows, worst
+
+
+
+# phase parallel_als: the slice-6b trainers at world size 1 on NCCL. Factor
+# ALS as ALS (k=200, 3 sweeps) and NMF as FAM (k=64, bs 1,048,576, 3 epochs)
+# on config 3; bias ALS with the pipeline's reg and epochs on config 3; bias
+# SGD with BASE['sgd'] on config 2, 3 epochs
+PAR_ALS = {"bias_bs": 1024, "sgd_epochs": 3, "nmf_epochs": 3,
+           "nmf_reg": FAM_KW["NMF"]["reg"]}
+
+
+class HostTimed:
+    """A stand-in for ``torch.distributed.all_reduce`` that counts the calls
+    and the host seconds spent inside them."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.seconds = fn, 0, 0.0
+
+    def __call__(self, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*a, **k)
+        finally:
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+
+
+def phase_parallel_als(torch, rng, data3, train1m, seed):
+    """(d) The slice-6b trainers at NCCL world size 1 in this process
+    (inside ``nccl_world``). References first (each trainer's single-device
+    counterpart on the same inputs: ``ials_train_bucketed``, ``als_train``,
+    ``nmf_train``; the GJ count of the first read), then the main path with
+    the GJ, segment-sum and scorer counts zeroed just before and read just
+    after: ``dp_ials_train_bucketed`` at config 3 (k=200, reg 0.1 per
+    observation, 3 sweeps, config 3's count buckets and seeded tables),
+    ``dp_als_train`` on config 3 (the pipeline's reg 0.005, 5 epochs),
+    ``dp_bias_sgd_train`` on config 2 (lr 0.02, reg 0.02, bs 4,096, 3
+    epochs, seeded batch orders; ``all_reduce`` wrapped to count its calls
+    and host seconds), ``dp_nmf_train`` (k=64, bs 1,048,576, 3 epochs on
+    config 3), and ``ShardedCatalog`` serving 256 users' top-10 of the dp
+    ALS tables. Checks: the dp ALS tables and history bit-equal to
+    ``ials_train_bucketed`` (else within 1e-6, the flag recorded) with as
+    many GJ launches; bias ALS within 1e-5 of ``als_train`` and of the
+    float64 ``bias_als_f64``; bias SGD within 1e-5 of a float64 replay of
+    the same batch orders; NMF within rtol 1e-5 of ``nmf_train`` (bit
+    equality recorded); the sharded top-10 ids equal to ``catalog_topk``'s,
+    scores 1e-5. Then the fit and median sweep seconds (3 one-sweep runs)
+    and one profiled sweep (the all-gather's device time)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from matrix_factorization_tpu_torch.core.config import SGDConfig
+    from matrix_factorization_tpu_torch.ops import als, cuda_scores, cuda_spd, ials, nmf
+    from matrix_factorization_tpu_torch.ops import scoring
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
+    from matrix_factorization_tpu_torch.parallel import distributed as pdist
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+    from matrix_factorization_tpu_torch.parallel.serving import ShardedCatalog
+
+    def sync_time(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    u, i, r = data3[:3]
+    mesh = make_mesh(1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"phase": "parallel_als", "backend": "nccl", "world_size": 1,
+           "n_ratings": len(r), "als": ALS, "bias_als": PIPE_BASELINE_KW,
+           "bias_sgd": {**BASE["sgd"], "n_epochs": PAR_ALS["sgd_epochs"]},
+           "nmf": {**FAM, "epochs": PAR_ALS["nmf_epochs"],
+                   "reg": PAR_ALS["nmf_reg"]}}
+
+    # -- inputs ------------------------------------------------------------
+    t0 = time.perf_counter()
+    bu, bi = ials.group_both_sides_bucketed(u, i, r, N_USERS, N_ITEMS)
+    out["als_pack_seconds"] = sync_time(t0)
+    cfg = SGDConfig(kernel="linear", n_factors=ALS["n_factors"], reg=ALS["reg"],
+                    min_rating=0.5, max_rating=5.0,
+                    batch_size=CONFIG3["sigmoid"]["batch_size"])
+    fast = dataclasses.replace(cfg, compute_epoch_rmse=False)
+    rmse_pack = sgd.pack_ratings(u, i, r, cfg.batch_size, aggregate=False,
+                                 device="cuda")
+    p0 = sgd.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                         N_USERS, N_ITEMS, cfg, float(r.mean()))
+    base_kw = PIPE_BASELINE_KW
+    cols3 = als.shard_bias_data(
+        sgd.pack_ratings(u, i, r, PAR_ALS["bias_bs"], aggregate=False,
+                         device="cpu"), mesh, "cuda")
+    b3 = als.init_bias_params(N_USERS, N_ITEMS, float(r.mean()), device="cuda")
+    u2, i2, r2 = train1m
+    n2u, n2i = ML1M["n_users"], ML1M["n_items"]
+    skw = out["bias_sgd"]
+    pack2 = sgd.pack_ratings(u2, i2, r2, skw["batch_size"], aggregate=False,
+                             device="cpu")
+    cols2 = als.shard_bias_data(pack2, mesh, "cuda")
+    b2 = als.init_bias_params(n2u, n2i, float(r2.mean()), device="cuda")
+    orders = [rng.permutation(pack2.n_batches) for _ in range(skw["n_epochs"])]
+    ncfg = SGDConfig(kernel="linear", n_factors=FAM["n_factors"],
+                     reg=PAR_ALS["nmf_reg"], min_rating=0.5, max_rating=5.0,
+                     batch_size=FAM["batch_size"])
+    t0 = time.perf_counter()
+    npack = sgd.pack_ratings(u, i, r, FAM["batch_size"], order="auto",
+                             device="cuda")
+    out["nmf_pack_seconds"] = sync_time(t0)
+    q0 = nmf.init_nmf_params(torch.Generator(device="cuda").manual_seed(seed),
+                             N_USERS, N_ITEMS, ncfg)
+    cnt_u = torch.from_numpy(np.bincount(u, minlength=q0.user_features.shape[0])
+                             .astype(np.float32)).cuda()
+    cnt_i = torch.from_numpy(np.bincount(i, minlength=q0.item_features.shape[0])
+                             .astype(np.float32)).cuda()
+
+    # -- the single-device references -------------------------------------
+    cuda_spd.reset_launches()
+    t0 = time.perf_counter()
+    ref, href = ials.ials_train_bucketed(p0, bu, bi, rmse_pack, cfg,
+                                         ALS["sweeps"], reg_scale=ALS["reg_scale"])
+    out["single_device_fit_seconds"] = sync_time(t0)
+    single_gj = cuda_spd.launches
+    bref, _ = als.als_train(b3, cols3, base_kw["reg"], base_kw["n_epochs"])
+    qref, qhref = nmf.nmf_train(q0, npack, cnt_u, cnt_i, ncfg,
+                                PAR_ALS["nmf_epochs"], PAR_ALS["nmf_reg"],
+                                PAR_ALS["nmf_reg"])
+
+    # -- the main path, counts zeroed just before --------------------------
+    torch.cuda.synchronize()
+    cuda_spd.reset_launches()
+    ss.reset_launches()
+    cuda_scores.reset_launches()
+    t0 = time.perf_counter()
+    got, hist = ials.dp_ials_train_bucketed(p0, bu, bi, rmse_pack, cfg,
+                                            ALS["sweeps"], mesh,
+                                            reg_scale=ALS["reg_scale"])
+    out["fit_seconds"] = sync_time(t0)
+    dp_gj = cuda_spd.launches
+    t0 = time.perf_counter()
+    bdp, bhist = als.dp_als_train(b3, cols3, base_kw["reg"], base_kw["n_epochs"],
+                                  mesh)
+    out["bias_als_seconds"] = sync_time(t0)
+    timed = HostTimed(dist.all_reduce)
+    dist.all_reduce = timed
+    try:
+        t0 = time.perf_counter()
+        sdp, shist = als.dp_bias_sgd_train(b2, cols2, orders, skw["lr"],
+                                           skw["reg"], mesh)
+        sgd_s = sync_time(t0)
+    finally:
+        dist.all_reduce = timed.fn
+    t0 = time.perf_counter()
+    qdp, qhist = nmf.dp_nmf_train(pdist.place_params(q0, mesh), npack, cnt_u,
+                                  cnt_i, ncfg, PAR_ALS["nmf_epochs"],
+                                  PAR_ALS["nmf_reg"], PAR_ALS["nmf_reg"], mesh)
+    out["nmf_seconds"] = sync_time(t0)
+    ud = rng.choice(N_USERS, PAR["serve_users"], replace=False).astype(np.int32)
+    cat = ShardedCatalog(got, N_ITEMS, cfg, mesh)
+    vals, idx = cat.topk(got.user_features[torch.from_numpy(ud).cuda()], PAR["k"])
+    launches = {"spd_gj": dp_gj, "segment_sum": ss.launches,
+                "score_catalog": cuda_scores.launches}
+    out["launches"] = launches
+    check(all(v > 0 for v in launches.values()),
+          f"the parallel ALS path missed a kernel: {launches}")
+
+    # -- the checks ----------------------------------------------------------
+    hist, href = hist.cpu().numpy(), href.cpu().numpy()
+    bit = (torch.equal(got.user_features, ref.user_features)
+           and torch.equal(got.item_features, ref.item_features)
+           and np.array_equal(hist, href))
+    err = max(table_err(got, ref), float(np.abs(hist - href).max()))
+    out.update({"train_rmse": hist.tolist(), "bit_equal_single_device": bit,
+                "max_abs_err_single_device": err, "gj_launches_single": single_gj})
+    check(bit or err <= 1e-6, f"dp ALS off ials_train_bucketed by {err}")
+    check(dp_gj == single_gj, f"dp ALS launched the GJ leaf {dp_gj} times, "
+                              f"single device {single_gj}")
+    check(hist[-1] < hist[0], f"dp ALS RMSE not falling {hist}")
+    wv, wi = scoring.catalog_topk(cfg, got, N_ITEMS, ud, PAR["k"])
+    check(np.array_equal(idx, wi), "parallel ALS: the sharded top-10 ids differ")
+    out["serve_max_abs_err"] = float(np.abs(vals - wv).max())
+    check(out["serve_max_abs_err"] <= 1e-5, "parallel ALS: sharded scores differ")
+
+    fbu, fbi = bias_als_f64(u, i, r, N_USERS, N_ITEMS, base_kw["reg"],
+                            base_kw["n_epochs"])
+    errs = {"single_device": max(float((bdp.user_biases - bref.user_biases).abs().max()),
+                                 float((bdp.item_biases - bref.item_biases).abs().max())),
+            "float64": max(float(np.abs(bdp.user_biases.cpu().numpy() - fbu).max()),
+                           float(np.abs(bdp.item_biases.cpu().numpy() - fbi).max()))}
+    out["bias_als_max_abs_err"] = errs
+    out["bias_als_rmse"] = bhist.cpu().tolist()
+    check(max(errs.values()) <= 1e-5, f"dp bias ALS off by {errs}")
+
+    stream = (pack2.user_ids.reshape(-1).long().numpy(),
+              pack2.item_ids.reshape(-1).long().numpy(),
+              pack2.ratings.reshape(-1).double().numpy(),
+              pack2.weights.reshape(-1).double().numpy())
+    index = np.arange(stream[0].size).reshape(pack2.n_batches, -1)
+    fbu, fbi = bias_sgd_f64(stream, [index[o] for o in orders], float(b2.global_mean),
+                            skw["lr"], skw["reg"], n2u, n2i)
+    sgd_err = max(float(np.abs(sdp.user_biases.cpu().numpy() - fbu).max()),
+                  float(np.abs(sdp.item_biases.cpu().numpy() - fbi).max()))
+    steps = pack2.n_batches * skw["n_epochs"]
+    out["bias_sgd_result"] = {
+        "seconds": sgd_s, "steps": steps, "seconds_per_step": sgd_s / steps,
+        "all_reduce_calls": timed.calls, "all_reduce_host_seconds": timed.seconds,
+        "all_reduce_host_share": timed.seconds / sgd_s,
+        "max_abs_err_float64": sgd_err, "train_rmse": shist.cpu().tolist()}
+    check(sgd_err <= 1e-5, f"dp bias SGD off its float64 replay by {sgd_err}")
+    check(timed.calls == 2 * steps + skw["n_epochs"],
+          f"dp bias SGD made {timed.calls} all-reduces for {steps} steps")
+
+    qbit = all(torch.equal(a, b) for a, b in (
+        (qdp.user_features, qref.user_features),
+        (qdp.item_features, qref.item_features), (qhist, qhref)))
+    qerr = max(table_err(qdp, qref), float((qhist - qhref).abs().max()))
+    out["nmf_result"] = {"bit_equal_single_device": qbit,
+                         "max_abs_err_single_device": qerr,
+                         "train_rmse": qhist.cpu().tolist()}
+    check(qbit or all(torch.allclose(a, b, rtol=1e-5, atol=0) for a, b in (
+        (qdp.user_features, qref.user_features),
+        (qdp.item_features, qref.item_features), (qhist, qhref))),
+        f"dp NMF off nmf_train by {qerr}")
+    del ref, qref, qdp, bref, npack, cols3
+    torch.cuda.empty_cache()
+
+    # -- sweep seconds and where a sweep's device time goes -----------------
+    def sweep(_=None):
+        return ials.dp_ials_train_bucketed(p0, bu, bi, None, fast, 1, mesh,
+                                           reg_scale=ALS["reg_scale"])[0]
+
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sweep()
+        secs.append(sync_time(t0))
+    out["sweep_seconds"] = secs
+    out["sweep_median_s"] = statistics.median(secs)
+    out["sweep_profile"] = _device_share(torch, sweep, [0], match="nccl")
+    out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    return out
 
 
 def main() -> int:
@@ -4783,22 +5262,30 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         pipeline = phase_pipeline(torch, rng, data3, tmpdir, args.seed)
     emit(pipeline)
-    # -- multi-device KernelMF on torch.distributed ----------------------------
+    # -- multi-device KernelMF, ALS, the bias models and NMF -------------------
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir, \
+            nccl_world(torch, tmpdir):
         par_nccl, par_packs = phase_parallel_nccl(
-            torch, rng, data3, r3[N_RATINGS:], args.seed, tmpdir)
-    par_nccl["seconds"] = time.perf_counter() - t0
-    emit(par_nccl)
-    par_rows, par_worst = phase_parallel_kernels(torch, rng, par_packs,
-                                                 train1m, timer)
-    del par_packs
+            torch, rng, data3, r3[N_RATINGS:], args.seed)
+        par_nccl["seconds"] = time.perf_counter() - t0
+        emit(par_nccl)
+        par_rows, par_worst = phase_parallel_kernels(torch, rng, par_packs,
+                                                     train1m, timer)
+        del par_packs
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        par_als = phase_parallel_als(torch, rng, data3, train1m, args.seed)
+        par_als["seconds"] = time.perf_counter() - t1
+        emit(par_als)
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
     par_gloo = phase_parallel_gloo(torch, train1m, args.seed)
-    par_gloo["seconds"] = time.perf_counter() - t0 - par_nccl["seconds"]
+    par_gloo["seconds"] = time.perf_counter() - t1
     emit(par_gloo)
     par_launches = {k: (par_nccl["launches"][k], par_gloo["launches"][k])
                     for k in ("sgd_step", "segment_apply", "score_catalog")}
+    par_launches["score_catalog"] += (par_als["launches"]["score_catalog"],)
     del data3
     pipe_launches = pipeline["launches"]
     for name in sgd_worst:
@@ -4810,6 +5297,10 @@ def main() -> int:
           f"a path of the slice missed the segment sum: {segsum_launches}")
     segsum_launches["nmf"] = fam["NMF"]["launches"]
     segsum_launches["pipeline"] = pipe_launches["segment_sum"]
+    segsum_launches["parallel_als"] = par_als["launches"]["segment_sum"]
+    segsum_launches["parallel_gloo"] = par_gloo["launches"]["segment_sum"]
+    spd_launches["parallel_als"] = par_als["launches"]["spd_gj"]
+    spd_launches["parallel_gloo"] = par_gloo["launches"]["spd_gj"]
 
     kernels = [{
         "name": "score_catalog", "route": "cuda",
@@ -4825,7 +5316,8 @@ def main() -> int:
                                 for k, f in fam.items()},
                              "pipeline": pipe_launches["score_catalog"],
                              "parallel": par_launches["score_catalog"][0],
-                             "parallel_gloo": par_launches["score_catalog"][1]},
+                             "parallel_gloo": par_launches["score_catalog"][1],
+                             "parallel_als": par_launches["score_catalog"][2]},
         "max_abs_err": worst,
         "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

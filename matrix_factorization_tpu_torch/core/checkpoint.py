@@ -47,13 +47,18 @@ FORMAT_VERSION = 1
 
 
 def save_model(model, path) -> None:
-    """Checkpoint a fitted model to a directory (atomic). A model that
-    keeps only a rank's shards (``KernelMF(keep_sharded=True)`` fit on a
-    mesh) is gathered first, a collective: every rank calls
-    ``save_model`` and rank 0 writes."""
+    """Checkpoint a fitted model to a directory (atomic). The mesh is
+    stripped (``strip_runtime_config``), so the checkpoint loads and
+    serves on one device. A model that keeps only a rank's shards
+    (``KernelMF(keep_sharded=True)`` fit on a mesh by SGD) is gathered
+    first, a collective: every rank calls ``save_model``. Under
+    ``torch.distributed`` a model with a mesh (``KernelMF``,
+    ``BaselineModel``, ``NMF``: every rank holds the same whole tables
+    after a mesh fit) is written by rank 0 alone, so that the ranks never
+    race for one directory."""
     params = model._whole_params() if hasattr(model, "_whole_params") \
         else getattr(model, "_params", None)
-    if getattr(model, "_sharding", None) is not None and _rank() not in (None, 0):
+    if getattr(model, "mesh", None) is not None and _rank() not in (None, 0):
         return
     path = Path(path)
     # the temp dir must live on the same filesystem as the target or the
@@ -263,8 +268,7 @@ def fit_resumable(
         model.fit(X, y, n_epochs=step, warm_start=start > 0)
         start += step
         model._epochs_done = start
-        if mesh is None or _rank() == 0 or getattr(model, "_sharding", None):
-            save_model(model, ckpt_dir)
+        save_model(model, ckpt_dir)  # rank 0 writes (see save_model)
         if mesh is not None and _rank() is not None:
             import torch.distributed as dist
 

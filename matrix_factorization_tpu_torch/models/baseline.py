@@ -1,11 +1,12 @@
 """Bias-only baseline model, r_ui ~= mu + b_u + b_i (PyTorch port).
 
-Counterpart of ``matrix_factorization_tpu/models/baseline.py``, single
-device: ``fit`` (with ``warm_start``) by exact ALS sweeps or mini-batch
-SGD (``ops/als.py``), ``update_users`` (SGD on the user biases, item side
-frozen), ``predict``, and ``recommend`` / ``recommend_batch`` as a device
-top-k over ``mu + b_u + b_i``. Every reduction by id is the deterministic
-segment-sum kernel (``ops/segment_sum.py``).
+Counterpart of ``matrix_factorization_tpu/models/baseline.py``: ``fit``
+(with ``warm_start``) by exact ALS sweeps or mini-batch SGD
+(``ops/als.py``), data-parallel on a ``mesh`` (``parallel/mesh.py``),
+``update_users`` (SGD on the user biases, item side frozen, on the rank's
+own device), ``predict``, and ``recommend`` / ``recommend_batch`` as a
+device top-k over ``mu + b_u + b_i``. Every reduction by id is the
+deterministic segment-sum kernel (``ops/segment_sum.py``).
 
 Reference: ``matrix_factorization/baseline_model.py`` (SGD ``:215-280``,
 ALS ``:283-362``, predict ``:365-417``, ``update_users`` ``:136-180``).
@@ -30,14 +31,22 @@ from matrix_factorization_tpu_torch.models.base import RecommenderBase, chunked_
 from matrix_factorization_tpu_torch.ops import als as als_ops
 from matrix_factorization_tpu_torch.ops import scoring
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+from matrix_factorization_tpu_torch.parallel.mesh import data_size_of
 
 
 class BaselineModel(RecommenderBase):
     """Explicit-rating bias model with ``method='sgd'`` or ``'als'``.
 
     Defaults match the reference constructor (``baseline_model.py:41-61``):
-    ``n_epochs=100, reg=1, lr=0.01``. ``mesh`` raises
-    ``NotImplementedError`` until the multi-device slice ports it."""
+    ``n_epochs=100, reg=1, lr=0.01``. With a ``mesh`` (a ``DeviceMesh``
+    from ``parallel.mesh.make_mesh``) every rank calls ``fit`` with the
+    same ratings and trains data-parallel on its columns of every
+    mini-batch (the batch size rounded up to a multiple of the data
+    ranks): ALS by ``ops.als.dp_als_train``, SGD by
+    ``dp_bias_sgd_train``, whose epochs visit the batches in one seeded
+    order on every rank (the single-device SGD permutes every element).
+    The biases end whole on every rank; ``update_users`` stays on the
+    rank's device, as the JAX package's does."""
 
     def __init__(
         self,
@@ -55,9 +64,6 @@ class BaselineModel(RecommenderBase):
     ):
         if method not in ("sgd", "als"):
             raise ValueError("Method param must be either 'sgd' or 'als'")
-        if mesh is not None:
-            raise NotImplementedError(
-                f"BaselineModel(mesh=) comes with {sgd.SLICE_6_ALS}")
         super().__init__(min_rating=min_rating, max_rating=max_rating, verbose=verbose)
         self._device = resolve_device(device)
         self.device = device
@@ -106,10 +112,13 @@ class BaselineModel(RecommenderBase):
                 self.global_mean, device=self._device)
             self.train_rmse = []
         n_epochs = n_epochs or self.n_epochs
-        data = sgd.pack_ratings(u, i, r, self.batch_size, device=self._device)
-        if self.method == "als":
+        if self.mesh is not None:
+            params, rmse_hist = self._fit_mesh(params, u, i, r, n_epochs)
+        elif self.method == "als":
+            data = sgd.pack_ratings(u, i, r, self.batch_size, device=self._device)
             params, rmse_hist = als_ops.als_train(params, data, self.reg, n_epochs)
         else:
+            data = sgd.pack_ratings(u, i, r, self.batch_size, device=self._device)
             gen = sgd.seeded_generator(self._device, self.seed,
                                        len(self.train_rmse))
             params, rmse_hist = als_ops.bias_sgd_train(
@@ -120,6 +129,26 @@ class BaselineModel(RecommenderBase):
             for e, v in enumerate(self.train_rmse):
                 print(f"Epoch {e + 1} train RMSE: {v:.4f}")
         return self
+
+    def _fit_mesh(self, params, u, i, r, n_epochs):
+        """The data-parallel fit of every rank (JAX ``baseline.py:111-131``):
+        the pack of the batch size rounded up to the data ranks, packed on
+        the host (``aggregate=False``) and cut to this rank's columns on its
+        device, then ``dp_als_train`` or ``dp_bias_sgd_train``. SGD's batch
+        orders come from a host generator seeded with (``seed``, epochs
+        done so far, epoch), the same on every rank."""
+        bs = sgd.round_up(self.batch_size, data_size_of(self.mesh))
+        data = als_ops.shard_bias_data(
+            sgd.pack_ratings(u, i, r, bs, aggregate=False, device="cpu"),
+            self.mesh, self._device)
+        if self.method == "als":
+            return als_ops.dp_als_train(params, data, self.reg, n_epochs,
+                                        self.mesh)
+        done = len(self.train_rmse)
+        orders = [torch.randperm(data.n_batches, generator=sgd.seeded_generator(
+            "cpu", self.seed, done, e)) for e in range(n_epochs)]
+        return als_ops.dp_bias_sgd_train(params, data, orders, self.lr,
+                                         self.reg, self.mesh)
 
     def _predict_arrays(self, u: np.ndarray, i: np.ndarray, bound_ratings: bool):
         self._require_fitted()

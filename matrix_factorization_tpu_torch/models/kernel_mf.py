@@ -7,13 +7,14 @@ Counterpart of ``matrix_factorization_tpu/models/kernel_mf.py``: ``fit``
 alternation, ``ops/ials.py``) or SGD after ``als_warm_start`` ALS sweeps.
 With a ``mesh`` (``parallel/mesh.py``) whose data axes hold more than one
 rank, ``fit`` trains data-parallel on ``torch.distributed``
-(``parallel/distributed.py``): every rank of the mesh calls it with the
-same ratings. A model is trained here or arrives fitted
-through ``core.checkpoint.load_model`` (a checkpoint of either package) or
-``ops.segment_sgd.params_from_numpy``. On the GPU, SGD runs the
-hand-written step and apply kernels of ``ops/cuda_sgd.py``, the ALS solves
-the Gauss-Jordan leaf of ``ops/cuda_spd.py``, and serving the catalog
-scorer of ``ops/cuda_scores.py``.
+(``parallel/distributed.py`` by SGD, ``ops/ials.py::dp_ials_train_bucketed``
+by ALS): every rank of the mesh calls it with the same ratings. A model is
+trained here or arrives fitted through ``core.checkpoint.load_model`` (a
+checkpoint of either package) or ``ops.segment_sgd.params_from_numpy``. On
+the GPU, SGD runs the hand-written step and apply kernels of
+``ops/cuda_sgd.py``, the ALS solves the Gauss-Jordan leaf of
+``ops/cuda_spd.py``, and serving the catalog scorer of
+``ops/cuda_scores.py``.
 
 Reference: ``matrix_factorization/kernel_matrix_factorization.py``
 (fit ``:320-445``, update_users ``:165-237``, predict ``:130-163``). The
@@ -108,8 +109,12 @@ class KernelMF(RecommenderBase):
         collectives: ``predict``, the table views, ``update_users``, a
         continued fit, ``save_model`` and pickling gather the whole tables
         for the call (``_whole_params``).
-        ``overlap_psum`` and ``psum_every`` are the trainers'. ALS on a
-        data mesh > 1 raises ``NotImplementedError`` (a later slice).
+        ``overlap_psum`` and ``psum_every`` are the trainers'. With
+        ``method='als'`` a fresh fit on such a mesh trains with
+        ``ops.ials.dp_ials_train_bucketed`` from the tables of the mesh-free
+        fit: both tables stay whole on every rank (each bucket's solves are
+        split over the data ranks), and ``keep_sharded`` only adds the
+        ``ShardedCatalog`` built from them.
 
         ``method='als'``: exact alternating least squares for factors and
         biases (linear kernel), ``reg_scale`` 'absolute' or 'per_obs' (see
@@ -174,9 +179,6 @@ class KernelMF(RecommenderBase):
             raise ValueError("serving_dtype must be 'float32' or 'bfloat16'")
         if dp_layout not in ("auto", "tiled", "flat"):
             raise ValueError("dp_layout must be 'auto', 'tiled' or 'flat'")
-        if method == "als" and mesh is not None and data_size_of(mesh) > 1:
-            raise NotImplementedError(
-                f"KernelMF(method='als', mesh=) comes with {sgd.SLICE_6_ALS}")
         super().__init__(min_rating=min_rating, max_rating=max_rating, verbose=verbose)
         self._device = resolve_device(device)
         self.device = device
@@ -229,9 +231,10 @@ class KernelMF(RecommenderBase):
     # -- where the tables live ------------------------------------------------
     def _shards_kept(self) -> bool:
         """Whether this model keeps only a rank's shards of its tables:
-        ``keep_sharded`` on a mesh of more than one data rank."""
+        ``keep_sharded`` on a mesh of more than one data rank, by SGD (the
+        mesh ALS trainer keeps both tables whole on every rank)."""
         return (self.keep_sharded and self.mesh is not None
-                and data_size_of(self.mesh) > 1)
+                and self.method != "als" and data_size_of(self.mesh) > 1)
 
     def _whole_params(self) -> Optional[sgd.MFParams]:
         """The whole tables: ``_params``, or, while the rank holds only its
@@ -317,7 +320,10 @@ class KernelMF(RecommenderBase):
             self.train_rmse = []
         n_epochs = n_epochs or self.n_epochs
         if self.mesh is not None and not warm_start and data_size_of(self.mesh) > 1:
-            rmse_hist = self._fit_mesh(u, i, r, cfg, n_epochs)
+            if self.method == "als":
+                rmse_hist = self._fit_mesh_als(params, u, i, r, cfg, n_epochs)
+            else:
+                rmse_hist = self._fit_mesh(u, i, r, cfg, n_epochs)
         elif self.method == "als":
             # the pack only feeds the RMSE pass: no per-batch sorts
             data = sgd.pack_ratings(u, i, r, cfg.batch_size,
@@ -373,6 +379,22 @@ class KernelMF(RecommenderBase):
             self._params = dist_sgd.gather_params(local, self.mesh, q_sharded=two_d)
             self._sharding = None
         return torch.from_numpy(hist)
+
+    def _fit_mesh_als(self, params, u, i, r, cfg, n_epochs) -> torch.Tensor:
+        """The mesh ALS fit of every rank (JAX ``kernel_mf.py:315-369``):
+        from ``params`` (the mesh-free fit's seeded tables), the count
+        buckets of both sides and a pack for the RMSE, all whole on every
+        rank, through ``ials.dp_ials_train_bucketed``; the rank then holds
+        the whole tables. Returns the train-RMSE history."""
+        data = sgd.pack_ratings(u, i, r, cfg.batch_size, order=self.epoch_order,
+                                aggregate=False, device=self._device)
+        bu, bi = ials.group_both_sides_bucketed(
+            u, i, r, self.n_users, self.n_items, device=self._device)
+        params, hist = ials.dp_ials_train_bucketed(
+            params, bu, bi, data, cfg, n_epochs, self.mesh,
+            reg_scale=self.reg_scale)
+        self._params, self._sharding = params, None
+        return hist
 
     def _rebuild_serving_catalog(self) -> None:
         """(Re)build this rank's ``ShardedCatalog`` from the item table it

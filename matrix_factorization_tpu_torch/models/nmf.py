@@ -9,8 +9,13 @@ ratings must be non-negative; cold-start pairs predict the global mean
 rating, clipped.
 
 The constructor takes the JAX package's arguments plus ``device``
-(``None`` = CUDA); ``mesh`` raises ``NotImplementedError`` until slice 6.
-The initial tables come from ``torch.Generator``s seeded from ``seed``.
+(``None`` = CUDA). With a ``mesh`` (``parallel/mesh.py``) of more than one
+data rank every rank calls ``fit`` with the same ratings and trains with
+``ops.nmf.dp_nmf_train`` (its user rows of P, a whole Q, one item
+accumulator all-reduced an epoch), then holds the gathered tables. The
+initial tables come from ``torch.Generator``s seeded from ``seed``: the
+mesh-free fit's tables, so the two fits differ only in where the sums
+regroup.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from matrix_factorization_tpu_torch.models.base import RecommenderBase, predict_
 from matrix_factorization_tpu_torch.ops import nmf as nmf_ops
 from matrix_factorization_tpu_torch.ops import scoring
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+from matrix_factorization_tpu_torch.parallel.mesh import data_size_of, device_index
 
 
 class NMF(RecommenderBase):
@@ -55,8 +61,6 @@ class NMF(RecommenderBase):
             raise ValueError("serving_dtype must be 'float32' or 'bfloat16'")
         if init_low < 0 or init_high <= init_low:
             raise ValueError("need 0 <= init_low < init_high")
-        if mesh is not None:
-            raise NotImplementedError(f"NMF(mesh=) comes with {sgd.SLICE_6_FAMILIES}")
         super().__init__(min_rating=min_rating, max_rating=max_rating,
                          verbose=verbose)
         self._device = resolve_device(device)
@@ -112,11 +116,15 @@ class NMF(RecommenderBase):
         params = nmf_ops.init_nmf_params(
             torch.Generator(device=self._device).manual_seed(self.seed),
             self.n_users, self.n_items, cfg, self.init_low, self.init_high)
-        data = self._pack(u, i, r, cfg.batch_size, "auto")
-        params, hist = nmf_ops.nmf_train(
-            params, data, self._counts(u, params.user_features.shape[0]),
-            self._counts(i, params.item_features.shape[0]), cfg,
-            n_epochs or self.n_epochs, reg_pu, reg_qi)
+        n_epochs = n_epochs or self.n_epochs
+        if self.mesh is not None and data_size_of(self.mesh) > 1:
+            params, hist = self._fit_mesh(params, u, i, r, cfg, n_epochs)
+        else:
+            data = self._pack(u, i, r, cfg.batch_size, "auto")
+            params, hist = nmf_ops.nmf_train(
+                params, data, self._counts(u, params.user_features.shape[0]),
+                self._counts(i, params.item_features.shape[0]), cfg,
+                n_epochs, reg_pu, reg_qi)
         self._params = params
         self._serving_cache = None
         self.train_rmse = hist.cpu().tolist()
@@ -124,6 +132,37 @@ class NMF(RecommenderBase):
             for e, v in enumerate(self.train_rmse):
                 print(f"Epoch {e + 1} train RMSE: {v:.4f}")
         return self
+
+    def _fit_mesh(self, params, u, i, r, cfg, n_epochs):
+        """The data-parallel fit of every rank (JAX ``nmf.py:135-171``): the
+        user capacity ``round_up(n_users, 8 * N)`` (the seeded tables grown
+        by fresh rows, which hold no user), this rank's P rows and a whole Q
+        (``place_params``), its segment of the device-major pack, its users'
+        counts and the global item counts, ``dp_nmf_train``, then the whole
+        tables on every rank (``gather_params``). Returns (params,
+        history)."""
+        from matrix_factorization_tpu_torch.parallel import distributed as pdist
+
+        n, d = data_size_of(self.mesh), device_index(self.mesh)
+        ucap = sgd.round_up(self.n_users, 8 * n)
+        cap = params.user_features.shape[0]
+        if ucap > cap:
+            fresh = nmf_ops.fresh_nmf_user_rows(
+                sgd.seeded_generator(self._device, self.seed, 0), ucap - cap,
+                cfg, self.init_low, self.init_high)
+            params = params._replace(user_features=torch.cat(
+                [params.user_features, fresh]))
+        rows = ucap // n
+        data = sgd.pack_ratings(u, i, r, cfg.batch_size, order="auto",
+                                n_dev=n, users_per_dev=rows, segment=d,
+                                device=self._device)
+        reg_pu, reg_qi = self._regs()
+        local, hist = nmf_ops.dp_nmf_train(
+            pdist.place_params(params, self.mesh, self._device), data,
+            self._counts(u, ucap)[d * rows:(d + 1) * rows],
+            self._counts(i, params.item_features.shape[0]), cfg, n_epochs,
+            reg_pu, reg_qi, self.mesh)
+        return pdist.gather_params(local, self.mesh, q_sharded=False), hist
 
     def _predict_arrays(self, u: np.ndarray, i: np.ndarray,
                         bound_ratings: bool):

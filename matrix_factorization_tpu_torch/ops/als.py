@@ -1,9 +1,8 @@
 """Bias-only model solvers: closed-form ALS and mini-batch SGD (PyTorch
 port).
 
-Counterpart of ``matrix_factorization_tpu/ops/als.py`` (single device;
-the data-parallel trainers come with the multi-device slice). The model
-is ``r_ui ~= mu + b_u + b_i``:
+Counterpart of ``matrix_factorization_tpu/ops/als.py``. The model is
+``r_ui ~= mu + b_u + b_i``:
 
 * **ALS** is exact: a half-sweep is one segment sum and an elementwise
   divide, ``b_u = sum_{i in R_u} w (r - mu - b_i) / (reg + |R_u|)``, then
@@ -17,14 +16,24 @@ is ``r_ui ~= mu + b_u + b_i``:
   element of the padded stream; each batch is sorted by user and by item
   on the device for its two sums.
 
+The data-parallel trainers (``dp_als_train``, ``dp_bias_sgd_train``) run
+on every rank of a mesh (``parallel/mesh.py``) over its columns of every
+(nb, bs) block (``shard_bias_data``), so that every rank works the same
+global mini-batch; the bias vectors stay whole on every rank (KBs).
+A rank sums its slice into full-length vectors and one ``all_reduce``
+over the data group a half-sweep (ALS) or a step and side (SGD) merges
+them, so they are the single-device updates up to where the sums regroup.
+
 Every reduction by id is ``ops/segment_sum.py``'s deterministic segment
-sum (a hand-written kernel on the card): the same inputs give the same
-bits.
+sum (a hand-written kernel on the card), and the all-reduces of a fixed
+world sum in a fixed order: the same inputs give the same bits.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence, Tuple
+
+import dataclasses
 
 import torch
 
@@ -186,6 +195,139 @@ def bias_sgd_train(
         hist.append(bias_rmse(p, data) if compute_epoch_rmse
                     else torch.zeros((), device=dev))
     return p, _history(hist, dev)
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel trainers
+# ---------------------------------------------------------------------------
+
+
+def shard_bias_data(data: RatingBatches, mesh, device=None) -> RatingBatches:
+    """This rank's columns of every (nb, bs) block: rank d (its index over
+    the mesh's data axes, N of them) takes ``[d * bs / N, (d + 1) * bs / N)``,
+    so each rank holds a contiguous slice of every mini-batch. ``bs`` must
+    be a multiple of N (callers round the pack's batch size up). The
+    columns are copied to ``device`` (``None``: the pack's); ``n_real``
+    stays the whole stream's."""
+    from matrix_factorization_tpu_torch.parallel.mesh import data_size_of, device_index
+
+    n, d = data_size_of(mesh), device_index(mesh)
+    bs = data.batch_size
+    if bs % n:
+        raise ValueError(f"batch size {bs} is not a multiple of the {n} "
+                         f"data ranks")
+    w = bs // n
+    dev = data.user_ids.device if device is None else resolve_device(device)
+
+    def cols(t):
+        return t[:, d * w:(d + 1) * w].contiguous().to(dev)
+
+    return dataclasses.replace(
+        data, user_ids=cols(data.user_ids), item_ids=cols(data.item_ids),
+        ratings=cols(data.ratings), weights=cols(data.weights),
+        sec_ids_sorted=None, sec_perm=None)
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed as dist
+
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def _dp_rmse(sse: torch.Tensor, group, n_real: int) -> torch.Tensor:
+    """The train RMSE from this rank's SSE: all-reduced, over ``n_real``."""
+    return torch.sqrt(_all_reduce(sse.reshape(1), group)[0] / max(n_real, 1))
+
+
+def dp_als_train(
+    params: BiasParams,
+    data: RatingBatches,
+    reg: float,
+    n_epochs: int,
+    mesh,
+) -> Tuple[BiasParams, torch.Tensor]:
+    """Data-parallel exact ALS (JAX ``dp_als_train``), run by every rank on
+    its columns (``shard_bias_data``): the rank segment-sums its slice into
+    full-length (U,) and (I,) vectors and one ``all_reduce`` over the data
+    group a half-sweep merges them; the counts are reduced once, and the
+    fresh ``b_u`` feeds the item half. ``params``' biases are whole on
+    every rank and stay so. Returns (params, per-epoch train RMSE: the
+    all-reduced SSE over ``data.n_real``, an (n_epochs,) device tensor)."""
+    from matrix_factorization_tpu_torch.parallel.mesh import data_group
+
+    group = data_group(mesh)
+    u, i, r, w = _flat(data)
+    nu = params.user_biases.shape[0]
+    ni = params.item_biases.shape[0]
+    by_user, by_item = sorted_order(u), sorted_order(i)
+    counts = _all_reduce(torch.cat([segment_sums(w, by_user, nu),
+                                    segment_sums(w, by_item, ni)]), group)
+    user_counts, item_counts = counts[:nu], counts[nu:]
+    mu = params.global_mean
+    bu, bi = params.user_biases, params.item_biases
+    hist = []
+    for _ in range(n_epochs):
+        resid_u = w * (r - mu - bi[i])
+        sums = _all_reduce(segment_sums(resid_u, by_user, nu), group)
+        bu = torch.where(user_counts > 0, sums / (reg + user_counts), bu)
+        resid_i = w * (r - mu - bu[u])  # fresh b_u, as in the reference
+        sums = _all_reduce(segment_sums(resid_i, by_item, ni), group)
+        bi = torch.where(item_counts > 0, sums / (reg + item_counts), bi)
+        e = (mu + bu[u] + bi[i] - r) * w
+        hist.append(_dp_rmse(torch.sum(e * e), group, data.n_real))
+    return BiasParams(bu, bi, mu), _history(hist, mu.device)
+
+
+def dp_bias_sgd_train(
+    params: BiasParams,
+    data: RatingBatches,
+    orders: Sequence,
+    lr: float,
+    reg: float,
+    mesh,
+) -> Tuple[BiasParams, torch.Tensor]:
+    """Data-parallel mini-batch bias SGD (JAX ``dp_bias_sgd_train``), run by
+    every rank on its columns (``shard_bias_data``) of copies of the whole
+    biases: per step every entry of the rank's slice reads the pre-step
+    biases, the slice's deltas ``lr * (err - reg * w * b)`` are summed by id
+    into zeroed full-length vectors, and one ``all_reduce`` over the data
+    group a step and a side merges them before they are added: the
+    summed-minibatch step of the global batch. Epoch ``e`` visits the
+    batches in ``orders[e]`` (a permutation of ``nb``, the same on every
+    rank; the tests hand in JAX's ``permutation(split(key, n_epochs)[e],
+    nb)``), one epoch for each order. (The single-device trainer permutes
+    every element, which would move entries across ranks.) Each batch's
+    sorted orders by user and by item are made once per call. Returns
+    (params, per-epoch train RMSE)."""
+    from matrix_factorization_tpu_torch.parallel.mesh import data_group
+
+    group = data_group(mesh)
+    nb = data.n_batches
+    us, is_ = data.user_ids.long(), data.item_ids.long()
+    rs, ws = data.ratings, data.weights
+    dev = us.device
+    by_user = [sorted_order(us[k]) for k in range(nb)]
+    by_item = [sorted_order(is_[k]) for k in range(nb)]
+    bu_t = params.user_biases.clone()
+    bi_t = params.item_biases.clone()
+    mu = params.global_mean
+    hist = []
+    for order in orders:
+        for k in _as_index(order, "cpu").tolist():
+            u, i, r, w = us[k], is_[k], rs[k], ws[k]
+            bu = bu_t[u]
+            bi = bi_t[i]
+            err = (r - (mu + bu + bi)) * w
+            du = segment_sums(lr * (err - reg * w * bu), by_user[k],
+                              bu_t.shape[0])
+            bu_t.add_(_all_reduce(du, group))
+            di = segment_sums(lr * (err - reg * w * bi), by_item[k],
+                              bi_t.shape[0])
+            bi_t.add_(_all_reduce(di, group))
+        e_ = (mu + bu_t[us] + bi_t[is_] - rs) * ws
+        hist.append(_dp_rmse(torch.sum(e_ * e_), group, data.n_real))
+    return BiasParams(bu_t, bi_t, mu), _history(hist, dev)
 
 
 def bias_predict(

@@ -24,7 +24,11 @@ of ``ops/cuda_spd.py`` on the GPU. The sweeps are plain functions that
 update the tables in place (the JAX package's jit caches have no
 counterpart). Every product is exact f32 unless ``gram_dtype='bf16'``.
 
-The data-parallel sweeps (``dp_*``) come with slice 6.
+``dp_ials_train_bucketed`` is the data-parallel form, run by every rank of
+a mesh (``parallel/mesh.py``): both tables whole on every rank, each
+bucket's solves split over the data ranks, one ``all_gather_into_tensor``
+of the solutions a bucket, and every rank writes the same rows, so the
+tables stay replicated.
 """
 
 from __future__ import annotations
@@ -451,6 +455,108 @@ def ials_train_bucketed(
             for b in buckets_item:
                 bucket_sweep(p.item_features, p.user_features, b,
                              p.global_mean, cfg, "item", gram_dtype, reg_scale)
+        hist.append(_epoch_rmse(p, data, cfg))
+    return p, _stack(hist, p)
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel ALS: each bucket's solves split over the data ranks
+# ---------------------------------------------------------------------------
+
+
+def _pad_bucket_for_mesh(b: Bucket, n_dev: int) -> Tuple[Bucket, np.ndarray]:
+    """A bucket's entity rows padded to a multiple of ``n_dev`` (JAX
+    ``_pad_bucket_for_mesh``): pads repeat ``entity_ids[0]`` with empty
+    rating lists, and the (E_p,) f32 keep flags are 1 for the real
+    entities, 0 for the pads at the tail. A bucket that divides is
+    returned as it is."""
+    E = b.entity_ids.shape[0]
+    Ep = round_up(E, n_dev)
+    keep = np.zeros(Ep, np.float32)
+    keep[:E] = 1.0
+    if Ep == E:
+        return b, keep
+
+    def pad(x, fill):
+        out = torch.full((Ep,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                         device=x.device)
+        out[:E] = x
+        return out
+
+    return Bucket(pad(b.entity_ids, int(b.entity_ids[0])),
+                  pad(b.other_ids, 0), pad(b.ratings, 0.0),
+                  pad(b.mask, 0.0)), keep
+
+
+def dp_bucket_sweep(own: torch.Tensor, other: torch.Tensor, bucket: Bucket,
+                    keep: np.ndarray, mu: torch.Tensor, cfg: SGDConfig,
+                    own_side: str, mesh,
+                    reg_scale: str = "absolute") -> torch.Tensor:
+    """One padded bucket's solves over the mesh's data ranks, in place: rank
+    d solves the contiguous ``E_p / N`` entities ``[d * E_p / N, (d + 1) *
+    E_p / N)`` with ``_solve_entities`` (Schur, the GJ leaf, refinement),
+    one ``all_gather_into_tensor`` over the data group brings every rank's
+    (E_p / N, k + 1) solutions in rank order, and every rank writes the
+    kept rows, the same on each, so ``own`` stays replicated. The pads
+    (keep 0, at the tail) are never written: an ``index_put_`` of a pad's
+    row could overwrite the real entity that shares its id. Returns
+    ``own``. At one rank this is ``bucket_sweep`` bit for bit (f32 grams)."""
+    from matrix_factorization_tpu_torch.parallel.distributed import all_gather_rows
+    from matrix_factorization_tpu_torch.parallel.mesh import (
+        data_group,
+        data_size_of,
+        device_index,
+    )
+
+    n, d = data_size_of(mesh), device_index(mesh)
+    per = bucket.entity_ids.shape[0] // n
+    sl = slice(d * per, (d + 1) * per)
+    sol = _solve_entities(other, bucket.other_ids[sl], bucket.ratings[sl],
+                          bucket.mask[sl], mu, cfg, own_side, "f32",
+                          reg_scale)
+    sol = all_gather_rows(sol, data_group(mesh))
+    E = int(keep.sum())
+    k = cfg.n_factors
+    rows = bucket.entity_ids[:E].long()
+    own[rows, :k] = sol[:E, :k]
+    own[rows, bias_col(cfg, own_side)] = sol[:E, k]
+    return own
+
+
+def dp_ials_train_bucketed(
+    params: MFParams,
+    buckets_user: list,
+    buckets_item: list,
+    data: Optional[RatingBatches],
+    cfg: SGDConfig,
+    n_epochs: int,
+    mesh,
+    reg_scale: str = "absolute",
+) -> Tuple[MFParams, torch.Tensor]:
+    """Data-parallel bucketed ALS (JAX ``dp_ials_train_bucketed``), run by
+    every rank with the same whole tables, buckets and ``data``: both
+    tables replicated, each bucket padded once to a multiple of the data
+    ranks and swept by ``dp_bucket_sweep`` (the per-entity solves, the
+    sweep's gram work, split; one all-gather of the solutions a bucket).
+    The per-epoch train RMSE is each rank's own pass over the replicated
+    ``data``. At one rank the same chunks are solved in the same order as
+    ``ials_train_bucketed``, so the result is its bits. Both sides are
+    updated, with f32 grams."""
+    from matrix_factorization_tpu_torch.parallel.mesh import data_size_of
+
+    _check_args(cfg, reg_scale)
+    n = data_size_of(mesh)
+    pu = [_pad_bucket_for_mesh(b, n) for b in buckets_user]
+    pi = [_pad_bucket_for_mesh(b, n) for b in buckets_item]
+    p = _copy_tables(params)
+    hist = []
+    for _ in range(n_epochs):
+        for b, keep in pu:
+            dp_bucket_sweep(p.user_features, p.item_features, b, keep,
+                            p.global_mean, cfg, "user", mesh, reg_scale)
+        for b, keep in pi:
+            dp_bucket_sweep(p.item_features, p.user_features, b, keep,
+                            p.global_mean, cfg, "item", mesh, reg_scale)
         hist.append(_epoch_rmse(p, data, cfg))
     return p, _stack(hist, p)
 

@@ -25,8 +25,16 @@ orientation serves both passes.
 
 Tables are ``segment_sgd``'s bias-folded rows with the biases and
 ``global_mean`` at 0, so the linear scorer's ``mu + b_u + b_i + p.q`` is
-the NMF score ``p.q``. The data-parallel ``dp_nmf_train`` comes with
-slice 6.
+the NMF score ``p.q``.
+
+``dp_nmf_train`` is the data-parallel form (JAX ``dp_nmf_train``), run by
+every rank of a mesh (``parallel/mesh.py``) on its user rows of P and a
+whole Q, over its segment of the device-major pack (local user ids). The
+user pass needs no communication (a user's ratings all live on its
+rank); the item pass all-reduces one (Icap, 2k) accumulator an epoch, and
+the update then runs the same way on every rank, so the Q replicas stay
+bit-equal. Each pass is a full-batch segment sum, so the schedule is the
+single-device one up to where the sums regroup.
 """
 
 from __future__ import annotations
@@ -157,6 +165,52 @@ def nmf_train(
         if cfg.compute_epoch_rmse:
             hist.append(torch.sqrt(sgd.masked_sse(p, data, cfg)
                                    / max(data.n_real, 1)))
+        else:
+            hist.append(torch.zeros((), device=dev))
+    return p, (torch.stack(hist) if hist else torch.zeros(0, device=dev))
+
+
+def dp_nmf_train(
+    params: sgd.MFParams,
+    data: sgd.RatingBatches,
+    cnt_u: torch.Tensor,  # (rows of P_l,) f32: the rank's users' counts
+    cnt_i: torch.Tensor,  # (Icap,) f32: the global item counts
+    cfg: SGDConfig,
+    n_epochs: int,
+    reg_pu: float,
+    reg_qi: float,
+    mesh,
+) -> Tuple[sgd.MFParams, torch.Tensor]:
+    """Data-parallel alternating NMF, run by every rank: ``params`` its P
+    rows and a whole Q (``parallel.distributed.place_params``), ``data``
+    its segment of the device-major pack (``pack_ratings(n_dev=N,
+    users_per_dev=Ucap / N, segment=d)``, user ids local to the rank's
+    rows). The user pass is local; the item accumulator is all-reduced
+    over the data group once an epoch. Returns this rank's (P_l, Q, mu)
+    and the per-epoch train RMSE (the all-reduced SSE over ``n_real``, a
+    device tensor, the same on every rank)."""
+    import torch.distributed as dist
+
+    from matrix_factorization_tpu_torch.parallel.mesh import data_group
+
+    eps = 1e-8
+    k = cfg.n_factors
+    group = data_group(mesh)
+    p = params
+    dev = params.user_features.device
+    hist = []
+    for _ in range(n_epochs):
+        P, Q = p.user_features, p.item_features
+        P = _apply_mult_update(P, _accumulate_side(P, Q, data, k, "user"),
+                               cnt_u, k, reg_pu, eps)
+        acc_i = _accumulate_side(P, Q, data, k, "item")
+        dist.all_reduce(acc_i, group=group)
+        Q = _apply_mult_update(Q, acc_i, cnt_i, k, reg_qi, eps)
+        p = p._replace(user_features=P, item_features=Q)
+        if cfg.compute_epoch_rmse:
+            sse = sgd.masked_sse(p, data, cfg).reshape(1)
+            dist.all_reduce(sse, group=group)
+            hist.append(torch.sqrt(sse[0] / max(data.n_real, 1)))
         else:
             hist.append(torch.zeros((), device=dev))
     return p, (torch.stack(hist) if hist else torch.zeros(0, device=dev))

@@ -44,9 +44,7 @@ from matrix_factorization_tpu_torch.data.loader import host_lib, native_threads
 
 # the later slices of the port's multi-device layer (slice 6), named by the
 # mesh paths that still raise
-SLICE_6_ALS = ("slice 6b of the PyTorch port (ALS, iALS and the bias models "
-               "on a mesh)")
-SLICE_6_FAMILIES = "slice 6c of the PyTorch port (BPR, SVD++ and NMF on a mesh)"
+SLICE_6_FAMILIES = "slice 6c of the PyTorch port (BPR and SVD++ on a mesh)"
 SLICE_6_GRAM = ("slice 6d of the PyTorch port (EASE, the sparse gram, CF and "
                 "retrieval on a mesh)")
 

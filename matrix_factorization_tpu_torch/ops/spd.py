@@ -14,14 +14,16 @@ which the Gauss-Jordan leaf inverts: the hand-written kernel of
 ``ops/cuda_spd.py`` on a CUDA tensor, its plain version on the CPU.
 ``spd_solve`` Jacobi-scales to a unit diagonal, applies the inverse of the
 scaled system and refines once; ``spd_inverse_scaled`` does the same for
-an explicit inverse (Newton-Schulz steps).
+an explicit inverse (Newton-Schulz steps). ``spd_inverse_ns`` inverts one
+SPD matrix by the Newton-Schulz iteration alone.
 
 ``leaf``: ``'auto'`` and ``'gj'`` mean the Gauss-Jordan leaf on every
 device; ``'cholesky'`` (the JAX package's ``'xla'``) inverts leaves of
 d <= ``base`` by ``torch.linalg.cholesky`` and a triangular solve, a cross-
 check that nothing on the main path uses. The JAX package's mesh pins
-(``spec``, ``spec_min``) and its Newton-Schulz inverses for EASE and meshes
-come with later slices.
+(``spec``, ``spec_min``) have no counterpart (under SPMD a rank holds its
+shard as a plain tensor); its column-sharded Newton-Schulz inverse
+(``spd_inverse_ns_sharded``) comes with EASE on a mesh (slice 6d).
 
 Every product here is exact f32: TF32 stays off (a Schur complement of an
 ill-conditioned gram taken at lower precision can come out indefinite).
@@ -152,3 +154,31 @@ def solve_spd(A: torch.Tensor, b: torch.Tensor, base: int = 32,
     direct Cholesky solve for d <= 64) is not taken, so the CPU runs the
     leaf the GPU runs."""
     return spd_solve(A, b, base=base, refine=refine, leaf=leaf)
+
+
+def spd_inverse_ns(A: torch.Tensor, max_iters: int = 100,
+                   tol: float = 1e-5) -> torch.Tensor:
+    """Inverse of one SPD matrix ``A`` (d, d) by the Newton-Schulz
+    iteration ``P <- P (2I - As P)`` on the Jacobi-scaled system ``As``,
+    from ``P0 = I / ||As||_F`` (the eigenvalues of ``I - c As`` lie in
+    (0, 1) for SPD ``As``), in exact f32. A step first measures the
+    residual ``||As P - I||_F / sqrt(d)`` of the P it starts from, then
+    updates; the loop ends after the step whose residual is at most
+    ``tol``, or after ``max_iters`` steps, as the JAX package's
+    ``while_loop`` does. Each step's stop test reads the residual on the
+    host (a sync on the card), as the JAX package's sharded form does."""
+    if A.dim() != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError(f"A must be one (d, d) matrix, got {tuple(A.shape)}")
+    d = A.shape[-1]
+    ds = _jacobi(A)
+    As = A * ds[:, None] * ds[None, :]
+    eye = torch.eye(d, dtype=A.dtype, device=A.device)
+    P = eye / torch.sqrt(torch.sum(As * As))
+    root_d = torch.sqrt(torch.tensor(float(d), dtype=A.dtype))
+    for _ in range(max_iters):
+        AP = _mm(As, P)
+        res = float(torch.sqrt(torch.sum((AP - eye) ** 2)).cpu() / root_d)
+        P = 2.0 * P - _mm(P, AP)
+        if not res > tol:
+            break
+    return P * ds[:, None] * ds[None, :]

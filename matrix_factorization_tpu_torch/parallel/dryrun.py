@@ -3,8 +3,11 @@
 The KernelMF part of ``__graft_entry__.dryrun_multichip`` (the JAX
 package's multi-device smoke run): on ``n_devices`` ranks started by
 ``parallel/launch.py::spawn_world``, one data-parallel epoch flat,
-overlapped and tiled, one 2D epoch and one sharded-catalog top-k. Later
-slices add their families. Run it as
+overlapped and tiled, one 2D epoch and one sharded-catalog top-k; then
+one epoch each of the data-parallel factor ALS (count buckets, the
+solves split over the ranks), bias ALS and bias SGD (each rank its
+columns of every batch) and NMF (its rows of P). Later slices add their
+families. Run it as
 
     python -m matrix_factorization_tpu_torch.parallel.dryrun 4 [gloo|nccl] [cuda:0|cpu]
 
@@ -52,7 +55,61 @@ def _rank(rank: int, world: int, device: str) -> dict:
     cat = ShardedCatalog(local2, n_items, cfg, mesh2, q_sharded=n_model > 1)
     pu = pdist.gather_params(local2, mesh2, n_model > 1).user_features[:8]
     out["topk"] = cat.topk(pu, 5)
+    out.update(_rank_als_nmf(u, i, r, n_users, n_items, mesh, device))
     out["device"] = str(torch.device(device))
+    return out
+
+
+def _rank_als_nmf(u, i, r, n_users, n_items, mesh, device) -> dict:
+    """One epoch of each slice-6b trainer on this rank: the whole tables
+    it ends with (factor ALS, NMF) or the biases (bias ALS and SGD), and
+    each train-RMSE history."""
+    import torch
+
+    from matrix_factorization_tpu_torch.core.config import SGDConfig
+    from matrix_factorization_tpu_torch.ops import als, ials, nmf
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+    from matrix_factorization_tpu_torch.parallel import distributed as pdist
+    from matrix_factorization_tpu_torch.parallel.mesh import data_size_of, device_index
+
+    n, d = data_size_of(mesh), device_index(mesh)
+    out = {}
+    cfg = SGDConfig(kernel="linear", n_factors=8, reg=0.1, batch_size=64)
+    gen = torch.Generator(device=device).manual_seed(0)
+    p0 = sgd.init_params(gen, n_users, n_items, cfg, float(r.mean()))
+    bu, bi = ials.group_both_sides_bucketed(u, i, r, n_users, n_items,
+                                            max_block_rows=64, device=device)
+    data = sgd.pack_ratings(u, i, r, 64, aggregate=False, device=device)
+    p, out["ials"] = ials.dp_ials_train_bucketed(p0, bu, bi, data, cfg, 1, mesh,
+                                                 reg_scale="per_obs")
+    out["ials_Q"] = p.item_features.cpu().numpy()
+
+    b0 = als.init_bias_params(n_users, n_items, float(r.mean()), device=device)
+    cols = als.shard_bias_data(
+        sgd.pack_ratings(u, i, r, 16 * n, aggregate=False, device="cpu"),
+        mesh, device)
+    b, out["bias_als"] = als.dp_als_train(b0, cols, 0.5, 1, mesh)
+    out["bias_als_b"] = b.item_biases.cpu().numpy()
+    order = torch.randperm(cols.n_batches, generator=sgd.seeded_generator("cpu", 0))
+    b, out["bias_sgd"] = als.dp_bias_sgd_train(b0, cols, [order], 0.05, 0.1, mesh)
+    out["bias_sgd_b"] = b.item_biases.cpu().numpy()
+
+    ucap = sgd.round_up(n_users, 8 * n)
+    q = nmf.init_nmf_params(torch.Generator(device=device).manual_seed(0),
+                            n_users, n_items, cfg, user_capacity=ucap)
+    rows = ucap // n
+    pack = sgd.pack_ratings(u, i, r, 64, order="auto", n_dev=n,
+                            users_per_dev=rows, segment=d, device=device)
+    cnt = torch.from_numpy(np.bincount(u, minlength=ucap).astype(np.float32))
+    cnt_i = torch.from_numpy(np.bincount(i, minlength=q.item_features.shape[0])
+                             .astype(np.float32))
+    local, out["nmf"] = nmf.dp_nmf_train(
+        pdist.place_params(q, mesh, device), pack,
+        cnt[d * rows:(d + 1) * rows].to(device), cnt_i.to(device), cfg, 1,
+        0.05, 0.05, mesh)
+    out["nmf_Q"] = local.item_features.cpu().numpy()
+    for tag in ("ials", "bias_als", "bias_sgd", "nmf"):
+        out[tag] = out[tag].cpu().numpy()
     return out
 
 
@@ -68,11 +125,13 @@ def dryrun_multichip(n_devices: int, backend: str = "gloo",
     ranks = spawn_world(_rank, n_devices, backend, device, args=(device,))
     first = ranks[0]
     for rk in ranks:
-        for tag in ("flat", "overlap", "tiled", "2d"):
+        for tag in ("flat", "overlap", "tiled", "2d", "ials", "bias_als",
+                    "bias_sgd", "nmf"):
             if not np.isfinite(rk[tag]).all():
                 raise AssertionError(f"{tag}: the train RMSE is not finite")
-        if not np.array_equal(rk["Q"], first["Q"]):
-            raise AssertionError("the replicas of Q differ across ranks")
+        for tag in ("Q", "ials_Q", "bias_als_b", "bias_sgd_b", "nmf_Q"):
+            if not np.array_equal(rk[tag], first[tag]):
+                raise AssertionError(f"the replicas of {tag} differ across ranks")
         for a, b in zip(rk["topk"], first["topk"]):
             if not np.array_equal(a, b):
                 raise AssertionError("the ranks' top-k differ")
@@ -85,5 +144,7 @@ if __name__ == "__main__":
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 2
     res = dryrun_multichip(n, *sys.argv[2:4])
     print(f"dryrun_multichip OK: {n} ranks, epoch rmse flat "
-          f"{res['flat'][-1]:.4f}, 2D {res['2d'][-1]:.4f}, top-k ids "
+          f"{res['flat'][-1]:.4f}, 2D {res['2d'][-1]:.4f}, ALS "
+          f"{res['ials'][-1]:.4f}, bias ALS {res['bias_als'][-1]:.4f}, bias "
+          f"SGD {res['bias_sgd'][-1]:.4f}, NMF {res['nmf'][-1]:.4f}, top-k ids "
           f"{res['topk'][1][0].tolist()}")

@@ -315,7 +315,7 @@ def test_checkpoints_cross_both_ways(tmp_path):
 def test_bad_arguments():
     with pytest.raises(ValueError, match="'sgd' or 'als'"):
         BaselineModel(method="newton", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        BaselineModel(mesh=object(), device="cpu")
+    mesh = object()  # a mesh is accepted (slice 6b); fit reads it
+    assert BaselineModel(mesh=mesh, device="cpu").mesh is mesh
     with pytest.raises(RuntimeError, match="not fitted"):
         BaselineModel(device="cpu").update_users(*_frame())

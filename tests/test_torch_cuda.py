@@ -1141,3 +1141,48 @@ def test_gloo_world_on_one_gpu(cuda):
     res = dryrun_multichip(2, "gloo", "cuda:0")
     assert res["device"] == "cuda:0"
     assert np.isfinite(res["flat"]).all() and np.isfinite(res["2d"]).all()
+
+
+def test_dp_als_sweep_at_world_one_is_bucket_sweep(cuda):
+    """At world size 1 the data-parallel ALS sweep solves each bucket's
+    chunk as ``ials_train_bucketed`` does, through the GJ kernel, and ends
+    with its bits; it launches the leaf as often."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(4)
+    n_users, n_items, n = 400, 300, 20_000
+    flat = rng.choice(n_users * n_items, n, replace=False)
+    u = (flat // n_items).astype(np.int32)
+    i = (flat % n_items).astype(np.int32)
+    r = rng.uniform(0.5, 5, n).astype(np.float32)
+    cfg = SGDConfig(kernel="linear", n_factors=150, reg=0.1, min_rating=0.5,
+                    max_rating=5.0, batch_size=4096)
+    p0 = sgd.init_params(torch.Generator(device="cuda").manual_seed(0),
+                         n_users, n_items, cfg, float(r.mean()))
+    bu, bi = ials.group_both_sides_bucketed(u, i, r, n_users, n_items,
+                                            max_block_rows=4096, device=cuda)
+    data = sgd.pack_ratings(u, i, r, 4096, aggregate=False, device=cuda)
+    cuda_spd.reset_launches()
+    ref, href = ials.ials_train_bucketed(p0, bu, bi, data, cfg, 2,
+                                         reg_scale="per_obs")
+    torch.cuda.synchronize()
+    single = cuda_spd.launches
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", init_method=f"file://{d}/store",
+                                rank=0, world_size=1)
+        try:
+            cuda_spd.reset_launches()
+            got, hist = ials.dp_ials_train_bucketed(p0, bu, bi, data, cfg, 2,
+                                                    make_mesh(1),
+                                                    reg_scale="per_obs")
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    assert single > 0 and cuda_spd.launches == single
+    assert torch.equal(got.user_features, ref.user_features)
+    assert torch.equal(got.item_features, ref.item_features)
+    assert torch.equal(hist, href)

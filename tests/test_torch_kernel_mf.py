@@ -204,8 +204,8 @@ def test_port_checkpoint_loads_into_jax(fitted, data, kernel, tmp_path):
 
 def test_training_and_later_slices_raise(fitted, data):
     """Training is ported (slice 2), ALS and its warm start too (slice 3),
-    SGD on a mesh too (slice 6); ALS on a data mesh of more than one rank
-    waits for a later part of slice 6, and the message names it."""
+    SGD on a mesh too (slice 6a), and ALS on a data mesh of more than one
+    rank (slice 6b)."""
     m = load_model(fitted["linear"][1], device="cpu")
     X, y = data
     m.fit(X, y, n_epochs=1)
@@ -215,8 +215,7 @@ def test_training_and_later_slices_raise(fitted, data):
     assert KernelMF(device="cpu", method="als").method == "als"
     assert KernelMF(device="cpu", als_warm_start=2).als_warm_start == 2
     data2 = _mesh_stub(2, 1)
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        KernelMF(device="cpu", method="als", mesh=data2)
+    assert KernelMF(device="cpu", method="als", mesh=data2).mesh is data2
     assert KernelMF(device="cpu", method="als", mesh=_mesh_stub(1, 2)).mesh
     for kw in ({"mesh": data2}, {"mesh": data2, "keep_sharded": True}):
         assert KernelMF(device="cpu", **kw).mesh is data2

@@ -164,3 +164,23 @@ def test_spd_inverse_scaled_skewed_diagonal():
     assert np.abs(R - np.eye(96)).max() < 1e-3
     want = np.asarray(jspd.spd_inverse_scaled(jnp.asarray(A), refine=1))
     np.testing.assert_allclose(P, want, atol=1e-5, rtol=1e-3)
+
+
+@pytest.mark.parametrize("d,ridge,tol", [(48, 1.0, 1e-5), (96, 5.0, 1e-4)])
+def test_newton_schulz_inverse_matches_jax(d, ridge, tol):
+    """``spd_inverse_ns`` against the JAX package's on one Jacobi-skewed
+    ridged gram: the same steps (the residual test on the P a step starts
+    from), within 1e-5 of JAX's inverse relative to its largest entry, and
+    an inverse (``|A P - I|`` < 1e-3)."""
+    rng = np.random.default_rng(d)
+    A = _ridged_gram(rng, 1, d, L=2 * d, ridge=ridge)[0]
+    scale = np.sqrt(rng.uniform(1.0, 50.0, d)).astype(np.float32)
+    A = (A * scale[:, None] * scale[None, :]).astype(np.float32)
+    got = spd.spd_inverse_ns(torch.from_numpy(A), tol=tol).numpy()
+    want = np.asarray(jspd.spd_inverse_ns(jnp.asarray(A), tol=tol))
+    assert got.shape == (d, d) and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    R = A.astype(np.float64) @ got.astype(np.float64)
+    assert np.abs(R - np.eye(d)).max() < 1e-3
+    with pytest.raises(ValueError, match="one"):
+        spd.spd_inverse_ns(torch.from_numpy(A)[None])

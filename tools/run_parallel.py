@@ -6,11 +6,13 @@
 Builds the port's kernels, makes config 3's 25M ratings (with the held-out
 pairs) and config 2's 1M (``chip_smoke.gen_ratings`` /
 ``ml1m_ratings``, as the full run makes them) and runs the phase with its
-checks: ``phase_parallel_nccl`` (NCCL at world size 1, config 3),
-``phase_parallel_kernels`` and ``phase_parallel_gloo`` (gloo ranks on the
-card). Prints the card's name and power limit, then the phase's JSON
-lines, also written to ``--out``. A failed check exits non-zero. Needs a
-GPU; imports nothing of JAX.
+checks: inside one NCCL world of this process alone ``phase_parallel_nccl``
+(data-parallel SGD at config 3), ``phase_parallel_kernels`` and
+``phase_parallel_als`` (factor ALS, the bias models and NMF), then
+``phase_parallel_gloo`` (gloo ranks on the card). Prints the card's name
+and power limit, then each phase's JSON line as it ends, also appended to
+``--out``. A failed check exits non-zero. Needs a GPU; imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -49,9 +51,18 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    lines = [{"phase": "device", "nvidia_smi": smi}]
+    if args.out:
+        Path(args.out).write_text("")
+
+    def emit(obj):  # each phase's line as soon as it is done
+        print(json.dumps(obj), flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(obj) + "\n")
+
+    emit({"phase": "device", "nvidia_smi": smi})
     t0 = time.perf_counter()
-    lines.append({"phase": "build", "seconds": _build.build(
+    emit({"phase": "build", "seconds": _build.build(
         sorted(p.stem for p in _build.CSRC.glob("*.cu")))})
     t1 = time.perf_counter()
     u, i, r = cs.gen_ratings(cs.N_USERS, cs.N_ITEMS, cs.N_RATINGS + cs.N_HELD_OUT,
@@ -59,26 +70,31 @@ def main() -> int:
     n = cs.N_RATINGS
     data3 = (u[:n], i[:n], r[:n], u[n:], i[n:])
     train1m, _ = cs.ml1m_ratings(args.seed)
-    lines.append({"phase": "data", "seconds": time.perf_counter() - t1})
+    emit({"phase": "data", "seconds": time.perf_counter() - t1})
     rng = np.random.default_rng(args.seed)
     t2 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        out, packs = cs.phase_parallel_nccl(torch, rng, data3, r[n:], args.seed,
-                                            tmp)
-    lines.append(out)
-    rows, worst = cs.phase_parallel_kernels(torch, rng, packs, train1m,
-                                            cs.Timer(torch))
-    lines += rows
-    lines.append({"phase": "parallel_kernels_worst", **worst})
-    del packs
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp, \
+            cs.nccl_world(torch, tmp):
+        out, packs = cs.phase_parallel_nccl(torch, rng, data3, r[n:], args.seed)
+        emit(out)
+        rows, worst = cs.phase_parallel_kernels(torch, rng, packs, train1m,
+                                                cs.Timer(torch))
+        for row in rows:
+            emit(row)
+        emit({"phase": "parallel_kernels_worst", **worst})
+        del packs
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        out = cs.phase_parallel_als(torch, rng, data3, train1m, args.seed)
+        out["seconds"] = time.perf_counter() - t3
+        emit(out)
     torch.cuda.empty_cache()
-    lines.append(cs.phase_parallel_gloo(torch, train1m, args.seed))
-    lines.append({"phase": "done", "parallel_seconds": time.perf_counter() - t2,
-                  "seconds": time.perf_counter() - t0})
-    for obj in lines:
-        print(json.dumps(obj), flush=True)
-    if args.out:
-        Path(args.out).write_text("".join(json.dumps(o) + "\n" for o in lines))
+    t3 = time.perf_counter()
+    out = cs.phase_parallel_gloo(torch, train1m, args.seed)
+    out["seconds"] = time.perf_counter() - t3
+    emit(out)
+    emit({"phase": "done", "parallel_seconds": time.perf_counter() - t2,
+          "seconds": time.perf_counter() - t0})
     return 0
 
 
