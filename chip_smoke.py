@@ -3,7 +3,8 @@
 neighbourhood and content models, its KernelMF sweep, its native host
 packs, its sparse-gram top-k CF, EASE, BPR, SVD++, NMF and Popularity, the
 recipe recommender's serving path, the batch pipeline and multi-device
-KernelMF (SGD and ALS), bias models and NMF on one CUDA GPU and check them.
+KernelMF (SGD and ALS), bias models, NMF, BPR and SVD++ on one CUDA GPU
+and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -298,7 +299,23 @@ failed check ends the run with a non-zero exit:
     1e-5 of ``nmf_train``, bit equality recorded) and ``ShardedCatalog``
     serving 256 users' top-10 of the dp ALS tables (ids equal to
     ``catalog_topk``'s, scores 1e-5); then the sweep's median seconds and a
-    profiled sweep (the all-gather's device time).
+    profiled sweep (the all-gather's device time). (e) parallel_families,
+    in the same NCCL world of one rank, at the families' shape (config 3's
+    25M ratings, k=64, bs 1,048,576, 3 epochs, draws given): the
+    single-device BPR and SVD++ trainers on one user-primary pack and on
+    the flat stream, then with the apply and scorer counts zeroed just
+    before and read just after ``dp_bpr_train_tiled``, ``dp_bpr_train``,
+    ``dp_svdpp_train_batched`` and ``dp_svdpp_train`` on the same inputs
+    (each within JAX's bars of its single-device trainer: BPR 2e-5 and
+    loss rtol 1e-5, SVD++ 1e-5; as many apply launches) and ``BPR`` /
+    ``SVDpp`` with ``mesh=make_mesh(1)`` fitted for one epoch and served
+    (``recommend``, 256-user ``recommend_batch``); each fit's seconds and a
+    profiled epoch of each dp trainer. The gloo worlds of (b) also fit
+    ``BPR(mesh=make_mesh(W))`` and ``SVDpp(mesh=...)`` at config 2's shape
+    (k=64, bs 65,536, 2 epochs), flat and tiled (``psum_every='auto'``,
+    ``overlap_psum``), the tiled twice: every rank's tables bit-equal, the
+    same lists served, two fits bit-equal, and each fit within 1e-5 of a
+    float64 replay of its own pack and draws (``family_mesh_f64``).
 
 Then the ``kernels`` line (``score_catalog``, ``sgd_step``,
 ``segment_apply``, ``spd_gj`` with its EASE launches and shapes,
@@ -4410,8 +4427,9 @@ def parallel_gloo_rank(rank, world, inp):
     flat and tiled, each fitted twice. World 4 (2 x 2): ``KernelMF`` with
     ``keep_sharded=True`` (``dp_tp_fit``), ``recommend_batch`` through the
     sharded catalog beside the single-device top-k of the gathered tables.
-    Both worlds then fit the slice-6b models (``gloo_6b_rank``). Returns
-    host arrays and the rank's kernel launches."""
+    Both worlds then fit the slice-6b models (``gloo_6b_rank``) and the
+    slice-6c ones (``gloo_6c_rank``). Returns host arrays and the rank's
+    kernel launches."""
     import numpy as np
     import pandas as pd
     import torch
@@ -4484,6 +4502,13 @@ def parallel_gloo_rank(rank, world, inp):
     out["6b"] = gloo_6b_rank(world, inp, X, y)
     torch.cuda.synchronize()
     out["6b_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n0 = cuda_sgd.apply_launches, cuda_scores.launches
+    out["6c"] = gloo_6c_rank(world, inp, X, y)
+    torch.cuda.synchronize()
+    out["6c_seconds"] = time.perf_counter() - t0
+    out["6c_launches"] = {"segment_apply": cuda_sgd.apply_launches - n0[0],
+                          "score_catalog": cuda_scores.launches - n0[1]}
     out["launches"] = {"sgd_step": cuda_sgd.step_launches,
                        "sgd_step_acc": cuda_sgd.acc_launches,
                        "segment_apply": cuda_sgd.apply_launches,
@@ -4501,7 +4526,8 @@ def phase_parallel_gloo(torch, train1m, seed):
     rank's Q bit-equal; two fits of one seed bit-equal; train RMSE falls;
     under ``keep_sharded`` each rank holds half of P and half of Q; the
     sharded top-10 equals the single-device top-10 of the gathered tables
-    (ids, scores 1e-5)."""
+    (ids, scores 1e-5); the slice-6b models (``check_gloo_6b``) and the
+    slice-6c ones (``check_gloo_6c``)."""
     import numpy as np
 
     from matrix_factorization_tpu_torch import params_from_numpy
@@ -4557,9 +4583,17 @@ def phase_parallel_gloo(torch, train1m, seed):
     out["two_d"] = {"train_rmse": t["train_rmse"], "serve_max_abs_err": serve_err,
                     "held_rows": t["held_rows"]}
     out["6b"] = check_gloo_6b(torch, inp, worlds)
+    out["6c"] = check_gloo_6c(torch, inp, worlds)
     out["rank_seconds"] = {w: [rk["seconds"] for rk in worlds[w]] for w in worlds}
     out["rank_6b_seconds"] = {w: [rk["6b_seconds"] for rk in worlds[w]]
                               for w in worlds}
+    out["rank_6c_seconds"] = {w: [rk["6c_seconds"] for rk in worlds[w]]
+                              for w in worlds}
+    out["6c_launches"] = {k: sum(rk["6c_launches"][k] for w in worlds.values()
+                                 for rk in w)
+                          for k in w2[0]["6c_launches"]}
+    check(all(v > 0 for v in out["6c_launches"].values()),
+          f"the gloo ranks' BPR / SVD++ fits missed a kernel: {out['6c_launches']}")
     out["launches"] = {k: sum(rk["launches"][k] for w in worlds.values()
                               for rk in w)
                        for k in w2[0]["launches"]}
@@ -5020,6 +5054,438 @@ def phase_parallel_als(torch, rng, data3, train1m, seed):
     return out
 
 
+# phase parallel_families: the slice-6c trainers at world size 1 on NCCL at
+# the families' shape (FAM on config 3), their draws given; the gloo worlds
+# fit BPR and SVD++ on a mesh at config 2's shape (GLOO_6C)
+GLOO_6C = {"n_factors": 64, "batch_size": 65_536, "n_epochs": 2}
+
+
+def phase_parallel_families(torch, rng, data3, seed):
+    """(e) The slice-6c trainers at NCCL world size 1 in this process
+    (inside ``nccl_world``), at the families' shape: config 3's 25M ratings,
+    k=64, bs 1,048,576, 3 epochs, one user-primary pack (BPR reads its ids
+    and weights, SVD++ its ratings too) and the flat stream of
+    ``dp_fit_plumbing``, the draws given (a batch order and (nb, bs)
+    negatives an epoch for the pack; a permutation and a negative a triplet
+    for the stream), seeded tables (SVD++'s Y seeded too, so that S is not
+    zero). The single-device trainers first (``bpr_train_tiled``,
+    ``bpr_train``, ``svdpp_train_batched``, ``svdpp_train``), then with the
+    apply and scorer counts zeroed just before and read just after:
+    ``dp_bpr_train_tiled``, ``dp_bpr_train``, ``dp_svdpp_train_batched``,
+    ``dp_svdpp_train`` on the same inputs, and ``BPR`` / ``SVDpp`` with
+    ``mesh=make_mesh(1)`` fitted for one epoch (at one data rank the model
+    trains on its single-device path, as JAX's does) and served:
+    ``recommend`` and a 256-user ``recommend_batch``. Checks: each dp
+    trainer within JAX's bars of its single-device trainer (BPR tables
+    2e-5, loss rtol 1e-5; SVD++ 1e-5) with as many apply launches; the
+    served lists of 10. Each fit's seconds, and a profiled epoch of each dp
+    trainer (device time, busy share, the NCCL kernels' time)."""
+    import numpy as np
+    import pandas as pd
+
+    import matrix_factorization_tpu_torch as port
+    from matrix_factorization_tpu_torch.core.config import SGDConfig
+    from matrix_factorization_tpu_torch.ops import bpr, cuda_scores, cuda_sgd, svdpp
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+    from matrix_factorization_tpu_torch.parallel import distributed as pdist
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
+    def sync_time(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    u, i, r = data3[:3]
+    E, bs, lr = FAM["epochs"], FAM["batch_size"], 0.05
+    mesh = make_mesh(1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"phase": "parallel_families", "backend": "nccl", "world_size": 1,
+           "n_ratings": len(r), **FAM}
+
+    # -- inputs ------------------------------------------------------------
+    t0 = time.perf_counter()
+    pack = sgd.pack_ratings(u, i, r, bs, shuffle_seed=seed, order="user",
+                            device="cuda")
+    out["pack_seconds"] = sync_time(t0)
+    t0 = time.perf_counter()
+    _, fbs, stream = pdist.dp_fit_plumbing(u, i, r, N_USERS, mesh, bs)
+    flat = pdist.local_ratings(stream, 0, 1, "cuda")
+    out["stream_seconds"] = sync_time(t0)
+    n_pad, nb = flat.user_ids.shape[0], pack.n_batches
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    orders = [torch.from_numpy(rng.permutation(nb)) for _ in range(E)]
+    negs = [torch.randint(0, N_ITEMS, (nb, bs), generator=gen, device="cuda",
+                          dtype=torch.int32) for _ in range(E)]
+    perms = [torch.randperm(n_pad, generator=gen, device="cuda")
+             for _ in range(E)]
+    fnegs = [torch.randint(0, N_ITEMS, (n_pad,), generator=gen, device="cuda",
+                           dtype=torch.int32) for _ in range(E)]
+    kw = FAM_KW["SVDpp"]  # the models' configs at the families' shape
+    bcfg = SGDConfig(kernel="linear", n_factors=FAM["n_factors"], reg=0.002,
+                     min_rating=0.0, max_rating=1.0)
+    scfg = SGDConfig(kernel="linear", n_factors=FAM["n_factors"], lr=kw["lr"],
+                     reg=kw["reg"], min_rating=kw["min_rating"],
+                     max_rating=kw["max_rating"], batch_size=bs)
+    b0 = sgd.init_params(gen, N_USERS, N_ITEMS, bcfg, 0.0)
+    s0 = svdpp.init_params(gen, N_USERS, N_ITEMS, scfg, float(r.mean()))
+    Y = torch.zeros_like(s0.implicit_features)
+    Y[:, :scfg.n_factors] = 0.05 * torch.randn(
+        (Y.shape[0], scfg.n_factors), generator=gen, device="cuda")
+    s0 = s0._replace(implicit_features=Y)
+    wvec = torch.from_numpy(svdpp._neighbor_weights(
+        u, N_USERS, s0.user_features.shape[0])).cuda()
+    deg = torch.from_numpy(np.bincount(i, minlength=Y.shape[0]).astype(
+        np.float32)).cuda()
+    lr_y, reg_y = scfg.lr, scfg.reg
+
+    def per_rank(draws):
+        return [[x] for x in draws]
+
+    runs = {  # name: (single-device run, dp run)
+        "bpr_tiled": (
+            lambda: bpr.bpr_train_tiled(b0, pack, None, bcfg, E, lr, N_ITEMS,
+                                        batch_orders=orders, negatives=negs),
+            lambda e=E: bpr.dp_bpr_train_tiled(
+                pdist.place_params(b0, mesh), pack, bcfg, e, lr, N_ITEMS, mesh,
+                batch_orders=per_rank(orders[:e]),
+                negatives=per_rank(negs[:e]))),
+        "bpr_flat": (
+            lambda: bpr.bpr_train(b0, flat.user_ids, flat.item_ids,
+                                  flat.weights, None, bcfg, E, lr, N_ITEMS,
+                                  fbs, len(r), perms=perms, negatives=fnegs),
+            lambda e=E: bpr.dp_bpr_train(
+                pdist.place_params(b0, mesh), flat, bcfg, e, lr, N_ITEMS, fbs,
+                len(r), mesh, perms=per_rank(perms[:e]),
+                negatives=per_rank(fnegs[:e]))),
+        "svdpp_tiled": (
+            lambda: svdpp.svdpp_train_batched(s0, pack, wvec, deg, None, scfg,
+                                              E, lr_y, reg_y,
+                                              batch_orders=orders),
+            lambda e=E: svdpp.dp_svdpp_train_batched(
+                s0, pack, wvec, deg, scfg, e, lr_y, reg_y, mesh,
+                batch_orders=per_rank(orders[:e]))),
+        "svdpp_flat": (
+            lambda: svdpp.svdpp_train(s0, *flat, wvec, deg, None, scfg, E,
+                                      lr_y, reg_y, fbs, len(r), perms=perms),
+            lambda e=E: svdpp.dp_svdpp_train(
+                s0, flat, wvec, deg, scfg, e, lr_y, reg_y, fbs, len(r), mesh,
+                perms=per_rank(perms[:e]))),
+    }
+
+    # -- the single-device references --------------------------------------
+    refs = {}
+    for name, (single, _) in runs.items():
+        n0 = cuda_sgd.apply_launches
+        t0 = time.perf_counter()
+        refs[name] = single()
+        out[f"{name}_single_device_seconds"] = sync_time(t0)
+        out[f"{name}_single_device_launches"] = cuda_sgd.apply_launches - n0
+
+    # -- the main path, counts zeroed just before --------------------------
+    torch.cuda.synchronize()
+    cuda_sgd.reset_launches()
+    cuda_scores.reset_launches()
+    got = {}
+    for name, (_, dp) in runs.items():
+        n0 = cuda_sgd.apply_launches
+        t0 = time.perf_counter()
+        got[name] = dp()
+        out[f"{name}_seconds"] = sync_time(t0)
+        out[f"{name}_launches"] = cuda_sgd.apply_launches - n0
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    served = {}
+    for cls, y in (("BPR", None), ("SVDpp", pd.Series(r))):
+        t0 = time.perf_counter()
+        m = getattr(port, cls)(n_factors=FAM["n_factors"], n_epochs=1,
+                               batch_size=bs, seed=seed, mesh=mesh,
+                               **FAM_KW[cls]).fit(X, y)
+        out[f"{cls.lower()}_model_fit_seconds"] = sync_time(t0)
+        users = [int(x) for x in rng.choice(np.unique(u), PAR["serve_users"],
+                                            replace=False)]
+        one = m.recommend(users[0], amount=PAR["k"])
+        batch = m.recommend_batch(users, amount=PAR["k"])
+        served[cls] = (len(one), len(batch))
+        del m
+    launches = {"segment_apply": cuda_sgd.apply_launches,
+                "score_catalog": cuda_scores.launches}
+    out["launches"] = launches
+    check(all(v > 0 for v in launches.values()),
+          f"the parallel families' path missed a kernel: {launches}")
+    check(all(v == (PAR["k"], PAR["k"] * PAR["serve_users"])
+              for v in served.values()),
+          f"the mesh models served lists of another length: {served}")
+
+    # -- the checks ----------------------------------------------------------
+    for name in runs:
+        (gp, gh), (rp, rh) = got[name], refs[name]
+        errs = [float((a - b).abs().max()) for a, b in zip(gp, rp)
+                if a.dim() == 2]
+        gh, rh = gh.cpu().numpy(), rh.cpu().numpy()
+        if name.startswith("bpr"):
+            hist_err = float(np.max(np.abs(gh - rh) / np.abs(rh)))
+            ok = max(errs) <= 2e-5 and hist_err <= 1e-5
+            check(gh[-1] < gh[0], f"{name}: the loss did not fall {gh}")
+        else:
+            hist_err = float(np.abs(gh - rh).max())
+            ok = max(errs) <= 1e-5 and hist_err <= 1e-5
+            check(gh[-1] < gh[0], f"{name}: the train RMSE did not fall {gh}")
+        out[f"{name}_max_abs_err_single_device"] = max(errs)
+        out[f"{name}_hist_err_single_device"] = hist_err
+        out[f"{name}_bit_equal_single_device"] = all(
+            torch.equal(a, b) for a, b in zip(gp, rp))
+        out[f"{name}_history"] = gh.tolist()
+        check(ok, f"{name} at world 1 off its single-device trainer by "
+                  f"{max(errs)} (history {hist_err})")
+        check(out[f"{name}_launches"] == out[f"{name}_single_device_launches"],
+              f"{name}: {out[f'{name}_launches']} apply launches, single "
+              f"device {out[f'{name}_single_device_launches']}")
+    del got, refs
+    torch.cuda.empty_cache()
+
+    # -- where a dp epoch's device time goes -----------------------------
+    for name, (_, dp) in runs.items():
+        out[f"{name}_epoch_profile"] = _device_share(
+            torch, lambda _, dp=dp: dp(1), [0], match="nccl")
+    out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    return out
+
+
+def gloo_6c_models():
+    """(name, class name, keyword arguments) of the slice-6c fits of every
+    gloo world: BPR and SVD++ at config 2's shape with the families' width
+    and lr / reg, each layout once, the tiled one windowed ('auto') and
+    overlapped."""
+    out = []
+    for cls in ("BPR", "SVDpp"):
+        base = dict(GLOO_6C, **FAM_KW[cls])
+        out += [(f"{cls.lower()}_flat", cls, dict(base, dp_layout="flat")),
+                (f"{cls.lower()}_tiled", cls,
+                 dict(base, dp_layout="tiled", psum_every="auto",
+                      overlap_psum=True))]
+    return out
+
+
+def gloo_6c_rank(world, inp, X, y):
+    """The slice-6c models on this rank, on ``make_mesh(world)``: each fit
+    once (the tiled ones twice from one seed), then ``recommend`` and a
+    256-user ``recommend_batch``. Returns host arrays per fit."""
+    import torch
+
+    import matrix_factorization_tpu_torch as port
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(world)
+    users = list(inp["users"])
+    res = {}
+    for name, cls, kw in gloo_6c_models():
+        kw = dict(kw, seed=inp["seed"], mesh=mesh)
+        yy = None if cls == "BPR" else y
+        m = getattr(port, cls)(**kw).fit(X, yy)
+        out = {"tables": [t.cpu().numpy() for t in m._params],
+               "hist": m.train_loss if cls == "BPR" else m.train_rmse,
+               "one": len(m.recommend(users[0], amount=PAR["k"])),
+               "batch": m.recommend_batch(users, amount=PAR["k"])[
+                   "item_id"].to_numpy()}
+        if name.endswith("tiled"):
+            again = getattr(port, cls)(**kw).fit(X, yy)
+            out["same_bits"] = all(torch.equal(a, b) for a, b in
+                                   zip(m._params, again._params))
+        res[name] = out
+    return res
+
+
+def family_mesh_f64(torch, cls, kw, X, y, seed, world):
+    """float64 replay, in one process, of ``cls(mesh=make_mesh(world),
+    **kw).fit``: the same ids (``_preprocess_fit``), the same initial tables
+    (seeded with ``seed``, grown by fresh rows to ``round_up(n_users, 8 *
+    world)``), each rank's part of the positives or ratings (its segment of
+    the device-major pack, or its user range of the stream), the same
+    draws (``bpr.rank_draws`` / ``svdpp._rank_order`` keyed (seed, 1)), and
+    the windows of ``psum_every`` steps: within a window every rank's steps
+    read Q as it stood at the window's start and every rank's Q deltas are
+    summed, P (and SVD++'s accumulator) updated in place; under
+    ``overlap_psum`` a window's sum is added after the next window's
+    steps. SVD++'s S and Y gradient over all pairs, Y updated an epoch, S
+    refreshed at the end. Plain ``index_add_`` in float64 on the card.
+    Returns the tables as float64 numpy: (P, Q) or (P, Q, Y, S)."""
+    import numpy as np
+    import pandas as pd
+
+    import matrix_factorization_tpu_torch as port
+    from matrix_factorization_tpu_torch.ops import bpr, svdpp
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+    from matrix_factorization_tpu_torch.parallel import distributed as pdist
+
+    dev, f64 = "cuda", torch.float64
+    is_bpr = cls == "BPR"
+    m = getattr(port, cls)(n_factors=kw["n_factors"], seed=seed,
+                           **FAM_KW[cls])
+    u, i, r = m._preprocess_fit(
+        X, pd.Series(np.ones(len(X), np.float32)) if is_bpr else y)
+    cfg = m._cfg()
+    nu, ni = m.n_users, m.n_items
+    ucap = sgd.round_up(nu, 8 * world)
+    rows = ucap // world
+    bs = min(kw["batch_size"], max(1, len(u)))
+    mu = 0.0 if is_bpr else float(np.mean(r))
+    base = sgd.init_params(torch.Generator(device=dev).manual_seed(seed), nu,
+                           ni, cfg, mu, init_sd=m.init_sd)
+    P = base.user_features
+    if ucap > P.shape[0]:
+        P = torch.cat([P, sgd.fresh_user_rows(sgd.seeded_generator(dev, seed, 0),
+                                              ucap - P.shape[0], cfg, 0.0,
+                                              m.init_sd)])
+    P, Q = P.to(f64), base.item_features.to(f64)
+    umask, imask = (sgd.mask_tensor(cfg, s, dev).to(f64) for s in ("user", "item"))
+    fmask = svdpp.factor_mask(cfg, P.shape[1], dev).to(f64)
+    vals = np.ones(len(u), np.float32) if is_bpr else r.astype(np.float32)
+    key, lr = (seed, 1), m.lr
+    tiled = kw["dp_layout"] == "tiled"
+    if tiled:
+        packs = [sgd.pack_ratings(u.astype(np.int32), i.astype(np.int32), vals,
+                                  bs, shuffle_seed=seed, order="user",
+                                  n_dev=world, users_per_dev=rows, segment=d,
+                                  device=dev) for d in range(world)]
+        nb = packs[0].n_batches
+        T = pdist._check_psum_every(kw.get("psum_every", 1), nb)
+    else:
+        su, si, sr, sw, n_pad = pdist.shard_ratings_by_user(
+            u.astype(np.int32), i.astype(np.int32), vals, ucap, world, bs)
+        nb, T = n_pad // bs, 1
+        cols = [{k: torch.from_numpy(a[d * n_pad:(d + 1) * n_pad]).to(dev)
+                 for k, a in zip("uirw", (su, si, sr, sw))} for d in range(world)]
+
+    def rank_batches(e, d):
+        """Rank d's batches of epoch e in visit order, global user ids."""
+        if tiled:
+            if is_bpr:
+                visit, negs = bpr.rank_draws(None, None, key, e, d, nb, (nb, bs),
+                                             ni, dev)
+            else:
+                visit = svdpp._rank_order(None, e, d, nb, key, dev)
+            p = packs[d]
+            return [{"u": p.user_ids[k].long() + d * rows,
+                     "i": p.item_ids[k].long(), "r": p.ratings[k].to(f64),
+                     "w": p.weights[k].to(f64),
+                     "j": negs[t].long() if is_bpr else None}
+                    for t, k in enumerate(visit.tolist())]
+        if is_bpr:
+            perm, negs = bpr.rank_draws(None, None, key, e, d, n_pad, (n_pad,),
+                                        ni, dev)
+        else:
+            perm = svdpp._rank_order(None, e, d, n_pad, key, dev)
+        c = {k: v[perm] for k, v in cols[d].items()}
+        return [{"u": c["u"][lo:lo + bs].long() + d * rows,
+                 "i": c["i"][lo:lo + bs].long(), "r": c["r"][lo:lo + bs].to(f64),
+                 "w": c["w"][lo:lo + bs].to(f64),
+                 "j": negs[lo:lo + bs].long() if is_bpr else None}
+                for lo in range(0, n_pad, bs)]
+
+    def windows(e, step):
+        batches = [rank_batches(e, d) for d in range(world)]
+        pending = None
+        for w in range(nb // T):
+            dQ = torch.zeros_like(Q)
+            for d in range(world):
+                for b in batches[d][w * T:(w + 1) * T]:
+                    step(b, dQ)
+            if kw.get("overlap_psum"):
+                if pending is not None:
+                    Q.add_(pending)
+                pending = dQ
+            else:
+                Q.add_(dQ)
+        if pending is not None:
+            Q.add_(pending)
+
+    if is_bpr:
+        def step(b, dQ):
+            u_, i_, j_, w_ = b["u"], b["i"], b["j"], b["w"]
+            pu, qi, qj = P[u_], Q[i_], Q[j_]
+            s = torch.sigmoid(-(pu * (qi - qj)).sum(1)) * w_
+            reg_w = (cfg.reg * w_)[:, None]
+            P.index_add_(0, u_, lr * (s[:, None] * (qi - qj) - reg_w * pu) * umask)
+            dQ.index_add_(0, i_, lr * (s[:, None] * pu - reg_w * qi) * imask)
+            dQ.index_add_(0, j_, lr * (-s[:, None] * pu - reg_w * qj) * imask)
+
+        for e in range(kw["n_epochs"]):
+            windows(e, step)
+        return P.cpu().numpy(), Q.cpu().numpy()
+
+    lr_y, reg_y = cfg.lr, cfg.reg
+    Y = torch.zeros_like(Q)
+    uu = torch.from_numpy(u.astype(np.int64)).to(dev)
+    ii = torch.from_numpy(i.astype(np.int64)).to(dev)
+    wvec = torch.from_numpy(svdpp._neighbor_weights(u, nu, ucap)).to(dev, f64)
+    deg = torch.zeros(Q.shape[0], dtype=f64, device=dev)
+    deg.index_add_(0, ii, torch.ones(len(i), dtype=f64, device=dev))
+
+    def implicit():
+        S = torch.zeros_like(P)
+        S.index_add_(0, uu, Y[ii])
+        return S * wvec[:, None]
+
+    for e in range(kw["n_epochs"]):
+        S = implicit()
+        A = torch.zeros_like(P)
+
+        def step(b, dQ):
+            u_, i_, w_ = b["u"], b["i"], b["w"]
+            pu, qi = P[u_], Q[i_]
+            eff = pu + S[u_]
+            err = (b["r"] - (mu + (eff * qi).sum(1))) * w_
+            reg_w = (cfg.reg * w_)[:, None]
+            A.index_add_(0, u_, err[:, None] * qi * fmask)
+            P.index_add_(0, u_, cfg.lr * (err[:, None] * qi - reg_w * pu) * umask)
+            dQ.index_add_(0, i_, cfg.lr * (err[:, None] * eff - reg_w * qi) * imask)
+
+        windows(e, step)
+        gY = torch.zeros_like(Y)
+        gY.index_add_(0, ii, A[uu] * wvec[uu][:, None])
+        Y = Y + lr_y * (gY - reg_y * deg[:, None] * Y) * fmask
+    return tuple(t.cpu().numpy() for t in (P, Q, Y, implicit()))
+
+
+def check_gloo_6c(torch, inp, worlds):
+    """The slice-6c fits of every gloo world: every rank's tables bit-equal
+    to rank 0's and the same lists served, two tiled fits of one seed
+    bit-equal, every table within 1e-5 of the float64 replay of the fit's
+    own pack and draws (``family_mesh_f64``). The loss and the RMSE are only
+    recorded: config 2's ratings carry no signal."""
+    import numpy as np
+    import pandas as pd
+
+    u, i, r = inp["train"]
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    y = pd.Series(r)
+    out = {}
+    for world, ranks in worlds.items():
+        res = {}
+        for name, cls, kw in gloo_6c_models():
+            got = ranks[0]["6c"][name]
+            check(all(np.array_equal(a, b) for rk in ranks
+                      for a, b in zip(rk["6c"][name]["tables"], got["tables"])),
+                  f"gloo {world} {name}: the replicas differ across ranks")
+            check(all(np.array_equal(rk["6c"][name]["batch"], got["batch"])
+                      for rk in ranks),
+                  f"gloo {world} {name}: the ranks served different lists")
+            check(got["one"] == PAR["k"]
+                  and len(got["batch"]) == PAR["k"] * len(inp["users"]),
+                  f"gloo {world} {name}: served lists of another length")
+            if "same_bits" in got:
+                check(all(rk["6c"][name]["same_bits"] for rk in ranks),
+                      f"gloo {world} {name}: two fits of one seed differ")
+            replay = family_mesh_f64(torch, cls, kw, X, y, inp["seed"], world)
+            err = max(float(np.abs(a - b).max())
+                      for a, b in zip(got["tables"], replay))
+            res[name] = {"max_abs_err_float64": err, "history": got["hist"]}
+            check(err <= 1e-5, f"gloo {world} {name} off the float64 replay of "
+                               f"its pack and draws by {err}")
+            torch.cuda.empty_cache()
+        out[f"world{world}"] = res
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5278,6 +5744,11 @@ def main() -> int:
         par_als = phase_parallel_als(torch, rng, data3, train1m, args.seed)
         par_als["seconds"] = time.perf_counter() - t1
         emit(par_als)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        par_fam = phase_parallel_families(torch, rng, data3, args.seed)
+        par_fam["seconds"] = time.perf_counter() - t1
+        emit(par_fam)
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     par_gloo = phase_parallel_gloo(torch, train1m, args.seed)
@@ -5285,7 +5756,8 @@ def main() -> int:
     emit(par_gloo)
     par_launches = {k: (par_nccl["launches"][k], par_gloo["launches"][k])
                     for k in ("sgd_step", "segment_apply", "score_catalog")}
-    par_launches["score_catalog"] += (par_als["launches"]["score_catalog"],)
+    par_launches["score_catalog"] += (par_als["launches"]["score_catalog"],
+                                      par_fam["launches"]["score_catalog"])
     del data3
     pipe_launches = pipeline["launches"]
     for name in sgd_worst:
@@ -5317,7 +5789,8 @@ def main() -> int:
                              "pipeline": pipe_launches["score_catalog"],
                              "parallel": par_launches["score_catalog"][0],
                              "parallel_gloo": par_launches["score_catalog"][1],
-                             "parallel_als": par_launches["score_catalog"][2]},
+                             "parallel_als": par_launches["score_catalog"][2],
+                             "parallel_families": par_launches["score_catalog"][3]},
         "max_abs_err": worst,
         "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -5342,7 +5815,8 @@ def main() -> int:
                    "parallel_gloo": par_launches[name][1]}
         if name == "segment_apply":
             by_path.update(bpr=fam["BPR"]["launches"],
-                           svdpp=fam["SVDpp"]["launches"])
+                           svdpp=fam["SVDpp"]["launches"],
+                           parallel_families=par_fam["launches"][name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"matrix_factorization_tpu_torch/csrc/{source}",

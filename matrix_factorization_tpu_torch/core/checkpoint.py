@@ -53,8 +53,8 @@ def save_model(model, path) -> None:
     (``KernelMF(keep_sharded=True)`` fit on a mesh by SGD) is gathered
     first, a collective: every rank calls ``save_model``. Under
     ``torch.distributed`` a model with a mesh (``KernelMF``,
-    ``BaselineModel``, ``NMF``: every rank holds the same whole tables
-    after a mesh fit) is written by rank 0 alone, so that the ranks never
+    ``BaselineModel``, ``NMF``, ``BPR``, ``SVDpp``: every rank holds the
+    same whole tables after a mesh fit) is written by rank 0 alone, so that the ranks never
     race for one directory."""
     params = model._whole_params() if hasattr(model, "_whole_params") \
         else getattr(model, "_params", None)

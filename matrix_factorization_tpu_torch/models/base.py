@@ -75,10 +75,10 @@ def predict_on_device(params, cfg, u: np.ndarray, i: np.ndarray,
     return chunked_predict(run, u, i)
 
 
-def check_mesh_args(serving_dtype, mesh, overlap_psum, dp_layout, psum_every,
-                    name: str) -> None:
+def check_mesh_args(serving_dtype, mesh, overlap_psum, dp_layout,
+                    psum_every) -> None:
     """The JAX package's argument checks of the SGD-trained families
-    (BPR, SVD++), then ``NotImplementedError`` for a mesh."""
+    (BPR, SVD++)."""
     if serving_dtype not in ("float32", "bfloat16"):
         raise ValueError("serving_dtype must be 'float32' or 'bfloat16'")
     if overlap_psum and mesh is None:
@@ -87,10 +87,6 @@ def check_mesh_args(serving_dtype, mesh, overlap_psum, dp_layout, psum_every,
         raise ValueError(f"unknown dp_layout {dp_layout!r}")
     if psum_every != 1 and mesh is None:
         raise ValueError("psum_every requires a mesh")
-    if mesh is not None:
-        from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6_FAMILIES
-
-        raise NotImplementedError(f"{name}(mesh=) comes with {SLICE_6_FAMILIES}")
 
 
 class RecommenderBase(*_SKLEARN_BASES, ABC):

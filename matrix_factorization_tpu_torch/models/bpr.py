@@ -12,9 +12,13 @@ pack, its applies the hand-written ``mf_segment_apply`` on the card.
 
 The constructor takes the JAX package's arguments, so that a checkpoint's
 ``config`` constructs either package's model, plus ``device`` (``None`` =
-CUDA). ``mesh`` raises ``NotImplementedError`` until slice 6. Random
-streams are ``torch.Generator``s seeded from ``seed``: the same seed gives
-the same model bit for bit, though not the JAX package's random bits.
+CUDA). With a ``mesh`` (``parallel/mesh.py``) of more than one data rank
+every rank calls ``fit`` with the same interactions and trains
+data-parallel (``ops/bpr.py::dp_bpr_train_tiled`` for ``dp_layout=
+'tiled'``, ``dp_bpr_train`` for ``'flat'``), then holds the gathered
+tables and serves as a single-device model does. Random streams are
+``torch.Generator``s seeded from ``seed``: the same seed gives the same
+model bit for bit, though not the JAX package's random bits.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from matrix_factorization_tpu_torch.models.base import (RecommenderBase, check_m
 from matrix_factorization_tpu_torch.ops import bpr as bpr_ops
 from matrix_factorization_tpu_torch.ops import scoring
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+from matrix_factorization_tpu_torch.parallel.mesh import data_size_of, device_index
 
 
 class BPR(RecommenderBase):
@@ -54,9 +59,16 @@ class BPR(RecommenderBase):
         device=None,
     ):
         """Arguments as in the JAX package's ``BPR``, validated the same
-        way, plus ``device``."""
+        way, plus ``device``. ``mesh``: with more than one data rank,
+        ``fit`` trains data-parallel (P sharded by user range, the item
+        deltas all-reduced) and gathers the tables. ``dp_layout``:
+        ``'tiled'`` (each rank's segment of the user-primary device-major
+        pack) or ``'flat'`` (each rank's user range of the stream).
+        ``overlap_psum`` runs each item all-reduce under the next step or
+        window; ``psum_every`` sets the tiled layout's window, and the
+        flat layout ignores it, as the JAX package's does."""
         check_mesh_args(serving_dtype, mesh, overlap_psum, dp_layout,
-                        psum_every, "BPR")
+                        psum_every)
         # ranking scores are unbounded; +-inf makes every clamp a no-op
         super().__init__(min_rating=float("-inf"), max_rating=float("inf"),
                          verbose=verbose)
@@ -97,9 +109,11 @@ class BPR(RecommenderBase):
         positives, > 0). ``warm_start=True`` continues from the current
         tables (same id space, strict encode), the building block of
         ``core.checkpoint.fit_resumable``, and keeps the earlier training
-        positives for ``auc``'s rejection. The initial tables come from a
-        generator seeded with ``seed``; the epochs' batch orders and
-        negatives from one seeded with (``seed``, 1 + epochs done)."""
+        positives for ``auc``'s rejection; it trains on the single-device
+        path even with a mesh, as in the JAX package. The initial tables
+        come from a generator seeded with ``seed``; the epochs' batch
+        orders and negatives from one seeded with (``seed``, 1 + epochs
+        done), on a mesh with (``seed``, 1 + epochs done, epoch, rank)."""
         if y is None:
             y = pd.Series(np.ones(len(X), np.float32))
         prev_pairs = None
@@ -126,6 +140,7 @@ class BPR(RecommenderBase):
         else:
             self._train_pairs = (np.concatenate([prev_pairs[0], u]),
                                  np.concatenate([prev_pairs[1], i]))
+        fit_key = (self.seed, 1 + len(self.train_loss))
         if warm_start:
             params = self._params
         else:
@@ -133,12 +148,14 @@ class BPR(RecommenderBase):
                 torch.Generator(device=self._device).manual_seed(self.seed),
                 self.n_users, self.n_items, cfg, global_mean=0.0,
                 init_sd=self.init_sd)
-        data = self._pack(u, i, min(self.batch_size, max(1, len(u))))
-        params, hist = bpr_ops.bpr_train_tiled(
-            params, data,
-            sgd.seeded_generator(self._device, self.seed,
-                                 1 + len(self.train_loss)),
-            cfg, n_epochs, self.lr, self.n_items)
+        if not warm_start and self.mesh is not None \
+                and data_size_of(self.mesh) > 1:
+            params, hist = self._fit_mesh(params, u, i, cfg, n_epochs, fit_key)
+        else:
+            data = self._pack(u, i, min(self.batch_size, max(1, len(u))))
+            params, hist = bpr_ops.bpr_train_tiled(
+                params, data, sgd.seeded_generator(self._device, *fit_key),
+                cfg, n_epochs, self.lr, self.n_items)
         self._params = params
         self.global_mean = 0.0
         done = len(self.train_loss)
@@ -147,6 +164,46 @@ class BPR(RecommenderBase):
             for e, v in enumerate(self.train_loss[done:], start=done):
                 print(f"Epoch {e + 1} BPR loss: {v:.4f}")
         return self
+
+    def _fit_mesh(self, params, u, i, cfg, n_epochs, fit_key):
+        """The data-parallel fit of every rank (JAX ``bpr.py:145-192``): the
+        user capacity ``round_up(n_users, 8 * N)`` (the seeded tables grown
+        by fresh rows, which hold no user, so the real rows start where a
+        mesh-free fit's do), this rank's P rows and a whole Q
+        (``place_params``), its part of the positives, the trainer, then
+        the whole tables on every rank (``gather_params``). Returns
+        (params, history)."""
+        from matrix_factorization_tpu_torch.parallel import distributed as pdist
+
+        n, d = data_size_of(self.mesh), device_index(self.mesh)
+        ucap = sgd.round_up(self.n_users, 8 * n)
+        cap = params.user_features.shape[0]
+        if ucap > cap:
+            fresh = sgd.fresh_user_rows(
+                sgd.seeded_generator(self._device, self.seed, 0), ucap - cap,
+                cfg, 0.0, self.init_sd)
+            params = params._replace(user_features=torch.cat(
+                [params.user_features, fresh]))
+        local = pdist.place_params(params, self.mesh, self._device)
+        ones = np.ones(len(u), np.float32)
+        bs = min(self.batch_size, max(1, len(u)))
+        if self.dp_layout == "tiled":
+            data = sgd.pack_ratings(
+                u.astype(np.int32), i.astype(np.int32), ones, bs,
+                shuffle_seed=self.seed, order="user", n_dev=n,
+                users_per_dev=ucap // n, segment=d, device=self._device)
+            local, hist = bpr_ops.dp_bpr_train_tiled(
+                local, data, cfg, n_epochs, self.lr, self.n_items, self.mesh,
+                overlap_psum=self.overlap_psum, psum_every=self.psum_every,
+                key=fit_key)
+        else:
+            _, bs, stream = pdist.dp_fit_plumbing(u, i, ones, self.n_users,
+                                                  self.mesh, self.batch_size)
+            local, hist = bpr_ops.dp_bpr_train(
+                local, pdist.local_ratings(stream, d, n, self._device), cfg,
+                n_epochs, self.lr, self.n_items, bs, len(u), self.mesh,
+                overlap_psum=self.overlap_psum, key=fit_key)
+        return pdist.gather_params(local, self.mesh, q_sharded=False), hist
 
     def _predict_arrays(self, u: np.ndarray, i: np.ndarray,
                         bound_ratings: bool):

@@ -10,8 +10,12 @@ the card), ``predict`` clamped to the rating range, ``recommend`` /
 against frozen item and implicit tables (``user_refit``).
 
 The constructor takes the JAX package's arguments plus ``device``
-(``None`` = CUDA); ``mesh`` raises ``NotImplementedError`` until slice 6.
-Random streams are ``torch.Generator``s seeded from ``seed``.
+(``None`` = CUDA). With a ``mesh`` (``parallel/mesh.py``) of more than one
+data rank every rank calls ``fit`` with the same ratings and trains
+data-parallel (``ops/svdpp.py::dp_svdpp_train_batched`` for
+``dp_layout='tiled'``, ``dp_svdpp_train`` for ``'flat'``), then holds the
+gathered tables. Random streams are ``torch.Generator``s seeded from
+``seed``.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from matrix_factorization_tpu_torch.models.base import (RecommenderBase, check_m
 from matrix_factorization_tpu_torch.ops import scoring
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 from matrix_factorization_tpu_torch.ops import svdpp as svdpp_ops
+from matrix_factorization_tpu_torch.parallel.mesh import data_size_of, device_index
 
 
 class SVDpp(RecommenderBase):
@@ -56,9 +61,18 @@ class SVDpp(RecommenderBase):
     ):
         """Arguments as in the JAX package's ``SVDpp``, validated the same
         way, plus ``device``. ``lr_y`` / ``reg_y`` (default ``lr`` /
-        ``reg``) drive the implicit table's deferred epoch update."""
+        ``reg``) drive the implicit table's deferred epoch update.
+        ``mesh``: with more than one data rank, ``fit`` trains
+        data-parallel (P, S and the accumulator sharded by user range, the
+        Q deltas all-reduced, one more all-reduce an epoch for the Y
+        gradient) and gathers the tables. ``dp_layout``: ``'tiled'`` (each
+        rank's segment of the user-primary device-major pack) or
+        ``'flat'`` (each rank's user range of the stream).
+        ``overlap_psum`` runs each Q all-reduce under the next step or
+        window; ``psum_every`` sets the tiled layout's window, and the flat
+        layout ignores it, as the JAX package's does."""
         check_mesh_args(serving_dtype, mesh, overlap_psum, dp_layout,
-                        psum_every, "SVDpp")
+                        psum_every)
         super().__init__(min_rating=min_rating, max_rating=max_rating,
                          verbose=verbose)
         self._device = resolve_device(device)
@@ -92,8 +106,9 @@ class SVDpp(RecommenderBase):
     # -- lifecycle ----------------------------------------------------------
     def fit(self, X: pd.DataFrame, y: pd.Series):
         """Train ``n_epochs`` epochs from tables seeded with ``seed``; the
-        batch orders come from a generator seeded with (``seed``, 1).
-        ``train_rmse`` is the per-epoch train RMSE."""
+        batch orders come from a generator seeded with (``seed``, 1), on a
+        mesh with (``seed``, 1, epoch, rank). ``train_rmse`` is the
+        per-epoch train RMSE."""
         u, i, r = self._preprocess_fit(X, y)
         self.global_mean = float(np.mean(r))
         cfg = self._cfg()
@@ -104,19 +119,23 @@ class SVDpp(RecommenderBase):
         params = svdpp_ops.init_params(
             torch.Generator(device=dev).manual_seed(self.seed), self.n_users,
             self.n_items, cfg, self.global_mean, init_sd=self.init_sd)
-        data = sgd.pack_ratings(u.astype(np.int32), i.astype(np.int32),
-                                r.astype(np.float32), self.batch_size,
-                                shuffle_seed=self.seed, order="user",
-                                device=dev)
-        wvec = svdpp_ops._neighbor_weights(u, self.n_users,
-                                           params.user_features.shape[0])
         deg = np.zeros(params.item_features.shape[0], np.float32)
         deg[: self.n_items] = np.bincount(i, minlength=self.n_items)
-        params, hist = svdpp_ops.svdpp_train_batched(
-            params, data, torch.from_numpy(wvec).to(dev),
-            torch.from_numpy(deg).to(dev),
-            sgd.seeded_generator(dev, self.seed, 1), cfg, self.n_epochs,
-            lr_y, reg_y)
+        deg = torch.from_numpy(deg).to(dev)
+        if self.mesh is not None and data_size_of(self.mesh) > 1:
+            params, hist = self._fit_mesh(params, u, i, r, deg, cfg, lr_y,
+                                          reg_y)
+        else:
+            data = sgd.pack_ratings(u.astype(np.int32), i.astype(np.int32),
+                                    r.astype(np.float32), self.batch_size,
+                                    shuffle_seed=self.seed, order="user",
+                                    device=dev)
+            wvec = svdpp_ops._neighbor_weights(u, self.n_users,
+                                               params.user_features.shape[0])
+            params, hist = svdpp_ops.svdpp_train_batched(
+                params, data, torch.from_numpy(wvec).to(dev), deg,
+                sgd.seeded_generator(dev, self.seed, 1), cfg, self.n_epochs,
+                lr_y, reg_y)
         self._params = params
         self._serving_cache = None
         self.train_rmse = hist.cpu().tolist()
@@ -124,6 +143,58 @@ class SVDpp(RecommenderBase):
             for e, v in enumerate(self.train_rmse):
                 print(f"Epoch {e + 1} train RMSE: {v:.4f}")
         return self
+
+    def _fit_mesh(self, params, u, i, r, deg, cfg, lr_y, reg_y):
+        """The data-parallel fit of every rank (JAX ``svdpp.py:119-180``):
+        the user capacity ``round_up(n_users, 8 * N)`` (P grown by fresh
+        rows, S by zero rows, which hold no user), this rank's rows of P, S
+        and ``wvec`` (computed over that capacity) with a whole Q, Y and
+        ``deg``, its part of the ratings, the trainer, then P and S
+        all-gathered (Q and Y are whole already). Returns (params,
+        history)."""
+        from matrix_factorization_tpu_torch.parallel import distributed as pdist
+        from matrix_factorization_tpu_torch.parallel.mesh import data_group
+
+        dev = self._device
+        n, d = data_size_of(self.mesh), device_index(self.mesh)
+        ucap = sgd.round_up(self.n_users, 8 * n)
+        cap = params.user_features.shape[0]
+        if ucap > cap:
+            fresh = sgd.fresh_user_rows(sgd.seeded_generator(dev, self.seed, 0),
+                                        ucap - cap, cfg, 0.0, self.init_sd)
+            params = params._replace(
+                user_features=torch.cat([params.user_features, fresh]),
+                user_implicit_sums=torch.cat([params.user_implicit_sums,
+                                              torch.zeros_like(fresh)]))
+        rows = slice(d * ucap // n, (d + 1) * ucap // n)
+        local = params._replace(
+            user_features=params.user_features[rows].clone(),
+            user_implicit_sums=params.user_implicit_sums[rows].clone())
+        wvec = torch.from_numpy(
+            svdpp_ops._neighbor_weights(u, self.n_users, ucap)[rows]).to(dev)
+        bs = min(self.batch_size, max(1, len(u)))
+        key = (self.seed, 1)
+        if self.dp_layout == "tiled":
+            data = sgd.pack_ratings(
+                u.astype(np.int32), i.astype(np.int32), r.astype(np.float32),
+                bs, shuffle_seed=self.seed, order="user", n_dev=n,
+                users_per_dev=ucap // n, segment=d, device=dev)
+            local, hist = svdpp_ops.dp_svdpp_train_batched(
+                local, data, wvec, deg, cfg, self.n_epochs, lr_y, reg_y,
+                self.mesh, overlap_psum=self.overlap_psum,
+                psum_every=self.psum_every, key=key)
+        else:
+            _, bs, stream = pdist.dp_fit_plumbing(u, i, r, self.n_users,
+                                                  self.mesh, self.batch_size)
+            local, hist = svdpp_ops.dp_svdpp_train(
+                local, pdist.local_ratings(stream, d, n, dev), wvec, deg, cfg,
+                self.n_epochs, lr_y, reg_y, bs, len(u), self.mesh,
+                overlap_psum=self.overlap_psum, key=key)
+        group = data_group(self.mesh)
+        return local._replace(
+            user_features=pdist.all_gather_rows(local.user_features, group),
+            user_implicit_sums=pdist.all_gather_rows(local.user_implicit_sums,
+                                                     group)), hist
 
     def _mf_view(self) -> sgd.MFParams:
         """The effective table view ``P + S``, cached on the identity of

@@ -42,9 +42,8 @@ from matrix_factorization_tpu_torch.core.config import LANE, SUBLANE, SGDConfig
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.data.loader import host_lib, native_threads
 
-# the later slices of the port's multi-device layer (slice 6), named by the
-# mesh paths that still raise
-SLICE_6_FAMILIES = "slice 6c of the PyTorch port (BPR and SVD++ on a mesh)"
+# the later slice of the port's multi-device layer, named by the mesh paths
+# that still raise
 SLICE_6_GRAM = ("slice 6d of the PyTorch port (EASE, the sparse gram, CF and "
                 "retrieval on a mesh)")
 

@@ -27,7 +27,26 @@ the flat trainers and ``user_refit`` sort each batch or chunk on the
 device (``segment_sum.sorted_order``). ``user_refit``'s touched mask is an
 ``index_fill_`` of ones, which every writer sets alike. The random streams
 are ``torch.Generator``s; the trainers also take their permutations given.
-The data-parallel ``dp_*`` trainers come with slice 6.
+
+The data-parallel trainers ``dp_svdpp_train`` (a flat stream) and
+``dp_svdpp_train_batched`` (a device-major pack) run on every rank of a
+mesh (``parallel/mesh.py``), one process a device. Layout: P, S and the
+``A`` accumulator row-sharded over the data axes with user ids local to
+the rank's rows (``wvec`` sharded the same way), Q and Y replicated,
+``item_deg`` whole on every rank. An epoch builds the rank's S from its
+own pairs, then runs the steps with P and A updated in place and the Q
+deltas into a window's zeroed ``dQ``, all-reduced over the data group and
+added to every replica (``parallel/distributed.py::_windowed_epoch``):
+once a step in the flat trainer, once every ``psum_every`` steps in the
+batched one (Q read as it stood at the window's start; ``overlap_psum``
+runs each all-reduce under the next window's steps). Then each rank
+scatters its pairs' share of the Y gradient, ONE all-reduce of that
+(Icap, Kp) table, and every rank applies the same Y update. Collectives an
+epoch: one all-reduce of ``dQ`` a window, one of ``gY`` and one of the
+squared error. S stays frozen for the epoch and is refreshed from the
+final Y after the last. At one rank ``Q + dQ`` rounds otherwise than the
+in-place apply, so the trainers match the single-device ones within float
+rounding.
 """
 
 from __future__ import annotations
@@ -158,11 +177,14 @@ def _scatter_pair_grads(A: torch.Tensor, Y_like: torch.Tensor,
     return gY
 
 
-def _batch_step(P, Q, S, A, mu, u, i, r, w, orders, cfg: SGDConfig, masks):
+def _batch_step(P, Q, S, A, mu, u, i, r, w, orders, cfg: SGDConfig, masks,
+                dq=None):
     """One mini-batch of the epoch-cached schedule, in place on ``P``,
     ``Q`` and ``A``; returns the batch's squared error. Every delta is
     formed from the rows read before any write; ``orders`` holds the
-    ``(perm, ids_sorted)`` of ``u`` and of ``i``."""
+    ``(perm, ids_sorted)`` of ``u`` and of ``i``. ``dq`` (the
+    data-parallel trainers: a window's delta table) takes the Q deltas in
+    place of ``Q``, which is then only read."""
     umask, imask, fmask = masks
     pu = P[u.long()]
     qi = Q[i.long()]
@@ -173,7 +195,7 @@ def _batch_step(P, Q, S, A, mu, u, i, r, w, orders, cfg: SGDConfig, masks):
     gq = (e[:, None] * eff - reg_w * qi) * imask[None, :]
     cuda_sgd.segment_apply(A, e[:, None] * qi * fmask[None, :], *orders[0])
     cuda_sgd.segment_apply(P, cfg.lr * gp, *orders[0])
-    cuda_sgd.segment_apply(Q, cfg.lr * gq, *orders[1])
+    cuda_sgd.segment_apply(Q if dq is None else dq, cfg.lr * gq, *orders[1])
     return torch.sum(e * e)
 
 
@@ -317,6 +339,155 @@ def svdpp_train_batched(
 
 def _stack(hist, device) -> torch.Tensor:
     return torch.stack(hist) if hist else torch.zeros(0, device=device)
+
+
+def _dp_epochs(params: SVDppParams, wvec, item_deg, cfg: SGDConfig,
+               n_epochs: int, lr_y: float, reg_y: float, n_real: int, mesh,
+               overlap_psum: bool, psum_every, implicit, pair_grads,
+               epoch_of, orders_of) -> Tuple[SVDppParams, torch.Tensor]:
+    """The loop both data-parallel trainers share. ``implicit(Y)`` is the
+    rank's S from its pairs, ``pair_grads(A)`` its share of the Y gradient,
+    ``epoch_of(e, d)`` rank d's batches of epoch e in visit order (dicts
+    with ``u``, ``i``, ``r``, ``w``) and ``orders_of(b)`` a batch's
+    ``(perm, ids_sorted)`` of ``u`` and ``i``."""
+    import torch.distributed as dist
+
+    from matrix_factorization_tpu_torch.parallel.distributed import (
+        _check_psum_every, _windowed_epoch)
+    from matrix_factorization_tpu_torch.parallel.mesh import data_group, device_index
+
+    group, d = data_group(mesh), device_index(mesh)
+    P = params.user_features.clone()
+    Q = params.item_features.clone()
+    Y = params.implicit_features
+    mu = params.global_mean
+    dev = P.device
+    masks = _masks(cfg, dev)
+    hist = []
+    for e in range(n_epochs):
+        S = implicit(Y)
+        A = torch.zeros_like(P)
+        batches = epoch_of(e, d)
+        T = _check_psum_every(psum_every, len(batches))
+        sse = [torch.zeros((), dtype=torch.float32, device=dev)]
+
+        def step(b, deltas):
+            sse[0] = sse[0] + _batch_step(
+                P, Q, S, A, mu, b["u"], b["i"], b["r"], b["w"], orders_of(b),
+                cfg, masks, dq=deltas[0])
+
+        _windowed_epoch([(Q, group)], batches, T, step, overlap_psum)
+        gY = pair_grads(A)
+        dist.all_reduce(gY, group=group)
+        Y = _y_update(Y, gY, item_deg, lr_y, reg_y, masks[2])
+        total = sse[0].reshape(1)
+        dist.all_reduce(total, group=group)
+        hist.append(torch.sqrt(total[0] / max(n_real, 1)))
+    return params._replace(user_features=P, item_features=Q,
+                           implicit_features=Y,
+                           user_implicit_sums=implicit(Y)), _stack(hist, dev)
+
+
+def _rank_order(perms, e: int, d: int, n: int, key, device) -> torch.Tensor:
+    """``perms[e][d]`` when given, else a permutation of ``n`` drawn on
+    ``device`` from ``seeded_generator(device, *key, e, d)``."""
+    if perms is not None:
+        return sgd._as_index(perms[e][d], device)
+    return sgd._perm(n, sgd.seeded_generator(device, *key, e, d)).to(device)
+
+
+def dp_svdpp_train(
+    params: SVDppParams,
+    data,  # parallel.distributed.ShardedRatings: LOCAL user ids, padded
+    wvec: torch.Tensor,  # the rank's rows of |N(u)|^-1/2
+    item_deg: torch.Tensor,  # (Icap,) pair count per item, whole
+    cfg: SGDConfig,
+    n_epochs: int,
+    lr_y: float,
+    reg_y: float,
+    batch_size: int,
+    n_real: int,
+    mesh,
+    overlap_psum: bool = False,
+    perms: Optional[Sequence] = None,
+    key: Tuple[int, ...] = (0,),
+) -> Tuple[SVDppParams, torch.Tensor]:
+    """Flat data-parallel SVD++ (JAX ``dp_svdpp_train``), run by every
+    rank: ``params`` its rows of P and S with a whole Q and Y, ``data`` its
+    user range of the padded stream (``local_ratings`` of
+    ``dp_fit_plumbing``'s split). S and the Y gradient are built in chunks
+    of ``batch_size`` pairs; each epoch the rank permutes its stream
+    (``perms[e][d]``, else drawn from ``seeded_generator(device, *key, e,
+    d)``) and every step's Q deltas are all-reduced (deferred one step
+    under ``overlap_psum``). Returns this rank's (P_l, Q, Y, S_l, mu) and
+    the per-epoch train RMSE (a device tensor, the same on every rank)."""
+    from matrix_factorization_tpu_torch.parallel.distributed import _check_orders
+
+    _check_orders(perms, n_epochs, "perms")
+    u, i, r, w = data.user_ids, data.item_ids, data.ratings, data.weights
+    n = u.shape[0]
+    if n % batch_size:
+        raise ValueError(f"the rank's stream of {n} is not a whole number of "
+                         f"batches of {batch_size}")
+    dev = params.user_features.device
+
+    def epoch_of(e, d):
+        perm = _rank_order(perms, e, d, n, key, dev)
+        cols = {"u": u[perm], "i": i[perm], "r": r[perm], "w": w[perm]}
+        return [{k: v[lo:lo + batch_size] for k, v in cols.items()}
+                for lo in range(0, n, batch_size)]
+
+    return _dp_epochs(
+        params, wvec, item_deg, cfg, n_epochs, lr_y, reg_y, n_real, mesh,
+        overlap_psum, 1,
+        lambda Y: implicit_sum(Y, u, i, w, wvec, chunk=batch_size),
+        lambda A: _scatter_pair_grads(A, params.implicit_features, u, i, w,
+                                      wvec, chunk=batch_size),
+        epoch_of, lambda b: (sorted_order(b["u"]), sorted_order(b["i"])))
+
+
+def dp_svdpp_train_batched(
+    params: SVDppParams,
+    data: sgd.RatingBatches,
+    wvec: torch.Tensor,  # the rank's rows of |N(u)|^-1/2
+    item_deg: torch.Tensor,  # (Icap,) pair count per item, whole
+    cfg: SGDConfig,
+    n_epochs: int,
+    lr_y: float,
+    reg_y: float,
+    mesh,
+    overlap_psum: bool = False,
+    psum_every=1,
+    batch_orders: Optional[Sequence] = None,
+    key: Tuple[int, ...] = (0,),
+) -> Tuple[SVDppParams, torch.Tensor]:
+    """Data-parallel SVD++ on this rank's segment of the user-primary
+    device-major pack (JAX ``dp_svdpp_train_batched``): ``data`` is
+    ``pack_ratings(order='user', n_dev=N, users_per_dev=Ucap / N,
+    segment=d)``. A step is ``svdpp_train_batched``'s (P and A over the
+    batch's own user order, Q over the pack's secondary order), its Q
+    deltas into the window's ``dQ``: ``psum_every`` steps a window
+    (``_check_psum_every``), all reading Q as it stood at the window's
+    start. S and the rank's Y gradient come from its own batches.
+    ``batch_orders[e][d]`` (a permutation of the rank's batches) replaces
+    the draws. Returns this rank's (P_l, Q, Y, S_l, mu) and the per-epoch
+    train RMSE over the pack's ``n_real``."""
+    from matrix_factorization_tpu_torch.parallel.distributed import _check_orders
+
+    _check_user_pack(data)
+    _check_orders(batch_orders, n_epochs, "batch_orders")
+    dev = params.user_features.device
+
+    def epoch_of(e, d):
+        visit = _rank_order(batch_orders, e, d, data.n_batches, key, dev)
+        return [sgd.batch_at(data, k) for k in visit.tolist()]
+
+    return _dp_epochs(
+        params, wvec, item_deg, cfg, n_epochs, lr_y, reg_y, data.n_real, mesh,
+        overlap_psum, psum_every,
+        lambda Y: implicit_sum_batched(Y, data, wvec),
+        lambda A: _pair_grads_batched(A, params.implicit_features, data, wvec),
+        epoch_of, lambda b: (identity_order(b["u"]), (b["sp"], b["ss"])))
 
 
 def user_refit(

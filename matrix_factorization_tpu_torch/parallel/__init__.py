@@ -20,6 +20,10 @@ the mesh). NCCL carries them between GPUs, gloo between CPU processes.
   ``ShardedCatalog``, on the catalog scorer of ``ops/cuda_scores.py``;
 * ``dryrun`` — one step of each trainer and one distributed top-k on
   tiny shapes.
+
+The other families' data-parallel trainers sit beside their single-device
+trainers (``ops/{als,ials,nmf,bpr,svdpp}.py``) and use this package's
+plumbing and windowed epoch.
 """
 
 from matrix_factorization_tpu_torch.parallel.mesh import make_mesh, make_multislice_mesh

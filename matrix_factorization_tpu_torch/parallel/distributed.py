@@ -402,9 +402,9 @@ def _train_1d(params: MFParams, data, batches_of, cfg: SGDConfig,
     return params, (torch.stack(hist) if hist else torch.zeros(0, device=dev))
 
 
-def _check_orders(orders, n_epochs: int) -> None:
+def _check_orders(orders, n_epochs: int, name: str = "orders") -> None:
     if orders is not None and len(orders) != n_epochs:
-        raise ValueError(f"orders has {len(orders)} epochs for {n_epochs}")
+        raise ValueError(f"{name} has {len(orders)} epochs for {n_epochs}")
 
 
 def dp_sgd_train(params: MFParams, data: ShardedRatings, cfg: SGDConfig,

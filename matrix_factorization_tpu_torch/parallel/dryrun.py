@@ -6,8 +6,8 @@ package's multi-device smoke run): on ``n_devices`` ranks started by
 overlapped and tiled, one 2D epoch and one sharded-catalog top-k; then
 one epoch each of the data-parallel factor ALS (count buckets, the
 solves split over the ranks), bias ALS and bias SGD (each rank its
-columns of every batch) and NMF (its rows of P). Later slices add their
-families. Run it as
+columns of every batch) and NMF (its rows of P); then one epoch each of
+the data-parallel BPR and SVD++ trainers, flat and tiled. Run it as
 
     python -m matrix_factorization_tpu_torch.parallel.dryrun 4 [gloo|nccl] [cuda:0|cpu]
 
@@ -56,6 +56,7 @@ def _rank(rank: int, world: int, device: str) -> dict:
     pu = pdist.gather_params(local2, mesh2, n_model > 1).user_features[:8]
     out["topk"] = cat.topk(pu, 5)
     out.update(_rank_als_nmf(u, i, r, n_users, n_items, mesh, device))
+    out.update(_rank_families(u, i, r, n_users, n_items, mesh, device))
     out["device"] = str(torch.device(device))
     return out
 
@@ -113,12 +114,64 @@ def _rank_als_nmf(u, i, r, n_users, n_items, mesh, device) -> dict:
     return out
 
 
+def _rank_families(u, i, r, n_users, n_items, mesh, device) -> dict:
+    """One epoch of each slice-6c trainer on this rank (BPR and SVD++, the
+    flat stream and the device-major pack, seeded draws): each history,
+    and the replicated tables it ends with (Q, and Y for SVD++)."""
+    import torch
+
+    from matrix_factorization_tpu_torch.core.config import SGDConfig
+    from matrix_factorization_tpu_torch.ops import bpr, svdpp
+    from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+    from matrix_factorization_tpu_torch.parallel import distributed as pdist
+    from matrix_factorization_tpu_torch.parallel.mesh import data_size_of, device_index
+
+    n, d = data_size_of(mesh), device_index(mesh)
+    cfg = SGDConfig(kernel="linear", n_factors=8, lr=0.05, reg=0.02)
+    ucap, bs, stream = pdist.dp_fit_plumbing(u, i, r, n_users, mesh, 32)
+    flat = pdist.local_ratings(stream, d, n, device)
+    pack = sgd.pack_ratings(u, i, r, bs, order="user", n_dev=n,
+                            users_per_dev=ucap // n, segment=d, device=device)
+    rows = slice(d * ucap // n, (d + 1) * ucap // n)
+    gen = torch.Generator(device=device).manual_seed(0)
+    p0 = svdpp.init_params(gen, n_users, n_items, cfg, float(r.mean()),
+                           user_capacity=ucap)
+    local = p0._replace(user_features=p0.user_features[rows],
+                        user_implicit_sums=p0.user_implicit_sums[rows])
+    mf = sgd.MFParams(local.user_features, local.item_features,
+                      local.global_mean)
+    wvec = torch.from_numpy(svdpp._neighbor_weights(u, n_users, ucap)[rows]).to(device)
+    deg = torch.from_numpy(np.bincount(i, minlength=p0.item_features.shape[0])
+                           .astype(np.float32)).to(device)
+    out = {}
+    for tag, (p, h) in (
+            ("bpr", bpr.dp_bpr_train(mf, flat, cfg, 1, 0.05, n_items, bs,
+                                     len(u), mesh)),
+            ("bpr_tiled", bpr.dp_bpr_train_tiled(mf, pack, cfg, 1, 0.05,
+                                                 n_items, mesh,
+                                                 overlap_psum=True)),
+            ("svdpp", svdpp.dp_svdpp_train(local, flat, wvec, deg, cfg, 1,
+                                           0.05, 0.02, bs, len(u), mesh)),
+            ("svdpp_tiled", svdpp.dp_svdpp_train_batched(
+                local, pack, wvec, deg, cfg, 1, 0.05, 0.02, mesh,
+                psum_every="auto"))):
+        out[tag] = h.cpu().numpy()
+        out[f"{tag}_Q"] = p.item_features.cpu().numpy()
+        if tag.startswith("svdpp"):
+            out[f"{tag}_Y"] = p.implicit_features.cpu().numpy()
+    return out
+
+
+FAMILY_TAGS = ("bpr", "bpr_tiled", "svdpp", "svdpp_tiled")
+
+
 def dryrun_multichip(n_devices: int, backend: str = "gloo",
                      device=None) -> dict:
     """The dry run on ``n_devices`` ranks of ``backend``, every rank on
-    ``device`` (``None``: ``cuda:0``, raising without a GPU); raises if a rank fails, a history is not finite, the
-    replicas of Q differ or the ranks' top-k differ. Returns rank 0's
-    results."""
+    ``device`` (``None``: ``cuda:0``, raising without a GPU); raises if a
+    rank fails, a history is not finite, the replicas of a replicated table
+    (Q of every trainer, Y of SVD++, the biases) differ or the ranks' top-k
+    differ. Returns rank 0's results."""
     from matrix_factorization_tpu_torch.parallel.launch import spawn_world, world_device
 
     device = world_device(device)
@@ -126,10 +179,11 @@ def dryrun_multichip(n_devices: int, backend: str = "gloo",
     first = ranks[0]
     for rk in ranks:
         for tag in ("flat", "overlap", "tiled", "2d", "ials", "bias_als",
-                    "bias_sgd", "nmf"):
+                    "bias_sgd", "nmf") + FAMILY_TAGS:
             if not np.isfinite(rk[tag]).all():
-                raise AssertionError(f"{tag}: the train RMSE is not finite")
-        for tag in ("Q", "ials_Q", "bias_als_b", "bias_sgd_b", "nmf_Q"):
+                raise AssertionError(f"{tag}: the training history is not finite")
+        for tag in ("Q", "ials_Q", "bias_als_b", "bias_sgd_b", "nmf_Q",
+                    "svdpp_Y", "svdpp_tiled_Y") + tuple(f"{t}_Q" for t in FAMILY_TAGS):
             if not np.array_equal(rk[tag], first[tag]):
                 raise AssertionError(f"the replicas of {tag} differ across ranks")
         for a, b in zip(rk["topk"], first["topk"]):
@@ -146,5 +200,7 @@ if __name__ == "__main__":
     print(f"dryrun_multichip OK: {n} ranks, epoch rmse flat "
           f"{res['flat'][-1]:.4f}, 2D {res['2d'][-1]:.4f}, ALS "
           f"{res['ials'][-1]:.4f}, bias ALS {res['bias_als'][-1]:.4f}, bias "
-          f"SGD {res['bias_sgd'][-1]:.4f}, NMF {res['nmf'][-1]:.4f}, top-k ids "
+          f"SGD {res['bias_sgd'][-1]:.4f}, NMF {res['nmf'][-1]:.4f}, SVD++ "
+          f"{res['svdpp'][-1]:.4f} / {res['svdpp_tiled'][-1]:.4f}, BPR loss "
+          f"{res['bpr'][-1]:.4f} / {res['bpr_tiled'][-1]:.4f}, top-k ids "
           f"{res['topk'][1][0].tolist()}")

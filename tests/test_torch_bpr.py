@@ -265,7 +265,7 @@ def test_checkpoints_cross_both_ways(tmp_path):
 
 
 @pytest.mark.parametrize("kw,err", [
-    ({"mesh": object()}, NotImplementedError),
+    ({"psum_every": "auto"}, ValueError),
     ({"overlap_psum": True}, ValueError),
     ({"serving_dtype": "float16"}, ValueError),
     ({"dp_layout": "ring"}, ValueError),

@@ -1186,3 +1186,88 @@ def test_dp_als_sweep_at_world_one_is_bucket_sweep(cuda):
     assert torch.equal(got.user_features, ref.user_features)
     assert torch.equal(got.item_features, ref.item_features)
     assert torch.equal(hist, href)
+
+
+def test_dp_families_at_nccl_world_one_are_the_single_device_trainers(cuda):
+    """At NCCL world size 1 ``dp_bpr_train_tiled`` and
+    ``dp_svdpp_train_batched`` walk the single-device trainers' batches
+    with the same draws through ``mf_segment_apply``, as often; their Q
+    deltas go through a delta table, so they hold JAX's bars (BPR tables
+    2e-5 and loss rtol 1e-5, SVD++ 1e-5), not bits."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from matrix_factorization_tpu_torch.ops import bpr, svdpp
+    from matrix_factorization_tpu_torch.parallel import distributed as pdist
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(6)
+    n_users, n_items, n, bs, E = 400, 300, 20_000, 4096, 3
+    flat = rng.choice(n_users * n_items, n, replace=False)
+    u = (flat // n_items).astype(np.int32)
+    i = (flat % n_items).astype(np.int32)
+    r = rng.uniform(0.5, 5, n).astype(np.float32)
+    bcfg = SGDConfig(kernel="linear", n_factors=64, reg=0.002, min_rating=0.0,
+                     max_rating=1.0)
+    scfg = SGDConfig(kernel="linear", n_factors=64, lr=0.005, reg=0.02,
+                     min_rating=0.5, max_rating=5.0)
+    pack = sgd.pack_ratings(u, i, r, bs, order="user", device=cuda)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    orders = [torch.randperm(pack.n_batches, generator=gen, device="cuda")
+              for _ in range(E)]
+    negs = [torch.randint(0, n_items, (pack.n_batches, bs), generator=gen,
+                          device="cuda", dtype=torch.int32) for _ in range(E)]
+    b0 = sgd.init_params(gen, n_users, n_items, bcfg, 0.0)
+    s0 = svdpp.init_params(gen, n_users, n_items, scfg, float(r.mean()))
+    Y = torch.zeros_like(s0.implicit_features)
+    Y[:, :64] = 0.05 * torch.randn((Y.shape[0], 64), generator=gen, device="cuda")
+    s0 = s0._replace(implicit_features=Y)
+    wvec = torch.from_numpy(svdpp._neighbor_weights(
+        u, n_users, s0.user_features.shape[0])).to(cuda)
+    deg = torch.from_numpy(np.bincount(i, minlength=Y.shape[0]).astype(
+        np.float32)).to(cuda)
+    runs, launches = {}, {}
+    for tag, fn in (
+            ("bpr", lambda: bpr.bpr_train_tiled(b0, pack, None, bcfg, E, 0.05,
+                                                n_items, batch_orders=orders,
+                                                negatives=negs)),
+            ("svdpp", lambda: svdpp.svdpp_train_batched(
+                s0, pack, wvec, deg, None, scfg, E, 0.005, 0.02,
+                batch_orders=orders))):
+        cuda_sgd.reset_launches()
+        runs[tag] = fn()
+        torch.cuda.synchronize()
+        launches[tag] = cuda_sgd.apply_launches
+    given = [[o] for o in orders], [[x] for x in negs]
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                rank=0, world_size=1,
+                                device_id=torch.device("cuda:0"))
+        try:
+            mesh = make_mesh(1)
+            cuda_sgd.reset_launches()
+            got_b = bpr.dp_bpr_train_tiled(pdist.place_params(b0, mesh), pack,
+                                           bcfg, E, 0.05, n_items, mesh,
+                                           batch_orders=given[0],
+                                           negatives=given[1])
+            torch.cuda.synchronize()
+            dp_b = cuda_sgd.apply_launches
+            cuda_sgd.reset_launches()
+            got_s = svdpp.dp_svdpp_train_batched(s0, pack, wvec, deg, scfg, E,
+                                                 0.005, 0.02, mesh,
+                                                 batch_orders=given[0])
+            torch.cuda.synchronize()
+            dp_s = cuda_sgd.apply_launches
+        finally:
+            dist.destroy_process_group()
+    assert launches["bpr"] > 0 and dp_b == launches["bpr"]
+    assert launches["svdpp"] > 0 and dp_s == launches["svdpp"]
+    want_p, want_h = runs["bpr"]
+    for a, b in ((got_b[0].user_features, want_p.user_features),
+                 (got_b[0].item_features, want_p.item_features)):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=0)
+    torch.testing.assert_close(got_b[1], want_h, rtol=1e-5, atol=0)
+    want_p, want_h = runs["svdpp"]
+    for a, b in zip(list(got_s[0]) + [got_s[1]], list(want_p) + [want_h]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)

@@ -178,6 +178,27 @@ with tempfile.TemporaryDirectory() as d:
                            ry.to_numpy(), 9, 7, k._cfg(), 1, 0.01, mesh,
                            layout="tiled", device="cpu")
     assert np.isfinite(hist).all()
+    import torch
+    from matrix_factorization_tpu_torch.ops import bpr as bpr_ops, svdpp as svdpp_ops
+    from matrix_factorization_tpu_torch.ops import segment_sgd as fsgd
+    uu, ii = X.user_id.to_numpy(), X.item_id.to_numpy()
+    fcfg = k._cfg()
+    ucap, bs, stream = pdist.dp_fit_plumbing(uu, ii, ry.to_numpy(), 9, mesh, 16)
+    flat = pdist.local_ratings(stream, 0, 1, "cpu")
+    fpack = fsgd.pack_ratings(uu, ii, ry.to_numpy(), 16, order="user",
+                              device="cpu")
+    sp = svdpp_ops.init_params(torch.Generator().manual_seed(0), 9, 7, fcfg, 3.0,
+                               user_capacity=ucap)
+    wv = torch.from_numpy(svdpp_ops._neighbor_weights(uu, 9, ucap))
+    dg = torch.ones(sp.item_features.shape[0])
+    mfp = fsgd.MFParams(sp.user_features, sp.item_features, sp.global_mean)
+    for _, h in (bpr_ops.dp_bpr_train(mfp, flat, fcfg, 1, 0.05, 7, bs, len(uu), mesh),
+                 bpr_ops.dp_bpr_train_tiled(mfp, fpack, fcfg, 1, 0.05, 7, mesh),
+                 svdpp_ops.dp_svdpp_train(sp, flat, wv, dg, fcfg, 1, 0.01, 0.01, bs,
+                                          len(uu), mesh),
+                 svdpp_ops.dp_svdpp_train_batched(sp, fpack, wv, dg, fcfg, 1, 0.01,
+                                                  0.01, mesh, overlap_psum=True)):
+        assert torch.isfinite(h).all()
     dist.destroy_process_group()
 print("\n".join(sorted(sys.modules)))
 """

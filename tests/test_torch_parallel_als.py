@@ -529,10 +529,9 @@ def test_mesh_checkpoint_loads_and_predicts_on_one_device(cases, tag):
 
 
 def test_mesh_argument_checks():
-    """The mesh is accepted by ``KernelMF(method='als')``, ``BaselineModel``
-    and ``NMF``; JAX's refusals stand (``overlap_psum`` / ``psum_every``
-    with ALS, ``als_warm_start`` with a mesh), and BPR and SVD++ name
-    slice 6c."""
+    """The mesh is accepted by ``KernelMF(method='als')``, ``BaselineModel``,
+    ``NMF``, ``BPR`` and ``SVDpp``; JAX's refusals stand (``overlap_psum`` /
+    ``psum_every`` with ALS, ``als_warm_start`` with a mesh)."""
     from types import SimpleNamespace
 
     from matrix_factorization_tpu_torch import BPR, NMF, BaselineModel, KernelMF, SVDpp
@@ -547,8 +546,7 @@ def test_mesh_argument_checks():
         with pytest.raises(ValueError, match=msg):
             KernelMF(mesh=stub, device="cpu", **kw)
     for cls in (BPR, SVDpp):
-        with pytest.raises(NotImplementedError, match="slice 6c"):
-            cls(mesh=stub, device="cpu")
+        assert cls(mesh=stub, device="cpu").mesh is stub
 
 
 # ---------------------------------------------------------------------------

@@ -283,5 +283,5 @@ def test_params_from_numpy_checks_the_implicit_shapes():
     with pytest.raises(ValueError, match="implicit"):
         svdpp_params_from_numpy(arrays[0], arrays[1], arrays[1][:-8],
                                 arrays[3], arrays[4], device="cpu")
-    with pytest.raises(NotImplementedError):
-        SVDpp(mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="overlap_psum"):
+        SVDpp(overlap_psum=True, device="cpu")

@@ -8,8 +8,9 @@ pairs) and config 2's 1M (``chip_smoke.gen_ratings`` /
 ``ml1m_ratings``, as the full run makes them) and runs the phase with its
 checks: inside one NCCL world of this process alone ``phase_parallel_nccl``
 (data-parallel SGD at config 3), ``phase_parallel_kernels`` and
-``phase_parallel_als`` (factor ALS, the bias models and NMF), then
-``phase_parallel_gloo`` (gloo ranks on the card). Prints the card's name
+``phase_parallel_als`` (factor ALS, the bias models and NMF) and
+``phase_parallel_families`` (BPR and SVD++), then ``phase_parallel_gloo``
+(gloo ranks on the card, with the slice-6b and slice-6c models). Prints the card's name
 and power limit, then each phase's JSON line as it ends, also appended to
 ``--out``. A failed check exits non-zero. Needs a GPU; imports nothing of
 JAX.
@@ -86,6 +87,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         t3 = time.perf_counter()
         out = cs.phase_parallel_als(torch, rng, data3, train1m, args.seed)
+        out["seconds"] = time.perf_counter() - t3
+        emit(out)
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        out = cs.phase_parallel_families(torch, rng, data3, args.seed)
         out["seconds"] = time.perf_counter() - t3
         emit(out)
     torch.cuda.empty_cache()
