@@ -3,8 +3,8 @@
 neighbourhood and content models, its KernelMF sweep, its native host
 packs, its sparse-gram top-k CF, EASE, BPR, SVD++, NMF and Popularity, the
 recipe recommender's serving path, the batch pipeline and multi-device
-KernelMF (SGD and ALS), bias models, NMF, BPR and SVD++ on one CUDA GPU
-and check them.
+KernelMF (SGD and ALS), bias models, NMF, BPR, SVD++, EASE and the CF
+models on one CUDA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -316,6 +316,27 @@ failed check ends the run with a non-zero exit:
     ``overlap_psum``), the tiled twice: every rank's tables bit-equal, the
     same lists served, two fits bit-equal, and each fit within 1e-5 of a
     float64 replay of its own pack and draws (``family_mesh_f64``).
+29. parallel_gram: the gram models on a mesh. (f) In the same NCCL world
+    of one rank (it drives the mesh paths and bypasses the collectives'
+    wire): config 4's item-item fit at full scale through
+    ``TopKItemItemCF(mesh=make_mesh(1))``, equal to the ``cf_topk`` phase's
+    mesh-free lists, and its seconds; EASE at its budget (16,384 items x
+    100,000 users x 100): ``dp_item_gram`` equal to ``item_gram``, then
+    ``ease_weights_sharded(inverse='ns')`` (the GJ count zeroed just before
+    and read just after: 0) within 5e-4 of the single-device ``B`` and the
+    closed form's identity on 256 columns (1e-3), with its steps, seconds
+    and peak; config 2's EASE by the same path for the world-1 peak. (g)
+    gloo ranks sharing the card, worlds of 2 and 4 side by side at config
+    2's shape:
+    ``EASE(mesh=make_mesh(W))`` on the Schur path (the GJ leaf launched on
+    every rank, scores within 5e-4 of the single-device fit),
+    ``TopKItemItemCF`` / ``TopKUserUserCF(mesh=)`` (k=50, blocks of 1,024;
+    sims 1e-5, means 1e-6, ids where apart by more than 1e-4, predictions
+    1e-4), ``ItemItemCF`` / ``UserUserCF(mesh=)`` (predictions 1e-4, each
+    rank its ``ceil(E / W)`` similarity rows, equal to the single-device
+    matrix's), and on the world of 4 the
+    Newton-Schulz inverse forced on config 2's gram: within 5e-4 of Schur,
+    each rank's peak during the steps below half of world 1's.
 
 Then the ``kernels`` line (``score_catalog``, ``sgd_step``,
 ``segment_apply``, ``spd_gj`` with its EASE launches and shapes,
@@ -2539,7 +2560,8 @@ def phase_cf_topk(torch, rng, data3):
     within 1e-5, ids where separated by more than 1e-5), 4,096 predictions
     against a float64 replay of the formula on the fitted lists (1e-4);
     then user-user ``similarity_topk(i, u, r, ...)`` once, timed, and its
-    strip split."""
+    strip split. Returns (out, the item-item neighbour lists (sims, ids)
+    as host tensors)."""
     import numpy as np
     import pandas as pd
     import scipy.sparse as sp
@@ -2574,8 +2596,8 @@ def phase_cf_topk(torch, rng, data3):
     out.update({"predict_pairs": n, "predict_seconds": dt,
                 "predict_pairs_per_s": n / dt})
 
-    sims = model._neighbor_sims.cpu().numpy()
-    ids = model._neighbor_ids.cpu().numpy()
+    lists = (model._neighbor_sims.cpu(), model._neighbor_ids.cpu())
+    sims, ids = lists[0].numpy(), lists[1].numpy()
     cols = np.sort(rng.choice(n_i, CF4["oracle_columns"], replace=False))
     S = cosine_columns_f64(ud, idd, r, n_u, n_i, cols)
     err, checked, wrong = hold_topk(sims[cols], ids[cols], S, 1e-5)
@@ -2619,7 +2641,7 @@ def phase_cf_topk(torch, rng, data3):
     check(uerr <= 1e-5 and uwrong == 0, f"user-user top-k off float64: {uerr}, "
                                         f"{uwrong} ids")
     out["user_split"] = strip_split(torch, i, u, r, N_ITEMS, N_USERS, k, CF4["block"])
-    return out
+    return out, lists
 
 
 class LeafRecorder:
@@ -5486,6 +5508,388 @@ def check_gloo_6c(torch, inp, worlds):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The gram models on a mesh (slice 6d, part 1): EASE, the sparse gram's
+# top-k and the dense CF models
+# ---------------------------------------------------------------------------
+
+# the gloo worlds' CF arguments at config 2's shape: config 4's 50
+# neighbours, blocks and strips of 1,024 so that every rank holds blocks
+GRAM_GLOO = {"block": 1024, "predict": 4096, "users": 256}
+
+
+class NSRecorder:
+    """Wraps ``ops/ease.py``'s ``ns_sharded_steps`` (the row-sharded
+    Newton-Schulz steps that ``ease_weights_sharded`` runs) to record the
+    step count, the last residual and the device memory the steps hold at
+    their peak beyond what the process held before them without the
+    padded rows (so: ``As``, ``P``, ``As P`` and the slab), the peak
+    counter reset at the steps' start, after the gram has been let go."""
+
+    def __init__(self, torch):
+        from matrix_factorization_tpu_torch.ops import ease as ease_ops
+
+        self.torch, self.ease_ops, self.calls = torch, ease_ops, []
+
+    def __enter__(self):
+        torch, orig = self.torch, self.ease_ops.ns_sharded_steps
+        self.orig = orig
+
+        def record(Ap, lay, *args, **kw):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated() - Ap.numel() * Ap.element_size()
+            torch.cuda.reset_peak_memory_stats()
+            info = {}
+            t0 = time.perf_counter()
+            P = orig(Ap, lay, *args, info=info, **kw)
+            torch.cuda.synchronize()
+            self.calls.append({
+                # the residual is read on the axis' first rank (None elsewhere)
+                "steps": info["steps"], "residual": info["residual"],
+                "seconds": time.perf_counter() - t0, "dp": lay.dp, "dl": lay.dl,
+                "blk": lay.blk, "rows": lay.hi - lay.lo,
+                "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20,
+                "three_shards_mib": 3 * lay.dl * lay.dp * 4 / 2**20})
+            return P
+
+        self.ease_ops.ns_sharded_steps = record
+        return self
+
+    def __exit__(self, *exc):
+        self.ease_ops.ns_sharded_steps = self.orig
+
+
+def ease_identity_err(torch, G, B, reg, cols):
+    """The closed form's identity ``(G + lam I)(I - B) = diag(1 / diag P)``
+    on the columns ``cols`` of the whole ``B``: the largest off-diagonal
+    entry over the smallest diagonal one, and whether the diagonal is
+    positive."""
+    from matrix_factorization_tpu_torch.ops.spd import exact_f32
+
+    A = G.clone()
+    A.diagonal().add_(reg)
+    at = torch.arange(len(cols), device=G.device)
+    IB = -B[:, cols]
+    IB[cols, at] += 1.0
+    with exact_f32():
+        M = A @ IB
+    diag = M[cols, at].clone()
+    M[cols, at] = 0.0
+    return float(M.abs().max() / diag.abs().min()), bool((diag > 0).all())
+
+
+def ease_budget_data(seed):
+    """EASE's budget interactions (``phase_ease``): 100,000 users x 100
+    seeded items of 16,384, binary."""
+    import numpy as np
+
+    cfg = EASE_BUDGET
+    gen = np.random.default_rng(seed)
+    n = cfg["n_users"] * cfg["per_user"]
+    bu = np.repeat(np.arange(cfg["n_users"], dtype=np.int64), cfg["per_user"])
+    bi = gen.integers(0, cfg["n_items"], n).astype(np.int64)
+    return bu, bi, np.ones(n, np.float32), gen
+
+
+def ml1m_gram_args(train):
+    """Config 2's ratings as EASE's binary implicit feedback, dense ids."""
+    import numpy as np
+
+    u, i, _ = train
+    return (u.astype(np.int64), i.astype(np.int64), np.ones(len(u), np.float32),
+            ML1M["n_users"], ML1M["n_items"])
+
+
+def phase_parallel_gram_nccl(torch, data3, train1m, item_lists, seed):
+    """(f) The gram models at NCCL world size 1 in this process (inside
+    ``nccl_world``): it drives the mesh paths and bypasses the collectives'
+    wire (NCCL runs no kernel at world 1). Config 4's item-item fit at full
+    scale, ``TopKItemItemCF(mesh=make_mesh(1))`` on the config-3 ratings
+    (k=50, 4,096-row blocks, 4,096-column strips), held equal to the
+    mesh-free lists (``item_lists``, the ``cf_topk`` phase's fit); EASE at its budget (16,384 items x 100,000 users x
+    100): ``dp_item_gram`` equal to ``item_gram``, then
+    ``ease_weights_sharded(inverse='ns')`` with the GJ count zeroed just
+    before and read just after (0: Newton-Schulz has no leaf), ``B``
+    within 5e-4 of the single-device ``ease_weights`` and the closed
+    form's identity on 256 columns (1e-3), its steps, seconds and peak
+    memory; then config 2's EASE gram through the same Newton-Schulz path
+    (the world-1 peak the gloo world of 4 is read against)."""
+    import numpy as np
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch import TopKItemItemCF
+    from matrix_factorization_tpu_torch.ops import cuda_spd
+    from matrix_factorization_tpu_torch.ops import ease as ease_ops
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1)
+    out = {"phase": "parallel_gram", "part": "nccl_world_1", "backend": "nccl",
+           "world": 1}
+    u, i, r = data3[:3]
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    y = pd.Series(r)
+    kw = dict(n_neighbors=CF4["n_neighbors"], user_block=CF4["block"],
+              item_tile=CF4["block"], min_rating=0.5, max_rating=5.0)
+    torch.cuda.reset_peak_memory_stats()
+    model, out["config4_item_fit_seconds"] = timed(
+        torch, lambda: TopKItemItemCF(mesh=mesh, **kw).fit(X, y))
+    out["config4_item_fit_peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    same = (torch.equal(model._neighbor_sims.cpu(), item_lists[0])
+            and torch.equal(model._neighbor_ids.cpu(), item_lists[1]))
+    out["config4_equal_to_mesh_free"] = same
+    check(same, "config 4 at world 1: the mesh fit's lists differ from the "
+                "mesh-free fit's")
+    del model, X, y
+    torch.cuda.empty_cache()
+
+    res = out["ease_budget"] = dict(EASE_BUDGET)
+    bu, bi, w, gen = ease_budget_data(seed)
+    args = (bu, bi, w, EASE_BUDGET["n_users"], EASE_BUDGET["n_items"])
+    G1, res["gram_seconds"] = timed(torch, lambda: ease_ops.item_gram(
+        *args, device="cuda"))
+    Gd, res["dp_gram_seconds"] = timed(torch, lambda: ease_ops.dp_item_gram(
+        *args, mesh, device="cuda"))
+    res["dp_gram_equal"] = torch.equal(Gd, G1)
+    check(res["dp_gram_equal"], "EASE at 16k: dp_item_gram differs from item_gram")
+    del Gd
+    B1, res["single_device_inverse_seconds"] = timed(
+        torch, lambda: ease_ops.ease_weights(G1, EASE_BUDGET["reg"]))
+    cuda_spd.reset_launches()
+    with NSRecorder(torch) as rec:
+        B, res["ns_seconds"] = timed(torch, lambda: ease_ops.ease_weights_sharded(
+            ease_ops.dp_item_gram(*args, mesh, device="cuda"),
+            EASE_BUDGET["reg"], mesh, inverse="ns"))
+    res["gj_launches"] = cuda_spd.launches
+    check(res["gj_launches"] == 0, f"EASE's Newton-Schulz path launched the "
+                                   f"GJ leaf {res['gj_launches']} times")
+    res["ns"] = rec.calls[0]
+    res["B_max_abs_err_vs_single_device"] = float((B - B1).abs().max())
+    check(bool(torch.isfinite(B).all()) and not B.diagonal().any()
+          and res["B_max_abs_err_vs_single_device"] <= 5e-4,
+          f"EASE at 16k by Newton-Schulz off the Schur B by "
+          f"{res['B_max_abs_err_vs_single_device']}")
+    cols = torch.from_numpy(np.sort(gen.choice(
+        EASE_BUDGET["n_items"], EASE_BUDGET["oracle_columns"], replace=False))).cuda()
+    res["identity_rel_err"], pos = ease_identity_err(torch, G1, B,
+                                                     EASE_BUDGET["reg"], cols)
+    check(res["identity_rel_err"] <= 1e-3 and pos,
+          f"EASE at 16k by Newton-Schulz: (G + lam I)(I - B) off diagonal by "
+          f"{res['identity_rel_err']}")
+    del G1, B1, B
+    torch.cuda.empty_cache()
+
+    # config 2's gram through the same path: the world-1 peak of the steps
+    with NSRecorder(torch) as rec:
+        Bm = ease_ops.ease_weights_sharded(
+            ease_ops.dp_item_gram(*ml1m_gram_args(train1m), mesh, device="cuda"),
+            EASE_ML1M["reg"], mesh, inverse="ns")
+    out["ml1m_ns"] = rec.calls[0]
+    check(bool(torch.isfinite(Bm).all()), "config 2's EASE by Newton-Schulz")
+    del Bm
+    torch.cuda.empty_cache()
+    return out
+
+
+def gloo_gram_rank(rank, world, inp):
+    """The gram models on one gloo rank on cuda:0, on ``make_mesh(world)``
+    at config 2's shape, each with the GJ count zeroed just before and read
+    just after: ``EASE(mesh=)`` (the Schur path: the GJ leaf on this rank)
+    and its 256 users' catalog scores; ``TopKItemItemCF`` /
+    ``TopKUserUserCF(mesh=)`` (k=50, blocks and strips of 1,024): the
+    neighbour lists, means and 4,096 predictions; ``ItemItemCF`` /
+    ``UserUserCF(mesh=)``: 4,096 predictions and the similarity rows held;
+    on a world of 4, ``ease_weights_sharded(inverse='ns')`` forced on
+    config 2's gram: this rank's rows of ``B`` and the steps' peak
+    (``NSRecorder``)."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    import matrix_factorization_tpu_torch as port
+    from matrix_factorization_tpu_torch.ops import cuda_spd
+    from matrix_factorization_tpu_torch.ops import ease as ease_ops
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(world)
+    u, i, r = inp["train"]
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    y = pd.Series(r)
+    pairs = X.iloc[:GRAM_GLOO["predict"]]
+    out = {"rank": rank}
+    t0 = time.perf_counter()
+    cuda_spd.reset_launches()
+    m = port.EASE(reg=EASE_ML1M["reg"], mesh=mesh).fit(X, y)
+    torch.cuda.synchronize()
+    out["ease"] = {"gj_launches": cuda_spd.launches, "sharding": m._sharding,
+                   "rows": tuple(m._params.item_weights.shape),
+                   "scores": m._catalog_scores_batch(
+                       m.user_vocab.encode(inp["users"]))}
+    del m
+    kw = dict(n_neighbors=CF_NEIGHBOURS, user_block=GRAM_GLOO["block"],
+              item_tile=GRAM_GLOO["block"], min_rating=0.5, max_rating=5.0,
+              mesh=mesh)
+    for cls in ("TopKItemItemCF", "TopKUserUserCF"):
+        m = getattr(port, cls)(**kw).fit(X, y)
+        out[cls] = {"sims": m._neighbor_sims.cpu().numpy(),
+                    "ids": m._neighbor_ids.cpu().numpy(),
+                    "means": m._means.cpu().numpy(),
+                    "predict": np.asarray(m.predict(pairs))}
+    for cls in ("ItemItemCF", "UserUserCF"):
+        m = getattr(port, cls)(n_neighbors=CF_NEIGHBOURS, min_rating=0.5,
+                               max_rating=5.0, mesh=mesh).fit(X, y)
+        out[cls] = {"predict": np.asarray(m.predict(pairs)),
+                    "sim": m._state.sim.cpu().numpy()}
+    del m
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    if world == 4:
+        torch.cuda.empty_cache()
+        cuda_spd.reset_launches()
+        with NSRecorder(torch) as rec:
+            B = ease_ops.ease_weights_sharded(
+                ease_ops.dp_item_gram(*ml1m_gram_args(inp["train"]), mesh,
+                                      device="cuda"),
+                EASE_ML1M["reg"], mesh, inverse="ns")
+        out["ns"] = {"B_rows": B.cpu().numpy(), **rec.calls[0],
+                     "gj_launches": cuda_spd.launches}
+    out["launches"] = {"spd_gj": out["ease"]["gj_launches"]}
+    return out
+
+
+def hold_lists(got, want):
+    """JAX's bars for the sparse gram's top-k (``tests/test_cf_topk.py:
+    172-193``): (sims err, means err, rows whose ids differ where the top
+    two similarities are more than 1e-4 apart)."""
+    import numpy as np
+
+    top = np.sort(want[0], axis=1)
+    gap = np.abs(top[:, -1] - top[:, -2])
+    differ = ~(got[1] == want[1]).all(axis=1)
+    return (float(np.abs(got[0] - want[0]).max()),
+            float(np.abs(got[2] - want[2]).max()),
+            int((differ & (gap > 1e-4)).sum()))
+
+
+def phase_parallel_gram_gloo(torch, train1m, seed, ml1m_ns_peak_mib):
+    """(g) The gram models on gloo ranks sharing the card (worlds of 2 and
+    4 on cuda:0, side by side, ``gloo_gram_rank``) at config 2's shape,
+    against the same
+    models without a mesh here: EASE scores within 5e-4 and the GJ leaf
+    launched on every rank; the top-k models' lists at JAX's bars (sims
+    1e-5, means 1e-6, ids where separated by more than 1e-4) and
+    predictions 1e-4; the dense models' predictions 1e-4 with
+    ``ceil(E / W)`` similarity rows a rank, equal to the single-device
+    matrix's rows; on the world of 4, the forced
+    Newton-Schulz ``B`` within 5e-4 of Schur and each rank's peak during
+    the steps below half of world 1's (``ml1m_ns_peak_mib``)."""
+    import numpy as np
+    import pandas as pd
+
+    import matrix_factorization_tpu_torch as port
+    from matrix_factorization_tpu_torch.ops import ease as ease_ops
+    from matrix_factorization_tpu_torch.parallel.launch import spawn_world
+
+    rng = np.random.default_rng(seed)
+    u, i, r = train1m
+    inp = {"train": train1m,
+           "users": rng.choice(np.unique(u), GRAM_GLOO["users"], replace=False)}
+    out = {"phase": "parallel_gram", "part": "gloo", "backend": "gloo",
+           "device": "cuda:0", "n_ratings": len(r)}
+    # the two worlds side by side (six processes on the card), so that their
+    # processes' starts overlap; each rank's own seconds are recorded
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        runs = {world: pool.submit(spawn_world, gloo_gram_rank, world, "gloo",
+                                   "cuda:0", args=(inp,), timeout=600)
+                for world in (2, 4)}
+        worlds = {world: run.result() for world, run in runs.items()}
+    out["worlds_seconds"] = time.perf_counter() - t0
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    y = pd.Series(r)
+    pairs = X.iloc[:GRAM_GLOO["predict"]]
+    m = port.EASE(reg=EASE_ML1M["reg"]).fit(X, y)
+    want = {"ease": m._catalog_scores_batch(m.user_vocab.encode(inp["users"]))}
+    G = ease_ops.item_gram(*ml1m_gram_args(train1m), device="cuda")
+    B_schur = ease_ops.ease_weights(G, EASE_ML1M["reg"]).cpu().numpy()
+    del m, G
+    kw = dict(n_neighbors=CF_NEIGHBOURS, user_block=GRAM_GLOO["block"],
+              item_tile=GRAM_GLOO["block"], min_rating=0.5, max_rating=5.0)
+    for cls in ("TopKItemItemCF", "TopKUserUserCF"):
+        m = getattr(port, cls)(**kw).fit(X, y)
+        want[cls] = (m._neighbor_sims.cpu().numpy(), m._neighbor_ids.cpu().numpy(),
+                     m._means.cpu().numpy(), np.asarray(m.predict(pairs)))
+    E = {}  # the entities rated: the similarity matrix's side
+    for cls in ("ItemItemCF", "UserUserCF"):
+        m = getattr(port, cls)(n_neighbors=CF_NEIGHBOURS, min_rating=0.5,
+                               max_rating=5.0).fit(X, y)
+        want[cls] = (np.asarray(m.predict(pairs)), m._state.sim.cpu().numpy())
+        E[cls] = m._state.sim.shape[0]
+    del m
+    torch.cuda.empty_cache()
+
+    errs = {"ease": 0.0, "topk_sims": 0.0, "topk_means": 0.0, "topk_ids_wrong": 0,
+            "topk_predict": 0.0, "dense_predict": 0.0}
+    for world, ranks in worlds.items():
+        for rk in ranks:
+            e = rk["ease"]
+            check(e["gj_launches"] > 0 and e["sharding"] == "rows",
+                  f"gloo world {world} rank {rk['rank']}: EASE(mesh=) launched "
+                  f"the GJ leaf {e['gj_launches']} times")
+            errs["ease"] = max(errs["ease"],
+                               float(np.abs(e["scores"] - want["ease"]).max()))
+            for cls in ("TopKItemItemCF", "TopKUserUserCF"):
+                g = rk[cls]
+                s_err, m_err, wrong = hold_lists((g["sims"], g["ids"], g["means"]),
+                                                 want[cls][:3])
+                errs["topk_sims"] = max(errs["topk_sims"], s_err)
+                errs["topk_means"] = max(errs["topk_means"], m_err)
+                errs["topk_ids_wrong"] += wrong
+                errs["topk_predict"] = max(errs["topk_predict"], float(
+                    np.abs(g["predict"] - want[cls][3]).max()))
+            for cls in ("ItemItemCF", "UserUserCF"):
+                per = -(-E[cls] // world)
+                lo = min(rk["rank"] * per, E[cls])
+                sim = rk[cls]["sim"]
+                check(sim.shape == (min(per, E[cls] - lo), E[cls]),
+                      f"gloo world {world}: {cls} holds {sim.shape} "
+                      f"similarity rows, not its {per} of {E[cls]}")
+                check(np.array_equal(sim, want[cls][1][lo:lo + len(sim)]),
+                      f"gloo world {world}: {cls}'s similarity rows differ "
+                      f"from the single-device matrix's")
+                errs["dense_predict"] = max(errs["dense_predict"], float(
+                    np.abs(rk[cls]["predict"] - want[cls][0]).max()))
+    out["max_errs"] = errs
+    check(errs["ease"] <= 5e-4, f"gloo EASE(mesh=) scores off by {errs['ease']}")
+    check(errs["topk_sims"] <= 1e-5 and errs["topk_means"] <= 1e-6
+          and errs["topk_ids_wrong"] == 0 and errs["topk_predict"] <= 1e-4,
+          f"gloo top-k CF on the mesh off the mesh-free fit: {errs}")
+    check(errs["dense_predict"] <= 1e-4,
+          f"gloo dense CF on the mesh off by {errs['dense_predict']}")
+
+    ns = [rk["ns"] for rk in worlds[4]]
+    B_ns = np.concatenate([n["B_rows"] for n in ns], axis=0)
+    out["ns_world4"] = [{k: v for k, v in n.items() if k != "B_rows"} for n in ns]
+    out["ns_world4_B_max_abs_err_vs_schur"] = float(np.abs(B_ns - B_schur).max())
+    out["ns_world1_peak_mib"] = ml1m_ns_peak_mib
+    check(B_ns.shape == B_schur.shape and not np.diagonal(B_ns).any()
+          and out["ns_world4_B_max_abs_err_vs_schur"] <= 5e-4,
+          f"gloo world 4: Newton-Schulz B off Schur by "
+          f"{out['ns_world4_B_max_abs_err_vs_schur']}")
+    check(len({n["steps"] for n in ns}) == 1 and all(n["gj_launches"] == 0 for n in ns),
+          "gloo world 4: the ranks' Newton-Schulz steps differ, or it launched GJ")
+    check(all(n["peak_mib"] < 0.5 * ml1m_ns_peak_mib for n in ns),
+          f"gloo world 4: a rank's Newton-Schulz peak "
+          f"{[n['peak_mib'] for n in ns]} MiB is not below half of world 1's "
+          f"{ml1m_ns_peak_mib} MiB")
+    out["rank_seconds"] = {w: [rk["seconds"] for rk in worlds[w]] for w in worlds}
+    out["launches"] = {"spd_gj": sum(rk["launches"]["spd_gj"]
+                                     for w in worlds.values() for rk in w)}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5693,7 +6097,8 @@ def main() -> int:
     del fam_pack
     torch.cuda.empty_cache()
     # -- sparse-gram top-k CF at config 4 ------------------------------------
-    emit(phase_cf_topk(torch, rng, data3))
+    cf4_out, cf4_item_lists = phase_cf_topk(torch, rng, data3)
+    emit(cf4_out)
     torch.cuda.empty_cache()
 
     # -- bias, neighbourhood and content models, the sweep -----------------
@@ -5749,11 +6154,23 @@ def main() -> int:
         par_fam = phase_parallel_families(torch, rng, data3, args.seed)
         par_fam["seconds"] = time.perf_counter() - t1
         emit(par_fam)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        par_gram = phase_parallel_gram_nccl(torch, data3, train1m,
+                                            cf4_item_lists, args.seed)
+        par_gram["seconds"] = time.perf_counter() - t1
+        emit(par_gram)
+        del cf4_item_lists
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     par_gloo = phase_parallel_gloo(torch, train1m, args.seed)
     par_gloo["seconds"] = time.perf_counter() - t1
     emit(par_gloo)
+    t1 = time.perf_counter()
+    par_gram_gloo = phase_parallel_gram_gloo(torch, train1m, args.seed,
+                                             par_gram["ml1m_ns"]["peak_mib"])
+    par_gram_gloo["seconds"] = time.perf_counter() - t1
+    emit(par_gram_gloo)
     par_launches = {k: (par_nccl["launches"][k], par_gloo["launches"][k])
                     for k in ("sgd_step", "segment_apply", "score_catalog")}
     par_launches["score_catalog"] += (par_als["launches"]["score_catalog"],
@@ -5773,6 +6190,9 @@ def main() -> int:
     segsum_launches["parallel_gloo"] = par_gloo["launches"]["segment_sum"]
     spd_launches["parallel_als"] = par_als["launches"]["spd_gj"]
     spd_launches["parallel_gloo"] = par_gloo["launches"]["spd_gj"]
+    spd_launches["parallel_gram"] = par_gram_gloo["launches"]["spd_gj"]
+    check(spd_launches["parallel_gram"] > 0,
+          "the gloo ranks' EASE(mesh=) fits missed the GJ leaf")
 
     kernels = [{
         "name": "score_catalog", "route": "cuda",

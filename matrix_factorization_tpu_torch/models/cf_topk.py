@@ -19,8 +19,11 @@ As in the JAX package, neighbours come from each entity's global top-k
 list rather than from all raters of each prediction, the standard
 truncation of production neighbourhood CF; set ``n_neighbors`` to about
 10x the neighbour budget the exact classes would get for near parity.
-``mesh`` comes with the multi-device slice; ``device`` is where the state
-lives (``None`` = CUDA).
+``mesh``: the similarity fit splits its user blocks over every rank of
+the mesh and all-reduces each gram strip once
+(``ops/sparse_gram.py::similarity_topk``); every rank calls ``fit`` and
+keeps the whole neighbour lists, O(entities x k), so prediction needs no
+collective. ``device`` is where the state lives (``None`` = CUDA).
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ import torch
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.data.loader import host_lib
 from matrix_factorization_tpu_torch.models.base import RecommenderBase, chunked_predict
-from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6_GRAM
 from matrix_factorization_tpu_torch.ops.sparse_gram import similarity_topk
 
 
@@ -88,9 +90,6 @@ class _TopKNeighborCF(RecommenderBase):
         verbose: int = 0,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"{type(self).__name__}(mesh=) comes with {SLICE_6_GRAM}")
         super().__init__(min_rating=min_rating, max_rating=max_rating,
                          verbose=verbose)
         self._device = resolve_device(device)
@@ -111,7 +110,7 @@ class _TopKNeighborCF(RecommenderBase):
         u, i, r = self._preprocess_fit(X, y)
         self.global_mean = float(np.mean(r))
         kw = dict(user_block=self.user_block, item_tile=self.item_tile,
-                  device=self._device)
+                  mesh=self.mesh, device=self._device)
         if self._mode == "item":
             sims, ids, means, _ = similarity_topk(
                 u, i, r, self.n_users, self.n_items, self.n_neighbors, **kw)

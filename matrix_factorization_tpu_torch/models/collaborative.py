@@ -11,9 +11,16 @@ As in the JAX package, the reference's rating-misalignment bug (its
 ``fit`` shuffles X and re-attaches the unshuffled ratings,
 ``collaborative_filtering.py:58-59``; PARITY.md) is not reproduced, and
 ``similarity_metric='pearson'`` is centred cosine, the same computation
-(``:90-94``). ``mesh`` raises ``NotImplementedError`` until the
-multi-device slice ports it; ``device`` is where the state lives
-(``None`` = CUDA).
+(``:90-94``). ``device`` is where the state lives (``None`` = CUDA).
+
+``mesh`` (every rank calls every method): the (E, E) similarity matrix is
+row-sharded over every rank of the mesh, as JAX lays it out
+(``Pspec(tuple(mesh.axis_names))``): rank r of N computes its
+``round_up(E, N) / N`` rows against the whole replicated rating matrix,
+and ``predict`` has the rank holding a pair's row (the user's in user
+mode, the item's in item mode) predict it, the others add 0, summed by
+one ``all_reduce``. The similarity-matrix views and pickling gather the
+whole matrix (a collective).
 """
 
 from __future__ import annotations
@@ -27,7 +34,6 @@ import torch
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.models.base import RecommenderBase
 from matrix_factorization_tpu_torch.ops import similarity as simops
-from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6_GRAM
 
 _PREDICT_CHUNK = 4096
 
@@ -49,9 +55,6 @@ class _NeighborhoodCF(RecommenderBase):
     ):
         if similarity_metric not in ("cosine", "pearson"):
             raise ValueError(f"Unknown similarity metric: {similarity_metric}")
-        if mesh is not None:
-            raise NotImplementedError(
-                f"{type(self).__name__}(mesh=) comes with {SLICE_6_GRAM}")
         super().__init__(min_rating=min_rating, max_rating=max_rating, verbose=verbose)
         self._device = resolve_device(device)
         self.device = device
@@ -59,17 +62,50 @@ class _NeighborhoodCF(RecommenderBase):
         self.similarity_metric = similarity_metric
         self.mesh = mesh
         self._state: Optional[simops.CFState] = None
+        self._rows = None  # (lo, hi): the similarity rows held on a mesh
+
+    def _row_range(self):
+        """This rank's similarity rows ``[lo, hi)`` on the mesh: the
+        entities split in ``round_up(E, N) / N`` rows a rank."""
+        from matrix_factorization_tpu_torch.parallel.mesh import flat_index
+
+        E = self.n_users if self._mode == "user" else self.n_items
+        n = self.mesh.size()
+        per = -(-E // n)
+        r = flat_index(self.mesh)
+        return min(r * per, E), min((r + 1) * per, E)
 
     def fit(self, X: pd.DataFrame, y: pd.Series):
         u, i, r = self._preprocess_fit(X, y)
         fit_fn = simops.user_cf_fit if self._mode == "user" else simops.item_cf_fit
         dev = self._device
+        self._rows = None if self.mesh is None else self._row_range()
         self._state = fit_fn(torch.from_numpy(u).to(dev),
                              torch.from_numpy(i).to(dev),
                              torch.tensor(r, device=dev),
-                             self.n_users, self.n_items)
+                             self.n_users, self.n_items, self._rows)
         self.global_mean = float(self._state.global_mean)
         return self
+
+    def _whole_sim(self) -> torch.Tensor:
+        """The whole similarity matrix: the ranks' rows all-gathered (a
+        collective) on a mesh."""
+        sim = self._state.sim
+        if self._rows is None:
+            return sim
+        from matrix_factorization_tpu_torch.parallel.distributed import all_gather_rows
+
+        E = sim.shape[1]
+        pad = sim.new_zeros((-(-E // self.mesh.size()), E))
+        pad[:sim.shape[0]] = sim
+        return all_gather_rows(pad)[:E]
+
+    def __getstate__(self):
+        state = super().__getstate__()
+        if self._rows is not None:  # a rank's rows: pickle the whole matrix
+            state["_state"] = state["_state"]._replace(sim=self._whole_sim().cpu())
+            state["_rows"] = None
+        return state
 
     def _predict_arrays(self, u: np.ndarray, i: np.ndarray, bound_ratings: bool):
         """Chunks of ``_PREDICT_CHUNK`` pairs, the last padded with -1 (a
@@ -88,7 +124,7 @@ class _NeighborhoodCF(RecommenderBase):
             p, ok = pred_fn(self._state, torch.from_numpy(uu).to(self._device),
                             torch.from_numpy(ii).to(self._device),
                             self.n_neighbors, self.min_rating, self.max_rating,
-                            bound_ratings)
+                            bound_ratings, self._rows)
             preds[lo:hi] = p[:n].cpu().numpy()
             possible[lo:hi] = ok[:n].cpu().numpy()
         return preds, possible
@@ -120,7 +156,7 @@ class UserUserCF(_NeighborhoodCF):
 
     @property
     def user_similarity_matrix(self) -> np.ndarray:
-        return self._state.sim.cpu().numpy()
+        return self._whole_sim().cpu().numpy()
 
     @property
     def user_mean_ratings(self) -> np.ndarray:
@@ -134,7 +170,7 @@ class ItemItemCF(_NeighborhoodCF):
 
     @property
     def item_similarity_matrix(self) -> np.ndarray:
-        return self._state.sim.cpu().numpy()
+        return self._whole_sim().cpu().numpy()
 
     @property
     def item_mean_ratings(self) -> np.ndarray:

@@ -1,15 +1,26 @@
 """EASE recommender: the closed-form item-item linear model (Steck 2019),
 PyTorch port.
 
-Counterpart of ``matrix_factorization_tpu/models/ease.py``, single device.
-Training is one regularized SPD inverse of the item gram
-(``ops/ease.py``), whose Gauss-Jordan leaves run in the hand-written
-kernel of ``csrc/spd_gj.cu`` on the GPU: no epochs, no learning rate, no
-randomness. Predictions are preference scores (about [0, 1] for binary
-histories), not ratings. ``update_users`` only records histories: ``B``
-does not depend on the users. ``mesh`` (the sharded gram and inverse)
-comes with slice 6; ``device`` is where the state lives (``None`` =
-CUDA).
+Counterpart of ``matrix_factorization_tpu/models/ease.py``. Training is
+one regularized SPD inverse of the item gram (``ops/ease.py``), whose
+Gauss-Jordan leaves run in the hand-written kernel of ``csrc/spd_gj.cu``
+on the GPU: no epochs, no learning rate, no randomness. Predictions are
+preference scores (about [0, 1] for binary histories), not ratings.
+``update_users`` only records histories: ``B`` does not depend on the
+users. ``device`` is where the state lives (``None`` = CUDA).
+
+``mesh`` (a ``parallel.mesh`` mesh; every rank calls every method): on
+more than one data rank ``fit`` builds the gram data-parallel
+(``dp_item_gram``) and inverts it with ``ease_weights_sharded`` (the
+Schur recursion below 16,384 items, the row-sharded Newton-Schulz inverse
+from there), under the item budget of the data ranks; on one data rank it
+takes the single-device path, as the JAX model does. The fitted ``B``
+stays row-sharded over the mesh's first axis (the data axis of
+``make_mesh``): a rank holds rows ``[lo, hi)`` of it
+(``ops/spd.py::ns_layout``), and scoring sums the ranks' partial
+products with one ``all_reduce`` (``ops/ease.py::score_history_rows``)
+instead of gathering ``B``. ``save_model`` and pickling gather the whole
+``B`` (a collective), so a mesh checkpoint loads without a mesh.
 """
 
 from __future__ import annotations
@@ -24,7 +35,6 @@ from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.models.base import RecommenderBase
 from matrix_factorization_tpu_torch.ops import ease as ease_ops
 from matrix_factorization_tpu_torch.ops.scoring import stable_topk, topk_harness
-from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6_GRAM
 
 _SCORE_COHORT = 256  # users scored at once by predict
 
@@ -53,8 +63,6 @@ class EASE(RecommenderBase):
             raise ValueError("reg must be positive (it conditions the inverse)")
         if serving_dtype not in ("float32", "bfloat16"):
             raise ValueError("serving_dtype must be 'float32' or 'bfloat16'")
-        if mesh is not None:
-            raise NotImplementedError(f"EASE(mesh=) comes with {SLICE_6_GRAM}")
         super().__init__(min_rating=min_rating, max_rating=max_rating,
                          verbose=verbose)
         self._device = resolve_device(device)
@@ -65,6 +73,7 @@ class EASE(RecommenderBase):
         self.serving_dtype = serving_dtype
         self.mesh = mesh
         self._params: Optional[ease_ops.EASEParams] = None
+        self._sharding: Optional[str] = None  # "rows": B row-sharded on the mesh
         self._serving_cache = None
         # per-user histories, a CSR over dense user ids
         self._indptr: Optional[np.ndarray] = None
@@ -107,10 +116,27 @@ class EASE(RecommenderBase):
     def fit(self, X: pd.DataFrame, y: pd.Series):
         u, i, r = self._preprocess_fit(X, y)
         w = self._weights(r)
-        ease_ops.check_item_budget(self.n_items)
-        G = ease_ops.item_gram(u, i, w, self.n_users, self.n_items,
-                               self.gram_chunk_users, device=self._device)
-        self._params = ease_ops.EASEParams(ease_ops.ease_weights(G, self.reg))
+        n_dev = 1
+        if self.mesh is not None:
+            from matrix_factorization_tpu_torch.parallel.mesh import data_size_of
+
+            n_dev = data_size_of(self.mesh)
+        ease_ops.check_item_budget(self.n_items, ease_ops.item_limit(n_dev))
+        if n_dev > 1:
+            # the gram goes in as an argument alone, so that the
+            # Newton-Schulz path can free it before its steps
+            B = ease_ops.ease_weights_sharded(
+                ease_ops.dp_item_gram(u, i, w, self.n_users, self.n_items,
+                                      self.mesh, self.gram_chunk_users,
+                                      device=self._device),
+                self.reg, self.mesh)
+            self._sharding = "rows"
+        else:
+            G = ease_ops.item_gram(u, i, w, self.n_users, self.n_items,
+                                   self.gram_chunk_users, device=self._device)
+            B = ease_ops.ease_weights(G, self.reg)
+            self._sharding = None
+        self._params = ease_ops.EASEParams(B)
         self._serving_cache = None
         self._set_histories(u, i, w)
         if self.verbose:
@@ -130,10 +156,50 @@ class EASE(RecommenderBase):
             self._serving_cache = c = (p, p.item_weights.to(torch.bfloat16))
         return c[1]
 
+    def _b_rows(self):
+        """(lo, hi, group): the rows of ``B`` this rank holds and the group
+        its partial products are summed over; None for a whole ``B``."""
+        if self._sharding is None:
+            return None
+        from matrix_factorization_tpu_torch.ops.spd import ns_layout
+
+        lay = ns_layout(self._params.item_weights.shape[1], self.mesh)
+        return lay.lo, lay.hi, lay.group
+
+    def _whole_params(self):
+        """``EASEParams`` with the whole ``B``: the ranks' rows all-gathered
+        over the mesh's first axis when ``B`` is row-sharded (a
+        collective), else the params themselves."""
+        rows = self._b_rows()
+        if rows is None:
+            return self._params
+        from matrix_factorization_tpu_torch.ops.spd import ns_layout
+        from matrix_factorization_tpu_torch.parallel.distributed import all_gather_rows
+
+        B = self._params.item_weights
+        ip = B.shape[1]
+        lay = ns_layout(ip, self.mesh)
+        pad = B.new_zeros((lay.dl, ip))
+        pad[:B.shape[0]] = B
+        return ease_ops.EASEParams(all_gather_rows(pad, lay.group)[:ip])
+
+    def _block_scores(self, ids: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """(nb, I_p) f32 catalog scores of padded histories on the device:
+        one product with a whole ``B``, the ranks' partial products summed
+        with a row-sharded one."""
+        B = self._serving_B()
+        rows = self._b_rows()
+        if rows is None:
+            return ease_ops.score_history_block(B, ids, w)
+        lo, _, group = rows
+        return ease_ops.score_history_rows(B, lo, ids, w, B.shape[1], group)
+
     def _scores_for(self, u_dense: np.ndarray) -> np.ndarray:
         """(B, n_items) host scores of a user cohort."""
         ids, w = self._history_block(np.asarray(u_dense, np.int64))
-        s = ease_ops.history_scores(self._serving_B(), ids, w)
+        dev = self._params.item_weights.device
+        s = self._block_scores(torch.from_numpy(ids).to(dev),
+                               torch.from_numpy(w).to(dev))
         return s[:, :self.n_items].cpu().numpy()
 
     def _pair_scores(self, u: np.ndarray, i: np.ndarray):
@@ -207,16 +273,15 @@ class EASE(RecommenderBase):
         """Device top-k: the cohort's history rows (the harness's ``prep``
         hook), the catalog product and a stable top-k; the pad item
         columns score ``-inf``. Only (B, k) reaches the host."""
-        B_mat = self._serving_B()
         n_items = self.n_items
-        dev = B_mat.device
+        dev = self._params.item_weights.device
 
         def prep(ud):
             ids, w = self._history_block(np.asarray(ud, np.int64))
             return torch.from_numpy(ids).to(dev), torch.from_numpy(w).to(dev)
 
         def run(ud, kk, ids, w):
-            s = ease_ops.score_history_block(B_mat, ids, w)
+            s = self._block_scores(ids, w)
             s[:, n_items:] = float("-inf")
             return stable_topk(s, kk)
 

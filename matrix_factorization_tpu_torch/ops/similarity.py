@@ -14,23 +14,31 @@ to XLA outside any Pallas kernel; here it is ``torch.matmul`` with TF32
 off. The top-k breaks ties to the lower index, as ``lax.top_k`` does
 (``ops/scoring.py::stable_topk``): a tie at the k-th neighbour changes the
 prediction.
+
+On a mesh (``rows=(lo, hi)``) a rank holds rows ``[lo, hi)`` of the
+similarity matrix (against every entity) and the whole rating matrix, and
+predicts the pairs whose similarity row it holds; one ``all_reduce`` of
+the predictions, zero where another rank owns the pair, gives every rank
+all of them exactly (a single non-zero addend per pair).
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from matrix_factorization_tpu_torch.ops.scoring import stable_topk
+from matrix_factorization_tpu_torch.ops.segment_sgd import round_up
 
 
 class CFState(NamedTuple):
-    """Dense CF state: ratings matrix, similarity matrix, means."""
+    """Dense CF state: ratings matrix, similarity matrix (or a rank's rows
+    of it), means."""
 
     ratings: torch.Tensor  # (U, I) 0-filled
-    sim: torch.Tensor  # (U, U) or (I, I)
+    sim: torch.Tensor  # (U, U) or (I, I); on a mesh (hi - lo, U) or (hi - lo, I)
     means: torch.Tensor  # (U,) or (I,)
     global_mean: torch.Tensor  # scalar
 
@@ -56,25 +64,60 @@ def _full_f32():
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
-def cosine_rows(m: torch.Tensor) -> torch.Tensor:
-    """Row-wise cosine similarity: normalise, then one f32 product."""
+# most rows of the similarity product computed at once (see cosine_rows)
+ROW_CHUNK = 1024
+
+
+def row_chunk(e: int) -> int:
+    """Rows of one chunk of an (e, e) similarity product: ``e`` split into
+    the fewest chunks of at most ``ROW_CHUNK`` rows, rounded up to 8. It
+    depends on ``e`` alone, so a mesh rank's chunks have the whole
+    matrix's shape."""
+    n = max(1, -(-e // ROW_CHUNK))
+    return max(8, round_up(-(-e // n), 8))
+
+
+def cosine_rows(m: torch.Tensor, rows: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
+    """Row-wise cosine similarity: normalise, then f32 products; rows
+    ``[lo, hi)`` of it only, against every row, when ``rows`` is given.
+
+    The product runs in chunks of :func:`row_chunk` rows, each copied into
+    one zero-padded buffer of that size, so that every matrix product has
+    the same shape, strides and alignment whichever rows are asked for: a
+    row's similarities are then the same bits on a mesh rank as in the
+    whole matrix (a library GEMM may round otherwise at another shape, and
+    on ratings without signal a last-bit difference can change a top-k
+    neighbour)."""
     norms = torch.sqrt(torch.sum(m * m, dim=1, keepdim=True))
     normed = m / norms.clamp(min=1e-12)
+    lo, hi = (0, m.shape[0]) if rows is None else rows
+    chunk = row_chunk(m.shape[0])
+    out = torch.empty((hi - lo, m.shape[0]), dtype=m.dtype, device=m.device)
+    buf = torch.zeros((chunk, m.shape[1]), dtype=m.dtype, device=m.device)
     with _full_f32():
-        return normed @ normed.T
+        for c in range(lo, hi, chunk):
+            n = min(chunk, hi - c)
+            if n < chunk:
+                buf[n:] = 0.0
+            buf[:n] = normed[c:c + n]
+            out[c - lo:c - lo + n] = (buf @ normed.T)[:n]
+    return out
 
 
-def user_cf_fit(u, i, r, n_users: int, n_items: int) -> CFState:
+def user_cf_fit(u, i, r, n_users: int, n_items: int,
+                rows: Optional[Tuple[int, int]] = None) -> CFState:
     R = build_rating_matrix(u, i, r, n_users, n_items)
     means = torch.mean(R, dim=1)  # over the filled row, as the reference
-    sim = cosine_rows(R - means[:, None])
+    sim = cosine_rows(R - means[:, None], rows)
     return CFState(R, sim, means, torch.mean(r))
 
 
-def item_cf_fit(u, i, r, n_users: int, n_items: int) -> CFState:
+def item_cf_fit(u, i, r, n_users: int, n_items: int,
+                rows: Optional[Tuple[int, int]] = None) -> CFState:
     R = build_rating_matrix(u, i, r, n_users, n_items)
     means = torch.mean(R, dim=0)
-    sim = cosine_rows((R - means[None, :]).T)
+    sim = cosine_rows((R - means[None, :]).T, rows)
     return CFState(R, sim, means, torch.mean(r))
 
 
@@ -110,6 +153,26 @@ def _neighborhood_predict(
     return torch.where(has_rater & (den > 0), pred, self_mean)
 
 
+def _owned(pred_rows, ent: torch.Tensor, rows, group) -> torch.Tensor:
+    """Raw predictions of B pairs whose similarity row is ``ent``:
+    ``pred_rows(sel, sim_rows)`` computes the pairs ``sel`` from the
+    similarity rows ``sim_rows``. Without ``rows`` every pair is computed
+    here; with ``rows=(lo, hi)`` only the pairs whose row this rank holds,
+    the others are 0, and one ``all_reduce`` over ``group`` (None: the
+    world) sums the ranks' predictions."""
+    if rows is None:
+        return pred_rows(slice(None), ent)
+    import torch.distributed as dist
+
+    lo, hi = rows
+    pred = torch.zeros(ent.shape, dtype=torch.float32, device=ent.device)
+    own = (ent >= lo) & (ent < hi)
+    if bool(own.any()):
+        pred[own] = pred_rows(own, ent[own] - lo)
+    dist.all_reduce(pred, group=group)
+    return pred
+
+
 def _finish(state: CFState, pred, uv, iv, min_rating, max_rating,
             bound_ratings):
     pred = torch.where(uv & iv, pred, state.global_mean)
@@ -126,15 +189,22 @@ def user_cf_predict(
     min_rating: float,
     max_rating: float,
     bound_ratings: bool,
+    rows: Optional[Tuple[int, int]] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched UserUserCF prediction; an unknown id (-1) gets the global
-    mean (reference ``collaborative_filtering.py:119-121``)."""
+    mean (reference ``collaborative_filtering.py:119-121``). ``rows``: the
+    similarity rows this rank holds (see the module docstring)."""
     uv, iv = u >= 0, i >= 0
     us, isafe = u.clamp(min=0).long(), i.clamp(min=0).long()
-    sims = state.sim[us]  # (B, U)
-    ratings = state.ratings.T[isafe]  # (B, U)
-    pred = _neighborhood_predict(sims, ratings, state.means, state.means[us],
-                                 us, n_neighbors)
+
+    def pred_rows(sel, sim_rows):
+        # (B, U) similarities and the item's ratings by every user
+        return _neighborhood_predict(state.sim[sim_rows], state.ratings.T[isafe[sel]],
+                                     state.means, state.means[us[sel]], us[sel],
+                                     n_neighbors)
+
+    pred = _owned(pred_rows, us, rows, group)
     return _finish(state, pred, uv, iv, min_rating, max_rating, bound_ratings)
 
 
@@ -146,12 +216,19 @@ def item_cf_predict(
     min_rating: float,
     max_rating: float,
     bound_ratings: bool,
+    rows: Optional[Tuple[int, int]] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched ItemItemCF prediction (reference ``:311-368``)."""
+    """Batched ItemItemCF prediction (reference ``:311-368``); ``rows`` as
+    in :func:`user_cf_predict`."""
     uv, iv = u >= 0, i >= 0
     us, isafe = u.clamp(min=0).long(), i.clamp(min=0).long()
-    sims = state.sim[isafe]  # (B, I)
-    ratings = state.ratings[us]  # (B, I)
-    pred = _neighborhood_predict(sims, ratings, state.means,
-                                 state.means[isafe], isafe, n_neighbors)
+
+    def pred_rows(sel, sim_rows):
+        # (B, I) similarities and the user's ratings of every item
+        return _neighborhood_predict(state.sim[sim_rows], state.ratings[us[sel]],
+                                     state.means, state.means[isafe[sel]],
+                                     isafe[sel], n_neighbors)
+
+    pred = _owned(pred_rows, isafe, rows, group)
     return _finish(state, pred, uv, iv, min_rating, max_rating, bound_ratings)

@@ -26,8 +26,17 @@ every product is a multiple of 0.25 and every gram entry stays far below
 the cosine are real: the top-k breaks them to the lower index
 (``ops/scoring.py::stable_topk``), as ``lax.top_k`` does.
 
-User-user similarity is the same call with the axes swapped. ``mesh``
-(the JAX package's block-sharded accumulation) comes with slice 6.
+User-user similarity is the same call with the axes swapped.
+
+With a ``mesh`` (JAX ``_shard_blocks`` / ``_strip_accumulate_sharded``)
+the user blocks are split over every rank of the mesh jointly: the block
+axis is padded to a multiple of the world with empty blocks and rank r
+takes the contiguous blocks ``[r nb / N, (r + 1) nb / N)``, building only
+their windows. A strip's accumulator is the sum of the rank's blocks,
+then one ``all_reduce`` over the world; the top-k then runs on the
+replicated strip on every rank. On one rank the blocks and their order
+are the mesh-free call's and the reduce changes nothing, so the result is
+equal to it.
 """
 
 from __future__ import annotations
@@ -40,17 +49,19 @@ import torch
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.data.loader import host_lib
 from matrix_factorization_tpu_torch.ops.scoring import stable_topk
-from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6_GRAM, round_up
+from matrix_factorization_tpu_torch.ops.segment_sgd import round_up
 from matrix_factorization_tpu_torch.ops.spd import exact_f32
 
 
-def _bucket_by_block(u, i, r, n_entities: int, block: int, device):
+def _bucket_by_block(u, i, r, n_entities: int, block: int, device,
+                     blocks=None):
     """COO entries grouped by entity block: the counterpart ids and
     ratings stably sorted by entity on the host (``mf_sort_pairs_by_key``),
     then laid out on ``device`` as padded ``(n_blocks, max_nnz)`` windows
     (``_build_buckets``). Returns ``(ub, ib, rb, block_counts)``: the
     block-local entity, the counterpart id (int32) and the rating (f32) of
-    every window slot, and each block's number of real entries (host)."""
+    every window slot, and each block's number of real entries (host).
+    ``blocks=(b0, b1)`` lays out only those blocks (a rank's share)."""
     if len(u) and (int(u.min()) < 0 or int(u.max()) >= n_entities):
         raise ValueError(f"entity ids must lie in [0, {n_entities})")
     n_blocks = (n_entities + block - 1) // block
@@ -69,8 +80,16 @@ def _bucket_by_block(u, i, r, n_entities: int, block: int, device):
             np.ascontiguousarray(u, np.int32), np.ascontiguousarray(i, np.int32),
             np.ascontiguousarray(r, np.float32), n, n_entities, i_s, r_s)
 
+    if blocks is not None:
+        b0, b1 = blocks
+        e0, e1 = block_start[b0], block_start[b1]
+        entity_counts = entity_counts[b0 * block:min(b1 * block, n_entities)]
+        i_s, r_s = i_s[e0:e1], r_s[e0:e1]
+        block_start = block_start[b0:b1 + 1] - e0
+        block_counts = block_counts[b0:b1]
+
     def put(a):
-        return torch.from_numpy(a).to(device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     ub, ib, rb = _build_buckets(put(entity_counts), put(i_s), put(r_s),
                                 put(block_start), max_nnz, block)
@@ -167,9 +186,9 @@ def similarity_topk(
     tile rebuilds, a larger accumulator); the default is one strip of
     ``item_tile`` columns per accumulation. The column sums and self-dots
     are numpy ``bincount``s, as in the JAX package, so the means and norms
-    are equal to its."""
-    if mesh is not None:
-        raise NotImplementedError(f"similarity_topk(mesh=) comes with {SLICE_6_GRAM}")
+    are equal to its. ``mesh``: the user blocks split over every rank of
+    the mesh, one ``all_reduce`` a strip (see the module docstring); every
+    rank calls it and gets the whole result."""
     dev = resolve_device(device)
     u = np.asarray(u, np.int32)
     i = np.asarray(i, np.int32)
@@ -177,7 +196,18 @@ def similarity_topk(
     k = min(k, n_items - 1)
     items_pad = round_up(n_items, max(8, item_tile))
 
-    ub, ib, rb, block_counts = _bucket_by_block(u, i, r, n_users, user_block, dev)
+    blocks = None
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from matrix_factorization_tpu_torch.parallel.mesh import flat_index
+
+        n_dev, rank = mesh.size(), flat_index(mesh)
+        nb = -(-n_users // user_block)
+        per = round_up(nb, n_dev) // n_dev  # pad blocks hold no entry
+        blocks = (min(rank * per, nb), min((rank + 1) * per, nb))
+    ub, ib, rb, block_counts = _bucket_by_block(u, i, r, n_users, user_block, dev,
+                                                blocks)
     sums = np.bincount(i, weights=r, minlength=items_pad
                        ).astype(np.float32)[:items_pad]
     self_dot = np.bincount(i, weights=r * r, minlength=items_pad
@@ -202,6 +232,8 @@ def similarity_topk(
         gcols = min(group_cols, items_pad - glo)
         acc = _strip_accumulate(ub, ib, rb, block_counts, glo, gcols,
                                 user_block, items_pad)
+        if mesh is not None:
+            dist.all_reduce(acc)
         for lo in range(glo, min(glo + gcols, n_items), item_tile):
             cols = min(item_tile, items_pad - lo)
             hi = min(lo + cols, n_items)

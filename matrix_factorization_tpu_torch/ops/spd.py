@@ -15,15 +15,16 @@ which the Gauss-Jordan leaf inverts: the hand-written kernel of
 ``spd_solve`` Jacobi-scales to a unit diagonal, applies the inverse of the
 scaled system and refines once; ``spd_inverse_scaled`` does the same for
 an explicit inverse (Newton-Schulz steps). ``spd_inverse_ns`` inverts one
-SPD matrix by the Newton-Schulz iteration alone.
+SPD matrix by the Newton-Schulz iteration alone, and
+``spd_inverse_ns_sharded`` does so with the rows split over the ranks of a
+mesh's first axis (EASE past 16,384 items).
 
 ``leaf``: ``'auto'`` and ``'gj'`` mean the Gauss-Jordan leaf on every
 device; ``'cholesky'`` (the JAX package's ``'xla'``) inverts leaves of
 d <= ``base`` by ``torch.linalg.cholesky`` and a triangular solve, a cross-
 check that nothing on the main path uses. The JAX package's mesh pins
 (``spec``, ``spec_min``) have no counterpart (under SPMD a rank holds its
-shard as a plain tensor); its column-sharded Newton-Schulz inverse
-(``spd_inverse_ns_sharded``) comes with EASE on a mesh (slice 6d).
+shard as a plain tensor).
 
 Every product here is exact f32: TF32 stays off (a Schur complement of an
 ill-conditioned gram taken at lower precision can come out indefinite).
@@ -32,10 +33,13 @@ ill-conditioned gram taken at lower precision can come out indefinite).
 from __future__ import annotations
 
 import contextlib
+import math
+from typing import NamedTuple
 
 import torch
 
 from matrix_factorization_tpu_torch.ops import cuda_spd
+from matrix_factorization_tpu_torch.ops.segment_sgd import round_up
 
 LEAVES = ("auto", "gj", "cholesky")
 
@@ -182,3 +186,149 @@ def spd_inverse_ns(A: torch.Tensor, max_iters: int = 100,
         if not res > tol:
             break
     return P * ds[:, None] * ds[None, :]
+
+
+class NSLayout(NamedTuple):
+    """The row-sharded Newton-Schulz layout of a (d, d) system on this
+    rank: ``n`` ranks on the first axis (``group``), this one ``r``; the
+    system padded to ``dp``, ``dl`` rows a rank from ``row0 = r dl``, the
+    real ones ``[lo, hi)`` (the padding cut off, so the last ranks may
+    hold fewer rows, or none); column slabs ``blk`` wide."""
+
+    group: object
+    n: int
+    r: int
+    d: int
+    dp: int
+    dl: int
+    blk: int
+    lo: int
+    hi: int
+
+    @property
+    def row0(self) -> int:
+        return self.r * self.dl
+
+
+def ns_layout(d: int, mesh, col_block: int = 1024) -> NSLayout:
+    """The layout of a (d, d) system on this rank of ``mesh``'s first axis:
+    ``dp = round_up(d, 8 N)``, ``blk = min(col_block, dp)`` stepped down by
+    8 until it divides ``dp`` (JAX ``spd_inverse_ns_sharded``)."""
+    from matrix_factorization_tpu_torch.parallel.mesh import first_axis
+
+    group, n, r = first_axis(mesh)
+    dp = round_up(d, 8 * n)
+    blk = min(col_block, dp)
+    while dp % blk:
+        blk -= 8
+    dl = dp // n
+    return NSLayout(group, n, r, d, dp, dl, blk, min(r * dl, d),
+                    min((r + 1) * dl, d))
+
+
+def padded_rows(A_rows: torch.Tensor, lay: NSLayout) -> torch.Tensor:
+    """This rank's ``dl`` rows of ``blockdiag(A, I)`` (dl, dp) from its real
+    rows ``A_rows`` (hi - lo, d): the identity block pads the system to
+    ``dp`` exactly (the inverse of ``blockdiag(A, I)`` is
+    ``blockdiag(inv(A), I)``)."""
+    Ap = torch.zeros((lay.dl, lay.dp), dtype=torch.float32, device=A_rows.device)
+    Ap[:lay.hi - lay.lo, :lay.d] = A_rows
+    pad = torch.arange(lay.hi - lay.lo, lay.dl, device=A_rows.device)
+    Ap[pad, lay.row0 + pad] = 1.0
+    return Ap
+
+
+def _slab_mm(X_l: torch.Tensor, Y_l: torch.Tensor, lay: NSLayout,
+             out: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of ``X @ Y`` for row-sharded ``X`` and ``Y``, into
+    ``out`` (which may be ``Y_l`` itself: a slab is gathered before its
+    columns are written). For each ``blk``-wide column slab of ``Y`` the
+    ranks' rows of it are all-gathered into a (dp, blk) slab (a
+    contiguous copy first: collectives refuse strided views) and the local
+    rows multiply it in exact f32. A rank's memory beyond its three row
+    shards is one slab."""
+    from matrix_factorization_tpu_torch.parallel.distributed import all_gather_rows
+
+    with exact_f32():
+        for c in range(0, lay.dp, lay.blk):
+            slab = all_gather_rows(Y_l[:, c:c + lay.blk].contiguous(), lay.group)
+            out[:, c:c + lay.blk] = X_l @ slab
+            del slab
+    return out
+
+
+def ns_sharded_steps(Ap: torch.Tensor, lay: NSLayout, max_iters: int = 100,
+                     tol: float = 1e-5, info: dict = None) -> torch.Tensor:
+    """The row-sharded Newton-Schulz iteration on this rank's padded rows
+    ``Ap`` (dl, dp) of an SPD system, which it overwrites with the
+    Jacobi-scaled system ``As``: ``P <- P (2I - As P)`` from
+    ``P0 = I / ||As||_F``, each product by :func:`_slab_mm`. A step
+    measures ``||As P - I||_F / sqrt(dp)`` of the P it starts from (a
+    local sum of squares, one ``all_reduce``), then updates; the group's
+    first rank decides whether the residual is below ``tol`` and
+    broadcasts it, so that every rank stops at the same step (a rank
+    that compared its own float could leave the others waiting in the
+    next collective). Returns this rank's rows of the inverse of the
+    unscaled system, (dl, dp); ``info`` (a dict) gets ``steps`` and the
+    last ``residual``."""
+    import torch.distributed as dist
+
+    from matrix_factorization_tpu_torch.parallel.distributed import all_gather_rows
+
+    dev = Ap.device
+    diag = all_gather_rows(Ap.diagonal(offset=lay.row0).contiguous(), lay.group)
+    ds = torch.rsqrt(diag.clamp_min(torch.finfo(torch.float32).tiny))
+    As = Ap.mul_(ds[lay.row0:lay.row0 + lay.dl, None]).mul_(ds[None, :])
+    flat = As.view(-1)
+    sq = torch.dot(flat, flat).reshape(1)
+    dist.all_reduce(sq, group=lay.group)
+    P = torch.zeros_like(As)
+    P.diagonal(offset=lay.row0).copy_(torch.rsqrt(sq).expand(lay.dl))
+    AP = torch.empty_like(As)
+    decide = torch.zeros(1, dtype=torch.int32, device=dev)
+    src = dist.get_global_rank(lay.group, 0)
+    steps, res = 0, None
+    for _ in range(max_iters):
+        _slab_mm(As, P, lay, AP)
+        # ||As P - I||^2 with the diagonal's 1 taken off and put back bit
+        # for bit (a subtraction and an addition would not restore it)
+        dg = AP.diagonal(offset=lay.row0)
+        keep = dg.clone()
+        dg.sub_(1.0)
+        flat = AP.view(-1)
+        res_sq = torch.dot(flat, flat).reshape(1)
+        dg.copy_(keep)
+        dist.all_reduce(res_sq, group=lay.group)
+        _slab_mm(P, AP, lay, AP)          # AP <- P (As P), in place
+        P.mul_(2.0).sub_(AP)             # P <- 2P - P As P
+        steps += 1
+        if lay.r == 0:
+            res = math.sqrt(float(res_sq.cpu())) / math.sqrt(lay.dp)
+            decide.fill_(int(res < tol))
+        dist.broadcast(decide, src=src, group=lay.group)
+        if int(decide.cpu()):
+            break
+    del AP, As
+    if info is not None:
+        info.update(steps=steps, residual=res)
+    return P.mul_(ds[lay.row0:lay.row0 + lay.dl, None]).mul_(ds[None, :])
+
+
+def spd_inverse_ns_sharded(A: torch.Tensor, mesh, max_iters: int = 100,
+                           tol: float = 1e-5, col_block: int = 1024,
+                           info: dict = None) -> torch.Tensor:
+    """Row-sharded Newton-Schulz inverse of an SPD (d, d) system over the
+    ranks of ``mesh``'s first axis (N ranks; ranks on its other axes
+    compute the same rows): the system padded with an identity block to
+    ``dp = round_up(d, 8 N)``, rank r holding rows ``[r dp / N, (r + 1) dp
+    / N)`` of ``As``, ``P`` and ``As P``, every product a loop over column
+    slabs of at most ``col_block`` (JAX ``ops/spd.py:238-286``). A rank's
+    memory during the steps is three row shards and one slab. ``A`` (the
+    whole matrix) is not modified. Returns this rank's real rows
+    ``[lo, hi)`` (:func:`ns_layout`) of the inverse, (hi - lo, d).
+    ``info`` as in :func:`ns_sharded_steps`."""
+    d = A.shape[-1]
+    lay = ns_layout(d, mesh, col_block)
+    P = ns_sharded_steps(padded_rows(A[lay.lo:lay.hi], lay), lay, max_iters,
+                         tol, info)
+    return P[:lay.hi - lay.lo, :d].clone()

@@ -7,7 +7,9 @@ overlapped and tiled, one 2D epoch and one sharded-catalog top-k; then
 one epoch each of the data-parallel factor ALS (count buckets, the
 solves split over the ranks), bias ALS and bias SGD (each rank its
 columns of every batch) and NMF (its rows of P); then one epoch each of
-the data-parallel BPR and SVD++ trainers, flat and tiled. Run it as
+the data-parallel BPR and SVD++ trainers, flat and tiled. Then the gram models'
+sections: the data-parallel EASE gram and ``ease_weights_sharded`` (Schur
+and Newton-Schulz), and ``similarity_topk(mesh=)``. Run it as
 
     python -m matrix_factorization_tpu_torch.parallel.dryrun 4 [gloo|nccl] [cuda:0|cpu]
 
@@ -57,6 +59,7 @@ def _rank(rank: int, world: int, device: str) -> dict:
     out["topk"] = cat.topk(pu, 5)
     out.update(_rank_als_nmf(u, i, r, n_users, n_items, mesh, device))
     out.update(_rank_families(u, i, r, n_users, n_items, mesh, device))
+    out.update(_rank_gram(u, i, r, n_users, n_items, mesh, device))
     out["device"] = str(torch.device(device))
     return out
 
@@ -162,6 +165,27 @@ def _rank_families(u, i, r, n_users, n_items, mesh, device) -> dict:
     return out
 
 
+def _rank_gram(u, i, r, n_users, n_items, mesh, device) -> dict:
+    """The gram models' sections of JAX's dry run
+    (``__graft_entry__.py:281-315``) on this rank: the user-sharded EASE
+    gram (one all-reduce) and this rank's rows of ``B`` by the Schur path
+    and the row-sharded Newton-Schulz path; the sparse gram's top-k with
+    the user blocks split over the mesh (one all-reduce a strip)."""
+    from matrix_factorization_tpu_torch.ops import ease as ease_ops
+    from matrix_factorization_tpu_torch.ops.sparse_gram import similarity_topk
+
+    G = ease_ops.dp_item_gram(u.astype(np.int64), i.astype(np.int64),
+                              np.ones_like(r), n_users, n_items, mesh,
+                              device=device)
+    out = {"ease_" + inv: ease_ops.ease_weights_sharded(
+        G.clone(), 5.0, mesh, inverse=inv).cpu().numpy()
+        for inv in ("schur", "ns")}
+    out["sims"], out["sim_ids"], _, _ = similarity_topk(
+        u, i, r, n_users, n_items, k=4, user_block=16, item_tile=16,
+        mesh=mesh, device=device)
+    return out
+
+
 FAMILY_TAGS = ("bpr", "bpr_tiled", "svdpp", "svdpp_tiled")
 
 
@@ -191,6 +215,16 @@ def dryrun_multichip(n_devices: int, backend: str = "gloo",
                 raise AssertionError("the ranks' top-k differ")
     if first["topk"][1].max() >= 40:
         raise AssertionError("the top-k named a padding row")
+    for rk in ranks:
+        if not all(np.isfinite(rk[f"ease_{inv}"]).all() for inv in ("schur", "ns")):
+            raise AssertionError("EASE: a rank's rows of B are not finite")
+        if np.abs(rk["ease_ns"] - rk["ease_schur"]).max(initial=0.0) > 5e-4:
+            raise AssertionError("EASE: Newton-Schulz differs from Schur")
+        if not (np.array_equal(rk["sims"], first["sims"])
+                and np.array_equal(rk["sim_ids"], first["sim_ids"])):
+            raise AssertionError("the ranks' similarity top-k differ")
+    if first["sim_ids"].shape != (40, 4):
+        raise AssertionError("the similarity top-k has the wrong shape")
     return first
 
 
@@ -203,4 +237,5 @@ if __name__ == "__main__":
           f"SGD {res['bias_sgd'][-1]:.4f}, NMF {res['nmf'][-1]:.4f}, SVD++ "
           f"{res['svdpp'][-1]:.4f} / {res['svdpp_tiled'][-1]:.4f}, BPR loss "
           f"{res['bpr'][-1]:.4f} / {res['bpr_tiled'][-1]:.4f}, top-k ids "
-          f"{res['topk'][1][0].tolist()}")
+          f"{res['topk'][1][0].tolist()}, EASE rows {res['ease_ns'].shape}, "
+          f"item 0's neighbours {res['sim_ids'][0].tolist()}")

@@ -14,7 +14,8 @@ import pickle
 import queue
 import tempfile
 import traceback
-from typing import Any, Callable, List, Sequence
+from contextlib import contextmanager
+from typing import Any, Callable, Iterator, List, Sequence
 
 import torch
 import torch.distributed as dist
@@ -33,6 +34,27 @@ def world_device(device=None) -> str:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", 0)
     return str(dev)
+
+
+@contextmanager
+def world_of_one() -> Iterator[None]:
+    """A gloo world of this process alone, run as a rank of
+    :func:`spawn_world` runs: at one torch intra-op thread (the count is
+    restored after), through a ``FileStore`` in a temporary directory. For
+    the mesh paths at one rank inside a process whose cores other work
+    shares (threads that wait on each other at every small op crawl)."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with tempfile.TemporaryDirectory(prefix="mf_world_") as tmp:
+            dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                    rank=0, world_size=1)
+            try:
+                yield
+            finally:
+                dist.destroy_process_group()
+    finally:
+        torch.set_num_threads(n_threads)
 
 
 def _child(rank: int, world_size: int, backend: str, device: str,

@@ -134,3 +134,23 @@ def data_group(mesh):
 def model_group(mesh):
     """The process group over the model axis through this rank."""
     return mesh.get_group(MODEL_AXIS)
+
+
+def first_axis(mesh) -> tuple:
+    """``(group, size, index)`` of the mesh's first axis through this rank:
+    the axis that the row-sharded Newton-Schulz inverse and EASE's ``B``
+    shard their rows over (JAX ``mesh.axis_names[0]``; ``data`` on a
+    ``make_mesh`` mesh, ``slice`` on a multislice one). The ranks that
+    share this rank's index there hold the same rows."""
+    name = mesh.mesh_dim_names[0]
+    return mesh.get_group(name), _sizes(mesh)[name], _coordinate(mesh)[name]
+
+
+def flat_index(mesh) -> int:
+    """This rank's index over every axis of the mesh, row-major (JAX's
+    order of ``mesh.devices``): what shards over all axes jointly (the
+    gram's user blocks, the dense CF similarity rows) is split by it."""
+    idx = 0
+    for name, size in zip(mesh.mesh_dim_names, mesh.shape):
+        idx = idx * size + _coordinate(mesh)[name]
+    return idx

@@ -20,6 +20,7 @@ from matrix_factorization_tpu.models.collaborative import UserUserCF as JaxUserC
 from matrix_factorization_tpu.ops import similarity as jsim
 from matrix_factorization_tpu_torch import ItemItemCF, UserUserCF
 from matrix_factorization_tpu_torch.ops import similarity as sim
+from matrix_factorization_tpu_torch.parallel import launch
 
 MODELS = {"user": (UserUserCF, JaxUserCF), "item": (ItemItemCF, JaxItemCF)}
 
@@ -149,8 +150,8 @@ def test_unknown_ids_bounds_and_arguments(small):
     assert all(2.0 <= p <= 3.0 for p in bounded.predict(X.iloc[:20]))
     with pytest.raises(ValueError, match="metric"):
         UserUserCF(similarity_metric="jaccard", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ItemItemCF(mesh=object(), device="cpu")
+    stub = object()
+    assert ItemItemCF(mesh=stub, device="cpu").mesh is stub  # fits on a mesh
     with pytest.raises(RuntimeError, match="not fitted"):
         UserUserCF(device="cpu").predict(X.iloc[:3])
 
@@ -176,3 +177,42 @@ def test_rating_matrix_and_cosine():
     S = sim.cosine_rows(torch.tensor([[3.0, 4.0], [0.0, 0.0], [4.0, -3.0]]))
     np.testing.assert_allclose(S.numpy(), [[1, 0, 0], [0, 0, 0], [0, 0, 1]],
                                atol=1e-7)
+
+
+@pytest.mark.parametrize("e", [20, 1030])
+def test_cosine_row_blocks_are_the_whole_matrix_rows(e):
+    """Any rows ``[lo, hi)`` of ``cosine_rows`` are the same bits as those
+    rows of the whole matrix: every product runs on one buffer of
+    ``row_chunk(e)`` rows (at 1,030 rows two chunks of 520, the blocks
+    below starting inside a chunk)."""
+    m = torch.from_numpy(np.random.default_rng(e).normal(size=(e, 24))
+                         .astype(np.float32))
+    whole = sim.cosine_rows(m)
+    assert sim.row_chunk(e) == (24 if e == 20 else 520)
+    for lo, hi in ((0, e // 3), (e // 3, e), (7, 11)):
+        assert torch.equal(sim.cosine_rows(m, (lo, hi)), whole[lo:hi])
+
+
+@pytest.fixture
+def world_of_one():
+    """A gloo world of this process alone, at one intra-op thread."""
+    with launch.world_of_one():
+        yield
+
+
+@pytest.mark.parametrize("mode", ["user", "item"])
+def test_mesh_of_one_rank_fits_as_one_device(small, world_of_one, mode):
+    """On one rank the mesh fit holds every similarity row and predicts
+    every pair itself: the similarity matrix and the predictions are
+    equal to the mesh-free model's."""
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
+    X, y = small
+    cls = MODELS[mode][0]
+    mesh = make_mesh(1)
+    got = cls(n_neighbors=5, mesh=mesh, device="cpu").fit(X, y)
+    want = cls(n_neighbors=5, device="cpu").fit(X, y)
+    assert got._state.sim.shape == want._state.sim.shape
+    np.testing.assert_array_equal(got._state.sim.numpy(), want._state.sim.numpy())
+    np.testing.assert_array_equal(got.predict(X), want.predict(X))
+    assert got.predictions_possible == want.predictions_possible

@@ -9,6 +9,7 @@ import pytest
 from matrix_factorization_tpu.data.synthetic import lowrank_ratings
 from matrix_factorization_tpu.models import cf_topk as jcf
 from matrix_factorization_tpu_torch.models import cf_topk as cf
+from matrix_factorization_tpu_torch.parallel import launch
 
 CLASSES = [("TopKItemItemCF", "item"), ("TopKUserUserCF", "user")]
 
@@ -104,9 +105,36 @@ def test_chunked_predict_equals_one_chunk(monkeypatch):
     np.testing.assert_array_equal(whole[1], parts[1])
 
 
-def test_mesh_names_its_slice_and_duplicates_raise():
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        cf.TopKItemItemCF(mesh=object(), device="cpu")
+@pytest.fixture
+def world_of_one():
+    """A gloo world of this process alone, at one intra-op thread."""
+    with launch.world_of_one():
+        yield
+
+
+@pytest.mark.parametrize("name,mode", CLASSES, ids=[c[0] for c in CLASSES])
+def test_mesh_of_one_rank_fits_as_one_device(world_of_one, name, mode):
+    """``mesh=`` is accepted and fits: on one rank the similarity fit is
+    the mesh-free one, so the neighbour lists and the predictions are
+    equal to the mesh-free model's."""
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
+    X, y = lowrank_ratings(n_users=50, n_items=40, density=0.4, seed=15)
+    y = y.clip(lower=0.5)
+    kw = dict(n_neighbors=8, user_block=16, item_tile=16, device="cpu")
+    mesh = make_mesh(1)
+    got = getattr(cf, name)(mesh=mesh, **kw).fit(X, y)
+    want = getattr(cf, name)(**kw).fit(X, y)
+    assert got.mesh is mesh
+    np.testing.assert_array_equal(got._neighbor_sims.numpy(),
+                                  want._neighbor_sims.numpy())
+    np.testing.assert_array_equal(got._neighbor_ids.numpy(),
+                                  want._neighbor_ids.numpy())
+    np.testing.assert_array_equal(got.predict(X.iloc[:100]),
+                                  want.predict(X.iloc[:100]))
+
+
+def test_duplicates_raise():
     X = pd.DataFrame({"user_id": [1, 1], "item_id": [2, 2]})
     with pytest.raises(ValueError, match="Duplicate"):
         cf.TopKItemItemCF(device="cpu").fit(X, pd.Series([1.0, 2.0]))

@@ -1271,3 +1271,42 @@ def test_dp_families_at_nccl_world_one_are_the_single_device_trainers(cuda):
     want_p, want_h = runs["svdpp"]
     for a, b in zip(list(got_s[0]) + [got_s[1]], list(want_p) + [want_h]):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def _gloo_ease_rank(rank, world, X, y):
+    """``EASE(mesh=)`` on one gloo rank of the card: its GJ launches, its
+    rows of ``B`` and the first 16 users' catalog scores."""
+    from matrix_factorization_tpu_torch import EASE
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda_spd.reset_launches()
+    m = EASE(reg=10.0, mesh=make_mesh(world)).fit(X, y)
+    torch.cuda.synchronize()
+    return {"launches": cuda_spd.launches,
+            "rows": tuple(m._params.item_weights.shape),
+            "device": str(m._params.item_weights.device),
+            "scores": m._catalog_scores_batch(np.arange(16))}
+
+
+def test_ease_mesh_on_gloo_ranks_sharing_the_gpu(cuda):
+    """A gloo world of 2 on cuda:0 fits ``EASE(mesh=)``: the data-parallel
+    gram, then on each rank the Schur recursion whose leaves are the
+    hand-written GJ kernel (launched on every rank), each rank keeping
+    its rows of ``B``; the summed partial scores within 5e-4 of the
+    single-device fit on the card."""
+    from matrix_factorization_tpu_torch import EASE
+    from matrix_factorization_tpu_torch.parallel.launch import spawn_world
+
+    rng = np.random.default_rng(9)
+    flat = rng.choice(300 * 200, 4000, replace=False)
+    X = pd.DataFrame({"user_id": flat // 200, "item_id": flat % 200})
+    y = pd.Series(np.ones(len(flat), np.float32))
+    ranks = spawn_world(_gloo_ease_rank, 2, "gloo", "cuda:0", args=(X, y),
+                        timeout=600)
+    want = EASE(reg=10.0).fit(X, y)._catalog_scores_batch(np.arange(16))
+    # 200 items padded to 208 for 2 ranks: 104 rows, then the 96 left
+    assert [rk["rows"] for rk in ranks] == [(104, 200), (96, 200)]
+    for rk in ranks:
+        assert rk["launches"] > 0 and rk["device"] == "cuda:0"
+        np.testing.assert_allclose(rk["scores"], want, atol=5e-4)

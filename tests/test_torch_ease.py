@@ -17,6 +17,7 @@ from matrix_factorization_tpu_torch.models import grid_search
 from matrix_factorization_tpu_torch.models.ease import EASE
 from matrix_factorization_tpu_torch.ops import cuda_spd
 from matrix_factorization_tpu_torch.ops import ease as ops
+from matrix_factorization_tpu_torch.parallel import launch
 
 
 def _toy(n_users=40, n_items=50, n=600, seed=0):
@@ -179,8 +180,8 @@ def test_bf16_serving_and_guards():
         EASE(reg=0.0, device="cpu")
     with pytest.raises(ValueError):
         EASE(serving_dtype="fp8", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        EASE(mesh=object(), device="cpu")
+    stub = object()
+    assert EASE(mesh=stub, device="cpu").mesh is stub  # fits on a mesh
     with pytest.raises(RuntimeError):
         EASE(device="cpu").recommend(user="u0")
     with pytest.raises(ValueError):
@@ -233,3 +234,33 @@ def test_grid_search_ease_matches_jax():
         grid_search.grid_search_ease(X, y, regs=(), device="cpu")
     with pytest.raises(ValueError):
         grid_search.grid_search_ease(X, y, holdout_per_user=0, device="cpu")
+
+
+@pytest.fixture
+def world_of_one():
+    """A gloo world of this process alone, at one intra-op thread."""
+    with launch.world_of_one():
+        yield
+
+
+def test_mesh_of_one_rank_is_the_single_device_fit(world_of_one):
+    """One data rank takes the single-device path, as JAX's model does:
+    ``B`` whole and equal to the mesh-free fit's, the same scores; the
+    sharded Newton-Schulz path on the one rank within 5e-4 of Schur."""
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
+    X, y = _toy(seed=8)
+    mesh = make_mesh(1)
+    got = EASE(reg=5.0, mesh=mesh, device="cpu").fit(X, y)
+    want = EASE(reg=5.0, device="cpu").fit(X, y)
+    assert got._sharding is None and got.mesh is mesh
+    assert torch.equal(got._params.item_weights, want._params.item_weights)
+    np.testing.assert_array_equal(got._catalog_scores_batch(np.arange(8)),
+                                  want._catalog_scores_batch(np.arange(8)))
+    u, i = _dense_ids(want, X)
+    G = ops.item_gram(u, i, np.ones(len(u), np.float32), want.n_users,
+                      want.n_items, device="cpu")
+    B_ns = ops.ease_weights_sharded(G.clone(), 5.0, mesh, inverse="ns")
+    np.testing.assert_allclose(B_ns.numpy(), want._params.item_weights.numpy(),
+                               atol=5e-4)
+    assert not B_ns.diagonal().any()

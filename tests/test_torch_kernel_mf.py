@@ -34,6 +34,7 @@ from matrix_factorization_tpu_torch import (
     train_update_test_split,
 )
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+from matrix_factorization_tpu_torch.parallel import launch
 
 KERNELS = ["linear", "sigmoid", "rbf"]
 
@@ -262,15 +263,10 @@ def test_mesh_argument_checks_match_jax():
 
 
 @pytest.fixture
-def world_of_one(tmp_path):
-    import torch.distributed as dist
-
-    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
-                            rank=0, world_size=1)
-    try:
+def world_of_one():
+    """A gloo world of this process alone, at one intra-op thread."""
+    with launch.world_of_one():
         yield
-    finally:
-        dist.destroy_process_group()
 
 
 def test_mesh_checkpoint_and_resume_on_one_rank(split, tmp_path, world_of_one):

@@ -615,15 +615,11 @@ def test_mesh_arguments_are_accepted():
 
 @pytest.fixture
 def world_of_one():
-    import torch.distributed as dist
+    """A gloo world of this process alone, at one intra-op thread."""
+    from matrix_factorization_tpu_torch.parallel import launch
 
-    with tempfile.TemporaryDirectory() as d:
-        dist.init_process_group("gloo", init_method=f"file://{d}/store",
-                                rank=0, world_size=1)
-        try:
-            yield
-        finally:
-            dist.destroy_process_group()
+    with launch.world_of_one():
+        yield
 
 
 @pytest.mark.parametrize("layout", ["flat", "tiled"])

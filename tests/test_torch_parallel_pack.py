@@ -12,8 +12,6 @@ package's, in one process (no world of ranks):
   as the single-device trainer and serving as the single-device top-k.
 """
 
-import tempfile
-
 import numpy as np
 import pytest
 import torch
@@ -25,6 +23,7 @@ from matrix_factorization_tpu_torch.core.config import SGDConfig
 from matrix_factorization_tpu_torch.ops import scoring
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 from matrix_factorization_tpu_torch.parallel import distributed as pdist
+from matrix_factorization_tpu_torch.parallel import launch
 from matrix_factorization_tpu_torch.parallel import mesh as pmesh
 from matrix_factorization_tpu_torch.parallel.serving import ShardedCatalog
 
@@ -183,13 +182,9 @@ def test_check_psum_every_matches_jax(nb):
 
 @pytest.fixture
 def world_of_one():
-    with tempfile.TemporaryDirectory() as d:
-        dist.init_process_group("gloo", init_method=f"file://{d}/store",
-                                rank=0, world_size=1)
-        try:
-            yield
-        finally:
-            dist.destroy_process_group()
+    """A gloo world of this process alone, at one intra-op thread."""
+    with launch.world_of_one():
+        yield
 
 
 def test_make_mesh_needs_the_world_and_its_size(world_of_one):

@@ -7,6 +7,7 @@ import pytest
 
 from matrix_factorization_tpu.ops import sparse_gram as jsg
 from matrix_factorization_tpu_torch.ops import sparse_gram as sg
+from matrix_factorization_tpu_torch.parallel import launch
 
 ATOL = 2e-4  # f32 gram and cosine against the float64 oracle
 
@@ -121,8 +122,25 @@ def test_buckets_are_padded_block_windows():
         start += c
 
 
-def test_similarity_topk_mesh_names_its_slice():
+@pytest.fixture
+def world_of_one():
+    """A gloo world of this process alone, at one intra-op thread."""
+    with launch.world_of_one():
+        yield
+
+
+@pytest.mark.parametrize("swap", [False, True], ids=["item-item", "user-user"])
+def test_similarity_topk_on_one_rank_is_the_mesh_free_call(world_of_one, swap):
+    """``mesh=`` on one rank: the same blocks in the same order, and an
+    all-reduce over one rank changes nothing, so every output is equal to
+    the mesh-free call's."""
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
     rng = np.random.default_rng(0)
-    u, i, r = _coo(rng, 10, 10, 30)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        sg.similarity_topk(u, i, r, 10, 10, k=3, mesh=object(), device="cpu")
+    u, i, r = _coo(rng, 70, 40, 900)
+    args = (i, u, r, 40, 70) if swap else (u, i, r, 70, 40)
+    kw = dict(k=5, user_block=16, item_tile=16, device="cpu")
+    want = sg.similarity_topk(*args, **kw)
+    got = sg.similarity_topk(*args, mesh=make_mesh(1), **kw)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Run ``chip_smoke.py``'s ``parallel`` phase alone on one CUDA GPU.
+"""Run ``chip_smoke.py``'s multi-device phases alone on one CUDA GPU.
 
     python3 tools/run_parallel.py [--seed N] [--out FILE]
 
 Builds the port's kernels, makes config 3's 25M ratings (with the held-out
-pairs) and config 2's 1M (``chip_smoke.gen_ratings`` /
-``ml1m_ratings``, as the full run makes them) and runs the phase with its
-checks: inside one NCCL world of this process alone ``phase_parallel_nccl``
-(data-parallel SGD at config 3), ``phase_parallel_kernels`` and
-``phase_parallel_als`` (factor ALS, the bias models and NMF) and
-``phase_parallel_families`` (BPR and SVD++), then ``phase_parallel_gloo``
-(gloo ranks on the card, with the slice-6b and slice-6c models). Prints the card's name
+pairs) and config 2's 1M (``chip_smoke.gen_ratings`` / ``ml1m_ratings``,
+as the full run makes them) and runs the phases with their checks:
+``phase_cf_topk`` (config 4's mesh-free fits; ``parallel_gram`` holds its
+mesh fit to the item-item lists), then inside one NCCL world of this
+process alone ``phase_parallel_nccl`` (data-parallel SGD at config 3),
+``phase_parallel_kernels``, ``phase_parallel_als`` (factor ALS, the bias
+models and NMF), ``phase_parallel_families`` (BPR and SVD++) and
+``phase_parallel_gram_nccl`` (the gram models), then
+``phase_parallel_gloo`` (gloo ranks on the card, with the slice-6b and
+slice-6c models) and ``phase_parallel_gram_gloo``. Prints the card's name
 and power limit, then each phase's JSON line as it ends, also appended to
 ``--out``. A failed check exits non-zero. Needs a GPU; imports nothing of
 JAX.
@@ -74,6 +77,9 @@ def main() -> int:
     emit({"phase": "data", "seconds": time.perf_counter() - t1})
     rng = np.random.default_rng(args.seed)
     t2 = time.perf_counter()
+    out, item_lists = cs.phase_cf_topk(torch, rng, data3)
+    emit(out)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp, \
             cs.nccl_world(torch, tmp):
         out, packs = cs.phase_parallel_nccl(torch, rng, data3, r[n:], args.seed)
@@ -94,9 +100,21 @@ def main() -> int:
         out = cs.phase_parallel_families(torch, rng, data3, args.seed)
         out["seconds"] = time.perf_counter() - t3
         emit(out)
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        gram = cs.phase_parallel_gram_nccl(torch, data3, train1m, item_lists,
+                                           args.seed)
+        gram["seconds"] = time.perf_counter() - t3
+        emit(gram)
+        del item_lists
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
     out = cs.phase_parallel_gloo(torch, train1m, args.seed)
+    out["seconds"] = time.perf_counter() - t3
+    emit(out)
+    t3 = time.perf_counter()
+    out = cs.phase_parallel_gram_gloo(torch, train1m, args.seed,
+                                      gram["ml1m_ns"]["peak_mib"])
     out["seconds"] = time.perf_counter() - t3
     emit(out)
     emit({"phase": "done", "parallel_seconds": time.perf_counter() - t2,
