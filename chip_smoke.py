@@ -4,7 +4,8 @@ neighbourhood and content models, its KernelMF sweep, its native host
 packs, its sparse-gram top-k CF, EASE, BPR, SVD++, NMF and Popularity, the
 recipe recommender's serving path, the batch pipeline and multi-device
 KernelMF (SGD and ALS), bias models, NMF, BPR, SVD++, EASE and the CF
-models on one CUDA GPU and check them.
+models, retrieval and the hybrid evaluation on a mesh and sharded
+checkpoints on one CUDA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -225,7 +226,7 @@ failed check ends the run with a non-zero exit:
     writes them) and 59,392 seeded recipe texts in; ``build_recipe_metadata``,
     ``build_structured_features``, ``build_item_embeddings --dim 512``,
     ``export_artifacts`` (the dense index), ``train`` of config 3's sigmoid
-    KernelMF (k=200, bs 2,097,152, 3 epochs), ``evaluate`` of 2,000 users
+    KernelMF (k=200, bs 2,097,152, 3 epochs), ``evaluate`` of 1,000 users
     inside ``utils.profiling.trace`` (the first 200 lists against a float64
     numpy top-k of the model's tables with the same known items excluded,
     users whose 10th and 11th scores tie within 1e-5 skipped and counted;
@@ -337,6 +338,29 @@ failed check ends the run with a non-zero exit:
     matrix's), and on the world of 4 the
     Newton-Schulz inverse forced on config 2's gram: within 5e-4 of Schur,
     each rank's peak during the steps below half of world 1's.
+30. parallel_retrieval: retrieval and the hybrid evaluation on a mesh.
+    After the pipeline phase, on its artifacts: ``evaluate_hybrid
+    --mesh-devices 1`` (the stage starts one NCCL rank) for 200 users,
+    its report equal to the mesh-free run's, and ``--mesh-devices 2``
+    raising on one card. In the NCCL world of one rank, after (f), at
+    recipe_serve's catalog made anew (2,231,142 x 512 dense, 2,231,142 x
+    50,000 TF-IDF): ``search_topk_batch(mesh=make_mesh(1))`` of 256
+    queries and ``tfidf_batch_topk(mesh=)`` of 64 at ``vocab_block``
+    1,024, each equal to the mesh-free call, with the dense search's
+    device times; the catalog is written to files, and (g)'s gloo ranks
+    then each read their rows of it (memory maps) and take the
+    row-sharded dense and TF-IDF top-k (the first 64 and 32 of those
+    queries), held to the single-device ones at JAX's bars (values 1e-5,
+    positions where the gap to the next is at least 1e-6).
+31. sharded_checkpoint: in the NCCL world of one rank, config 3's
+    ``KernelMF(mesh=make_mesh(1))`` (one epoch) through
+    ``save_model_sharded`` / ``load_model_sharded`` and through
+    ``save_model`` / ``load_model``, equal, with seconds and bytes; then
+    on (b)'s gloo worlds of 2 and 4: ``KernelMF(keep_sharded=True)`` on
+    the flat mesh (fitted by SGD) and, on the world of 4, (b)'s 2 x 2 fit,
+    saved and restored onto the mesh, every rank's shards equal, lists
+    equal, ``predict`` 1e-6, the scorer launched on every rank by the
+    restored model, the meshless load equal to the gathered tables.
 
 Then the ``kernels`` line (``score_catalog``, ``sgd_step``,
 ``segment_apply``, ``spd_gj`` with its EASE launches and shapes,
@@ -2409,6 +2433,10 @@ CF4 = {"n_neighbors": 50, "block": 4096, "predict_pairs": 1_000_000,
 EASE_ML1M = {"reg": 250.0, "users": 256, "k": 10}
 EASE_BUDGET = {"n_users": 100_000, "n_items": 16_384, "per_user": 100,
                "reg": 100.0, "oracle_columns": 256}
+# parallel_gram's Newton-Schulz at the budget, cut from JAX's 100 steps for
+# time: in f32 its residual stalls at 5.7e-5, above the stop test's 1e-5,
+# and all 100 ran in PR 16's runs (35.5 s); B is held to Schur's after it
+EASE_NS_STEPS = 50
 
 
 def timed(torch, fn):
@@ -3725,7 +3753,7 @@ def phase_recipe_serve(torch, rng, train, tmpdir, seed, timer):
 # catalog of the same width: the stages' argv as the JAX e2e test gives
 # them, no --platform (the default device), in run_all's order with the
 # dense index in the TF-IDF index's place
-PIPE = {"dim": 512, "max_users": 2_000, "k": 10, "held": 200, "profiles": 64,
+PIPE = {"dim": 512, "max_users": 1_000, "k": 10, "held": 200, "profiles": 64,
         "tie": 1e-5, "candidate_k": 100, "reranker_seeds": 200,
         "query": "chicken rice dinner"}
 PIPE_TRAIN = ["--model", "kernel_mf", "--kernel", "sigmoid", "--factors", "200",
@@ -4146,7 +4174,6 @@ def phase_pipeline(torch, rng, data3, tmpdir, seed):
     check(all(v > 0 for v in total.values()), f"the pipeline missed a kernel: {total}")
     out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
     out["host_rss_mib"], out["host_peak_rss_mib"] = host_rss_mib()
-    shutil.rmtree(root)
     return out
 
 
@@ -4450,8 +4477,9 @@ def parallel_gloo_rank(rank, world, inp):
     ``keep_sharded=True`` (``dp_tp_fit``), ``recommend_batch`` through the
     sharded catalog beside the single-device top-k of the gathered tables.
     Both worlds then fit the slice-6b models (``gloo_6b_rank``) and the
-    slice-6c ones (``gloo_6c_rank``). Returns host arrays and the rank's
-    kernel launches."""
+    slice-6c ones (``gloo_6c_rank``), and last put ``keep_sharded`` fits
+    through the sharded checkpoints (``gloo_ckpt_rank``). Returns host
+    arrays and the rank's kernel launches (the checkpoint part's apart)."""
     import numpy as np
     import pandas as pd
     import torch
@@ -4474,6 +4502,7 @@ def parallel_gloo_rank(rank, world, inp):
     for counter in (cuda_sgd, cuda_scores, cuda_spd, ss):
         counter.reset_launches()
     out = {"rank": rank}
+    fitted = {}  # keep_sharded fits that the checkpoint part reuses
     t0 = time.perf_counter()
     if world == 2:
         mesh = make_mesh(2)
@@ -4500,7 +4529,7 @@ def parallel_gloo_rank(rank, world, inp):
                 "Q": runs[0]._params.item_features.cpu().numpy()}
     else:
         mesh = make_mesh(2, 2)
-        m = KernelMF(mesh=mesh, keep_sharded=True, **kw).fit(X, y)
+        m = fitted["2x2"] = KernelMF(mesh=mesh, keep_sharded=True, **kw).fit(X, y)
         users = list(inp["users"])
         recs = m.recommend_batch(users, amount=PAR["k"], bound_ratings=False)
         whole = m._whole_params()
@@ -4537,6 +4566,9 @@ def parallel_gloo_rank(rank, world, inp):
                        "score_catalog": cuda_scores.launches,
                        "spd_gj": cuda_spd.launches,
                        "segment_sum": ss.launches}
+    t0 = time.perf_counter()
+    out["ckpt"] = gloo_ckpt_rank(world, inp, X, y, kw, fitted)
+    out["ckpt_seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -4548,24 +4580,30 @@ def phase_parallel_gloo(torch, train1m, seed):
     rank's Q bit-equal; two fits of one seed bit-equal; train RMSE falls;
     under ``keep_sharded`` each rank holds half of P and half of Q; the
     sharded top-10 equals the single-device top-10 of the gathered tables
-    (ids, scores 1e-5); the slice-6b models (``check_gloo_6b``) and the
-    slice-6c ones (``check_gloo_6c``)."""
+    (ids, scores 1e-5); the slice-6b models (``check_gloo_6b``), the
+    slice-6c ones (``check_gloo_6c``) and the sharded checkpoints
+    (``check_gloo_ckpt``, whose line it returns under
+    ``sharded_checkpoint``)."""
     import numpy as np
 
     from matrix_factorization_tpu_torch import params_from_numpy
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
     from matrix_factorization_tpu_torch.parallel.launch import spawn_world
 
+    from matrix_factorization_tpu_torch.ops import _build
+
     inp = gloo_inputs(train1m, seed)
     out = {"phase": "parallel_gloo", "backend": "gloo", "device": "cuda:0",
            "n_ratings": len(inp["train"][2]), "batch_size": PAR["gloo_bs"],
            "epochs": PAR["gloo_epochs"]}
     worlds = {}
-    for world in (2, 4):
-        t0 = time.perf_counter()
-        worlds[world] = spawn_world(parallel_gloo_rank, world, "gloo", "cuda:0",
-                                    args=(inp,), timeout=600)
-        out[f"world{world}_seconds"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as ckpt_dir:
+        inp["ckpt_dir"] = ckpt_dir
+        for world in (2, 4):
+            t0 = time.perf_counter()
+            worlds[world] = spawn_world(parallel_gloo_rank, world, "gloo",
+                                        "cuda:0", args=(inp,), timeout=600)
+            out[f"world{world}_seconds"] = time.perf_counter() - t0
     w2, w4 = worlds[2], worlds[4]
 
     # one global step on 2 ranks = the single-device step on the union batch
@@ -4621,6 +4659,7 @@ def phase_parallel_gloo(torch, train1m, seed):
                        for k in w2[0]["launches"]}
     check(all(v > 0 for v in out["launches"].values()),
           f"the gloo ranks missed a kernel: {out['launches']}")
+    out["sharded_checkpoint"] = check_gloo_ckpt(worlds)
     return out
 
 
@@ -5526,10 +5565,12 @@ class NSRecorder:
     padded rows (so: ``As``, ``P``, ``As P`` and the slab), the peak
     counter reset at the steps' start, after the gram has been let go."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, max_iters=None):
+        """``max_iters``: a cap on the steps handed to the wrapped call."""
         from matrix_factorization_tpu_torch.ops import ease as ease_ops
 
         self.torch, self.ease_ops, self.calls = torch, ease_ops, []
+        self.cap = {} if max_iters is None else {"max_iters": max_iters}
 
     def __enter__(self):
         torch, orig = self.torch, self.ease_ops.ns_sharded_steps
@@ -5541,7 +5582,7 @@ class NSRecorder:
             torch.cuda.reset_peak_memory_stats()
             info = {}
             t0 = time.perf_counter()
-            P = orig(Ap, lay, *args, info=info, **kw)
+            P = orig(Ap, lay, *args, info=info, **{**kw, **self.cap})
             torch.cuda.synchronize()
             self.calls.append({
                 # the residual is read on the axis' first rank (None elsewhere)
@@ -5655,7 +5696,7 @@ def phase_parallel_gram_nccl(torch, data3, train1m, item_lists, seed):
     B1, res["single_device_inverse_seconds"] = timed(
         torch, lambda: ease_ops.ease_weights(G1, EASE_BUDGET["reg"]))
     cuda_spd.reset_launches()
-    with NSRecorder(torch) as rec:
+    with NSRecorder(torch, max_iters=EASE_NS_STEPS) as rec:
         B, res["ns_seconds"] = timed(torch, lambda: ease_ops.ease_weights_sharded(
             ease_ops.dp_item_gram(*args, mesh, device="cuda"),
             EASE_BUDGET["reg"], mesh, inverse="ns"))
@@ -5700,7 +5741,8 @@ def gloo_gram_rank(rank, world, inp):
     ``UserUserCF(mesh=)``: 4,096 predictions and the similarity rows held;
     on a world of 4, ``ease_weights_sharded(inverse='ns')`` forced on
     config 2's gram: this rank's rows of ``B`` and the steps' peak
-    (``NSRecorder``)."""
+    (``NSRecorder``); last, with ``inp['retrieval']``, the row-sharded
+    retrieval (``gloo_retrieval_rank``)."""
     import numpy as np
     import pandas as pd
     import torch
@@ -5754,6 +5796,8 @@ def gloo_gram_rank(rank, world, inp):
         out["ns"] = {"B_rows": B.cpu().numpy(), **rec.calls[0],
                      "gj_launches": cuda_spd.launches}
     out["launches"] = {"spd_gj": out["ease"]["gj_launches"]}
+    if "retrieval" in inp:
+        out["retrieval"] = gloo_retrieval_rank(rank, world, inp["retrieval"])
     return out
 
 
@@ -5771,7 +5815,8 @@ def hold_lists(got, want):
             int((differ & (gap > 1e-4)).sum()))
 
 
-def phase_parallel_gram_gloo(torch, train1m, seed, ml1m_ns_peak_mib):
+def phase_parallel_gram_gloo(torch, train1m, seed, ml1m_ns_peak_mib,
+                             retrieval=None):
     """(g) The gram models on gloo ranks sharing the card (worlds of 2 and
     4 on cuda:0, side by side, ``gloo_gram_rank``) at config 2's shape,
     against the same
@@ -5782,7 +5827,10 @@ def phase_parallel_gram_gloo(torch, train1m, seed, ml1m_ns_peak_mib):
     ``ceil(E / W)`` similarity rows a rank, equal to the single-device
     matrix's rows; on the world of 4, the forced
     Newton-Schulz ``B`` within 5e-4 of Schur and each rank's peak during
-    the steps below half of world 1's (``ml1m_ns_peak_mib``)."""
+    the steps below half of world 1's (``ml1m_ns_peak_mib``). With
+    ``retrieval`` (``phase_parallel_retrieval``'s second result) the ranks
+    also run the row-sharded retrieval, and ``check_gloo_retrieval``'s line
+    comes back under ``parallel_retrieval``."""
     import numpy as np
     import pandas as pd
 
@@ -5794,6 +5842,8 @@ def phase_parallel_gram_gloo(torch, train1m, seed, ml1m_ns_peak_mib):
     u, i, r = train1m
     inp = {"train": train1m,
            "users": rng.choice(np.unique(u), GRAM_GLOO["users"], replace=False)}
+    if retrieval is not None:
+        inp["retrieval"] = retrieval["inp"]
     out = {"phase": "parallel_gram", "part": "gloo", "backend": "gloo",
            "device": "cuda:0", "n_ratings": len(r)}
     # the two worlds side by side (six processes on the card), so that their
@@ -5887,6 +5937,482 @@ def phase_parallel_gram_gloo(torch, train1m, seed, ml1m_ns_peak_mib):
     out["rank_seconds"] = {w: [rk["seconds"] for rk in worlds[w]] for w in worlds}
     out["launches"] = {"spd_gj": sum(rk["launches"]["spd_gj"]
                                      for w in worlds.values() for rk in w)}
+    if retrieval is not None:
+        out["parallel_retrieval"] = check_gloo_retrieval(worlds, retrieval["want"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Retrieval, the hybrid evaluation and sharded checkpoints on a mesh
+# ---------------------------------------------------------------------------
+
+# parallel_retrieval at recipe_serve's catalog (RECIPE: 2,231,142 x 512
+# dense, x 50,000 TF-IDF at vocab_block 1,024): 256 dense and 64 TF-IDF
+# queries at NCCL world 1, the first 64 and 32 of them on the gloo worlds
+# (cut for time); the pipeline stage's users
+RETR = {"batch": 256, "tfidf_queries": 64, "gloo_batch": 64,
+        "gloo_tfidf_queries": 32, "max_users": 200}
+
+
+def retrieval_catalog(torch, rng, seed):
+    """recipe_serve's catalog at full width, made anew: a dense index of
+    2,231,142 seeded unit rows of 512, a TF-IDF index of a seeded
+    l2-normalized 2,231,142 x 50,000 CSR (32 terms a row) with
+    ``HashVectorizer``, 256 dense queries (catalog rows plus noise,
+    normalized) and 64 recipe titles as TF-IDF queries."""
+    from matrix_factorization_tpu_torch.retrieval import index as rindex
+
+    R = RECIPE
+    n, dim = R["n_items"], R["dim"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    E = torch.randn((n, dim), generator=g, device="cuda")
+    E /= E.norm(dim=1, keepdim=True)
+    pick = torch.randint(0, n, (RETR["batch"],), generator=g, device="cuda")
+    Q = E[pick] + 0.5 * torch.randn((RETR["batch"], dim), generator=g,
+                                    device="cuda") / dim ** 0.5
+    Q /= Q.norm(dim=1, keepdim=True)
+    emb, q = E.cpu().numpy(), Q.cpu().numpy()
+    del E, Q
+    ids, texts = list(range(n)), [""] * n
+    dix = rindex.build_dense_index(ids, texts, emb, normalize=False)
+    tix = rindex.TfidfItemIndex(item_ids=ids, texts=texts,
+                                vectorizer=HashVectorizer(R["vocab"]),
+                                matrix=tfidf_catalog(rng, n, R["vocab"], R["terms"]))
+    _, titles = recipe_texts(rng, RETR["tfidf_queries"], RETR["tfidf_queries"])
+    return dix, tix, q, titles
+
+
+def hold_sharded_topk(got, want, tol=1e-5, tie=1e-6):
+    """JAX's bars for a sharded top-k against the single-device one
+    (``tests/test_retrieval_rank.py:253-278``): values within ``tol``,
+    positions equal wherever the single-device value is at least ``tie``
+    above the next. Returns (largest value error, positions compared)."""
+    import numpy as np
+
+    vals, pos = got
+    wv, wp = want
+    check(vals.shape == wv.shape and pos.shape == wp.shape,
+          f"top-k of shape {vals.shape}, not {wv.shape}")
+    err = float(np.abs(vals - wv).max())
+    sep = np.concatenate([wv[:, :-1] - wv[:, 1:] >= tie,
+                          np.ones((len(wv), 1), bool)], axis=1)
+    bad = int(((pos != wp) & sep).sum())
+    check(err <= tol and bad == 0,
+          f"sharded top-k off the single-device one: values {err}, "
+          f"{bad} separated positions differ")
+    return err, int(sep.sum())
+
+
+def gloo_retrieval_rank(rank, world, inp):
+    """The row-sharded dense and TF-IDF top-k on one gloo rank on cuda:0,
+    ``make_mesh(world)``: the catalog read from the phase's files (memory
+    maps: the rank reads its rows alone), the rank's rows, seconds and
+    peak device memory."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+    from matrix_factorization_tpu_torch.parallel.topk import catalog_shard
+    from matrix_factorization_tpu_torch.retrieval import index as rindex
+    from matrix_factorization_tpu_torch.retrieval import search, sparse_scoring
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d = Path(inp["dir"])
+    emb = np.load(d / "emb.npy", mmap_mode="r")
+    n = emb.shape[0]
+    M = sp.csr_matrix(tuple(np.load(d / f"{a}.npy", mmap_mode="r")
+                            for a in ("data", "indices", "indptr")),
+                      shape=(n, inp["vocab"]))
+    ids, texts = list(range(n)), [""] * n
+    dix = rindex.build_dense_index(ids, texts, emb, normalize=False)
+    tix = rindex.TfidfItemIndex(item_ids=ids, texts=texts,
+                                vectorizer=HashVectorizer(inp["vocab"]), matrix=M)
+    mesh = make_mesh(world)
+    out = {"rank": rank, "rows": catalog_shard(n, mesh)[:2]}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out["dense"] = search.dense_topk_mesh(dix, inp["q"], inp["k"], mesh)
+    out["dense_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["tfidf"] = sparse_scoring.tfidf_batch_topk(
+        tix, inp["titles"], inp["k"], vocab_block=RECIPE["vocab_block"], mesh=mesh)
+    out["tfidf_seconds"] = time.perf_counter() - t0
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    return out
+
+
+def phase_parallel_retrieval(torch, rng, files_dir, seed, timer):
+    """(a) Retrieval on a mesh at recipe_serve's catalog
+    (``retrieval_catalog``), in the NCCL world of one rank (it drives the
+    mesh paths and bypasses the collectives' wire):
+    ``search_topk_batch(mesh=make_mesh(1))`` of 256 queries and
+    ``tfidf_batch_topk(mesh=)`` of 64 at ``vocab_block`` 1,024, each equal
+    to its mesh-free call; the dense search's device times (``Timer``):
+    ``dense_topk`` alone, the mesh-free call and the mesh call. Then the
+    catalog is written to ``files_dir`` for (b), which the gloo worlds of
+    ``parallel_gram`` run (``gloo_retrieval_rank``, held by
+    ``check_gloo_retrieval``). No hand-written kernel runs here: JAX's
+    mesh retrieval reaches no Pallas kernel (a matmul and a scatter, then
+    ``lax.top_k``), so the port's is ``torch.mm`` / ``addmm_`` and
+    ``stable_topk``. Returns (the phase's line, (b)'s inputs and the
+    single-device top-k they are held to)."""
+    import numpy as np
+
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+    from matrix_factorization_tpu_torch.retrieval import search, sparse_scoring
+
+    R = RECIPE
+    n, dim, k, vb = R["n_items"], R["dim"], R["k"], R["vocab_block"]
+    out = {"phase": "parallel_retrieval", "part": "nccl",
+           "n_items": n, "dim": dim, "vocab": R["vocab"], "vocab_block": vb,
+           "k": k, "hand_kernels": "none: torch.mm / addmm_ and stable_topk, "
+           "as JAX's mesh retrieval reaches no Pallas kernel",
+           "note": "NCCL at world size 1 drives the mesh paths and bypasses "
+                   "the wire"}
+    t0 = time.perf_counter()
+    dix, tix, q, titles = retrieval_catalog(torch, rng, seed)
+    out["data_seconds"] = time.perf_counter() - t0
+    mesh = make_mesh(1)
+
+    free = search.search_topk_batch(dix, q, k)
+    got = search.search_topk_batch(dix, q, k, mesh=mesh)
+    check(all(np.array_equal(a, b) for a, b in zip(got, free)),
+          "search_topk_batch(mesh=make_mesh(1)) differs from the mesh-free call")
+    emb_dev = search.device_embeddings(dix)
+    qd = torch.from_numpy(q).cuda()
+    out["search_batch_ms"] = timer.ms(lambda: search.dense_topk(emb_dev, qd, k),
+                                      reps=10)
+    out["search_topk_batch_ms"] = timer.ms(
+        lambda: search.search_topk_batch(dix, q, k), reps=10)
+    out["dense_topk_mesh_ms"] = timer.ms(
+        lambda: search.dense_topk_mesh(dix, q, k, mesh), reps=10)
+    out["search_batch_bound_ms"] = max(
+        n * dim * 4 / HBM_BYTES_PER_S,
+        2 * len(q) * n * dim / PEAK_FLOPS["float32"]) * 1e3
+    out["queries"] = {"dense": len(q), "tfidf": len(titles)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    free_t = sparse_scoring.tfidf_batch_topk(tix, titles, k, vocab_block=vb)
+    out["tfidf_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_t = sparse_scoring.tfidf_batch_topk(tix, titles, k, vocab_block=vb,
+                                            mesh=mesh)
+    out["tfidf_mesh_seconds"] = time.perf_counter() - t0
+    check(all(np.array_equal(a, b) for a, b in zip(got_t, free_t)),
+          "tfidf_batch_topk(mesh=make_mesh(1)) differs from the mesh-free call")
+    check(np.isfinite(free_t[0]).all() and free_t[0][:, 0].min() > 0,
+          "a TF-IDF query scored nothing")
+    del emb_dev, qd
+    search._device_cache.pop(dix, None)
+
+    # (b)'s catalog: written once, each gloo rank reads its rows
+    t0 = time.perf_counter()
+    d = Path(files_dir)
+    M = tix.matrix
+    np.save(d / "emb.npy", dix.embeddings)
+    np.save(d / "data.npy", M.data)
+    np.save(d / "indices.npy", M.indices.astype(np.int32))
+    np.save(d / "indptr.npy", M.indptr.astype(np.int32))
+    out["files_seconds"] = time.perf_counter() - t0
+    out["files_bytes"] = sum(f.stat().st_size for f in d.iterdir())
+    gloo = {"inp": {"dir": str(d), "vocab": R["vocab"], "k": k,
+                    "q": q[:RETR["gloo_batch"]],
+                    "titles": titles[:RETR["gloo_tfidf_queries"]]},
+            "want": {"dense": tuple(a[:RETR["gloo_batch"]] for a in free),
+                     "tfidf": tuple(a[:RETR["gloo_tfidf_queries"]] for a in free_t)}}
+    return out, gloo
+
+
+def check_gloo_retrieval(worlds, want):
+    """(b) The row-sharded dense and TF-IDF top-k of every rank of
+    ``parallel_gram``'s gloo worlds of 2 and 4 on the card (each rank its
+    rows of the catalog, read from the files of (a)) against the
+    single-device top-k at JAX's bars (values 1e-5, positions where the
+    gap to the next is at least 1e-6), every rank the same. Returns the
+    phase's line."""
+    import numpy as np
+
+    out = {"phase": "parallel_retrieval", "part": "gloo", "backend": "gloo",
+           "device": "cuda:0", "queries": {k_: len(v[0]) for k_, v in want.items()},
+           "note": "gloo ranks sharing one card: the multi-rank merge, not its "
+                   "speed"}
+    errs = {"dense": 0.0, "tfidf": 0.0}
+    for world, ranks in worlds.items():
+        for rk in ranks:
+            got = rk["retrieval"]
+            for name in errs:
+                err, _ = hold_sharded_topk(got[name], want[name])
+                errs[name] = max(errs[name], err)
+                check(all(np.array_equal(a, b) for a, b in
+                          zip(got[name], ranks[0]["retrieval"][name])),
+                      f"gloo world {world}: the ranks' {name} top-k differ")
+    out["max_abs_err"] = errs
+    out["ranks"] = {w: [{k_: rk["retrieval"][k_] for k_ in (
+        "rows", "dense_seconds", "tfidf_seconds", "peak_mib")} for rk in ranks]
+        for w, ranks in worlds.items()}
+    return out
+
+
+def phase_hybrid_mesh(root):
+    """(c) ``pipeline/evaluate_hybrid.py --mesh-devices 1`` on a pipeline
+    root's artifacts (the stage starts one NCCL rank on the card), its
+    report equal to the mesh-free run's on the same root and users; then
+    ``--mesh-devices 2`` must raise on one card (NCCL takes one GPU a
+    rank)."""
+    from matrix_factorization_tpu_torch.pipeline import evaluate_hybrid
+
+    argv = ["--root", str(root), "--alpha", "0.5", "--candidate-k",
+            str(PIPE["candidate_k"]), "--max-users", str(RETR["max_users"])]
+    out = {"phase": "parallel_retrieval", "part": "evaluate_hybrid",
+           "max_users": RETR["max_users"]}
+    reports = {}
+    for name, extra in (("mesh_free", []), ("mesh_devices_1", ["--mesh-devices", "1"])):
+        t0 = time.perf_counter()
+        printed = run_cli(evaluate_hybrid, argv + extra)
+        out[f"{name}_seconds"] = time.perf_counter() - t0
+        reports[name] = json.loads([x for x in printed.splitlines()
+                                    if x.startswith("{")][-1])
+    out["report"] = reports["mesh_devices_1"]
+    check(reports["mesh_devices_1"] == reports["mesh_free"],
+          f"--mesh-devices 1 reported {reports['mesh_devices_1']}, the mesh-free "
+          f"run {reports['mesh_free']}")
+    check(all(v["n_users"] > 0 for v in out["report"].values()),
+          f"evaluate_hybrid evaluated no user: {out['report']}")
+    try:
+        run_cli(evaluate_hybrid, argv + ["--mesh-devices", "2"])
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(raised is not None and "GPUs" in raised,
+          "--mesh-devices 2 on one card did not raise")
+    out["mesh_devices_2_raised"] = raised
+    return out
+
+
+def hybrid_root(torch, rng, train1m, tmpdir):
+    """A small pipeline root for ``phase_hybrid_mesh`` when the pipeline
+    phase has not made one (``tools/run_parallel.py``): config 2's ratings
+    (string item ids), seeded recipe texts, 512-wide embeddings and the
+    dense index, a ``BaselineModel`` by ALS; every stage through its
+    ``main()`` on the card."""
+    import numpy as np
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch.pipeline import (
+        build_item_embeddings, export_artifacts, train)
+
+    root = Path(tmpdir) / "hybrid_root"
+    (root / "data").mkdir(parents=True)
+    u, i, r = train1m
+    names = np.asarray([str(j) for j in range(ML1M["n_items"])], dtype=object)
+    pd.DataFrame({"user_id": u.astype(np.int64), "item_id": names[i],
+                  "rating": r}).to_parquet(root / "data" / "ratings.parquet",
+                                           index=False)
+    texts, _ = recipe_texts(rng, ML1M["n_items"], ML1M["n_items"])
+    pd.DataFrame({"item_id": names, "text": texts}).to_parquet(
+        root / "data" / "items.parquet", index=False)
+    at = ["--root", str(root)]
+    run_cli(build_item_embeddings, at + ["--dim", str(PIPE["dim"])])
+    run_cli(export_artifacts, at)
+    run_cli(train, at + ["--model", "baseline", "--method", "als", "--epochs",
+                         str(PIPE_BASELINE_KW["n_epochs"]), "--reg",
+                         str(PIPE_BASELINE_KW["reg"])])
+    return root
+
+
+# sharded_checkpoint: config 2's ratings at config 3's width on
+# parallel_gloo's worlds (its batch and epochs); config 3 at NCCL world 1,
+# fitted for one epoch (cut for time: the checkpoint, not the fit, is
+# measured)
+
+
+def gloo_ckpt_rank(world, inp, X, y, kw, fitted):
+    """The sharded checkpoints on one gloo rank of ``parallel_gloo``'s
+    worlds: ``KernelMF(keep_sharded=True)`` by SGD (``kw``) on
+    ``make_mesh(world)``, and on a world of 4 the 2 x 2 fit the rank
+    already made (``fitted``), through ``save_model_sharded`` and
+    ``load_model_sharded(mesh=)`` into ``inp['ckpt_dir']``: the shards
+    before and after, the served lists of both models, ``predict`` of
+    both, the meshless load against the gathered tables, the seconds and
+    bytes; the step, apply and scorer launches (the scorer's in the
+    restored model's serving), counted apart from the rank's others."""
+    import numpy as np
+    import torch
+
+    from matrix_factorization_tpu_torch import (
+        KernelMF, load_model_sharded, save_model_sharded)
+    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    import torch.distributed.checkpoint  # noqa: F401 (its import, timed apart)
+
+    out = {"dcp_import_seconds": time.perf_counter() - t0, "cells": {}}
+    pairs = X.iloc[:4096]
+    users = list(inp["users"])
+    n_step, n_apply, n_score = (cuda_sgd.step_launches, cuda_sgd.apply_launches,
+                                cuda_scores.launches)
+    for shape in [(world, 1)] + ([(2, 2)] if world == 4 else []):
+        tag = f"{shape[0]}x{shape[1]}"
+        res = {}
+        m = fitted.get(tag)
+        if m is None:
+            t0 = time.perf_counter()
+            m = KernelMF(mesh=make_mesh(*shape), keep_sharded=True, **kw).fit(X, y)
+            torch.cuda.synchronize()
+            res["fit_seconds"] = time.perf_counter() - t0
+        mesh = m.mesh
+        path = f"{inp['ckpt_dir']}/w{world}_{tag}"
+        t0 = time.perf_counter()
+        save_model_sharded(m, path)
+        res["save_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m2 = load_model_sharded(path, mesh=mesh)
+        torch.cuda.synchronize()
+        res["load_seconds"] = time.perf_counter() - t0
+        n0 = cuda_scores.launches
+        recs2 = m2.recommend_batch(users, amount=PAR["k"], bound_ratings=False)
+        torch.cuda.synchronize()
+        res["serve_launches"] = cuda_scores.launches - n0
+        recs = m.recommend_batch(users, amount=PAR["k"], bound_ratings=False)
+        whole = m._whole_params()
+        m3 = load_model_sharded(path)
+        res.update({
+            "sharding": (m._sharding, m2._sharding, m2.keep_sharded,
+                         m2.mesh is mesh),
+            "equal": [torch.equal(a, b) for a, b in zip(m._params, m2._params)],
+            "rows": [tuple(t.shape) for t in m2._params[:2]],
+            "whole_rows": [tuple(t.shape) for t in whole[:2]],
+            "recs_equal": bool(recs.equals(recs2)),
+            "predict_err": float(np.abs(np.asarray(m.predict(pairs))
+                                        - np.asarray(m2.predict(pairs))).max()),
+            "meshless_equal": [torch.equal(a, b) for a, b in zip(m3._params, whole)],
+            "meshless_state": (m3.keep_sharded, m3.mesh, m3._sharding,
+                               str(m3._params.user_features.device)),
+            "bytes": sum(f.stat().st_size for f in Path(path).rglob("*")
+                         if f.is_file()),
+        })
+        out["cells"][tag] = res
+        del m, m2, m3, whole
+    fitted.clear()
+    torch.cuda.empty_cache()
+    out["launches"] = {"sgd_step": cuda_sgd.step_launches - n_step,
+                       "segment_apply": cuda_sgd.apply_launches - n_apply,
+                       "score_catalog": cuda_scores.launches - n_score}
+    return out
+
+
+def check_gloo_ckpt(worlds):
+    """(a) ``save_model_sharded`` / ``load_model_sharded(mesh=)`` on
+    ``parallel_gloo``'s worlds of 2 and 4 sharing the card, at config 2's
+    shape and config 3's width (``gloo_ckpt_rank``): every rank's restored
+    shards equal to its saved ones and fewer rows than the whole table (P;
+    Q too on the 2 x 2 mesh), the restored model's lists equal to the
+    fitted model's, ``predict`` within 1e-6, the scorer launched on every
+    rank when the restored model serves, the meshless load equal to the
+    gathered tables and not ``keep_sharded``. Returns the phase's line."""
+    out = {"phase": "sharded_checkpoint", "part": "gloo", "backend": "gloo",
+           "device": "cuda:0", "epochs": PAR["gloo_epochs"],
+           "n_factors": N_FACTORS, "batch_size": PAR["gloo_bs"]}
+    launches = {"sgd_step": 0, "segment_apply": 0, "score_catalog": 0}
+    worst = 0.0
+    cells = {}
+    for world, ranks in worlds.items():
+        for rk in ranks:
+            ck = rk["ckpt"]
+            for k_ in launches:
+                launches[k_] += ck["launches"][k_]
+            for tag, res in ck["cells"].items():
+                where = f"gloo world {world} rank {rk['rank']} mesh {tag}"
+                sharding = "2d" if tag == "2x2" else "1d"
+                check(res["sharding"] == (sharding, sharding, True, True),
+                      f"{where}: layout {res['sharding']}")
+                check(all(res["equal"]), f"{where}: a restored shard differs")
+                check(res["rows"][0][0] < res["whole_rows"][0][0]
+                      and (tag != "2x2" or res["rows"][1][0] < res["whole_rows"][1][0]),
+                      f"{where}: holds {res['rows']} of {res['whole_rows']}")
+                check(res["recs_equal"], f"{where}: the restored lists differ")
+                check(res["predict_err"] <= 1e-6,
+                      f"{where}: predict off by {res['predict_err']}")
+                check(res["serve_launches"] > 0,
+                      f"{where}: the restored model's serving missed the scorer")
+                check(all(res["meshless_equal"])
+                      and res["meshless_state"][:3] == (False, None, None),
+                      f"{where}: the meshless load {res['meshless_state']}")
+                worst = max(worst, res["predict_err"])
+                cells.setdefault(f"w{world}_{tag}", []).append(
+                    {k_: res.get(k_) for k_ in ("fit_seconds", "save_seconds",
+                                                 "load_seconds", "bytes", "rows",
+                                                 "whole_rows", "serve_launches")})
+    out["cells"] = cells
+    out["dcp_import_seconds"] = [rk["ckpt"]["dcp_import_seconds"]
+                                 for ranks in worlds.values() for rk in ranks]
+    out["rank_seconds"] = {w: [rk["ckpt_seconds"] for rk in worlds[w]]
+                           for w in worlds}
+    out["predict_max_abs_err"] = worst
+    out["launches"] = launches
+    check(all(v > 0 for v in launches.values()),
+          f"the sharded checkpoint path missed a kernel: {launches}")
+    return out
+
+
+def phase_sharded_checkpoint_nccl(torch, data3, seed, tmpdir):
+    """(b) In the NCCL world of one rank: ``KernelMF(mesh=make_mesh(1))`` at
+    config 3 (sigmoid, k=200, bs 2,097,152, one epoch) through
+    ``save_model_sharded`` / ``load_model_sharded(mesh=)`` and through
+    ``save_model`` / ``load_model``: each round trip's tables equal to the
+    fit's and ``predict`` equal; the seconds and bytes of each save and
+    load."""
+    import numpy as np
+    import pandas as pd
+
+    from matrix_factorization_tpu_torch import (
+        KernelMF, load_model, load_model_sharded, save_model, save_model_sharded)
+    from matrix_factorization_tpu_torch.ops import cuda_sgd
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
+    u, i, r = data3[:3]
+    X = pd.DataFrame({"user_id": u, "item_id": i})
+    mesh = make_mesh(1)
+    out = {"phase": "sharded_checkpoint", "part": "nccl", "world": 1,
+           "n_ratings": len(r), "epochs": 1}
+    t0 = time.perf_counter()
+    import torch.distributed.checkpoint  # noqa: F401 (its import, timed apart)
+
+    out["dcp_import_seconds"] = time.perf_counter() - t0
+    cuda_sgd.reset_launches()
+    t0 = time.perf_counter()
+    m = KernelMF(n_factors=N_FACTORS, kernel="sigmoid", gamma=1.0 / N_FACTORS,
+                 min_rating=0.5, max_rating=5.0, n_epochs=1, mesh=mesh,
+                 **CONFIG3["sigmoid"], seed=seed).fit(X, pd.Series(r))
+    torch.cuda.synchronize()
+    out["fit_seconds"] = time.perf_counter() - t0
+    out["launches"] = {"sgd_step": cuda_sgd.step_launches,
+                       "segment_apply": cuda_sgd.apply_launches}
+    pairs = X.iloc[:4096]
+    want = np.asarray(m.predict(pairs))
+    for name, save, load in (
+            ("dcp", save_model_sharded, lambda p: load_model_sharded(p, mesh=mesh)),
+            ("npz", save_model, load_model)):
+        path = Path(tmpdir) / f"ckpt_{name}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(m, path)
+        out[f"{name}_save_seconds"] = time.perf_counter() - t0
+        out[f"{name}_bytes"] = sum(f.stat().st_size for f in path.rglob("*")
+                                   if f.is_file())
+        t0 = time.perf_counter()
+        m2 = load(path)
+        torch.cuda.synchronize()
+        out[f"{name}_load_seconds"] = time.perf_counter() - t0
+        check(all(torch.equal(a, b) for a, b in zip(m._params, m2._params)),
+              f"the {name} round trip changed the tables")
+        check(np.array_equal(np.asarray(m2.predict(pairs)), want),
+              f"the {name} round trip's predictions differ")
+        del m2
+        shutil.rmtree(path)
+    out["table_bytes"] = sum(t.numel() * t.element_size() for t in m._params)
     return out
 
 
@@ -6132,8 +6658,16 @@ def main() -> int:
     # -- the batch pipeline at MovieLens-25M -----------------------------------
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         pipeline = phase_pipeline(torch, rng, data3, tmpdir, args.seed)
-    emit(pipeline)
+        emit(pipeline)
+        # the pipeline's artifacts, evaluated with --mesh-devices 1
+        t1 = time.perf_counter()
+        hybrid_mesh = phase_hybrid_mesh(Path(tmpdir) / "pipeline")
+        hybrid_mesh["seconds"] = time.perf_counter() - t1
+        emit(hybrid_mesh)
     # -- multi-device KernelMF, ALS, the bias models and NMF -------------------
+    # the recipe catalog's files, from parallel_retrieval to parallel_gram's
+    # gloo worlds
+    retrieval_files = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir, \
             nccl_world(torch, tmpdir):
@@ -6161,16 +6695,35 @@ def main() -> int:
         par_gram["seconds"] = time.perf_counter() - t1
         emit(par_gram)
         del cf4_item_lists
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        retrieval, retrieval_gloo = phase_parallel_retrieval(
+            torch, rng, retrieval_files.name, args.seed, timer)
+        retrieval["seconds"] = time.perf_counter() - t1
+        emit(retrieval)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ckpt_nccl = phase_sharded_checkpoint_nccl(torch, data3, args.seed, tmpdir)
+        ckpt_nccl["seconds"] = time.perf_counter() - t1
+        emit(ckpt_nccl)
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     par_gloo = phase_parallel_gloo(torch, train1m, args.seed)
     par_gloo["seconds"] = time.perf_counter() - t1
+    ckpt_gloo = par_gloo.pop("sharded_checkpoint")
     emit(par_gloo)
+    emit(ckpt_gloo)
     t1 = time.perf_counter()
     par_gram_gloo = phase_parallel_gram_gloo(torch, train1m, args.seed,
-                                             par_gram["ml1m_ns"]["peak_mib"])
+                                             par_gram["ml1m_ns"]["peak_mib"],
+                                             retrieval_gloo)
     par_gram_gloo["seconds"] = time.perf_counter() - t1
+    retrieval_files.cleanup()
+    retrieval = par_gram_gloo.pop("parallel_retrieval")
     emit(par_gram_gloo)
+    emit(retrieval)
+    ckpt_launches = {k: ckpt_gloo["launches"][k] + ckpt_nccl["launches"].get(k, 0)
+                     for k in ckpt_gloo["launches"]}
     par_launches = {k: (par_nccl["launches"][k], par_gloo["launches"][k])
                     for k in ("sgd_step", "segment_apply", "score_catalog")}
     par_launches["score_catalog"] += (par_als["launches"]["score_catalog"],
@@ -6201,7 +6754,8 @@ def main() -> int:
         "launches": (main_path_launches + sweep_out["launches"]["score_catalog"]
                      + sum(f["score_launches"] for f in fam.values())
                      + pipe_launches["score_catalog"]
-                     + sum(par_launches["score_catalog"])),
+                     + sum(par_launches["score_catalog"])
+                     + ckpt_launches["score_catalog"]),
         "launches_by_path": {"serve": main_path_launches,
                              "sweep": sweep_out["launches"]["score_catalog"],
                              **{k.lower(): f["score_launches"]
@@ -6210,7 +6764,8 @@ def main() -> int:
                              "parallel": par_launches["score_catalog"][0],
                              "parallel_gloo": par_launches["score_catalog"][1],
                              "parallel_als": par_launches["score_catalog"][2],
-                             "parallel_families": par_launches["score_catalog"][3]},
+                             "parallel_families": par_launches["score_catalog"][3],
+                             "sharded_checkpoint": ckpt_launches["score_catalog"]},
         "max_abs_err": worst,
         "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -6232,7 +6787,8 @@ def main() -> int:
                    "recipe_serve": recipe["launches"][name],
                    "pipeline": pipe_launches[name],
                    "parallel": par_launches[name][0],
-                   "parallel_gloo": par_launches[name][1]}
+                   "parallel_gloo": par_launches[name][1],
+                   "sharded_checkpoint": ckpt_launches[name]}
         if name == "segment_apply":
             by_path.update(bpr=fam["BPR"]["launches"],
                            svdpp=fam["SVDpp"]["launches"],

@@ -54,7 +54,9 @@ estimators.
 from matrix_factorization_tpu_torch.core.checkpoint import (
     fit_resumable,
     load_model,
+    load_model_sharded,
     save_model,
+    save_model_sharded,
 )
 from matrix_factorization_tpu_torch.data.loader import load_ratings_csv
 from matrix_factorization_tpu_torch.models.base import RecommenderBase
@@ -95,9 +97,11 @@ __all__ = [
     "grid_search_ease",
     "grid_search_kernel_mf",
     "load_model",
+    "load_model_sharded",
     "load_ratings_csv",
     "params_from_numpy",
     "save_model",
+    "save_model_sharded",
     "svdpp_params_from_numpy",
     "train_update_test_split",
 ]

@@ -26,6 +26,13 @@ directory:
 ``fit_resumable`` trains in segments and checkpoints after each, so an
 interrupted fit restarts from the last completed segment.
 
+``save_model_sharded`` / ``load_model_sharded`` are the counterparts of
+JAX's orbax pair (``save_model_orbax`` / ``load_model_orbax``): a
+``torch.distributed.checkpoint`` tree ``arrays_dcp/`` beside ``meta.pkl``,
+in which each rank of a ``keep_sharded`` KernelMF writes and reads only its
+own shards. Orbax imports JAX, so this tree is the port's own: neither
+package reads the other's (``save_model``'s layout is the one they share).
+
 A checkpoint written by either package loads into the other: ``config``
 holds the JAX package's constructor arguments, so ``device`` (a runtime
 choice of the port) is left out of it. Writes are atomic: a temp
@@ -35,9 +42,12 @@ load only checkpoints this program or the JAX package wrote.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import pickle
 import shutil
 import tempfile
+import warnings
 from pathlib import Path
 from typing import Optional
 
@@ -70,22 +80,8 @@ def save_model(model, path) -> None:
             name: getattr(params, name).detach().cpu().numpy()
             for name in params._fields}
         np.savez(tmp / "arrays.npz", **arrays, **_aux_arrays(model))
-        config = strip_runtime_config(model.get_params())
-        config.pop("device", None)
-        meta = {
-            "format_version": FORMAT_VERSION,
-            "model_class": type(model).__name__,
-            "params_class": None if params is None else type(params).__name__,
-            "config": config,
-            "user_raw_ids": model.user_vocab.raw_ids,
-            "item_raw_ids": model.item_vocab.raw_ids,
-            "train_rmse": list(getattr(model, "train_rmse", [])),
-            "train_loss": list(getattr(model, "train_loss", [])),
-            "global_mean": float(getattr(model, "global_mean", 0.0)),
-            "epochs_done": int(getattr(model, "_epochs_done", 0)),
-        }
         with (tmp / "meta.pkl").open("wb") as f:
-            pickle.dump(meta, f)
+            pickle.dump(_meta(model, params), f)
         # move any existing checkpoint aside with a rename (fast) so the
         # window with no checkpoint on disk is two renames, not an rmtree
         old = None
@@ -98,6 +94,24 @@ def save_model(model, path) -> None:
     except Exception:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
+
+
+def _meta(model, params) -> dict:
+    """``meta.pkl``'s record of ``model`` (its whole ``params``' class)."""
+    config = strip_runtime_config(model.get_params())
+    config.pop("device", None)
+    return {
+        "format_version": FORMAT_VERSION,
+        "model_class": type(model).__name__,
+        "params_class": None if params is None else type(params).__name__,
+        "config": config,
+        "user_raw_ids": model.user_vocab.raw_ids,
+        "item_raw_ids": model.item_vocab.raw_ids,
+        "train_rmse": list(getattr(model, "train_rmse", [])),
+        "train_loss": list(getattr(model, "train_loss", [])),
+        "global_mean": float(getattr(model, "global_mean", 0.0)),
+        "epochs_done": int(getattr(model, "_epochs_done", 0)),
+    }
 
 
 def strip_runtime_config(config: dict) -> dict:
@@ -186,16 +200,16 @@ def _bias_params(npz, device):
                         for name in BiasParams._fields))
 
 
-def load_model(path, device=None):
-    """Restore a model of any class ``_model_classes`` names from a
-    checkpoint directory onto ``device`` (``None`` = CUDA, see
-    ``core.device``; ``Popularity`` lives on the host and takes none)."""
-    from matrix_factorization_tpu_torch.core.ids import IdVocab
-    from matrix_factorization_tpu_torch.ops.segment_sgd import params_from_numpy
-
-    path = Path(path)
+def _read_meta(path: Path) -> dict:
     with (path / "meta.pkl").open("rb") as f:
-        meta = pickle.load(f)
+        return pickle.load(f)
+
+
+def _new_model(meta: dict, device):
+    """A model of ``meta``'s class, its constructor config, vocabularies
+    and training record, with no tables yet; and its params class name."""
+    from matrix_factorization_tpu_torch.core.ids import IdVocab
+
     classes = _model_classes()
     if meta["model_class"] not in classes or \
             classes[meta["model_class"]][1] != meta["params_class"]:
@@ -212,28 +226,267 @@ def load_model(path, device=None):
     model.train_loss = list(meta.get("train_loss", []))
     model.global_mean = meta["global_mean"]
     model._epochs_done = meta["epochs_done"]
+    return model, params_class
+
+
+def _restore_params(model, params_class, arrays) -> None:
+    """The model's params from ``arrays`` (field name -> host array), on
+    its device."""
+    from matrix_factorization_tpu_torch.ops.segment_sgd import params_from_numpy
+
+    if params_class == "BiasParams":
+        model._params = _bias_params(arrays, model._device)
+    elif params_class == "EASEParams":
+        from matrix_factorization_tpu_torch.ops.ease import EASEParams
+
+        model._params = EASEParams(_f32_tensor(arrays["item_weights"], model._device))
+    elif params_class == "SVDppParams":
+        from matrix_factorization_tpu_torch.ops.svdpp import svdpp_params_from_numpy
+
+        model._params = svdpp_params_from_numpy(
+            *(arrays[name] for name in ("user_features", "item_features",
+                                        "implicit_features",
+                                        "user_implicit_sums",
+                                        "global_mean")),
+            device=model._device, cfg=model._cfg())
+    elif params_class == "MFParams":
+        model._params = params_from_numpy(
+            arrays["user_features"], arrays["item_features"],
+            arrays["global_mean"], device=model._device, cfg=model._cfg())
+
+
+def load_model(path, device=None):
+    """Restore a model of any class ``_model_classes`` names from a
+    checkpoint directory onto ``device`` (``None`` = CUDA, see
+    ``core.device``; ``Popularity`` lives on the host and takes none)."""
+    path = Path(path)
+    model, params_class = _new_model(_read_meta(path), device)
     with np.load(path / "arrays.npz") as npz:
-        if params_class == "BiasParams":
-            model._params = _bias_params(npz, model._device)
-        elif params_class == "EASEParams":
-            from matrix_factorization_tpu_torch.ops.ease import EASEParams
-
-            model._params = EASEParams(_f32_tensor(npz["item_weights"], model._device))
-        elif params_class == "SVDppParams":
-            from matrix_factorization_tpu_torch.ops.svdpp import svdpp_params_from_numpy
-
-            model._params = svdpp_params_from_numpy(
-                *(npz[name] for name in ("user_features", "item_features",
-                                         "implicit_features",
-                                         "user_implicit_sums",
-                                         "global_mean")),
-                device=model._device, cfg=model._cfg())
-        elif params_class == "MFParams":
-            model._params = params_from_numpy(
-                npz["user_features"], npz["item_features"],
-                npz["global_mean"], device=model._device, cfg=model._cfg())
+        _restore_params(model, params_class, npz)
         _restore_aux(model, npz)
     return model
+
+
+# -- sharded checkpoints on torch.distributed.checkpoint ---------------------
+
+DCP_DIR = "arrays_dcp"
+# the layouts whose shards a rank writes and reads alone: a keep_sharded
+# KernelMF's P over the data axes, and with "2d" its Q over the model axis
+SHARDED_LAYOUTS = ("1d", "2d")
+
+
+def _placements(mesh, field: str, sharding: str):
+    """The DTensor placements of a sharded KernelMF's table on ``mesh``:
+    P (``user_features``) split over the data axes (``slice`` then
+    ``data``, the flat data index), Q over the ``model`` axis under "2d",
+    whole under "1d"; each replicated over the other axes."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from matrix_factorization_tpu_torch.parallel.mesh import (
+        DATA_AXIS,
+        DCN_AXIS,
+        MODEL_AXIS,
+    )
+
+    if field == "user_features":
+        split = (DCN_AXIS, DATA_AXIS)
+    elif field == "item_features" and sharding == "2d":
+        split = (MODEL_AXIS,)
+    else:
+        split = ()
+    return [Shard(0) if name in split else Replicate()
+            for name in mesh.mesh_dim_names]
+
+
+def _mesh_record(mesh) -> dict:
+    return {"mesh_shape": tuple(int(x) for x in mesh.shape),
+            "mesh_dim_names": tuple(mesh.mesh_dim_names)}
+
+
+def _write_meta(path: Path, meta: dict) -> None:
+    """``meta.pkl`` written atomically: a temporary file, then a rename."""
+    fd, tmp = tempfile.mkstemp(dir=path, prefix=".meta.")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            pickle.dump(meta, f)
+        os.replace(tmp, path / "meta.pkl")
+    except BaseException:
+        Path(tmp).unlink(missing_ok=True)
+        raise
+
+
+def save_model_sharded(model, path) -> None:
+    """Checkpoint a fitted model as a ``torch.distributed.checkpoint`` (DCP)
+    tree: the port's counterpart of JAX's ``save_model_orbax``
+    (``core/checkpoint.py:226-270``). ``orbax.checkpoint`` imports JAX, so
+    the port can neither write nor read an orbax tree; the port writes a
+    DCP tree instead, and neither package reads the other's tree.
+    ``save_model`` stays the format the two packages share.
+
+    The directory holds ``arrays_dcp/`` (the params' fields and the
+    ``aux_`` arrays, by name) and beside it ``meta.pkl``: JAX's meta keys,
+    with JAX's ``shardings`` replaced by ``layout``, the model's
+    ``_sharding`` and the mesh's shape and axis names (``None`` for a model
+    that holds whole tables).
+
+    A ``keep_sharded`` ``KernelMF`` that keeps only its shards (``_sharding``
+    "1d" or "2d") is written by every rank together, a collective that
+    every rank calls: P and Q become DTensors on the model's mesh (P split
+    over the data axes, Q over the model axis under "2d"), so each rank
+    writes only its own shards and nothing is gathered; DCP writes a
+    replicated shard once. The shards must be even (the capacities
+    ``round_up(n, 8N)`` make them so), else ``ValueError``. Every other
+    model is written whole by DCP without collectives (``no_dist``): one
+    without a mesh by its caller, one with a mesh (whose ranks hold the
+    same whole tables; ``EASE``'s row-sharded ``B`` is gathered first,
+    a collective) by rank 0 alone. ``meta.pkl`` is written last, by rank
+    0 alone under a world, atomically."""
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    path = Path(path)
+    sharding = getattr(model, "_sharding", None)
+    mesh = getattr(model, "mesh", None)
+    sharded = sharding in SHARDED_LAYOUTS
+    params = model._params if sharded else model._whole_params()
+    rank = _rank()
+    if mesh is not None and not sharded and rank not in (None, 0):
+        return
+    lead = rank in (None, 0) or not sharded  # the process that writes meta.pkl
+    tree = path / DCP_DIR
+    if lead:
+        path.mkdir(parents=True, exist_ok=True)
+        shutil.rmtree(tree, ignore_errors=True)
+    state = {name: torch.from_numpy(np.ascontiguousarray(a))
+             for name, a in _aux_arrays(model).items()}
+    if sharded:
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor
+
+        for name in params._fields:
+            t = getattr(params, name)
+            if name == "global_mean":
+                state[name] = t
+                continue
+            places = _placements(mesh, name, sharding)
+            _check_even(t, name)
+            state[name] = DTensor.from_local(t.contiguous(), mesh, places,
+                                             run_check=False)
+        dist.barrier()  # the old tree is gone before any rank writes
+        dcp.save(state, checkpoint_id=str(tree))
+        dist.barrier()  # every shard is on disk before meta.pkl names it
+        layout = {"sharding": sharding, **_mesh_record(mesh)}
+    else:
+        if params is not None:
+            state.update({name: getattr(params, name).detach().cpu()
+                          for name in params._fields})
+        with _one_process():
+            dcp.save(state, checkpoint_id=str(tree), no_dist=True)
+        layout = None
+    if lead:
+        meta = _meta(model, params)
+        meta.update(layout=layout, keep_sharded=bool(getattr(model, "keep_sharded", False)))
+        _write_meta(path, meta)
+    if sharded:
+        dist.barrier()  # no rank looks for meta.pkl before it is written
+
+
+@contextlib.contextmanager
+def _one_process():
+    """DCP without collectives (``no_dist``), its warning that it assumes
+    one process silenced: that is what was asked for."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+        yield
+
+
+def _check_even(t, name: str) -> None:
+    """Every rank's shard of a table has as many rows (a collective)."""
+    import torch.distributed as dist
+
+    rows = [None] * dist.get_world_size()
+    dist.all_gather_object(rows, tuple(t.shape))
+    if len(set(rows)) != 1:
+        raise ValueError(f"the ranks' shards of {name} are not even: {rows}")
+
+
+def load_model_sharded(path, mesh=None, device=None):
+    """Restore a checkpoint that ``save_model_sharded`` wrote: the port's
+    counterpart of JAX's ``load_model_orbax`` (``core/checkpoint.py:
+    273-333``), onto ``device`` (``None`` = CUDA).
+
+    With ``mesh`` and a sharded checkpoint (a ``keep_sharded`` KernelMF's),
+    a collective that every rank calls: each table is read straight into
+    the saved layout on ``mesh`` (each rank reads only its shards; no rank
+    ever holds a whole sharded table), the mesh is attached,
+    ``keep_sharded`` set and the sharded catalog rebuilt. A mesh of
+    another shape or axes than the saved one raises ``ValueError`` naming
+    both (the port does not reshard). Without a mesh the tables are read
+    whole onto ``device`` (the shards gathered by DCP's reader, no
+    collective) and ``keep_sharded`` is False; a mesh given with a
+    checkpoint of whole tables is attached to the model, as JAX's is."""
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    path = Path(path)
+    meta = _read_meta(path)
+    model, params_class = _new_model(meta, device)
+    tree = str(path / DCP_DIR)
+    saved = dcp.FileSystemReader(tree).read_metadata().state_dict_metadata
+    layout = meta.get("layout")
+    if mesh is not None and layout is not None:
+        if _mesh_record(mesh) != {k: tuple(layout[k])
+                                  for k in ("mesh_shape", "mesh_dim_names")}:
+            raise ValueError(
+                f"the checkpoint's tables are sharded on a mesh of shape "
+                f"{tuple(layout['mesh_shape'])} {tuple(layout['mesh_dim_names'])}, "
+                f"not {tuple(mesh.shape)} {tuple(mesh.mesh_dim_names)}")
+        _load_shards(model, mesh, layout["sharding"], saved, tree)
+        model.mesh = mesh
+        model.keep_sharded = True
+        model._rebuild_serving_catalog()
+        return model
+    state = {name: torch.empty(tuple(md.size), dtype=md.properties.dtype)
+             for name, md in saved.items()}
+    with _one_process():
+        dcp.load(state, checkpoint_id=tree, no_dist=True)
+    arrays = {name: t.numpy() for name, t in state.items()}
+    _restore_params(model, params_class, arrays)
+    _restore_aux(model, arrays)
+    if mesh is not None and hasattr(model, "mesh"):
+        model.mesh = mesh
+    return model
+
+
+def _load_shards(model, mesh, sharding: str, saved: dict, tree: str) -> None:
+    """A sharded KernelMF's tables read into this rank's shards on
+    ``mesh`` (a collective), placed on the model's device."""
+    import torch
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.tensor import DTensor
+
+    from matrix_factorization_tpu_torch.ops.segment_sgd import MFParams
+
+    state = {}
+    for name in MFParams._fields:
+        md = saved[name]
+        shape = list(md.size)
+        if name != "global_mean":  # the saved mesh's shape: even shards
+            places = _placements(mesh, name, sharding)
+            for size, place in zip(mesh.shape, places):
+                if place.is_shard():
+                    shape[0] //= size
+            state[name] = DTensor.from_local(
+                torch.empty(shape, dtype=md.properties.dtype), mesh, places,
+                run_check=False)
+        else:
+            state[name] = torch.empty(shape, dtype=md.properties.dtype)
+    dcp.load(state, checkpoint_id=tree)
+    local = {name: (t.to_local() if isinstance(t, DTensor) else t)
+             for name, t in state.items()}
+    model._params = MFParams(*(local[name].to(model._device)
+                               for name in MFParams._fields))
+    model._sharding = sharding
 
 
 def fit_resumable(

@@ -4,8 +4,9 @@
 Counterpart of ``matrix_factorization_tpu/core/config.py``: the same
 ``SGDConfig`` fields and derived widths, so that a table written by the
 JAX package has the width the port expects, and copies of the pipeline's
-directory contract (``Paths``) and schema guard. ``MeshConfig`` comes with
-slice 6 of the port (multi-device).
+directory contract (``Paths``) and schema guard. The JAX package's
+``MeshConfig``, which nothing there reads, has no copy: ``parallel/mesh.py``
+names the mesh axes and builds the meshes.
 """
 
 from __future__ import annotations

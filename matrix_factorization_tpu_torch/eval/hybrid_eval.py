@@ -18,7 +18,16 @@ numpy's order, the same for the same scores in both packages (on the
 card the sims may differ from a CPU run's in the last bits, and the
 order among near ties follows the card's). With ``max_users`` set only
 the evaluated users' rows are grouped (``topk_eval.users_and_histories``).
-``mesh=`` comes with slice 6 of the port and raises.
+
+With ``mesh=`` (JAX ``:36-71``, ``:122-125``) the profile top-k is
+item-sharded over the mesh's ranks: a TF-IDF index's through
+``sparse_scoring.tfidf_csr_topk`` on the stacked profile CSR (on the
+device, ``stable_topk``'s tie rule: ties at zero may order otherwise than
+the host path's ``argsort``, as in JAX), a dense index's through
+``search_topk_batch(mesh=)``. The host work (splits, profiles, blend)
+runs on every rank, as JAX's runs on its one host: a collective that
+every rank calls with the same arguments, and every rank returns the same
+``TopKResult``.
 """
 
 from __future__ import annotations
@@ -35,7 +44,6 @@ from matrix_factorization_tpu_torch.eval.topk_eval import (
     pick_test_items,
     users_and_histories,
 )
-from matrix_factorization_tpu_torch.ops.segment_sgd import SLICE_6_GRAM
 from matrix_factorization_tpu_torch.rank.hybrid import minmax, model_scores
 from matrix_factorization_tpu_torch.retrieval.index import (
     DenseItemIndex,
@@ -44,14 +52,21 @@ from matrix_factorization_tpu_torch.retrieval.index import (
 from matrix_factorization_tpu_torch.retrieval.search import search_topk_batch
 
 
-def _profile_topk(index, profiles, k: int, device=None):
+def _profile_topk(index, profiles, k: int, mesh=None, device=None):
     """(sims, positions) of each profile vs the whole catalog, for either
     index family: dense -> device product and top-k on ``device``
-    (``None`` = CUDA); tfidf -> sparse host product."""
+    (``None`` = CUDA); tfidf -> sparse host product. With ``mesh``, both
+    item-sharded over its ranks on ``device``."""
     if isinstance(index, TfidfItemIndex):
         import scipy.sparse as sp
 
         prof = sp.vstack([sp.csr_matrix(p) for p in profiles])
+        if mesh is not None:
+            from matrix_factorization_tpu_torch.retrieval.sparse_scoring import (
+                tfidf_csr_topk,
+            )
+
+            return tfidf_csr_topk(index, prof, k, mesh, device=device)
         n_items = index.matrix.shape[0]
         k = min(k, n_items)
         # blocked: never materialize the full (users x items) similarity
@@ -70,7 +85,8 @@ def _profile_topk(index, profiles, k: int, device=None):
             vals_out[lo:hi] = np.take_along_axis(vals, order, axis=1)
             pos_out[lo:hi] = np.take_along_axis(part, order, axis=1)
         return vals_out, pos_out
-    return search_topk_batch(index, np.stack(profiles), k=k, device=device)
+    return search_topk_batch(index, np.stack(profiles), k=k, mesh=mesh,
+                             device=device)
 
 
 def evaluate_hybrid(
@@ -88,14 +104,13 @@ def evaluate_hybrid(
     device=None,
 ) -> TopKResult:
     """Precision/Recall/NDCG@``k`` of the alpha blend; ``device``: where a
-    dense index scores (``None`` = CUDA)."""
+    dense index scores (``None`` = CUDA), and with ``mesh`` where either
+    index scores its rank's share."""
     require_columns(ratings, ["user_id", "item_id", "rating"], "ratings")
     id_to_pos: Dict[object, int] = {
         str(iid): pos for pos, iid in enumerate(index.item_ids)
     }
 
-    if mesh is not None:
-        raise NotImplementedError(f"evaluate_hybrid(mesh=) comes with {SLICE_6_GRAM}")
     users, by_user = users_and_histories(ratings, max_users)
     rng = np.random.RandomState(seed)
 
@@ -125,7 +140,7 @@ def evaluate_hybrid(
 
     sims, cand_pos = _profile_topk(
         index, profiles, k=candidate_k + max(len(s) for s in train_sets),
-        device=device,
+        mesh=mesh, device=device,
     )
 
     # 2) per user: drop train items, blend, take top-k, score

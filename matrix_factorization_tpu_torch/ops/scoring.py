@@ -103,10 +103,13 @@ def stable_topk(scores: torch.Tensor, k: int):
         raise TypeError(f"stable_topk takes float32 scores, not {scores.dtype}")
     n = scores.shape[-1]
     k = min(k, n)
+    lead = scores.shape[:-1]
+    if k == 0:  # nothing to take (an empty row: a mesh rank with no rows)
+        return (scores.new_empty((*lead, 0)),
+                torch.empty((*lead, 0), dtype=torch.int64, device=scores.device))
     s = scores.reshape(-1, n)
     body = _sort_topk if s.numel() <= SORT_MAX_SCORES else _select_topk
     vals, idx = body(s, k)
-    lead = scores.shape[:-1]
     return vals.reshape(*lead, k), idx.reshape(*lead, k)
 
 

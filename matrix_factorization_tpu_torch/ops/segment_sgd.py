@@ -42,14 +42,6 @@ from matrix_factorization_tpu_torch.core.config import LANE, SUBLANE, SGDConfig
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.data.loader import host_lib, native_threads
 
-# the later parts of the port's multi-device layer, named by the mesh paths
-# that still raise: retrieval and evaluation on a mesh, and sharded
-# checkpoints
-SLICE_6_GRAM = ("slice 6d part 2 of the PyTorch port (retrieval, the hybrid "
-                "evaluation and the pipeline's --mesh-devices on a mesh; "
-                "sharded checkpoints come with slice 6e)")
-
-
 class MFParams(NamedTuple):
     """Model state (capacity-padded, bias-folded tables).
 

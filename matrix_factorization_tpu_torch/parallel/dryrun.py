@@ -9,7 +9,8 @@ solves split over the ranks), bias ALS and bias SGD (each rank its
 columns of every batch) and NMF (its rows of P); then one epoch each of
 the data-parallel BPR and SVD++ trainers, flat and tiled. Then the gram models'
 sections: the data-parallel EASE gram and ``ease_weights_sharded`` (Schur
-and Newton-Schulz), and ``similarity_topk(mesh=)``. Run it as
+and Newton-Schulz), and ``similarity_topk(mesh=)``; last the row-sharded
+dense retrieval (``retrieval/search.py::dense_topk_mesh``). Run it as
 
     python -m matrix_factorization_tpu_torch.parallel.dryrun 4 [gloo|nccl] [cuda:0|cpu]
 
@@ -60,6 +61,7 @@ def _rank(rank: int, world: int, device: str) -> dict:
     out.update(_rank_als_nmf(u, i, r, n_users, n_items, mesh, device))
     out.update(_rank_families(u, i, r, n_users, n_items, mesh, device))
     out.update(_rank_gram(u, i, r, n_users, n_items, mesh, device))
+    out.update(_rank_retrieval(mesh, device))
     out["device"] = str(torch.device(device))
     return out
 
@@ -186,6 +188,21 @@ def _rank_gram(u, i, r, n_users, n_items, mesh, device) -> dict:
     return out
 
 
+def _rank_retrieval(mesh, device) -> dict:
+    """JAX's dense retrieval section (``__graft_entry__.py:316-328``): 40
+    items, ``hash_embed`` at dim 64, the row-sharded top-5 of one query
+    (``dense_topk_mesh``: each rank's rows, the candidates merged)."""
+    from matrix_factorization_tpu_torch.retrieval.encode import hash_embed
+    from matrix_factorization_tpu_torch.retrieval.index import build_dense_index
+    from matrix_factorization_tpu_torch.retrieval.search import dense_topk_mesh
+
+    texts = [f"item {j} topic{j % 7}" for j in range(40)]
+    index = build_dense_index([str(j) for j in range(40)], texts,
+                              hash_embed(texts, dim=64))
+    return {"dense_topk": dense_topk_mesh(
+        index, hash_embed(["topic3 item"], dim=64), 5, mesh, device=device)}
+
+
 FAMILY_TAGS = ("bpr", "bpr_tiled", "svdpp", "svdpp_tiled")
 
 
@@ -225,6 +242,14 @@ def dryrun_multichip(n_devices: int, backend: str = "gloo",
             raise AssertionError("the ranks' similarity top-k differ")
     if first["sim_ids"].shape != (40, 4):
         raise AssertionError("the similarity top-k has the wrong shape")
+    dv, dp = first["dense_topk"]
+    if not (np.isfinite(dv).all() and dp.max() < 40 and dv.shape == (1, 5)):
+        raise AssertionError("the row-sharded dense top-k is not finite, or "
+                             "named a padding row")
+    for rk in ranks:
+        if not all(np.array_equal(a, b)
+                   for a, b in zip(rk["dense_topk"], first["dense_topk"])):
+            raise AssertionError("the ranks' dense top-k differ")
     return first
 
 
@@ -238,4 +263,5 @@ if __name__ == "__main__":
           f"{res['svdpp'][-1]:.4f} / {res['svdpp_tiled'][-1]:.4f}, BPR loss "
           f"{res['bpr'][-1]:.4f} / {res['bpr_tiled'][-1]:.4f}, top-k ids "
           f"{res['topk'][1][0].tolist()}, EASE rows {res['ease_ns'].shape}, "
-          f"item 0's neighbours {res['sim_ids'][0].tolist()}")
+          f"item 0's neighbours {res['sim_ids'][0].tolist()}, dense search "
+          f"{res['dense_topk'][1][0].tolist()}")

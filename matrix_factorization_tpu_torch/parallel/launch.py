@@ -63,6 +63,8 @@ def _child(rank: int, world_size: int, backend: str, device: str,
         with open(call_path, "rb") as f:
             fn, args = pickle.load(f)
         torch.set_num_threads(1)  # ranks share the host's cores
+        if backend == "nccl":
+            device = f"cuda:{rank}"  # NCCL takes one GPU a rank
         if device.startswith("cuda"):
             torch.cuda.set_device(torch.device(device))
         dist.init_process_group(backend, init_method=f"file://{store_path}",
@@ -83,7 +85,9 @@ def spawn_world(fn: Callable, world_size: int, backend: str = "gloo",
     (start method ``spawn``), each inside ``init_process_group(backend)``
     and on ``device`` (every rank on the same one: ``None``, the default,
     is ``cuda:0`` and raises without a GPU; ``'cpu'`` when asked for. One
-    GPU is shared by gloo ranks; NCCL refuses two ranks on one GPU). The group
+    GPU is shared by gloo ranks; NCCL refuses two ranks on one GPU, so an
+    NCCL world runs rank r on ``cuda:r`` and raises ``ValueError`` when the
+    host has fewer GPUs than ranks). The group
     rendezvous through a ``FileStore`` in a temporary directory, so that
     worlds started side by side never race for a TCP port. ``fn`` and
     ``args`` must pickle (a module-level function); so must what ``fn``
@@ -95,6 +99,10 @@ def spawn_world(fn: Callable, world_size: int, backend: str = "gloo",
     if world_size < 1:
         raise ValueError(f"world_size must be positive, got {world_size}")
     device = world_device(device)
+    if backend == "nccl" and world_size > torch.cuda.device_count():
+        raise ValueError(
+            f"an NCCL world of {world_size} ranks needs {world_size} GPUs, "
+            f"one a rank; have {torch.cuda.device_count()}")
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="mf_world_") as tmp:

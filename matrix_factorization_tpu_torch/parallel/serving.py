@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from matrix_factorization_tpu_torch.core.config import SGDConfig
-from matrix_factorization_tpu_torch.ops.segment_sgd import MFParams, round_up
+from matrix_factorization_tpu_torch.ops.segment_sgd import MFParams
 from matrix_factorization_tpu_torch.parallel import topk as ptopk
 from matrix_factorization_tpu_torch.parallel.distributed import all_gather_rows
 from matrix_factorization_tpu_torch.parallel.mesh import model_group
@@ -42,19 +42,14 @@ class ShardedCatalog:
         self.mesh = mesh
         self.dtype = dtype
         self.axes = tuple(mesh.mesh_dim_names)
-        shard, n_dev = ptopk.shard_of(mesh, self.axes)
         self.n_items = n_items
-        icap = round_up(max(n_items, 1), 8 * n_dev)
-        i_local = icap // n_dev
+        lo, hi, i_local = ptopk.catalog_shard(n_items, mesh)
         Q = params.item_features
         if q_sharded:
             Q = all_gather_rows(Q, model_group(mesh))
-        lo = shard * i_local
-        take = max(0, min(Q.shape[0], n_items) - lo)
-        take = min(take, i_local)
         local = torch.zeros((i_local, Q.shape[1]), dtype=Q.dtype,
                             device=Q.device)
-        local[:take] = Q[lo:lo + take]
+        local[:hi - lo] = Q[lo:hi]
         self.Q = local if dtype is None else local.to(dtype)
         self.valid = (torch.arange(lo, lo + i_local, device=Q.device)
                       < n_items).float()

@@ -1310,3 +1310,108 @@ def test_ease_mesh_on_gloo_ranks_sharing_the_gpu(cuda):
     for rk in ranks:
         assert rk["launches"] > 0 and rk["device"] == "cuda:0"
         np.testing.assert_allclose(rk["scores"], want, atol=5e-4)
+
+
+def _gloo_retrieval_rank(rank, world, emb, q, tix, queries):
+    """The row-sharded dense and TF-IDF top-k on one gloo rank of the card."""
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+    from matrix_factorization_tpu_torch.retrieval import index as rindex
+    from matrix_factorization_tpu_torch.retrieval import search, sparse_scoring
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(world)
+    dix = rindex.build_dense_index(list(range(len(emb))), [""] * len(emb), emb,
+                                   normalize=False)
+    dense = search.dense_topk_mesh(dix, q, 10, mesh)
+    rows = search._mesh_cache[dix][(mesh, torch.device("cuda"))]
+    return {"dense": dense, "rows_device": str(rows.device),
+            "rows": rows.shape[0],
+            "tfidf": sparse_scoring.tfidf_csr_topk(
+                tix, tix.vectorizer.transform(queries), 10, mesh, vocab_block=64)}
+
+
+def test_retrieval_mesh_on_gloo_ranks_sharing_the_gpu(cuda):
+    """A gloo world of 2 on cuda:0: ``dense_topk_mesh`` (each rank its
+    rows on the card) and ``tfidf_csr_topk`` against the mesh-free calls on
+    the card at JAX's bars (values 1e-5, positions where the gap to the
+    next value is at least 1e-6); 1,003 items, so rank 1 holds 499 real
+    rows of its 504."""
+    import scipy.sparse as sp
+
+    from matrix_factorization_tpu_torch.parallel.launch import spawn_world
+    from matrix_factorization_tpu_torch.retrieval import index as rindex
+    from matrix_factorization_tpu_torch.retrieval import search, sparse_scoring
+
+    from chip_smoke import HashVectorizer
+
+    rng = np.random.default_rng(5)
+    emb = rng.normal(size=(1003, 64)).astype(np.float32)
+    q = rng.normal(size=(6, 64)).astype(np.float32)
+    vocab = 300
+    M = sp.random(1003, vocab, density=0.05, random_state=3, format="csr",
+                  dtype=np.float32)
+    tix = rindex.TfidfItemIndex(item_ids=list(range(1003)), texts=[""] * 1003,
+                                vectorizer=HashVectorizer(vocab), matrix=M)
+    queries = [" ".join(f"w{w}" for w in rng.choice(vocab, 5, replace=False))
+               for _ in range(4)]
+    ranks = spawn_world(_gloo_retrieval_rank, 2, "gloo", "cuda:0",
+                        args=(emb, q, tix, queries), timeout=600)
+    dix = rindex.build_dense_index(list(range(1003)), [""] * 1003, emb,
+                                   normalize=False)
+    wants = {"dense": search.search_topk_batch(dix, q, 10),
+             "tfidf": sparse_scoring.tfidf_batch_topk(tix, queries, 10,
+                                                      vocab_block=64)}
+    assert [rk["rows"] for rk in ranks] == [504, 499]
+    for rk in ranks:
+        assert rk["rows_device"] == "cuda:0"
+        for name, (wv, wp) in wants.items():
+            vals, pos = rk[name]
+            np.testing.assert_allclose(vals, wv, atol=1e-5)
+            gap = wv[:, :-1] - wv[:, 1:]
+            tied = np.concatenate([gap < 1e-6, np.ones((len(wv), 1), bool)], 1)
+            assert (pos == wp)[~tied].all() and pos.max() < 1003
+
+
+def _gloo_checkpoint_rank(rank, world, X, y, path):
+    """A ``keep_sharded`` KernelMF on one gloo rank of the card, written by
+    ``save_model_sharded``, read back onto the mesh and served: the
+    scorer's launches in that ``recommend``."""
+    from matrix_factorization_tpu_torch import (
+        KernelMF,
+        load_model_sharded,
+        save_model_sharded,
+    )
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(world)
+    m = KernelMF(n_factors=16, n_epochs=3, lr=0.05, batch_size=256, mesh=mesh,
+                 keep_sharded=True).fit(X, y)
+    save_model_sharded(m, path)
+    m2 = load_model_sharded(path, mesh=mesh)
+    uid = X["user_id"].iloc[0]
+    before = cuda_scores.launches
+    recs = m2.recommend(user=uid, amount=5)
+    torch.cuda.synchronize()
+    return {"launches": cuda_scores.launches - before,
+            "equal": [torch.equal(a, b) for a, b in zip(m._params, m2._params)],
+            "device": str(m2._params.user_features.device),
+            "rows": m2._params.user_features.shape[0],
+            "recs": (recs, m.recommend(user=uid, amount=5))}
+
+
+def test_sharded_checkpoint_on_gloo_ranks_sharing_the_gpu(cuda, tmp_path):
+    """``save_model_sharded`` / ``load_model_sharded(mesh=)`` on a gloo world
+    of 2 on cuda:0: each rank's shards restored equal onto the card, and
+    the restored model's ``recommend`` launches the scorer on both ranks
+    and equals the fitted model's."""
+    from matrix_factorization_tpu_torch.data.synthetic import lowrank_ratings
+    from matrix_factorization_tpu_torch.parallel.launch import spawn_world
+
+    X, y = lowrank_ratings(n_users=300, n_items=200, density=0.2, seed=4)
+    ranks = spawn_world(_gloo_checkpoint_rank, 2, "gloo", "cuda:0",
+                        args=(X, y, str(tmp_path / "ck")), timeout=600)
+    for rk in ranks:
+        assert rk["launches"] > 0 and all(rk["equal"])
+        assert rk["device"].startswith("cuda") and rk["rows"] < 300
+        pd.testing.assert_frame_equal(*rk["recs"])

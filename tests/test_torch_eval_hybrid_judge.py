@@ -2,8 +2,8 @@
 single-device spec of ``tests/test_eval.py``, and held to the JAX package:
 ``evaluate_hybrid`` on a dense index of seeded unit rows (no ties) and on a
 TF-IDF index gives JAX's metrics within 1e-9, and ``evaluate_case`` JAX's
-report (floats within 1e-6). ``mesh=`` and ``--mesh-devices`` raise,
-naming slice 6 of the port."""
+report (floats within 1e-6). ``mesh=`` is held to the mesh-free call at
+one rank."""
 
 import numpy as np
 import pytest
@@ -234,11 +234,28 @@ def test_dense_profile_topk_has_no_ties(hybrid_inputs):
 
 @pytest.mark.parametrize("family", ["dense", "tfidf"])
 def test_evaluate_hybrid_mesh_names_slice_6(family):
-    """JAX's mesh-sharded candidate scoring comes with slice 6 of the port."""
+    """JAX's mesh-sharded candidate scoring (``mesh=``) at one rank, a gloo
+    world of this process alone: the dense index gives the mesh-free
+    metrics exactly; the TF-IDF index, whose mesh path scores on the
+    device under ``stable_topk``'s tie rule while the mesh-free path is
+    JAX's host product and ``argsort``, within JAX's 0.05
+    (``tests/test_eval.py:132``), the same users. Wider meshes:
+    ``tests/test_torch_parallel_retrieval.py``."""
+    from matrix_factorization_tpu_torch.parallel.launch import world_of_one
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
     df = _ratings()
     ids, texts = _item_texts(df)
     index = (build_dense_index(ids, texts, hash_embed(texts)) if family == "dense"
              else build_tfidf_index(ids, texts, min_df=1))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        evaluate_hybrid(df, index, model=None, alpha=0.0, mesh=object(),
-                        device="cpu", **HYBRID)
+    want = evaluate_hybrid(df, index, model=None, alpha=0.0, device="cpu", **HYBRID)
+    with world_of_one():
+        got = evaluate_hybrid(df, index, model=None, alpha=0.0, mesh=make_mesh(1),
+                              device="cpu", **HYBRID)
+    assert got.n_users == want.n_users > 0
+    if family == "dense":
+        assert got == want
+    else:
+        np.testing.assert_allclose([got.precision, got.recall, got.ndcg],
+                                   [want.precision, want.recall, want.ndcg],
+                                   atol=0.05)

@@ -169,9 +169,23 @@ def test_default_platform_is_the_gpu(workdir, monkeypatch):
                             "--epochs", "1"])
 
 
-def test_mesh_devices_names_slice_6(workdir):
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        run_cli(hybrid_cli, ["--root", str(workdir), "--mesh-devices", "2"] + CPU)
+def test_mesh_devices_names_slice_6(workdir, tmp_path):
+    """``--mesh-devices 2 --platform cpu``: the stage starts two gloo ranks
+    on the CPU, the candidates are scored item-sharded over them, and rank
+    0 prints the mesh-free run's report (a dense index and a BaselineModel
+    of the module's synthetic root, copied)."""
+    root = tmp_path / "root"
+    shutil.copytree(workdir / "data", root / "data")
+    base = ["--root", str(root)] + CPU
+    run_cli(build_item_embeddings, base + ["--dim", "32"])
+    run_cli(export_artifacts, base)
+    run_cli(train_cli, base + ["--model", "baseline", "--method", "als",
+                               "--epochs", "2"])
+    argv = base + ["--k", "5", "--candidate-k", "20", "--positive-threshold",
+                   "3.0", "--max-users", "20"]
+    want = _last_json(run_cli(hybrid_cli, argv))
+    got = _last_json(run_cli(hybrid_cli, argv + ["--mesh-devices", "2"]))
+    assert got == want and want["embedding_only"]["n_users"] > 0
 
 
 def test_run_all_synthetic(tmp_path):

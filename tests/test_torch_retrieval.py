@@ -222,16 +222,31 @@ def test_tfidf_batch_sums_duplicate_entries_as_jax():
 
 
 def test_mesh_raises_and_names_slice_6():
+    """``mesh=`` is accepted by the four entry points (the item-sharded
+    search, ``tests/test_torch_parallel_retrieval.py``): on a mesh of one
+    rank (a gloo world of this process alone) each gives its mesh-free
+    result, bit for bit."""
+    from matrix_factorization_tpu_torch.parallel.launch import world_of_one
+    from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
+
     ids, texts = _corpus(8)
     pix = index.build_dense_index(ids, texts, jencode.hash_embed(texts, dim=16))
     tix = index.build_tfidf_index(IDS, TEXTS, min_df=1)
     q = pix.embeddings[0]
-    for call in (lambda: search.search_topk(pix, q, 2, mesh=object()),
-                 lambda: search.search_topk_pos(pix, q, 2, mesh=object()),
-                 lambda: search.search_topk_batch(pix, q[None], 2, mesh=object()),
-                 lambda: sparse_scoring.tfidf_batch_topk(tix, ["x"], 2, mesh=object())):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            call()
+    calls = (lambda m: search.search_topk(pix, q, 2, mesh=m, device="cpu"),
+             lambda m: search.search_topk_pos(pix, q, 2, mesh=m, device="cpu"),
+             lambda m: search.search_topk_batch(pix, q[None], 2, mesh=m,
+                                                device="cpu"),
+             lambda m: sparse_scoring.tfidf_batch_topk(tix, QUERIES, 2, mesh=m,
+                                                       device="cpu"))
+    want = [call(None) for call in calls]
+    with world_of_one():
+        mesh = make_mesh(1)
+        got = [call(mesh) for call in calls]
+    assert got[0] == want[0] and got[1] == want[1]
+    for g, w in zip(got[2:], want[2:]):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_device_none_raises_without_gpu():

@@ -11,9 +11,16 @@ mesh fit to the item-item lists), then inside one NCCL world of this
 process alone ``phase_parallel_nccl`` (data-parallel SGD at config 3),
 ``phase_parallel_kernels``, ``phase_parallel_als`` (factor ALS, the bias
 models and NMF), ``phase_parallel_families`` (BPR and SVD++) and
-``phase_parallel_gram_nccl`` (the gram models), then
-``phase_parallel_gloo`` (gloo ranks on the card, with the slice-6b and
-slice-6c models) and ``phase_parallel_gram_gloo``. Prints the card's name
+``phase_parallel_gram_nccl`` (the gram models), ``phase_parallel_retrieval``
+(the row-sharded dense and TF-IDF top-k at the recipe catalog at NCCL
+world 1, the catalog written to files) and ``phase_sharded_checkpoint_nccl``
+(config 3 through ``save_model_sharded``), then ``phase_parallel_gloo``
+(gloo ranks on the card, with the slice-6b and slice-6c models and the
+sharded checkpoints) and ``phase_parallel_gram_gloo`` (with the
+row-sharded retrieval on the same ranks); first of all
+``phase_hybrid_mesh`` (``evaluate_hybrid --mesh-devices 1``) on a small
+pipeline root of config 2's ratings (``hybrid_root``; the full run
+evaluates the pipeline phase's own artifacts). Prints the card's name
 and power limit, then each phase's JSON line as it ends, also appended to
 ``--out``. A failed check exits non-zero. Needs a GPU; imports nothing of
 JAX.
@@ -77,9 +84,16 @@ def main() -> int:
     emit({"phase": "data", "seconds": time.perf_counter() - t1})
     rng = np.random.default_rng(args.seed)
     t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        t3 = time.perf_counter()
+        out = cs.phase_hybrid_mesh(cs.hybrid_root(torch, rng, train1m, tmp))
+        out["seconds"] = time.perf_counter() - t3
+        emit(out)
     out, item_lists = cs.phase_cf_topk(torch, rng, data3)
     emit(out)
     torch.cuda.empty_cache()
+    # the recipe catalog's files, from parallel_retrieval to the gram gloo worlds
+    files = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp, \
             cs.nccl_world(torch, tmp):
         out, packs = cs.phase_parallel_nccl(torch, rng, data3, r[n:], args.seed)
@@ -107,16 +121,32 @@ def main() -> int:
         gram["seconds"] = time.perf_counter() - t3
         emit(gram)
         del item_lists
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        out, retrieval_gloo = cs.phase_parallel_retrieval(
+            torch, rng, files.name, args.seed, cs.Timer(torch))
+        out["seconds"] = time.perf_counter() - t3
+        emit(out)
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        out = cs.phase_sharded_checkpoint_nccl(torch, data3, args.seed, tmp)
+        out["seconds"] = time.perf_counter() - t3
+        emit(out)
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
     out = cs.phase_parallel_gloo(torch, train1m, args.seed)
     out["seconds"] = time.perf_counter() - t3
+    ckpt = out.pop("sharded_checkpoint")
     emit(out)
+    emit(ckpt)
     t3 = time.perf_counter()
     out = cs.phase_parallel_gram_gloo(torch, train1m, args.seed,
-                                      gram["ml1m_ns"]["peak_mib"])
+                                      gram["ml1m_ns"]["peak_mib"], retrieval_gloo)
     out["seconds"] = time.perf_counter() - t3
+    files.cleanup()
+    retrieval = out.pop("parallel_retrieval")
     emit(out)
+    emit(retrieval)
     emit({"phase": "done", "parallel_seconds": time.perf_counter() - t2,
           "seconds": time.perf_counter() - t0})
     return 0
