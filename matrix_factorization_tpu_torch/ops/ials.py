@@ -51,6 +51,7 @@ from matrix_factorization_tpu_torch.ops.segment_sgd import (
     round_up,
 )
 from matrix_factorization_tpu_torch.ops.spd import _mm, solve_spd
+from matrix_factorization_tpu_torch.utils.profiling import span
 
 _GRAM_DTYPES = ("f32", "bf16", "highest")
 _REG_SCALES = ("absolute", "per_obs")
@@ -301,14 +302,16 @@ def normal_equations(other: torch.Tensor, other_ids: torch.Tensor,
     k = cfg.n_factors
     o_side = "item" if own_side == "user" else "user"
     o_bias, o_const = bias_col(cfg, o_side), const_col(cfg, o_side)
-    # the d = k + 1 design columns of every other-side row, then one gather
-    design = torch.cat([other[:, :k], other[:, o_const:o_const + 1]], dim=1)
-    ids = other_ids.long()
-    Xm = design[ids].mul_(mask[..., None])
-    y = (ratings - mu - other[:, o_bias][ids]) * mask
-    A = _gram(Xm, gram_dtype)
-    A.diagonal(dim1=-2, dim2=-1).add_(_reg_diag(cfg.reg, mask, reg_scale))
-    b = _mm(Xm.transpose(1, 2), y[..., None])[..., 0]
+    with span("als.normal_eq"):
+        # the d = k + 1 design columns of every other-side row, then one
+        # gather
+        design = torch.cat([other[:, :k], other[:, o_const:o_const + 1]], dim=1)
+        ids = other_ids.long()
+        Xm = design[ids].mul_(mask[..., None])
+        y = (ratings - mu - other[:, o_bias][ids]) * mask
+        A = _gram(Xm, gram_dtype)
+        A.diagonal(dim1=-2, dim2=-1).add_(_reg_diag(cfg.reg, mask, reg_scale))
+        b = _mm(Xm.transpose(1, 2), y[..., None])[..., 0]
     return A, b
 
 
@@ -367,13 +370,15 @@ def grouped_sweep(own: torch.Tensor, other: torch.Tensor,
     entities), in place: entities with data get their solved factor and
     bias columns, entities without keep their rows. Returns ``own``."""
     k = cfg.n_factors
-    sol = _solve_entities(other, grouped.other_ids, grouped.ratings,
-                          grouped.mask, mu, cfg, own_side, "f32", reg_scale)
-    has_data = grouped.mask.sum(dim=1) > 0
-    own_b = bias_col(cfg, own_side)
-    live = own[:grouped.other_ids.shape[0]]
-    live[:, :k] = torch.where(has_data[:, None], sol[:, :k], live[:, :k])
-    live[:, own_b] = torch.where(has_data, sol[:, k], live[:, own_b])
+    with span("als.bucket"):
+        sol = _solve_entities(other, grouped.other_ids, grouped.ratings,
+                              grouped.mask, mu, cfg, own_side, "f32", reg_scale)
+        with span("als.write"):
+            has_data = grouped.mask.sum(dim=1) > 0
+            own_b = bias_col(cfg, own_side)
+            live = own[:grouped.other_ids.shape[0]]
+            live[:, :k] = torch.where(has_data[:, None], sol[:, :k], live[:, :k])
+            live[:, own_b] = torch.where(has_data, sol[:, k], live[:, own_b])
     return own
 
 
@@ -384,11 +389,14 @@ def bucket_sweep(own: torch.Tensor, other: torch.Tensor, bucket: Bucket,
     """One bucket's solves written into ``own`` at its entity ids (each
     has data), in place. Returns ``own``."""
     k = cfg.n_factors
-    sol = _solve_entities(other, bucket.other_ids, bucket.ratings, bucket.mask,
-                          mu, cfg, own_side, gram_dtype, reg_scale)
-    rows = bucket.entity_ids.long()
-    own[rows, :k] = sol[:, :k]
-    own[rows, bias_col(cfg, own_side)] = sol[:, k]
+    with span("als.bucket"):
+        sol = _solve_entities(other, bucket.other_ids, bucket.ratings,
+                              bucket.mask, mu, cfg, own_side, gram_dtype,
+                              reg_scale)
+        with span("als.write"):
+            rows = bucket.entity_ids.long()
+            own[rows, :k] = sol[:, :k]
+            own[rows, bias_col(cfg, own_side)] = sol[:, k]
     return own
 
 
@@ -412,13 +420,14 @@ def ials_train(
     p = _copy_tables(params)
     hist = []
     for _ in range(n_epochs):
-        if update_user_params:
-            grouped_sweep(p.user_features, p.item_features, by_user,
-                          p.global_mean, cfg, "user", reg_scale)
-        if update_item_params:
-            grouped_sweep(p.item_features, p.user_features, by_item,
-                          p.global_mean, cfg, "item", reg_scale)
-        hist.append(_epoch_rmse(p, data, cfg))
+        with span("als.epoch"):
+            if update_user_params:
+                grouped_sweep(p.user_features, p.item_features, by_user,
+                              p.global_mean, cfg, "user", reg_scale)
+            if update_item_params:
+                grouped_sweep(p.item_features, p.user_features, by_item,
+                              p.global_mean, cfg, "item", reg_scale)
+            hist.append(_epoch_rmse(p, data, cfg))
     return p, _stack(hist, p)
 
 
@@ -447,15 +456,18 @@ def ials_train_bucketed(
     p = _copy_tables(params)
     hist = []
     for _ in range(n_epochs):
-        if update_user_params:
-            for b in buckets_user:
-                bucket_sweep(p.user_features, p.item_features, b,
-                             p.global_mean, cfg, "user", gram_dtype, reg_scale)
-        if update_item_params:
-            for b in buckets_item:
-                bucket_sweep(p.item_features, p.user_features, b,
-                             p.global_mean, cfg, "item", gram_dtype, reg_scale)
-        hist.append(_epoch_rmse(p, data, cfg))
+        with span("als.epoch"):
+            if update_user_params:
+                for b in buckets_user:
+                    bucket_sweep(p.user_features, p.item_features, b,
+                                 p.global_mean, cfg, "user", gram_dtype,
+                                 reg_scale)
+            if update_item_params:
+                for b in buckets_item:
+                    bucket_sweep(p.item_features, p.user_features, b,
+                                 p.global_mean, cfg, "item", gram_dtype,
+                                 reg_scale)
+            hist.append(_epoch_rmse(p, data, cfg))
     return p, _stack(hist, p)
 
 

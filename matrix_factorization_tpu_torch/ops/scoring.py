@@ -20,6 +20,7 @@ import torch
 
 from matrix_factorization_tpu_torch.core.config import SGDConfig
 from matrix_factorization_tpu_torch.ops import cuda_scores
+from matrix_factorization_tpu_torch.utils.profiling import span
 
 
 def score_catalog(cfg: SGDConfig, mu: torch.Tensor, pu: torch.Tensor,
@@ -72,15 +73,17 @@ def _select_topk(s: torch.Tensor, k: int):
     vals, idx = torch.topk(s, k, dim=-1, sorted=True)
     if k:
         at_or_above = (~(s < vals[:, -1:])).sum(-1)
-        rows = (at_or_above > k).nonzero().flatten()
+        with span("topk.sync"):
+            rows = (at_or_above > k).nonzero().flatten()
         if rows.numel():
-            m = s[rows]
-            wide = int(at_or_above[rows].max())
-            if wide <= SELECT_MAX_TIED:
-                tv, ti = _order(*torch.topk(m, wide, dim=-1, sorted=False))
-            else:
-                tv, ti = _sort_topk(m, k)
-            vals[rows], idx[rows] = tv[:, :k], ti[:, :k]
+            with span("topk.ties"):
+                m = s[rows]
+                wide = int(at_or_above[rows].max())
+                if wide <= SELECT_MAX_TIED:
+                    tv, ti = _order(*torch.topk(m, wide, dim=-1, sorted=False))
+                else:
+                    tv, ti = _sort_topk(m, k)
+                vals[rows], idx[rows] = tv[:, :k], ti[:, :k]
     return _order(vals, idx)
 
 
@@ -108,8 +111,12 @@ def stable_topk(scores: torch.Tensor, k: int):
         return (scores.new_empty((*lead, 0)),
                 torch.empty((*lead, 0), dtype=torch.int64, device=scores.device))
     s = scores.reshape(-1, n)
-    body = _sort_topk if s.numel() <= SORT_MAX_SCORES else _select_topk
-    vals, idx = body(s, k)
+    if s.numel() <= SORT_MAX_SCORES:
+        with span("topk.sort"):
+            vals, idx = _sort_topk(s, k)
+    else:
+        with span("topk.select"):
+            vals, idx = _select_topk(s, k)
     return vals.reshape(*lead, k), idx.reshape(*lead, k)
 
 

@@ -41,6 +41,7 @@ import torch
 from matrix_factorization_tpu_torch.core.config import LANE, SUBLANE, SGDConfig
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.data.loader import host_lib, native_threads
+from matrix_factorization_tpu_torch.utils.profiling import span
 
 class MFParams(NamedTuple):
     """Model state (capacity-padded, bias-folded tables).
@@ -687,14 +688,16 @@ def minibatch_update(params: MFParams, b: dict, cfg: SGDConfig, lr: float,
     if masks is None:
         masks = {s: mask_tensor(cfg, s, dev) for s in ("user", "item")}
     prim_out = out[prim_side]
-    dq = cuda_sgd.sgd_step(
-        cfg, params.global_mean, tables[prim_side], tables[sec_side],
-        prim_ids, sec_ids, r, w, masks[prim_side], masks[sec_side], lr,
-        cfg.reg if reg is None else reg,
-        update_prim=upd[prim_side], write_dq=upd[sec_side],
-        prim_out=None if prim_out is tables[prim_side] else prim_out)
+    with span("sgd.step"):
+        dq = cuda_sgd.sgd_step(
+            cfg, params.global_mean, tables[prim_side], tables[sec_side],
+            prim_ids, sec_ids, r, w, masks[prim_side], masks[sec_side], lr,
+            cfg.reg if reg is None else reg,
+            update_prim=upd[prim_side], write_dq=upd[sec_side],
+            prim_out=None if prim_out is tables[prim_side] else prim_out)
     if upd[sec_side]:
-        cuda_sgd.segment_apply(out[sec_side], dq, sp, ss)
+        with span("sgd.apply"):
+            cuda_sgd.segment_apply(out[sec_side], dq, sp, ss)
     return params
 
 
@@ -789,16 +792,17 @@ def masked_sse(params: MFParams, data: RatingBatches, cfg: SGDConfig,
     scalar, in chunks of ``chunk`` ratings so that the row gathers stay
     bounded. The reference's per-epoch full train pass
     (``kernel_matrix_factorization.py:428-440``)."""
-    u, i = data.user_ids.reshape(-1), data.item_ids.reshape(-1)
-    r, w = data.ratings.reshape(-1), data.weights.reshape(-1)
-    acc = torch.zeros((), dtype=torch.float32, device=u.device)
-    for lo in range(0, u.numel(), chunk):
-        sl = slice(lo, lo + chunk)
-        pred = ext_forward(cfg, params.global_mean,
-                           params.user_features[u[sl].long()],
-                           params.item_features[i[sl].long()])
-        e = (pred - r[sl]) * w[sl]
-        acc = acc + torch.sum(e * e)
+    with span("sgd.rmse"):
+        u, i = data.user_ids.reshape(-1), data.item_ids.reshape(-1)
+        r, w = data.ratings.reshape(-1), data.weights.reshape(-1)
+        acc = torch.zeros((), dtype=torch.float32, device=u.device)
+        for lo in range(0, u.numel(), chunk):
+            sl = slice(lo, lo + chunk)
+            pred = ext_forward(cfg, params.global_mean,
+                               params.user_features[u[sl].long()],
+                               params.item_features[i[sl].long()])
+            e = (pred - r[sl]) * w[sl]
+            acc = acc + torch.sum(e * e)
     return acc
 
 
@@ -827,12 +831,13 @@ def sgd_train(
     hist: List[torch.Tensor] = []
     for e in range(n_epochs):
         order = batch_orders[e] if batch_orders is not None else None
-        epoch(params, data, cfg, lr, generator, order, reg)
-        if cfg.compute_epoch_rmse:
-            hist.append(torch.sqrt(masked_sse(params, data, cfg)
-                                   / max(data.n_real, 1)))
-        else:
-            hist.append(torch.zeros((), device=data.user_ids.device))
+        with span("sgd.epoch"):
+            epoch(params, data, cfg, lr, generator, order, reg)
+            if cfg.compute_epoch_rmse:
+                hist.append(torch.sqrt(masked_sse(params, data, cfg)
+                                       / max(data.n_real, 1)))
+            else:
+                hist.append(torch.zeros((), device=data.user_ids.device))
     if not hist:
         return params, torch.zeros(0, device=data.user_ids.device)
     return params, torch.stack(hist)

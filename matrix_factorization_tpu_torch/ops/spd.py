@@ -40,6 +40,7 @@ import torch
 
 from matrix_factorization_tpu_torch.ops import cuda_spd
 from matrix_factorization_tpu_torch.ops.segment_sgd import round_up
+from matrix_factorization_tpu_torch.utils.profiling import span
 
 LEAVES = ("auto", "gj", "cholesky")
 
@@ -83,22 +84,26 @@ def spd_inverse(A: torch.Tensor, base: int = 32,
     d = A.shape[-1]
     if leaf != "cholesky" and d <= cuda_spd.MAX_D:
         flat = A.reshape((-1,) + tuple(A.shape[-2:])).contiguous()
-        return cuda_spd.gj_inverse(flat).reshape(A.shape)
+        with span("spd.leaf"):
+            inv = cuda_spd.gj_inverse(flat)
+        return inv.reshape(A.shape)
     if d <= base:
-        return _base_inverse(A)
-    m = ((d // 2 + 7) // 8) * 8  # split point, multiple of 8
-    A11 = A[..., :m, :m]
-    A12 = A[..., :m, m:]
-    A22 = A[..., m:, m:]
-    inv11 = spd_inverse(A11, base, leaf)
-    W = _mm(inv11, A12)                      # (..., m, d-m)
-    S = A22 - _mm(_t(A12), W)                # Schur complement, SPD
-    invS = spd_inverse(S, base, leaf)
-    B12 = -_mm(W, invS)                      # (..., m, d-m)
-    B11 = inv11 - _mm(B12, _t(W))
-    top = torch.cat([B11, B12], dim=-1)
-    bot = torch.cat([_t(B12), invS], dim=-1)
-    return torch.cat([top, bot], dim=-2)
+        with span("spd.leaf"):
+            return _base_inverse(A)
+    with span("spd.schur"):
+        m = ((d // 2 + 7) // 8) * 8  # split point, multiple of 8
+        A11 = A[..., :m, :m]
+        A12 = A[..., :m, m:]
+        A22 = A[..., m:, m:]
+        inv11 = spd_inverse(A11, base, leaf)
+        W = _mm(inv11, A12)                      # (..., m, d-m)
+        S = A22 - _mm(_t(A12), W)                # Schur complement, SPD
+        invS = spd_inverse(S, base, leaf)
+        B12 = -_mm(W, invS)                      # (..., m, d-m)
+        B11 = inv11 - _mm(B12, _t(W))
+        top = torch.cat([B11, B12], dim=-1)
+        bot = torch.cat([_t(B12), invS], dim=-1)
+        return torch.cat([top, bot], dim=-2)
 
 
 def _jacobi(A: torch.Tensor) -> torch.Tensor:
@@ -137,16 +142,17 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor, base: int = 32,
     scaled system, applies it, then runs ``refine`` steps of iterative
     refinement (``x += A^-1 (b - A x)``, exact-f32 residual) against the
     same inverse."""
-    dscale = _jacobi(A)
-    As = A * dscale[..., :, None] * dscale[..., None, :]
-    inv = spd_inverse(As, base, leaf)
+    with span("spd.solve"):
+        dscale = _jacobi(A)
+        As = A * dscale[..., :, None] * dscale[..., None, :]
+        inv = spd_inverse(As, base, leaf)
 
-    def apply_inv(r):
-        return dscale * _matvec(inv, dscale * r)
+        def apply_inv(r):
+            return dscale * _matvec(inv, dscale * r)
 
-    x = apply_inv(b)
-    for _ in range(refine):
-        x = x + apply_inv(b - _matvec(A, x))
+        x = apply_inv(b)
+        for _ in range(refine):
+            x = x + apply_inv(b - _matvec(A, x))
     return x
 
 

@@ -40,6 +40,7 @@ from matrix_factorization_tpu_torch.retrieval.index import (
     DenseItemIndex,
     TfidfItemIndex,
 )
+from matrix_factorization_tpu_torch.utils.profiling import span
 
 IndexT = Union[DenseItemIndex, TfidfItemIndex]
 
@@ -73,11 +74,13 @@ def dense_topk(emb: torch.Tensor, q: torch.Tensor, k: int):
     vals, idx = [], []
     with exact_f32():
         for lo in range(0, q.shape[0], rows):
-            s = q[lo:lo + rows] @ emb.T
+            with span("search.gemm"):
+                s = q[lo:lo + rows] @ emb.T
             v, i = stable_topk(s, k)
             vals.append(v)
             idx.append(i)
-    return torch.cat(vals), torch.cat(idx)
+    with span("search.fetch"):
+        return torch.cat(vals), torch.cat(idx)
 
 
 def encode_query(text: str, model_name: Optional[str] = None,
@@ -132,8 +135,9 @@ def search_topk_pos(
             index, np.asarray(query_vec, np.float32).reshape(1, -1), k,
             mesh=mesh, device=device)
         vals, top = vals[0], top[0]
-    return [(int(i), index.item_ids[int(i)], float(v))
-            for i, v in zip(top, vals)]
+    with span("search.answer"):
+        return [(int(i), index.item_ids[int(i)], float(v))
+                for i, v in zip(top, vals)]
 
 
 def search_topk_batch(
@@ -145,10 +149,13 @@ def search_topk_batch(
     its ranks (:func:`dense_topk_mesh`)."""
     if mesh is not None:
         return dense_topk_mesh(index, query_vecs, k, mesh, device=device)
-    emb = device_embeddings(index, device)
-    q = torch.from_numpy(np.ascontiguousarray(query_vecs, np.float32))
-    vals, idx = dense_topk(emb, q.to(emb.device), min(k, emb.shape[0]))
-    return vals.cpu().numpy(), idx.cpu().numpy()
+    with span("search.query"):
+        emb = device_embeddings(index, device)
+        q = torch.from_numpy(np.ascontiguousarray(query_vecs, np.float32))
+        q = q.to(emb.device)
+    vals, idx = dense_topk(emb, q, min(k, emb.shape[0]))
+    with span("search.fetch"):
+        return vals.cpu().numpy(), idx.cpu().numpy()
 
 
 # -- the row-sharded dense search ---------------------------------------------

@@ -1,15 +1,72 @@
-"""Tracing / profiling / throughput observability (PyTorch port of
+"""Tracing and timing (PyTorch port of
 ``matrix_factorization_tpu/utils/profiling.py``).
 
 * :class:`Timer` — wall-clock block timer that forces device completion
   (``torch.cuda.synchronize`` plus a host sum of each given tensor) before
   it reads the clock: CUDA calls return before the card has finished.
-* :class:`ThroughputMeter` — rating-updates/sec/chip counter.
 * :func:`trace` — a ``torch.profiler`` trace (CPU and, with a GPU, CUDA
   activity) written as a Chrome trace into a directory; a no-op when the
   profiler cannot start, as JAX's is.
-* :class:`EpochLogger` — per-epoch RMSE/throughput logging like the
-  reference's verbose prints (``kernel_matrix_factorization.py:442-443``).
+* :func:`span` — a named range of the program in that same trace, so that
+  the program's spans, the aten operators and the CUDA kernels they
+  launch share one clock.
+
+**Spans.** A span is recorded exactly when a ``torch.profiler`` is
+recording (under :func:`trace`, or any other ``torch.profiler.profile``);
+otherwise ``span`` returns one shared null context, and its cost is the
+read of the profiler's flag. There is no other switch. Each is named
+``mf:<name>`` in the trace and recorded as a ``cpu_op`` event by torch's
+``_RecordFunctionFast`` (about 2 us a span, against about 14 us for
+``record_function``). A span opens
+at a batch, bucket, block or call boundary, never inside a per-row or
+per-entity loop. The device work of a span is the kernels, copies and
+memsets whose launch (the CUDA runtime call, matched to its device
+interval by the trace's correlation id) lies innermost in it.
+
+SGD (``ops/segment_sgd.py``), nested as listed:
+
+* ``sgd.epoch`` — one epoch of ``sgd_train``, with its RMSE pass when on;
+* ``sgd.step`` — ``cuda_sgd.sgd_step`` of one batch (``minibatch_update``);
+* ``sgd.apply`` — ``cuda_sgd.segment_apply`` of one batch;
+* ``sgd.rmse`` — ``masked_sse``, the RMSE pass (also under ``als.epoch``).
+
+ALS (``ops/ials.py``, ``ops/spd.py``):
+
+* ``als.epoch`` — one epoch of ``ials_train_bucketed`` or ``ials_train``;
+* ``als.bucket`` — ``bucket_sweep`` (one bucket chunk) or ``grouped_sweep``
+  (one half-sweep), inside ``als.epoch``;
+* ``als.normal_eq`` — ``normal_equations``: the design gather, the mask,
+  the grams, the ridge and the right-hand sides, inside ``als.bucket``;
+* ``spd.solve`` — ``spd_solve``: Jacobi scaling, the inverse, its
+  application and the refinement, inside ``als.bucket`` (beside
+  ``als.normal_eq``);
+* ``spd.schur`` — one level of ``spd_inverse`` above the leaf (``W``,
+  ``S``, ``B12``, ``B11`` and the ``cat``s), inside ``spd.solve`` or an
+  outer ``spd.schur``;
+* ``spd.leaf`` — the leaf inverse (``cuda_spd.gj_inverse``, or
+  ``_base_inverse`` with ``leaf='cholesky'``), inside ``spd.schur`` or,
+  for d up to the leaf's size, directly inside ``spd.solve``;
+* ``als.write`` — the write of the solutions into the swept table, inside
+  ``als.bucket``.
+
+Search (``retrieval/search.py``, ``ops/scoring.py``):
+
+* ``search.query`` — ``search_topk_batch``'s lookup of the index's device
+  copy and the queries' host-to-device copy;
+* ``search.gemm`` — one row block's ``q @ emb.T`` in ``dense_topk``;
+* ``topk.sort`` / ``topk.select`` — the body ``stable_topk`` takes for a
+  block (the whole-row sort, or the selection), after its ``search.gemm``;
+* ``topk.sync`` — ``_select_topk``'s ``nonzero()``: the host's wait for
+  the block's count of rows tied across the cut, inside ``topk.select``;
+* ``topk.ties`` — ``_select_topk``'s tie branch, inside ``topk.select``;
+  entered only when a block has a row tied across the cut, so its count
+  is the count of such blocks;
+* ``search.fetch`` — ``dense_topk``'s ``torch.cat`` of the blocks' answers,
+  and ``search_topk_batch``'s copy of them to host arrays (two a call);
+* ``search.answer`` — ``search_topk_pos``'s ``(pos, item_id, score)`` list.
+
+The mesh trainers and the mesh search call these same functions, so
+their spans are these; ``parallel/`` opens none of its own.
 """
 
 from __future__ import annotations
@@ -18,11 +75,24 @@ import contextlib
 import os
 import time
 import warnings
-from dataclasses import dataclass, field
 from pathlib import Path
-from typing import List, Optional
+from typing import Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
+
+SPAN_PREFIX = "mf:"
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("sgd.step"): ...`` records the block as ``mf:sgd.step``
+    while a ``torch.profiler`` records, and does nothing otherwise (the
+    module docstring lists the spans)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _RecordFunctionFast(SPAN_PREFIX + name)
 
 
 def force_completion(*arrays) -> float:
@@ -53,36 +123,6 @@ class Timer:
             force_completion(a)
         self.seconds = time.perf_counter() - self._t0
         return False
-
-
-@dataclass
-class ThroughputMeter:
-    """Accumulates (updates, seconds) and reports updates/sec/chip."""
-
-    n_chips: int = 1
-    total_updates: int = 0
-    total_seconds: float = 0.0
-
-    def record(self, n_updates: int, seconds: float) -> None:
-        self.total_updates += int(n_updates)
-        self.total_seconds += float(seconds)
-
-    @property
-    def updates_per_sec(self) -> float:
-        return self.total_updates / self.total_seconds if self.total_seconds else 0.0
-
-    @property
-    def updates_per_sec_per_chip(self) -> float:
-        return self.updates_per_sec / max(1, self.n_chips)
-
-    def report(self) -> dict:
-        return {
-            "updates_per_sec": self.updates_per_sec,
-            "updates_per_sec_per_chip": self.updates_per_sec_per_chip,
-            "total_updates": self.total_updates,
-            "total_seconds": self.total_seconds,
-            "n_chips": self.n_chips,
-        }
 
 
 @contextlib.contextmanager
@@ -122,21 +162,3 @@ def trace(log_dir: Optional[str]):
             except Exception as e:  # noqa: BLE001
                 warnings.warn(f"the profiler did not stop cleanly ({e!r})")
 
-
-@dataclass
-class EpochLogger:
-    verbose: int = 1
-    history: List[dict] = field(default_factory=list)
-
-    def log(self, epoch: int, rmse: float, n_updates: int = 0,
-            seconds: float = 0.0) -> None:
-        row = {"epoch": epoch, "rmse": rmse}
-        if seconds > 0:
-            row["updates_per_sec"] = n_updates / seconds
-        self.history.append(row)
-        if self.verbose:
-            extra = (
-                f"  ({row['updates_per_sec'] / 1e6:.1f}M updates/s)"
-                if "updates_per_sec" in row else ""
-            )
-            print(f"Epoch {epoch} train RMSE: {rmse:.4f}{extra}")

@@ -22,8 +22,6 @@ from matrix_factorization_tpu_torch.data.synthetic import lowrank_ratings
 from matrix_factorization_tpu_torch.eval import topk_eval
 from matrix_factorization_tpu_torch.eval.evaluator import RecommenderEvaluator
 from matrix_factorization_tpu_torch.utils.profiling import (
-    EpochLogger,
-    ThroughputMeter,
     Timer,
     force_completion,
     trace,
@@ -82,18 +80,9 @@ def test_evaluator_compare_table():
 
 
 def test_throughput_meter_and_timer():
-    m = ThroughputMeter(n_chips=4)
-    m.record(1_000_000, 0.5)
-    m.record(1_000_000, 0.5)
-    assert m.updates_per_sec == 2_000_000
-    assert m.updates_per_sec_per_chip == 500_000
     with Timer() as t:
         sum(range(1000))
     assert t.seconds >= 0
-
-    log = EpochLogger(verbose=0)
-    log.log(1, 0.95, n_updates=100, seconds=0.1)
-    assert log.history[0]["updates_per_sec"] == 1000
 
     with trace(None):  # no-op path
         pass

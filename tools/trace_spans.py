@@ -1,0 +1,153 @@
+#!/usr/bin/env python3
+"""Read a benchmark cell's traced stretch by the program's own spans.
+
+    python3 tools/trace_spans.py --workload <name> --seed <n> [--out FILE]
+    python3 tools/trace_spans.py --cost [--out FILE]
+
+Runs the cell as ``portbench/run.py --seconds 0 --trace 1`` does (the same
+set-up, steady unit, traced units and check; the harness's result object
+is kept whole under ``result``) and keeps the trace's events. From them it
+prints one JSON object: the window's reduction by ``mf:`` span
+(``portbench/program_trace.py::reduce_program``: count, host, device,
+kernel and idle seconds of each span, and what lies outside every span),
+each span's count a traced unit, the spans' per-layer readings
+(``span_readings``) and the checks that hold them to the harness's
+name-matching readers:
+
+* the harness's call spans as many as the driver's traced calls;
+* each span roofline within 1% of its name-matching original;
+* ``topk_tie_blocks.span`` equal to ``topk_tie_blocks``;
+* ``topk_idle_ms`` <= ``search_idle_program_ms`` <= ``search_host_ms``;
+* the device seconds under ``als.normal_eq``, ``spd.schur`` and
+  ``spd.leaf`` at most the window's busy seconds, and the attributed and
+  unattributed device seconds adding up to it within 0.1%.
+
+``--cost`` times ``utils.profiling.span`` on the host instead: entered and
+left with no profiler recording, and with one recording, beside a bare
+``record_function`` and ``_RecordFunctionFast``, in microseconds a span.
+
+Needs a CUDA card (the benchmark's cells run nowhere else); imports
+nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def trace_cell(name: str, seed: int) -> dict:
+    """One traced run of cell ``name``."""
+    from portbench import common, run, trace
+    from portbench.program_trace import harness_window, reduce_program, span_readings, total
+
+    # the harness's own run, with its trace's events and view kept: the
+    # readings below come from the stretch the harness read
+    kept = {}
+
+    class Keeping(trace.Profiled):
+        def __exit__(self, *exc):
+            out = super().__exit__(*exc)
+            kept["events"] = self.events
+            return out
+
+    def keeping_reduce(events, work=None):
+        kept["view"] = real_reduce(events, work)
+        return kept["view"]
+
+    real_profiled, real_reduce = trace.Profiled, trace.reduce_trace
+    trace.Profiled, trace.reduce_trace = Keeping, keeping_reduce
+    try:
+        result, _ = run.run_cell(common.load_manifest(), name, seed, 0.0, True)
+    finally:
+        trace.Profiled, trace.reduce_trace = real_profiled, real_reduce
+    events, view = kept["events"], kept["view"]
+    lo, hi = harness_window(events)
+    # the harness's call spans, as ``search_host_ms`` counts them
+    units = sum(1 for n, _, _ in view.spans if n == "unit")
+    prog = reduce_program(events, lo, hi)
+    readings = span_readings(view, prog)
+    metrics = {k: v["value"] for k, v in result["metrics"].items()}
+    checks = {}
+    if view.work.get("calls"):
+        checks["units_are_calls"] = units == view.work["calls"]
+    for twin in ("sgd_step_roofline", "sgd_apply_roofline", "gj_roofline",
+                 "search_gemm_roofline"):
+        a, b = readings.get(twin + ".span"), metrics.get(twin)
+        if a is not None and b is not None:
+            checks[twin + ".span_rel_gap"] = abs(a - b) / b
+    if "topk_tie_blocks" in metrics:
+        checks["tie_counts_equal"] = readings["topk_tie_blocks.span"] == metrics["topk_tie_blocks"]
+    if readings["search_idle_program_ms"] is not None and "search_host_ms" in metrics:
+        checks["idle_order_holds"] = (readings["topk_idle_ms"]
+                                      <= readings["search_idle_program_ms"]
+                                      <= metrics["search_host_ms"])
+    sp = prog["spans"]
+    if "als.normal_eq" in sp:
+        parts = sum(sp.get(n, {}).get("device_s", 0.0)
+                    for n in ("als.normal_eq", "spd.schur", "spd.leaf"))
+        checks["als_parts_within_busy"] = parts <= prog["busy_s"]
+    if prog["busy_s"] > 0:
+        attributed = total(prog, "device_s") + prog["outside"]["device_s"]
+        checks["device_rel_gap"] = abs(attributed - prog["busy_s"]) / prog["busy_s"]
+    return {"workload": name, "seed": seed, "units": units, "result": result,
+            "program": prog,
+            "per_unit": {n: r["count"] / units for n, r in sorted(sp.items())},
+            "span_readings": readings, "checks": checks}
+
+
+def span_cost(n: int = 100_000) -> dict:
+    """Host microseconds a span is entered and left, with and without a
+    profiler recording."""
+    import torch
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    from matrix_factorization_tpu_torch.utils.profiling import _RecordFunctionFast, span
+
+    def per_span(make, count):
+        t0 = time.perf_counter()
+        for _ in range(count):
+            with make("sgd.step"):
+                pass
+        return (time.perf_counter() - t0) / count * 1e6
+
+    out = {"torch": torch.__version__,
+           "span_off_us": per_span(span, n),
+           "record_function_off_us": per_span(record_function, n // 10)}
+    with profile(activities=[ProfilerActivity.CPU]):
+        m = n // 10
+        out["span_on_us"] = per_span(span, m)
+        out["record_function_on_us"] = per_span(record_function, m)
+        out["record_function_fast_on_us"] = per_span(_RecordFunctionFast, m)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workload")
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--cost", action="store_true")
+    ap.add_argument("--out")
+    a = ap.parse_args(argv)
+    out = span_cost() if a.cost else trace_cell(a.workload, a.seed)
+    line = json.dumps(out)
+    if a.out:
+        with open(a.out, "a") as f:
+            f.write(line + "\n")
+    brief = out if a.cost else {k: out[k] for k in ("workload", "seed", "units",
+                                                    "per_unit", "span_readings",
+                                                    "checks")}
+    print(json.dumps(brief))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
