@@ -17,10 +17,10 @@ failed check ends the run with a non-zero exit:
 1. device: the card (``nvidia-smi`` name and power limit), torch, CUDA;
    TF32 off for every f32 product.
 2. build: every ``csrc/*.cu`` of the port (the scorer, the SGD step and
-   apply, the GJ SPD leaf, the segment sum), compiled for sm_90a, all
-   ``nvcc`` processes at once; each kernel's registers, spill and stack
-   bytes from ptxas (the scorer, the GJ leaf, the SGD step and the segment
-   sum must not spill).
+   apply, the GJ SPD leaf, the segment sum, the top-k selection), compiled
+   for sm_90a, all ``nvcc`` processes at once; each kernel's registers,
+   spill and stack bytes from ptxas (the scorer, the GJ leaf, the SGD
+   step, the segment sum and the top-k must not spill).
 3. compare: the catalog-scoring kernel against its plain PyTorch version
    on the card, for kernels linear/sigmoid/rbf, f32 and bf16 tables, at
    (B, I, Kp) = (1, 59392, 256), (B_s, 59392, 256), (B_s + 1, 59392, 256)
@@ -47,6 +47,17 @@ failed check ends the run with a non-zero exit:
    flushed before each launch, then a device spin so that the window
    holds device time only: ``Timer``) and the bound of each shape, at
    B = 1, 16, 64 and 256, every kernel and table type.
+5a. topk_kernel_time: the top-k selection kernel (``csrc/topk_select.cu``,
+   ``ops/cuda_topk.py``) at ``dense_topk``'s blocks over RecipeNLG's
+   2,231,142 items (60 rows at k 100 and 500, the 16-row tail at k 100,
+   60 rows rounded to 1/64 so that ties straddle the cut): bitwise equal
+   to the torch selection body and to a second run, no host sync inside
+   the call (``set_sync_debug_mode("error")``); kernel, plain and library
+   (``torch.topk`` alone, whose order among ties is unstated) times
+   (``Timer``) and the bound (the scores read once, the answers written
+   once). The kernel's launches are counted over the whole run (every
+   selection block of the later phases: the recipe search, config 4's CF
+   strips, EASE, TF-IDF).
 6. data / pack: config-3 ratings (25M unique pairs of 162,000 x 59,392,
    half stars, as ``benchmarks/run_configs.py::_gen`` makes them, plus
    4,096 held out), the headline ratings of ``bench.py`` (2M, 10,000 x
@@ -208,7 +219,9 @@ failed check ends the run with a non-zero exit:
     frame; ``search_topk`` of 64 queries at k 10 and at ``candidate_k``
     500, and ``search_topk_batch`` of 256, against a float64 numpy top-k on
     the host (``np.partition`` then ``np.lexsort``; values within 1e-5,
-    positions equal except where scores tie within 1e-6 at the cut), their
+    positions equal except where scores tie within 1e-6 at the cut; the
+    batch's top-k kernel launches counted alone, one a row block of
+    ``dense_topk`` past ``SORT_MAX_SCORES``: 5 at 256 x 2,231,142), their
     device times (``Timer``) against the bytes / operations bound; 64
     hybrid ``recommend`` calls (k 10, ``candidate_k`` 500, alpha 0.5; model
     scores not the zeros fallback, within 1e-5 of the model loaded on the
@@ -1695,6 +1708,52 @@ def phase_implicit(torch, seed):
     out.update({"train_loss": loss, "launches": cuda_spd.launches})
     check(cuda_spd.launches > 0, "ImplicitALS launched no GJ leaf")
     return out
+
+
+TOPK_TIMED = ((60, 2_231_142, 100, "normal"), (16, 2_231_142, 100, "normal"),
+              (60, 2_231_142, 500, "normal"), (60, 2_231_142, 100, "steps"))
+
+
+def phase_topk_kernel_times(torch, timer):
+    """The selection kernel against the torch selection body, bitwise, and
+    both timed beside ``torch.topk`` alone, at ``TOPK_TIMED``."""
+    from matrix_factorization_tpu_torch.ops import cuda_topk, scoring
+
+    rows_out = []
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for rows, n, k, kind in TOPK_TIMED:
+        s = torch.randn((rows, n), generator=g, device="cuda")
+        if kind == "steps":
+            s = torch.round(s * 64) / 64
+        want = scoring._plain_select_topk(s, k)
+        before = cuda_topk.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = scoring._select_topk(s, k)
+            again = scoring._select_topk(s, k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(cuda_topk.launches == before + 2,
+              "_select_topk did not launch the selection kernel")
+        check(all(torch.equal(a, b) for a, b in zip(got + again, want + got)),
+              f"the selection kernel differs from the torch body at "
+              f"{rows} x {n}, k {k}, {kind}")
+        nbytes = rows * n * 4 + rows * k * 12
+        row = {"rows": rows, "n": n, "k": k, "scores": kind,
+               "chunks": cuda_topk.select_plan(
+                   rows, n, k, torch.cuda.get_device_properties(0).multi_processor_count,
+                   cuda_topk._blocks_per_sm()).chunks,
+               "ms": timer.ms(lambda: scoring._select_topk(s, k)),
+               "plain_ms": timer.ms(lambda: scoring._plain_select_topk(s, k)),
+               "library_ms": timer.ms(lambda: torch.topk(s, k, dim=-1)),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        row["roofline"] = row["bound_ms"] / row["ms"]
+        rows_out.append(row)
+        emit({"phase": "topk_kernel_time", **row})
+        del s, want, got, again
+        torch.cuda.empty_cache()
+    return rows_out
 
 
 def phase_spd_kernel_times(torch, gen, timer):
@@ -3492,7 +3551,7 @@ def phase_recipe_serve(torch, rng, train, tmpdir, seed, timer):
 
     from matrix_factorization_tpu_torch import KernelMF
     from matrix_factorization_tpu_torch.core.artifacts import load_pickle
-    from matrix_factorization_tpu_torch.ops import cuda_sgd
+    from matrix_factorization_tpu_torch.ops import cuda_sgd, cuda_topk, scoring
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
     from matrix_factorization_tpu_torch.rank import hybrid
     from matrix_factorization_tpu_torch.rank.recipe_features import (
@@ -3640,7 +3699,17 @@ def phase_recipe_serve(torch, rng, train, tmpdir, seed, timer):
     out["search_candidate_k_max_abs_err"] = hold_search(
         cvals, cpos, S[:R["queries"]], cwant)
     out["search_self_hit"] = float(np.mean(pos[:, 0] == np.arange(R["queries"])))
+    # the main path: each of dense_topk's row blocks past SORT_MAX_SCORES
+    # launches the top-k kernel once, and nothing else in the call does
+    block = max(1, search._TOPK_ELEMS // n)
+    want_launches = sum(min(block, len(Q) - lo) * n > scoring.SORT_MAX_SCORES
+                        for lo in range(0, len(Q), block))
+    cuda_topk.reset_launches()
     bvals, bpos = search.search_topk_batch(index, Q, k)
+    out["topk_launches"] = {"recipe_search": cuda_topk.launches}
+    check(cuda_topk.launches == want_launches,
+          f"search_topk_batch launched the top-k kernel {cuda_topk.launches} "
+          f"times, not once a row block past SORT_MAX_SCORES ({want_launches})")
     out["batch_max_abs_err"] = hold_search(bvals, bpos, S, want)
     del S
 
@@ -3743,6 +3812,8 @@ def phase_recipe_serve(torch, rng, train, tmpdir, seed, timer):
                       for j in range(len(qs))])
     hold_search(tvals, tpos, ref, twant)
     out["tfidf_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["topk_launches"]["recipe_other"] = (
+        cuda_topk.launches - out["topk_launches"]["recipe_search"])
     del got, ref, M, tix
     svc.model = svc.reranker = None
     torch.cuda.empty_cache()
@@ -6429,7 +6500,7 @@ def main() -> int:
     import numpy as np
 
     from matrix_factorization_tpu_torch.core.config import SGDConfig
-    from matrix_factorization_tpu_torch.ops import _build, cuda_scores, cuda_sgd, ials
+    from matrix_factorization_tpu_torch.ops import _build, cuda_scores, cuda_sgd, cuda_topk, ials
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
     t_start = time.perf_counter()
@@ -6452,9 +6523,9 @@ def main() -> int:
     spilled = [k for k in ptxas if k[2] and any(
         n in k[0] for n in ("score_stream", "score_tile", "gj_inverse",
                             "sgd_step_kernel", "step_finish", "segsum",
-                            "apply_"))]
+                            "apply_", "topk_"))]
     check(not spilled, f"the scorer, the GJ leaf, the SGD step, the segment "
-                       f"sum or the apply spills: {spilled}")
+                       f"sum, the apply or the top-k spills: {spilled}")
 
     # -- serving (slice 1) -------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -6477,6 +6548,8 @@ def main() -> int:
 
     timer = Timer(torch)
     rows = phase_kernel_times(torch, rng, SGDConfig, cuda_scores, timer)
+    topk_rows = phase_topk_kernel_times(torch, timer)
+    cuda_topk.reset_launches()
     head = next(r for r in rows if r["B"] == 256 and r["kernel"] == "sigmoid"
                 and r["dtype"] == "float32")
 
@@ -6652,9 +6725,13 @@ def main() -> int:
     spd_worst = max(spd_worst, ease_worst)
     del leaves
     # -- the recipe recommender's serving path at RecipeNLG's catalog --------
+    # top-k kernel launches of the phases since the kernel's timing phase;
+    # the recipe phase resets the counter before its main path
+    topk_launches = {"before_recipe": cuda_topk.launches}
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         recipe = phase_recipe_serve(torch, rng, train1m, tmpdir, args.seed, timer)
     emit(recipe)
+    topk_launches.update(recipe["topk_launches"])
     # -- the batch pipeline at MovieLens-25M -----------------------------------
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         pipeline = phase_pipeline(torch, rng, data3, tmpdir, args.seed)
@@ -6840,6 +6917,22 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": {k: row[k] for k in ("n", "d", "rows")}, "shapes": segsum_rows,
         "family_shapes": [r for r in fam_rows if r["name"] == "segment_sum"]})
+    row = topk_rows[0]
+    topk_launches["after_recipe"] = (cuda_topk.launches
+                                     - topk_launches["recipe_search"]
+                                     - topk_launches["recipe_other"])
+    kernels.append({
+        "name": "topk_select", "route": "cuda",
+        "source": "matrix_factorization_tpu_torch/csrc/topk_select.cu",
+        "replaces": "none: lax.top_k on the TPU",
+        "note": "the tie rule's top-k selection (ops/scoring.py::_select_topk "
+                "on CUDA), one 64-bit key a score, no host sync",
+        "launches": sum(topk_launches.values()),
+        "launches_by_path": topk_launches,
+        "ms": row["ms"], "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "shape": {k: row[k] for k in ("rows", "n", "k")}, "shapes": topk_rows})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

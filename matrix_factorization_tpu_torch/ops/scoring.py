@@ -10,7 +10,9 @@ Counterpart of ``matrix_factorization_tpu/ops/scoring.py``. The whole
   the extension columns are zero for rbf.
 
 On a CUDA device the product and its epilogue are the hand-written
-kernel of ``ops/cuda_scores.py``; on the CPU, its plain version.
+kernel of ``ops/cuda_scores.py``, and the top-k's selection body the
+hand-written kernel of ``ops/cuda_topk.py``; on the CPU, their plain
+versions.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from matrix_factorization_tpu_torch.core.config import SGDConfig
-from matrix_factorization_tpu_torch.ops import cuda_scores
+from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_topk
 from matrix_factorization_tpu_torch.utils.profiling import span
 
 
@@ -38,8 +40,8 @@ def score_catalog(cfg: SGDConfig, mu: torch.Tensor, pu: torch.Tensor,
 
 
 # score blocks up to this size take the sort body of ``stable_topk``,
-# larger ones the selection body; a row of the selection body whose cut
-# ties more than ``SELECT_MAX_TIED`` scores is sorted whole
+# larger ones the selection body; a row of the plain selection body whose
+# cut ties more than ``SELECT_MAX_TIED`` scores is sorted whole
 # (``tools/time_topk.py``)
 SORT_MAX_SCORES = 1 << 22
 SELECT_MAX_TIED = 4096
@@ -63,6 +65,18 @@ def _order(vals: torch.Tensor, idx: torch.Tensor):
 
 
 def _select_topk(s: torch.Tensor, k: int):
+    """``stable_topk`` of (rows, n) scores by selection. A CUDA tensor
+    with k up to ``cuda_topk.MAX_K`` launches the hand-written kernel
+    (``ops/cuda_topk.py``): one 64-bit key a score makes the rule's order
+    total, so it takes no tie test and never syncs the host. Any other
+    tensor or a wider k takes ``_plain_select_topk``, the kernel's plain
+    version."""
+    if s.device.type == "cuda" and k <= cuda_topk.MAX_K:
+        return cuda_topk.cuda_select_topk(s.contiguous(), k)
+    return _plain_select_topk(s, k)
+
+
+def _plain_select_topk(s: torch.Tensor, k: int):
     """``stable_topk`` of (rows, n) scores by ``torch.topk``, whose order
     among ties is unstated. Its pick is the rule's where no more than k
     scores lie at or above the k-th (IEEE compared, a NaN counting as
@@ -95,10 +109,10 @@ def stable_topk(scores: torch.Tensor, k: int):
     counts as ``0.0``; a NaN ranks first. ``k`` is clamped to the axis.
 
     Blocks of up to ``SORT_MAX_SCORES`` scores take ``_sort_topk``, larger
-    ones ``_select_topk``: on the H100 the sort wins at one row of 2.2M
-    scores and at small blocks, the selection at 60 rows and more
-    (``tools/time_topk.py``). f32 scores (f16 / bf16 widen exactly);
-    other dtypes raise."""
+    ones ``_select_topk`` (on CUDA a hand-written kernel): on the H100
+    the sort won at one row of 2.2M scores and at small blocks, the torch
+    selection at 60 rows and more (``tools/time_topk.py``). f32 scores
+    (f16 / bf16 widen exactly); other dtypes raise."""
     if scores.dtype in (torch.float16, torch.bfloat16):
         vals, idx = stable_topk(scores.float(), k)
         return vals.to(scores.dtype), idx

@@ -155,7 +155,20 @@ def search_topk_batch(
         q = q.to(emb.device)
     vals, idx = dense_topk(emb, q, min(k, emb.shape[0]))
     with span("search.fetch"):
-        return vals.cpu().numpy(), idx.cpu().numpy()
+        return _host_arrays(vals, idx)
+
+
+def _host_arrays(*tensors) -> Tuple[np.ndarray, ...]:
+    """Host arrays of the tensors. From a CUDA device: each copied into
+    pinned host memory without blocking, then one wait for the stream, so
+    that the host waits once for the call's work and its copies."""
+    if tensors[0].device.type != "cuda":
+        return tuple(t.cpu().numpy() for t in tensors)
+    out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for o, t in zip(out, tensors):
+        o.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return tuple(o.numpy() for o in out)
 
 
 # -- the row-sharded dense search ---------------------------------------------

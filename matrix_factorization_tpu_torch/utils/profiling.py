@@ -56,11 +56,13 @@ Search (``retrieval/search.py``, ``ops/scoring.py``):
 * ``search.gemm`` — one row block's ``q @ emb.T`` in ``dense_topk``;
 * ``topk.sort`` / ``topk.select`` — the body ``stable_topk`` takes for a
   block (the whole-row sort, or the selection), after its ``search.gemm``;
-* ``topk.sync`` — ``_select_topk``'s ``nonzero()``: the host's wait for
-  the block's count of rows tied across the cut, inside ``topk.select``;
-* ``topk.ties`` — ``_select_topk``'s tie branch, inside ``topk.select``;
-  entered only when a block has a row tied across the cut, so its count
-  is the count of such blocks;
+* ``topk.sync`` — ``_plain_select_topk``'s ``nonzero()``: the host's wait
+  for the block's count of rows tied across the cut, inside
+  ``topk.select``; only off CUDA (the CUDA kernel of ``ops/cuda_topk.py``
+  has no tie test and never syncs);
+* ``topk.ties`` — ``_plain_select_topk``'s tie branch, inside
+  ``topk.select``, off CUDA only; entered only when a block has a row tied
+  across the cut, so its count is the count of such blocks;
 * ``search.fetch`` — ``dense_topk``'s ``torch.cat`` of the blocks' answers,
   and ``search_topk_batch``'s copy of them to host arrays (two a call);
 * ``search.answer`` — ``search_topk_pos``'s ``(pos, item_id, score)`` list.

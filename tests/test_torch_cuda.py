@@ -1003,20 +1003,38 @@ def test_dense_search_on_cuda_matches_host_f64(cuda, B):
     assert [r[0] for r in rows] == [3, 7, 500]
 
 
-@pytest.mark.parametrize("body", ["_sort_topk", "_select_topk",
-                                  "_select_topk_sorting_ties"])
-@pytest.mark.parametrize("scores", ["small_ints", "signed_zeros", "nans",
-                                    "steps_wide"])
+def _rule_positions(s, k):
+    """Each row's first k positions under the tie rule, by ``np.lexsort``:
+    a NaN first (above ``+inf``), then score descending (``-0.0`` as
+    ``0.0``), then position ascending."""
+    nan = np.isnan(s)
+    neg = np.where(nan, 0.0, -(s.astype(np.float64) + 0.0))
+    pos = np.arange(s.shape[1])
+    return np.stack([np.lexsort((pos, neg[r], ~nan[r]))[:k]
+                     for r in range(len(s))])
+
+
+TIE_CASES = ["small_ints", "signed_zeros", "nans", "steps_wide", "infs",
+             "all_equal"]
+
+
+@pytest.mark.parametrize("body", ["_sort_topk", "_plain_select_topk",
+                                  "_plain_select_topk_sorting_ties",
+                                  "_select_topk"])
+@pytest.mark.parametrize("scores", TIE_CASES)
 def test_stable_topk_bodies_on_cuda_are_the_tie_rule(cuda, scores, body,
                                                      monkeypatch):
-    """Both bodies of ``ops/scoring.py::stable_topk`` on the card against
+    """The bodies of ``ops/scoring.py::stable_topk`` on the card against
     ``np.lexsort`` (score descending, then position ascending, a NaN
-    first), exactly: ties inside the k and at the cut, ``-0.0`` beside
-    ``0.0``, NaNs, and rows wider than a sort's small-segment path."""
-    from matrix_factorization_tpu_torch.ops import scoring
+    first), exactly: the sort, the torch selection (with its tie branch's
+    wider top-k, and its whole-row sort) and ``_select_topk``, which on
+    the card is the hand-written kernel of ``ops/cuda_topk.py``. Ties
+    inside the k and at the cut, ``-0.0`` beside ``0.0``, NaNs, ``+inf``
+    and ``-inf`` beside NaNs, rows whose every score is equal, and rows
+    wider than a sort's small-segment path."""
+    from matrix_factorization_tpu_torch.ops import cuda_topk, scoring
 
-    rng = np.random.default_rng(["small_ints", "signed_zeros", "nans",
-                                 "steps_wide"].index(scores))
+    rng = np.random.default_rng(TIE_CASES.index(scores))
     B, n = (6, 300_001) if scores == "steps_wide" else (9, 4_099)
     s = rng.integers(-3, 4, (B, n)).astype(np.float32)
     if scores == "steps_wide":
@@ -1025,16 +1043,95 @@ def test_stable_topk_bodies_on_cuda_are_the_tie_rule(cuda, scores, body,
         s[(s == 0) & (rng.random((B, n)) < 0.5)] = -0.0
     if scores == "nans":
         s[rng.random((B, n)) < 0.01] = np.nan
-    if body == "_select_topk_sorting_ties":
+    if scores == "infs":
+        r = rng.random((B, n))
+        s[r < 0.004] = np.inf
+        s[(r >= 0.004) & (r < 0.3)] = -np.inf
+        s[r > 0.997] = np.nan
+        s[1] = -np.inf  # a row of -inf alone
+    if scores == "all_equal":
+        s[:] = 0.25
+        s[2] = -0.0
+        s[3] = np.nan
+    if body == "_plain_select_topk_sorting_ties":
         monkeypatch.setattr(scoring, "SELECT_MAX_TIED", 0)
-        body = "_select_topk"
-    key = np.where(np.isnan(s), -np.inf, -(s + 0.0))
+        body = "_plain_select_topk"
+    before = cuda_topk.launches
     for k in (1, 10, 50):
         v, i = getattr(scoring, body)(torch.from_numpy(s).cuda(), k)
-        want = np.stack([np.lexsort((np.arange(n), row))[:k] for row in key])
+        want = _rule_positions(s, k)
         np.testing.assert_array_equal(i.cpu().numpy(), want)
         np.testing.assert_array_equal(v.cpu().numpy(),
                                       np.take_along_axis(s, want, 1))
+    assert cuda_topk.launches == before + (3 if body == "_select_topk" else 0)
+
+
+# (rows, n, k, scores): the selection body's blocks on the main paths
+# (dense_topk's 60-row blocks and 16-row tail over RecipeNLG's 2,231,142
+# items, at k 100 and the service's candidate_k cap 500), one row block
+# past an int32 of scores' worth of chunking, k = n, k = 1, and the
+# kernel's largest k and one past it (which takes the torch body)
+SELECT_SHAPES = [
+    (60, 2_231_142, 100, "normal"), (60, 2_231_142, 100, "steps"),
+    (60, 2_231_142, 500, "normal"), (16, 2_231_142, 100, "normal"),
+    (16, 2_231_142, 500, "steps"), (2, 2_500_000, 100, "normal"),
+    (8_192, 1_024, 1_024, "normal"), (60, 2_231_142, 1, "steps"),
+    (16, 2_231_142, 1_024, "normal"), (16, 2_231_142, 1_025, "normal"),
+]
+
+
+@pytest.mark.parametrize("rows,n,k,scores", SELECT_SHAPES)
+def test_select_kernel_is_the_plain_body_bit_for_bit(cuda, rows, n, k, scores):
+    """``_select_topk`` on the card (the kernel for k up to
+    ``cuda_topk.MAX_K``, the torch body itself past it) against the torch selection
+    body on the same scores: values and positions bitwise equal, a second
+    run bitwise equal to the first, one launch of the pair a call, and no
+    host sync inside the call (``set_sync_debug_mode("error")``). "steps"
+    rounds the scores to 1/64, so that ties straddle the cuts."""
+    from matrix_factorization_tpu_torch.ops import cuda_topk, scoring
+
+    g = torch.Generator(device="cuda").manual_seed(rows * 7 + k)
+    s = torch.randn((rows, n), generator=g, device="cuda")
+    if scores == "steps":
+        s = torch.round(s * 64) / 64
+    want = scoring._plain_select_topk(s, k)
+    fits = k <= cuda_topk.MAX_K
+    before = cuda_topk.launches
+    torch.cuda.synchronize()
+    # the kernel's call never syncs; the torch body past MAX_K does (its
+    # tie test)
+    torch.cuda.set_sync_debug_mode("error" if fits else "default")
+    try:
+        got = scoring._select_topk(s, k)
+        again = scoring._select_topk(s, k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cuda_topk.launches == before + (2 if fits else 0)
+    for a, b in ((got, want), (again, got)):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert a[0].dtype == torch.float32 and a[1].dtype == torch.int64
+
+
+def test_select_kernel_wrapper_refuses_what_it_does_not_take(cuda):
+    """``cuda_select_topk`` launches the kernel or raises: a non-f32, a
+    non-contiguous, a CPU or a 1-D tensor, and a k past ``MAX_K`` or the
+    row, are refused before any launch."""
+    from matrix_factorization_tpu_torch.ops import cuda_topk, scoring
+
+    s = torch.randn((8, 5_000), device="cuda")
+    before = cuda_topk.launches
+    for bad, k in ((s.double(), 5), (s.half(), 5), (s[:, ::2], 5),
+                   (s.t(), 5), (s.cpu(), 5), (s[0], 5),
+                   (s, cuda_topk.MAX_K + 1), (s[:, :10].contiguous(), 11)):
+        with pytest.raises(ValueError):
+            cuda_topk.cuda_select_topk(bad, k)
+    assert cuda_topk.launches == before
+    v, i = cuda_topk.cuda_select_topk(s, 0)
+    assert v.shape == i.shape == (8, 0) and cuda_topk.launches == before
+    v, i = cuda_topk.cuda_select_topk(s, 5)
+    assert cuda_topk.launches == before + 1
+    want = scoring._plain_select_topk(s, 5)
+    assert torch.equal(v, want[0]) and torch.equal(i, want[1])
 
 
 def test_tfidf_blocks_on_cuda_match_scipy(cuda):

@@ -1,10 +1,11 @@
 """The launch plans of the port's redesigned kernels, on the CPU.
 
 ``ops/cuda_scores.py::score_plan``, ``ops/cuda_spd.py::gj_plan``,
-``ops/cuda_sgd.py::step_plan`` and ``apply_plan``, and
-``ops/segment_sum.py::segsum_plan`` decide in Python how
-``csrc/score_catalog.cu``, ``csrc/spd_gj.cu``, ``csrc/sgd_step.cu`` and
-``csrc/segment_sum.cu`` cover a call; the kernels refuse a plan that does
+``ops/cuda_sgd.py::step_plan`` and ``apply_plan``,
+``ops/segment_sum.py::segsum_plan`` and ``ops/cuda_topk.py::select_plan``
+decide in Python how ``csrc/score_catalog.cu``, ``csrc/spd_gj.cu``,
+``csrc/sgd_step.cu``, ``csrc/segment_sum.cu`` and ``csrc/topk_select.cu``
+cover a call; the kernels refuse a plan that does
 not match what they compute.
 These tests need no GPU: every plan covers its call, fits the card's
 limits, and names a shape the CUDA sources are compiled for.
@@ -15,7 +16,7 @@ from pathlib import Path
 
 import pytest
 
-from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, cuda_spd
+from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, cuda_spd, cuda_topk
 from matrix_factorization_tpu_torch.ops import segment_sum
 
 CSRC = Path(cuda_scores.__file__).resolve().parent.parent / "csrc"
@@ -241,3 +242,42 @@ def test_segsum_plan_covers_every_n(d, mult):
     for bad in ((0, 1), (-3, 1), (10, 0)):
         with pytest.raises(ValueError):
             segment_sum.segsum_plan(*bad)
+
+
+def test_select_plan_names_the_kernels_shapes():
+    src = (CSRC / "topk_select.cu").read_text()
+    assert f"kThreads = {cuda_topk.THREADS};" in src
+    assert f"kCap = {cuda_topk.POOL};" in src
+    assert f"kMaxK = {cuda_topk.MAX_K};" in src
+    # kept keys and one round of 2 float4 loads a thread fit the pool
+    assert cuda_topk.MAX_K + cuda_topk.THREADS * 2 * 4 <= cuda_topk.POOL
+
+
+@pytest.mark.parametrize("k", [1, 10, 100, 500, 1024])
+def test_select_plan_covers_every_call(k):
+    """Every chunk is non-empty, 4-aligned in length, and the chunks cover
+    the row; no chunk is shorter than the plan's floor unless the row is;
+    the blocks of ``dense_topk``'s row blocks over RecipeNLG's catalog
+    (60 rows and the 16-row tail) fill every SM several times. 5 resident
+    blocks an SM is what the occupancy query reports for the kernel's
+    build on an H100."""
+    bps = 5
+    for n in (k, k + 3, 1_024, 16_383, 65_537, 2_231_142, 2_500_000):
+        for rows in (1, 2, 16, 60, 64, 256, 4_096, 100_000):
+            p = cuda_topk.select_plan(rows, n, k, H100_SMS, bps)
+            assert p.chunks >= 1 and p.chunk_len % 4 == 0
+            assert p.chunks * p.chunk_len >= n > (p.chunks - 1) * p.chunk_len
+            assert rows * p.chunks <= 2**31 - 1
+            floor = max(cuda_topk.MIN_CHUNK, cuda_topk.CHUNK_PER_K * k)
+            assert p.chunks == 1 or p.chunk_len >= floor
+            slots = bps * H100_SMS
+            assert p.chunks == 1 or rows * p.chunks <= slots  # one wave
+    for rows in (16, 60):
+        for bps in (3, 4, 6):
+            slots = bps * H100_SMS
+            p = cuda_topk.select_plan(rows, 2_231_142, min(k, 500), H100_SMS, bps)
+            assert slots - rows < rows * p.chunks <= slots
+    for bad in ((0, 10, 1), (4, 0, 1), (4, 10, 11), (4, 5_000, 1_025),
+                (4, 10, 0)):
+        with pytest.raises(ValueError):
+            cuda_topk.select_plan(*bad, H100_SMS, bps)

@@ -224,6 +224,136 @@ def test_stable_topk_is_the_tie_rule(scores, body, monkeypatch):
         scoring.stable_topk(t.double(), 3)
 
 
+# The CUDA selection kernel's 64-bit key (``ops/cuda_topk.py``), modelled
+# in plain PyTorch: ``order_bits`` and ``make_key`` of
+# ``csrc/topk_select.cu``, whose statements
+# ``test_select_kernel_key_model_is_the_sources`` holds to these.
+KEY_SOURCE = {
+    "order_bits": "const uint32_t b = __float_as_uint(f); "
+                  "if ((b & 0x7fffffffu) > 0x7f800000u) return 0xffffffffu; "
+                  "if (b == 0x80000000u) return 0x80000000u; "
+                  "return (b & 0x80000000u) ? ~b : (b | 0x80000000u);",
+    "make_key": "return (static_cast<Key>(order_bits(f)) << 32) | "
+                "(0xffffffffu - static_cast<uint32_t>(pos));",
+}
+
+
+def _kernel_keys(s):
+    """The kernel's keys of (rows, n) f32 scores: the order-preserving
+    integer of the score (every NaN ``0xffffffff``, ``-0.0`` as ``0.0``)
+    above ``0xffffffff`` less the position. Returned as int64 less 2^63,
+    so that int64 order is the kernel's unsigned order."""
+    n = s.shape[-1]
+    b = s.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    hi = torch.where(b >= 0x80000000, b ^ 0xFFFFFFFF, b | 0x80000000)
+    hi = torch.where(b == 0x80000000, 0x80000000, hi)
+    hi = torch.where((b & 0x7FFFFFFF) > 0x7F800000, 0xFFFFFFFF, hi)
+    lo = 0xFFFFFFFF - torch.arange(n, dtype=torch.int64)
+    return (hi - 2**31) * 2**32 + lo
+
+
+def _kernel_key_topk(s, k):
+    """The k largest keys of each row, decoded: the rule's (values,
+    positions) by the kernel's arithmetic."""
+    top = torch.topk(_kernel_keys(s), k, dim=-1, sorted=True).values
+    idx = 0xFFFFFFFF - (top & 0xFFFFFFFF)
+    return s.gather(-1, idx), idx
+
+
+def test_select_kernel_key_model_is_the_sources():
+    """``KEY_SOURCE`` is what ``order_bits`` and ``make_key`` in
+    ``csrc/topk_select.cu`` say, statement for statement (comments and
+    spacing aside): a change to the kernel's key fails here until the
+    model follows it."""
+    import re
+    from pathlib import Path
+
+    src = (Path(scoring.__file__).resolve().parent.parent / "csrc"
+           / "topk_select.cu").read_text()
+    for name, want in KEY_SOURCE.items():
+        m = re.search(name + r"\([^)]*\) \{\n(.*?)\n\}", src, re.S)
+        assert m, f"no {name} in topk_select.cu"
+        body = " ".join(re.sub(r"//[^\n]*", "", m.group(1)).split())
+        assert body == want, f"{name}: {body}"
+
+
+def _rule_positions(s, k):
+    """Each row's first k positions under the tie rule by ``np.lexsort``: a
+    NaN first (above ``+inf``), then score descending (``-0.0`` as
+    ``0.0``), then position ascending."""
+    nan = np.isnan(s)
+    neg = np.where(nan, 0.0, -(s.astype(np.float64) + 0.0))
+    pos = np.arange(s.shape[1])
+    return np.stack([np.lexsort((pos, neg[r], ~nan[r]))[:k]
+                     for r in range(len(s))])
+
+
+@pytest.mark.parametrize("scores", ["normal_ties", "small_ints", "signed_zeros",
+                                    "nans", "infs", "all_equal"])
+def test_select_kernel_key_is_the_tie_rule(scores):
+    """The plain model of the CUDA selection kernel's 64-bit key
+    (``_kernel_keys``, decoded by ``_kernel_key_topk``)
+    against ``np.lexsort`` and against the torch selection body on the
+    same scores, for every k from 0 to the row: ties inside the k and at
+    the cut, ``-0.0`` beside ``0.0``, NaNs of both signs above ``+inf``,
+    ``-inf``, and rows whose every score is equal. The keys of a row are
+    unique, so their order is total."""
+    rng = np.random.default_rng(["normal_ties", "small_ints", "signed_zeros",
+                                 "nans", "infs", "all_equal"].index(scores))
+    B, n = 6, 41
+    s = rng.integers(-3, 4, (B, n)).astype(np.float32)
+    if scores == "normal_ties":
+        s = rng.normal(size=(B, n)).astype(np.float32)
+        s[1, 5:9] = s[1, 20]
+    if scores == "signed_zeros":
+        s[(s == 0) & (rng.random((B, n)) < 0.5)] = -0.0
+    if scores in ("nans", "infs"):
+        s[rng.random((B, n)) < 0.2] = np.nan
+        s[2] = -np.float32(np.nan)  # NaNs with the sign bit set
+    if scores == "infs":
+        r = rng.random((B, n))
+        s[(r < 0.2) & ~np.isnan(s)] = np.inf
+        s[(r > 0.7) & ~np.isnan(s)] = -np.inf
+        s[4] = -np.inf
+    if scores == "all_equal":
+        s[:] = 1.5
+        s[1] = -0.0
+        s[2] = -np.inf
+    t = torch.from_numpy(s)
+    keys = _kernel_keys(t)
+    assert keys.dtype == torch.int64
+    assert all(len(set(row)) == n for row in keys.tolist())
+    for k in range(n + 1):
+        v, i = _kernel_key_topk(t, k)
+        want = _rule_positions(s, k)
+        np.testing.assert_array_equal(i.numpy(), want)
+        np.testing.assert_array_equal(v.numpy(), np.take_along_axis(s, want, 1))
+        pv, pi = scoring._select_topk(t, k)
+        assert torch.equal(pi, i)
+        np.testing.assert_array_equal(pv.numpy(), v.numpy())
+
+
+def test_select_on_cpu_never_launches_the_kernel():
+    """A CPU tensor takes the torch selection body: ``stable_topk`` of a
+    block just past ``SORT_MAX_SCORES`` and ``_select_topk`` itself count
+    no launch of the CUDA kernel, and its wrapper refuses a CPU tensor."""
+    from matrix_factorization_tpu_torch.ops import cuda_topk
+
+    rng = np.random.default_rng(7)
+    n = scoring.SORT_MAX_SCORES // 2 + 1
+    s = torch.from_numpy(rng.standard_normal((2, n), dtype=np.float32))
+    before = cuda_topk.launches
+    v, i = scoring.stable_topk(s, 10)
+    assert cuda_topk.launches == before
+    want = _kernel_key_topk(s, 10)
+    assert torch.equal(i, want[1]) and torch.equal(v, want[0])
+    scoring._select_topk(s[:, :100], 5)
+    assert cuda_topk.launches == before
+    with pytest.raises(ValueError):
+        cuda_topk.cuda_select_topk(s, 5)
+    assert cuda_topk.launches == before
+
+
 @pytest.mark.parametrize("kernel", ["linear", "sigmoid", "rbf"])
 def test_kernel_forwards_match_jax(kernel):
     rng = np.random.default_rng(6)

@@ -1,25 +1,28 @@
 #!/usr/bin/env python3
 """Time the bodies of the port's tie-rule top-k on one CUDA GPU.
 
-    python3 tools/time_topk.py [--out FILE] [--seed N]
+    python3 tools/time_topk.py [--out FILE] [--seed N] [--shapes A,B]
 
 Every top-k of the port (``ops/scoring.py::stable_topk``) orders by
-score descending, then by position ascending. Three bodies give that
+score descending, then by position ascending. Four bodies give that
 order:
 
 * ``sort`` (``scoring._sort_topk``): a stable ``torch.sort`` of whole
   rows, then their heads;
-* ``select`` (``scoring._select_topk``): ``torch.topk`` of the scores,
-  its pick kept on rows where no tie straddles the cut, the tied scores
-  counted on the others, then the k ordered by score and position;
+* ``select`` (``scoring._plain_select_topk``): ``torch.topk`` of the
+  scores, its pick kept on rows where no tie straddles the cut, the tied
+  scores counted on the others, then the k ordered by score and position;
 * ``key``: ``torch.topk`` of a 64-bit key, the score's order-preserving
-  integer above the reversed position (the port's body before
-  ``_select_topk``, kept here for comparison).
+  integer above the reversed position, held in memory (the port's body
+  before the torch selection, kept here for comparison);
+* ``kernel`` (``scoring._select_topk`` on the card, k up to
+  ``cuda_topk.MAX_K``): the hand-written kernel pair of
+  ``csrc/topk_select.cu``, which forms the same key in registers.
 
 ``stable_topk`` takes ``sort`` up to ``scoring.SORT_MAX_SCORES`` scores
-and ``select`` above; it is timed too.
+and ``kernel`` above; it is timed too.
 
-At each shape the three and ``stable_topk`` are first held equal
+At each shape the four and ``stable_topk`` are first held equal
 (``torch.equal`` of values and positions), then timed in turns with ``chip_smoke.Timer`` (device
 time, L2 flushed), beside ``torch.topk`` of the scores alone (the
 library call, whose order among ties is unstated). The shapes are those
@@ -57,6 +60,9 @@ SHAPES = (
     ("recipe_search_b1_k10", 1, 2_231_142, 10, "normal"),
     ("recipe_search_b1_k500", 1, 2_231_142, 500, "normal"),
     ("recipe_batch_block_b60_k10", 60, 2_231_142, 10, "normal"),
+    ("recipe_batch_block_b60_k100", 60, 2_231_142, 100, "normal"),
+    ("recipe_batch_tail_b16_k100", 16, 2_231_142, 100, "normal"),
+    ("recipe_batch_block_b60_k500", 60, 2_231_142, 500, "normal"),
     ("recipe_batch_block_steps_b60_k10", 60, 2_231_142, 10, "steps"),
     ("tfidf_batch_b64_k10", 64, 2_231_142, 10, "sparse"),
     ("tfidf_ties_at_cut_b64_k10", 64, 2_231_142, 10, "ties"),
@@ -85,6 +91,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shapes", default=None,
+                    help="comma-separated shape names (default: all, and "
+                         "the dense_topk rows)")
     args = ap.parse_args()
 
     import torch
@@ -92,7 +101,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_topk: no CUDA device is available", file=sys.stderr)
         return 1
-    from matrix_factorization_tpu_torch.ops import scoring
+    from matrix_factorization_tpu_torch.ops import cuda_topk, scoring
     from matrix_factorization_tpu_torch.ops.scoring import stable_topk
     from matrix_factorization_tpu_torch.retrieval import search
 
@@ -114,11 +123,16 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     timer = cs.Timer(torch)
     rules = {"stable_topk": stable_topk, "sort": scoring._sort_topk,
-             "select": scoring._select_topk,
-             "key": lambda s, k: key_body(torch, s, k)}
+             "select": scoring._plain_select_topk,
+             "key": lambda s, k: key_body(torch, s, k),
+             "kernel": scoring._select_topk}
     bodies = {**rules, "torch_topk": lambda s, k: torch.topk(s, k, dim=-1)}
+    wanted = set(args.shapes.split(",")) if args.shapes else None
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     for name, rows, n, k, kind in SHAPES:
+        if wanted is not None and name not in wanted:
+            continue
         s = torch.randn((rows, n), generator=g, device="cuda")
         if kind == "steps":
             s = torch.round(s * 64) / 64
@@ -138,13 +152,18 @@ def main() -> int:
             times[b].append(timer.ms(lambda: bodies[b](s, k), reps=10))
         for b, t in times.items():
             row[f"{b}_ms"] = min(t)
-        row["bytes_bound_ms"] = rows * n * 4 / cs.HBM_BYTES_PER_S * 1e3
-        row["fastest_rule_body"] = min(("sort", "select", "key"),
+        row["kernel_chunks"] = cuda_topk.select_plan(
+            rows, n, k, n_sms, cuda_topk._blocks_per_sm()).chunks
+        row["bytes_bound_ms"] = (rows * n * 4 + rows * k * 12) / cs.HBM_BYTES_PER_S * 1e3
+        row["fastest_rule_body"] = min(("sort", "select", "key", "kernel"),
                                        key=lambda b: row[f"{b}_ms"])
         emit(row)
         del s, want
         torch.cuda.empty_cache()
 
+    if wanted is not None:
+        emit({"phase": "done", "nvidia_smi": smi})
+        return 0
     # the dense search end to end with each body, and the product alone
     n, dim = 2_231_142, 512
     emb = torch.randn((n, dim), generator=g, device="cuda")
