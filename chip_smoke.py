@@ -400,9 +400,10 @@ import traceback
 from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 on the CUDA
-# cores, bf16 on the tensor cores
+# cores, bf16 and int8 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+INT8_OPS_PER_S = 1979e12
 N_USERS, N_ITEMS, N_FACTORS = 162_000, 59_392, 200  # config 3
 
 
@@ -2487,11 +2488,17 @@ def phase_segsum_kernel_times(torch, rng, train, timer):
 CF4 = {"n_neighbors": 50, "block": 4096, "predict_pairs": 1_000_000,
        "oracle_columns": 64, "oracle_pairs": 4096}
 # EASE at MovieLens-1M shape (the config-2 ratings as implicit feedback,
-# the JAX model's default lam) and at the item budget, as
-# benchmarks/ease_bench.py::run_combo makes it
+# the JAX model's default lam) and at the JAX package's one-rank item budget
+# (16,384; the port's on a CUDA card is larger), as
+# benchmarks/ease_bench.py::run_combo makes it, each pair once
 EASE_ML1M = {"reg": 250.0, "users": 256, "k": 10}
 EASE_BUDGET = {"n_users": 100_000, "n_items": 16_384, "per_user": 100,
                "reg": 100.0, "oracle_columns": 256}
+# The int8 gram at the Million Song Dataset's width (41,140 items, 41,144
+# padded; ~59 plays a user, each pair once): one chunk of the int8 path's
+# 16,384 users, and a prefix of 65,536 users (four chunks)
+EASE_GRAM_TIMED = {"n_items": 41_140, "per_user": 59,
+                   "users": ((16_384, "chunk"), (65_536, "prefix"))}
 # parallel_gram's Newton-Schulz at the budget, cut from JAX's 100 steps for
 # time: in f32 its residual stalls at 5.7e-5, above the stop test's 1e-5,
 # and all 100 ran in PR 16's runs (35.5 s); B is held to Schur's after it
@@ -2774,16 +2781,19 @@ def phase_ease(torch, rng, train, tmpdir, seed):
     feedback, lam 250): ``fit`` with the GJ count zeroed just before and
     read just after, ``B`` against float64 numpy EASE (atol 1e-4), the
     top-10 of 256 users against the float64 top-10 where separated by
-    more than 1e-5, a checkpoint round trip; then at the item budget
-    (16,384 items, 100,000 users x 100 interactions) ``item_gram`` and
-    ``ease_weights`` timed apart with peak memory, held by the closed
-    form's identity ``(G + lam I)(I - B) = diag(1 / diag P)`` on 256
-    columns. Returns (out, GJ launches, the recorded leaf inputs)."""
+    more than 1e-5, a checkpoint round trip; then at the JAX package's
+    one-rank budget (16,384 items, 100,000 users x 100 distinct
+    interactions) ``item_gram`` and ``ease_weights`` timed apart with peak
+    memory, held by the closed form's identity ``(G + lam I)(I - B) =
+    diag(1 / diag P)`` on 256 columns. Both grams are binary with no
+    repeated pair, so both take the int8 gram: its tile-kernel count is
+    zeroed before each and must rise. Returns (out, GJ launches, the int8
+    gram's launches, the recorded leaf inputs)."""
     import numpy as np
     import pandas as pd
 
     from matrix_factorization_tpu_torch import EASE, load_model, save_model
-    from matrix_factorization_tpu_torch.ops import cuda_spd
+    from matrix_factorization_tpu_torch.ops import cuda_gram, cuda_spd
     from matrix_factorization_tpu_torch.ops import ease as ease_ops
     from matrix_factorization_tpu_torch.ops.spd import exact_f32
 
@@ -2795,11 +2805,14 @@ def phase_ease(torch, rng, train, tmpdir, seed):
     X = pd.DataFrame({"user_id": u, "item_id": i})
     torch.cuda.reset_peak_memory_stats()
     cuda_spd.reset_launches()
+    cuda_gram.reset_launches()
     with LeafRecorder() as rec_ml1m:
         model, res["fit_seconds"] = timed(
             torch, lambda: EASE(reg=lam).fit(X, pd.Series(r)))
     launches = {"ml1m": cuda_spd.launches}
+    gram_launches = {"ml1m": cuda_gram.launches}
     check(launches["ml1m"] > 0, "EASE fit did not launch the GJ leaf")
+    check(gram_launches["ml1m"] > 0, "EASE fit did not take the int8 gram")
     res["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
     res["leaf_d"] = sorted(rec_ml1m.inputs)
     ud = model.user_vocab.encode(u)
@@ -2829,14 +2842,14 @@ def phase_ease(torch, rng, train, tmpdir, seed):
 
     cfg = EASE_BUDGET
     res = out["budget"] = dict(cfg)
-    gen = np.random.default_rng(seed)
-    n = cfg["n_users"] * cfg["per_user"]
-    bu = np.repeat(np.arange(cfg["n_users"], dtype=np.int64), cfg["per_user"])
-    bi = gen.integers(0, cfg["n_items"], n).astype(np.int64)
-    w = np.ones(n, np.float32)
+    bu, bi, w, gen = ease_budget_data(seed)
+    res["pairs"] = len(bu)
     torch.cuda.reset_peak_memory_stats()
+    cuda_gram.reset_launches()
     G, res["gram_seconds"] = timed(torch, lambda: ease_ops.item_gram(
         bu, bi, w, cfg["n_users"], cfg["n_items"], device="cuda"))
+    gram_launches["at_16384"] = cuda_gram.launches
+    check(gram_launches["at_16384"] > 0, "EASE at 16k did not take the int8 gram")
     res["gram_peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
     torch.cuda.reset_peak_memory_stats()
     cuda_spd.reset_launches()
@@ -2864,8 +2877,118 @@ def phase_ease(torch, rng, train, tmpdir, seed):
     del G, Bt, A, IB, M
     torch.cuda.empty_cache()
     out["launches"] = launches
+    out["gram_launches"] = gram_launches
     leaves = {"ease_ml1m": rec_ml1m.inputs, "ease_budget": rec_budget.inputs}
-    return out, launches, leaves
+    return out, launches, gram_launches, leaves
+
+
+def unique_plays(gen, n_users, n_items, per_user, skew=1.0):
+    """(users, items) int64 of ``per_user`` seeded draws a user, each
+    (user, item) pair once (repeats dropped, so a user keeps a few less);
+    ``skew`` > 1 draws low item ids more often."""
+    import numpy as np
+
+    u = np.repeat(np.arange(n_users, dtype=np.int64), per_user)
+    i = (n_items * gen.random(len(u)) ** skew).astype(np.int64)
+    key = np.unique(u * n_items + i)
+    return key // n_items, key % n_items
+
+
+def library_int8_gram(torch, pack):
+    """``cuda_gram.int8_gram``'s steps with the library's product in place
+    of the tile kernel: each chunk's slab by the plain version, the whole
+    ``Dt Dt^T`` by ``torch._int_mm`` (cuBLASLt's int8 GEMM) into a scratch
+    int32 matrix added to the int32 gram, then the gram as f32."""
+    from matrix_factorization_tpu_torch.ops import cuda_gram
+
+    n, rows = pack.ip, cuda_gram.slab_rows(pack.ip)
+    G = torch.zeros((n, n), dtype=torch.int32, device="cuda")
+    prod = torch.empty((rows, rows), dtype=torch.int32, device="cuda")
+    for s, e in zip(pack.bounds[:-1], pack.bounds[1:]):
+        Dt = cuda_gram.plain_slab(pack.lu[s:e], pack.ii[s:e], pack.ww[s:e], rows,
+                                  pack.cu)
+        torch._int_mm(Dt, Dt.T, out=prod)
+        G.add_(prod[:n, :n])
+    return G.float()
+
+
+def phase_ease_gram_kernel_time(torch, timer, seed):
+    """The int8 gram (``ops/cuda_gram.py``, ``csrc/ease_gram.cu``) at the
+    Million Song Dataset's width, ``EASE_GRAM_TIMED``: for one chunk of
+    16,384 users and a 65,536-user prefix, ``gram_scan`` of the int8 pack
+    equal bit for bit to ``gram_scan`` of the exact-f32 pack of the same
+    pairs and to :func:`library_int8_gram`; then device times of the three
+    (``ms``, ``plain_ms`` the f32 scan, ``library_ms``), beside the int8
+    bound (the symmetric half of the slab product at 1,979 TOP/s, or its
+    bytes at HBM's rate); and on the chunk's slab the tile kernel alone
+    (``tile_ms``) against ``torch._int_mm`` with its add into the int32
+    gram (``int_mm_ms``). Returns (rows, tile-kernel launches)."""
+    import numpy as np
+
+    from matrix_factorization_tpu_torch.ops import cuda_gram
+    from matrix_factorization_tpu_torch.ops import ease as ease_ops
+
+    cfg = EASE_GRAM_TIMED
+    n_items = cfg["n_items"]
+    gen = np.random.default_rng(seed)
+    n_max = max(n for n, _ in cfg["users"])
+    u_all, i_all = unique_plays(gen, n_max, n_items, cfg["per_user"], skew=2.0)
+    cuda_gram.reset_launches()
+    rows_out = []
+    for n_users, name in cfg["users"]:
+        keep = u_all < n_users
+        u, i = u_all[keep], i_all[keep]
+        w = np.ones(len(u), np.float32)
+        p8 = ease_ops.gram_pack(u, i, w, n_users, n_items, device="cuda")
+        check(p8.tiles is not None, f"the int8 gram's pack at {name} took the f32 path")
+        lu, ii, ww, bounds = ease_ops._gram_chunks(u, i, w, n_users, 2048)
+        pf = ease_ops.GramPack(*(torch.from_numpy(x).cuda() for x in (lu, ii, ww)),
+                               tuple(int(b) for b in bounds), p8.ip, 2048, None)
+        Gf = ease_ops.gram_scan(pf)
+        equal = torch.equal(ease_ops.gram_scan(p8), Gf)
+        check(equal and torch.equal(library_int8_gram(torch, p8), Gf),
+              f"the int8 gram at {name} ({n_users} users x {n_items} items) "
+              f"differs from the exact-f32 scan or the library's product")
+        del Gf
+        torch.cuda.empty_cache()
+        t_ops = n_users * n_items * (n_items + 1.0) / INT8_OPS_PER_S
+        t_bytes = (n_users * n_items + 4.0 * n_items * n_items) / HBM_BYTES_PER_S
+        big = n_users > cfg["users"][0][0]
+        row = {"shape": name, "users": n_users, "n_items": n_items, "ip": p8.ip,
+               "pairs": len(u), "chunks": len(p8.bounds) - 1, "equal": equal,
+               "ms": timer.ms(lambda: ease_ops.gram_scan(p8), reps=5 if big else 10),
+               "plain_ms": timer.ms(lambda: ease_ops.gram_scan(pf), reps=2,
+                                    warmup=1),
+               "library_ms": timer.ms(lambda: library_int8_gram(torch, p8),
+                                      reps=5 if big else 10),
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "ops" if t_ops >= t_bytes else "bytes"}
+        if not big:
+            lib, cu = cuda_gram._library(), p8.cu
+            rows = cuda_gram.slab_rows(p8.ip)
+            Dt = cuda_gram.plain_slab(p8.lu, p8.ii, p8.ww, rows, cu)
+            G = torch.zeros((p8.ip, p8.ip), dtype=torch.int32, device="cuda")
+            prod = torch.empty((rows, rows), dtype=torch.int32, device="cuda")
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def tiles():
+                cuda_gram._check(lib, lib.mf_ease_gram_tiles(
+                    Dt.data_ptr(), cu, cu // cuda_gram.K_TILE, p8.tiles.data_ptr(),
+                    p8.tiles.shape[0], G.data_ptr(), p8.ip, stream), "ease_gram_tiles")
+
+            def int_mm():
+                torch._int_mm(Dt, Dt.T, out=prod)
+                G.add_(prod[:p8.ip, :p8.ip])
+
+            row["tile_ms"] = timer.ms(tiles)
+            row["int_mm_ms"] = timer.ms(int_mm)
+            del Dt, G, prod
+        row["roofline"] = row["bound_ms"] / row["ms"]
+        rows_out.append(row)
+        emit({"phase": "ease_gram_kernel_time", **row})
+        del p8, pf
+        torch.cuda.empty_cache()
+    return rows_out, cuda_gram.launches
 
 
 def phase_ease_leaf_times(torch, leaves, timer):
@@ -5691,16 +5814,15 @@ def ease_identity_err(torch, G, B, reg, cols):
 
 
 def ease_budget_data(seed):
-    """EASE's budget interactions (``phase_ease``): 100,000 users x 100
-    seeded items of 16,384, binary."""
+    """EASE's interactions at the JAX package's one-rank budget
+    (``phase_ease``): 100,000 users x 100 seeded items of 16,384, binary,
+    each pair once (a repeat would send the gram to the f32 path)."""
     import numpy as np
 
     cfg = EASE_BUDGET
     gen = np.random.default_rng(seed)
-    n = cfg["n_users"] * cfg["per_user"]
-    bu = np.repeat(np.arange(cfg["n_users"], dtype=np.int64), cfg["per_user"])
-    bi = gen.integers(0, cfg["n_items"], n).astype(np.int64)
-    return bu, bi, np.ones(n, np.float32), gen
+    bu, bi = unique_plays(gen, cfg["n_users"], cfg["n_items"], cfg["per_user"])
+    return bu, bi, np.ones(len(bu), np.float32), gen
 
 
 def ml1m_gram_args(train):
@@ -6523,9 +6645,10 @@ def main() -> int:
     spilled = [k for k in ptxas if k[2] and any(
         n in k[0] for n in ("score_stream", "score_tile", "gj_inverse",
                             "sgd_step_kernel", "step_finish", "segsum",
-                            "apply_", "topk_"))]
+                            "apply_", "topk_", "ease_gram"))]
     check(not spilled, f"the scorer, the GJ leaf, the SGD step, the segment "
-                       f"sum, the apply or the top-k spills: {spilled}")
+                       f"sum, the apply, the top-k or the EASE gram spills: "
+                       f"{spilled}")
 
     # -- serving (slice 1) -------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -6716,9 +6839,11 @@ def main() -> int:
     emit(sweep_out)
     segsum_rows = phase_segsum_kernel_times(torch, rng, train1m, timer)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
-        ease_out, ease_launches, leaves = phase_ease(torch, rng, train1m, tmpdir,
-                                                     args.seed)
+        ease_out, ease_launches, gram_launches, leaves = phase_ease(
+            torch, rng, train1m, tmpdir, args.seed)
     emit(ease_out)
+    gram_rows, gram_launches["kernel_time"] = phase_ease_gram_kernel_time(
+        torch, timer, args.seed)
     spd_launches["ease"] = sum(ease_launches.values())
     ease_rows, ease_worst = phase_ease_leaf_times(torch, leaves, timer)
     spd_rows += ease_rows
@@ -6933,6 +7058,21 @@ def main() -> int:
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
         "shape": {k: row[k] for k in ("rows", "n", "k")}, "shapes": topk_rows})
+    row = gram_rows[-1]
+    kernels.append({
+        "name": "ease_gram", "route": "cuda",
+        "source": "matrix_factorization_tpu_torch/csrc/ease_gram.cu",
+        "replaces": "none: XLA's f32 product of user slabs on the TPU "
+                    "(matrix_factorization_tpu/ops/ease.py::item_gram)",
+        "note": "EASE's exact int8 gram (ease_gram_slab/tile/finish_kernel); "
+                "plain_ms is the exact-f32 scan, library_ms the same steps "
+                "with torch._int_mm's whole product in place of the tile kernel",
+        "launches": sum(gram_launches.values()),
+        "launches_by_path": gram_launches, "max_abs_err": 0.0,
+        "ms": row["ms"], "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "shape": {k: row[k] for k in ("users", "ip", "chunks")}, "shapes": gram_rows})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -14,7 +14,16 @@ more than one data rank ``fit`` builds the gram data-parallel
 (``dp_item_gram``) and inverts it with ``ease_weights_sharded`` (the
 Schur recursion below 16,384 items, the row-sharded Newton-Schulz inverse
 from there), under the item budget of the data ranks; on one data rank it
-takes the single-device path, as the JAX model does. The fitted ``B``
+takes the single-device path, as the JAX model does.
+
+On one data rank ``fit`` is two calls of ``ops/ease.py``: ``gram_pack``
+(the host sorts the pairs by user, notes where each user chunk starts and
+puts them on the device) and ``fit_packed`` (the gram's scan, exact on the
+int8 tensor cores of a CUDA card for binary or small-integer weights, then
+the inverse and the closed form). Its item budget is
+``ops/ease.py::device_item_limit``: on a CUDA card as many items as 90% of
+its memory holds at the fit's measured peak for its plays, on the CPU and
+on a mesh the JAX package's tiers. The fitted ``B``
 stays row-sharded over the mesh's first axis (the data axis of
 ``make_mesh``): a rank holds rows ``[lo, hi)`` of it
 (``ops/spd.py::ns_layout``), and scoring sums the ranks' partial
@@ -121,7 +130,8 @@ class EASE(RecommenderBase):
             from matrix_factorization_tpu_torch.parallel.mesh import data_size_of
 
             n_dev = data_size_of(self.mesh)
-        ease_ops.check_item_budget(self.n_items, ease_ops.item_limit(n_dev))
+        ease_ops.check_item_budget(
+            self.n_items, ease_ops.device_item_limit(n_dev, self._device, len(u)))
         if n_dev > 1:
             # the gram goes in as an argument alone, so that the
             # Newton-Schulz path can free it before its steps
@@ -132,9 +142,12 @@ class EASE(RecommenderBase):
                 self.reg, self.mesh)
             self._sharding = "rows"
         else:
-            G = ease_ops.item_gram(u, i, w, self.n_users, self.n_items,
-                                   self.gram_chunk_users, device=self._device)
-            B = ease_ops.ease_weights(G, self.reg)
+            # two calls: the host pack, then the device's scan, inverse
+            # and closed form (the benchmark times the second alone)
+            pack = ease_ops.gram_pack(u, i, w, self.n_users, self.n_items,
+                                      self.gram_chunk_users, device=self._device)
+            B = ease_ops.fit_packed(pack, self.reg)
+            del pack
             self._sharding = None
         self._params = ease_ops.EASEParams(B)
         self._serving_cache = None

@@ -14,21 +14,40 @@ has the closed form
 
 one regularized SPD inverse of the item gram. Serving is ``s_u = x_u B``.
 
-* The gram (:func:`item_gram`) is a sum over user chunks: each chunk's
-  (user, item) pairs are written into a dense ``(chunk_users, I_p)`` slab
-  and ``D^T D`` is added in exact f32 (co-occurrence counts are exact in
-  f32, and the inverse is precision-sensitive).
+* The gram (:func:`item_gram`) is a sum over user chunks, in two calls:
+  :func:`gram_pack` sorts the (user, item, weight) triples by user on the
+  host (an argsort of every pair) and records where each user chunk
+  starts, and
+  :func:`gram_scan` runs the chunks on the device. It takes one of two
+  paths, both exact and equal bit for bit. Where every weight is an
+  integer of magnitude at most 127, no pair repeats and every count is
+  below 2^24 (:func:`int8_exact`), a CUDA device writes each chunk of
+  ``INT8_CHUNK_USERS`` users into an item-major int8 slab and adds its
+  upper tiles of ``D^T D`` to an int32 gram on the tensor cores, then
+  converts it to f32 once (``ops/cuda_gram.py``, the kernels of
+  ``csrc/ease_gram.cu``). Otherwise, and always on the CPU, each chunk's
+  pairs are written into a dense ``(chunk_users, I_p)`` f32 slab and
+  ``D^T D`` is added in exact f32 (co-occurrence counts are exact in f32,
+  and the inverse is precision-sensitive).
 * The inverse (:func:`ease_weights`) is ``ops/spd.py::spd_inverse_scaled``:
   Jacobi scaling, the Schur recursion split at multiples of 8 down to
   leaves of d <= 128, which the Gauss-Jordan leaf inverts (the hand-written
   kernel of ``csrc/spd_gj.cu`` on a CUDA tensor), then one Newton-Schulz
   step. Item padding to a multiple of 8 is exact: pad rows of ``G`` are 0,
   so the pad block of ``P`` is ``(1/lam) I`` and the pad rows and columns
-  of ``B`` are 0.
-* The gram and the inverse hold O(I_p^2) f32 (a few live copies through
-  the recursion); :func:`check_item_budget` refuses catalogs above the
-  item budget of the data ranks (:func:`item_limit`: 16,384 items on one,
-  32,768 on 4 or more, 65,536 on 8 or more, the JAX package's tiers).
+  of ``B`` are 0. :func:`fit_packed` runs the scan, the inverse and the
+  closed form on a pack, the ridge added to the gram in place and the
+  closed form written over ``P``, so that a fit holds at most about
+  ``FIT_PEAK_COPIES`` (I_p, I_p) f32 matrices at once.
+* The gram and the inverse hold O(I_p^2) f32; :func:`check_item_budget`
+  refuses catalogs above the item budget (:func:`device_item_limit`). On
+  one data rank of a CUDA card it is the largest multiple of 8 whose fit
+  peak, ``FIT_PEAK_COPIES * I_p^2 * 4`` bytes above ``PLAY_BYTES`` a play
+  (both measured on the card), fits in ``BUDGET_SHARE`` of the card's
+  memory. This departs from the JAX package, whose tiers were set for a
+  16 GB TPU v5e and which the CPU and the mesh keep (:func:`item_limit`:
+  16,384 items on one data rank, 32,768 on 4 or more, 65,536 on 8 or
+  more).
 * Serving (:func:`history_scores`) writes user histories into a dense
   ``(B, I_p)`` block and scores the catalog with one product.
 
@@ -53,12 +72,14 @@ On a mesh (one process a rank, ``torch.distributed``):
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from matrix_factorization_tpu_torch.core.device import resolve_device
+from matrix_factorization_tpu_torch.ops import cuda_gram
 from matrix_factorization_tpu_torch.ops.scoring import stable_topk
 from matrix_factorization_tpu_torch.ops.spd import (
     _mm,
@@ -68,8 +89,28 @@ from matrix_factorization_tpu_torch.ops.spd import (
     padded_rows,
     spd_inverse_scaled,
 )
+from matrix_factorization_tpu_torch.utils.profiling import span
 
 NS_ITEM_THRESHOLD = 16384  # the Schur recursion below, Newton-Schulz at or above
+INT8_CHUNK_USERS = 16384  # users a slab on the int8 path (its int8 slab at
+# 41,144 items is 0.68 GB; the int32 gram is read and written once a chunk)
+EXACT_COUNT = 1 << 24  # counts below it convert to f32 exactly
+# A one-rank fit's peak on a CUDA card is ``FIT_PEAK_COPIES`` (I_p, I_p) f32
+# matrices (the inverse's; the gram's, one int32 matrix and a slab, is lower)
+# above what stays resident through it, ``PLAY_BYTES`` a play (the pack's two
+# int32 ids and f32 weight, 12, and the model's own state). Measured by
+# ``torch.cuda.max_memory_allocated`` at 571,355 users x 41,144 items and
+# 33,633,450 plays on an H100 (``tools/probe_ease.py --model``): the fit
+# 22,044,183,552 bytes = 3.2555 x 41,144^2 x 4 above 404,018,688 resident
+# (12.01 bytes a play); ``EASE.fit`` in all 22,495,125,504 (13.41 a play).
+# Both rounded up; the card's last tenth (``BUDGET_SHARE``) is left for the
+# CUDA context, cuBLAS's workspace and the caching allocator's slack. A fit at
+# the budget this gives an 80 GB H100 for those plays, 76,328 items, ran there
+# (``tools/probe_ease.py --at-budget``): 76,313,774,592 bytes allocated at its
+# peak, 81,166,073,856 reserved of 85,017,493,504.
+FIT_PEAK_COPIES = 3.26
+PLAY_BYTES = 16
+BUDGET_SHARE = 0.9  # of the card's memory that the item budget fills
 
 
 class EASEParams(NamedTuple):
@@ -93,66 +134,148 @@ def item_limit(n_data: int) -> int:
     return 16384
 
 
+def device_item_limit(n_data: int, device, n_plays: int = 0) -> int:
+    """The item budget of a fit of ``n_plays`` plays on ``n_data`` data
+    ranks whose state lives on ``device``. On one data rank of a CUDA card
+    the largest multiple of 8, I_p, with ``FIT_PEAK_COPIES * I_p^2 * 4 +
+    PLAY_BYTES * n_plays <= BUDGET_SHARE * total_memory`` (a departure from
+    the JAX package's 16,384, which was set for a 16 GB TPU), else
+    :func:`item_limit`'s tiers."""
+    dev = torch.device(device)
+    if n_data > 1 or dev.type != "cuda":
+        return item_limit(n_data)
+    room = (BUDGET_SHARE * torch.cuda.get_device_properties(dev).total_memory
+            - PLAY_BYTES * n_plays)
+    return math.isqrt(max(0, int(room / (4.0 * FIT_PEAK_COPIES)))) // 8 * 8
+
+
 def check_item_budget(n_items: int, item_limit: int = 16384) -> None:
     """Raise before building a gram above the item budget: the gram, the
     inverse and the recursion's temporaries are O(items^2)."""
     if round8(n_items) > item_limit:
         raise ValueError(
             f"EASE at {n_items} items needs O(items^2) device memory; the "
-            f"budget here is {item_limit} items (16,384 on one data rank, "
-            f"32,768 on 4 or more, 65,536 on 8 or more: pass mesh= to raise "
-            f"it). Past it use ImplicitALS, which ranks implicit feedback "
-            f"with O(items x k) memory.")
+            f"budget here is {item_limit} items (on one data rank 16,384 on "
+            f"the CPU and, on a CUDA card, as many as {BUDGET_SHARE:.0%} of "
+            f"its memory holds; 32,768 on 4 or more data ranks, 65,536 on 8 "
+            f"or more: pass mesh= to raise it). Past it use ImplicitALS, "
+            f"which ranks implicit feedback with O(items x k) memory.")
 
 
 def _gram_chunks(u: np.ndarray, i: np.ndarray, w: np.ndarray,
                  n_users: int, chunk_users: int):
-    """Host pack: pairs sorted by user, split at user-chunk boundaries,
-    every chunk's list padded to the longest (a power of two; weight-0
-    pads are inert). Returns (lu, ii, ww), each (n_chunks, P_max): user
-    ids local to the chunk, item ids, weights."""
+    """Host pack: the pairs sorted by user (a stable argsort), split at
+    user-chunk boundaries. Returns (lu, ii, ww, bounds): user ids local to
+    their chunk (int32), item ids (int32), weights (f32), and the
+    (n_chunks + 1,) offsets, chunk c's pairs lying at
+    ``[bounds[c], bounds[c + 1])``. Its size is the pairs', whatever the
+    order of the users."""
     order = np.argsort(u, kind="stable")
-    u, i, w = u[order], i[order], w[order]
+    u = np.asarray(u, np.int64)[order]
     n_chunks = max(1, (n_users + chunk_users - 1) // chunk_users)
-    starts = np.searchsorted(u, np.arange(n_chunks) * chunk_users)
-    ends = np.append(starts[1:], len(u))
-    pmax = max(1, int((ends - starts).max()))
-    pmax = 1 << (pmax - 1).bit_length()
-    lu = np.zeros((n_chunks, pmax), np.int32)
-    ii = np.zeros((n_chunks, pmax), np.int32)
-    ww = np.zeros((n_chunks, pmax), np.float32)
-    for c in range(n_chunks):
-        s, e = starts[c], ends[c]
-        lu[c, : e - s] = u[s:e] - c * chunk_users
-        ii[c, : e - s] = i[s:e]
-        ww[c, : e - s] = w[s:e]
-    return lu, ii, ww
+    bounds = np.searchsorted(u, np.arange(n_chunks + 1) * chunk_users)
+    return ((u % chunk_users).astype(np.int32), np.asarray(i)[order].astype(np.int32),
+            np.asarray(w)[order].astype(np.float32), bounds)
+
+
+class GramPack(NamedTuple):
+    """The host pack of a gram (:func:`gram_pack`): chunk-local user ids,
+    item ids and weights of the pairs sorted by user, on the device; the
+    chunks' offsets into them (host ints, :func:`_gram_chunks`); the padded
+    items, the users a chunk; and for the int8 path the order of its tiles
+    (``None`` on the f32 path)."""
+
+    lu: torch.Tensor
+    ii: torch.Tensor
+    ww: torch.Tensor
+    bounds: tuple
+    ip: int
+    cu: int
+    tiles: Optional[torch.Tensor]
+
+
+def int8_exact(i: np.ndarray, w: np.ndarray, n_items: int) -> bool:
+    """Whether the int8 gram is exact for these pairs, if no pair repeats
+    (:func:`gram_pack` checks that on the device): every weight an integer
+    of magnitude at most 127, and the largest diagonal count, the most any
+    item's plays give ``sum w^2``, below 2^24, which bounds every partial
+    sum of the gram (Cauchy-Schwarz), so that it fits an int32 and converts
+    to f32 exactly."""
+    w = np.asarray(w)
+    if not len(w) or not (np.all(np.abs(w) <= 127) and np.all(w == np.rint(w))):
+        return False
+    diag = np.bincount(np.asarray(i, np.int64), weights=np.square(w.astype(np.float64)),
+                       minlength=n_items)
+    return float(diag.max()) < EXACT_COUNT
+
+
+def _pairs_unique(lu: torch.Tensor, ii: torch.Tensor, ww: torch.Tensor,
+                  bounds, cu: int, ip: int) -> bool:
+    """No (user, item) pair with a nonzero weight repeats: one sort of the
+    pairs' keys on their device."""
+    counts = torch.as_tensor(np.diff(bounds), device=lu.device)
+    chunk = torch.repeat_interleave(torch.arange(len(counts), device=lu.device), counts)
+    key = ((chunk * cu + lu) * ip + ii)[ww != 0].sort().values
+    return not bool((key[1:] == key[:-1]).any())
+
+
+def _pack(u, i, w, n_users: int, ip: int, cu: int, dev) -> GramPack:
+    """:func:`gram_pack` of the users ``[0, n_users)`` at ``ip`` padded
+    items, ``cu`` users a chunk on the f32 path."""
+    def put(c):
+        lu, ii, ww, bounds = _gram_chunks(u, i, w, n_users, c)
+        return (*(torch.from_numpy(a).to(dev) for a in (lu, ii, ww)),
+                tuple(int(b) for b in bounds))
+
+    if dev.type == "cuda" and int8_exact(i, w, ip):
+        c8 = min(INT8_CHUNK_USERS,
+                 -(-max(n_users, 1) // cuda_gram.K_TILE) * cuda_gram.K_TILE)
+        packed = put(c8)
+        if _pairs_unique(*packed, c8, ip):
+            tiles = torch.from_numpy(cuda_gram.tile_order(ip)).to(dev)
+            return GramPack(*packed, ip, c8, tiles)
+        del packed
+    return GramPack(*put(cu), ip, cu, None)
+
+
+def gram_pack(u: np.ndarray, i: np.ndarray, w: np.ndarray, n_users: int,
+              n_items: int, chunk_users: int = 2048, device=None) -> GramPack:
+    """The host pack of :func:`item_gram`'s scan, put on ``device``
+    (``None`` = CUDA): the pairs sorted by user and split into chunks of
+    users (``chunk_users`` on the f32 path, ``INT8_CHUNK_USERS`` on the
+    int8 path, which a CUDA device takes where :func:`int8_exact` holds
+    and no pair repeats)."""
+    dev = resolve_device(device)
+    return _pack(u, i, w, n_users, round8(n_items),
+                 min(chunk_users, round8(n_users)), dev)
+
+
+def gram_scan(pack: GramPack) -> torch.Tensor:
+    """``X^T X`` (I_p, I_p) f32 of a pack, on its device: the int8 kernels
+    of ``ops/cuda_gram.py`` where the pack has tiles, else one chunk's
+    dense f32 slab at a time."""
+    with span("ease.gram"):
+        if pack.tiles is not None:
+            return cuda_gram.int8_gram(pack.lu, pack.ii, pack.ww, pack.bounds,
+                                       pack.ip, pack.cu, pack.tiles)
+        dev = pack.lu.device
+        G = torch.zeros((pack.ip, pack.ip), dtype=torch.float32, device=dev)
+        D = torch.empty((pack.cu, pack.ip), dtype=torch.float32, device=dev)
+        with exact_f32():
+            for s, e in zip(pack.bounds[:-1], pack.bounds[1:]):
+                D.zero_()
+                D.index_put_((pack.lu[s:e].long(), pack.ii[s:e].long()), pack.ww[s:e],
+                             accumulate=True)
+                G.addmm_(D.T, D)
+        return G
 
 
 def item_gram(u: np.ndarray, i: np.ndarray, w: np.ndarray, n_users: int,
               n_items: int, chunk_users: int = 2048, device=None) -> torch.Tensor:
     """(I_p, I_p) item co-occurrence gram ``X^T X`` on ``device`` (``None``
     = CUDA). ``w``: per-pair weights (all ones for binary EASE). No
-    (users x items) matrix is formed: one chunk's dense slab at a time."""
-    dev = resolve_device(device)
-    return _gram_scan(u, i, w, n_users, round8(n_items),
-                      min(chunk_users, round8(n_users)), dev)
-
-
-def _gram_scan(u, i, w, n_users: int, ip: int, cu: int, dev) -> torch.Tensor:
-    """``X^T X`` of the users ``[0, n_users)``, one chunk of ``cu`` users'
-    dense slab at a time."""
-    lu, ii, ww = (torch.from_numpy(a).to(dev)
-                  for a in _gram_chunks(u, i, w, n_users, cu))
-    G = torch.zeros((ip, ip), dtype=torch.float32, device=dev)
-    D = torch.empty((cu, ip), dtype=torch.float32, device=dev)
-    with exact_f32():
-        for c in range(lu.shape[0]):
-            D.zero_()
-            # pads add 0.0 at (0, 0): exact, so the order of the sum is moot
-            D.index_put_((lu[c].long(), ii[c].long()), ww[c], accumulate=True)
-            G.addmm_(D.T, D)
-    return G
+    (users x items) matrix is formed: one chunk's slab at a time."""
+    return gram_scan(gram_pack(u, i, w, n_users, n_items, chunk_users, device))
 
 
 def dp_item_gram(u: np.ndarray, i: np.ndarray, w: np.ndarray, n_users: int,
@@ -178,26 +301,49 @@ def dp_item_gram(u: np.ndarray, i: np.ndarray, w: np.ndarray, n_users: int,
     upd = round8(max(1, -(-n_users // n_dev)))
     u = np.asarray(u).astype(np.int64)
     mine = (u // upd) == d
-    G = _gram_scan(u[mine] - d * upd, np.asarray(i)[mine], np.asarray(w)[mine],
-                   upd, round8(n_items), min(chunk_users, upd), dev)
+    G = gram_scan(_pack(u[mine] - d * upd, np.asarray(i)[mine],
+                        np.asarray(w)[mine], upd, round8(n_items),
+                        min(chunk_users, upd), dev))
     dist.all_reduce(G, group=data_group(mesh))
     return G
 
 
 def _closed_form(P: torch.Tensor) -> torch.Tensor:
-    """``B = -P / diag(P)`` column-wise with an exactly zero diagonal."""
-    d = torch.diagonal(P, dim1=-2, dim2=-1)
-    B = -P / d[..., None, :]
-    B.diagonal(dim1=-2, dim2=-1).zero_()
-    return B
+    """``B = -P / diag(P)`` column-wise with an exactly zero diagonal,
+    written over ``P``."""
+    with span("ease.closed_form"):
+        d = torch.diagonal(P, dim1=-2, dim2=-1).clone()
+        B = P.div_(d[..., None, :]).neg_()
+        B.diagonal(dim1=-2, dim2=-1).zero_()
+        return B
+
+
+def _with_ridge(G: torch.Tensor, lam: float) -> torch.Tensor:
+    """``G + lam I``, added to ``G`` in place."""
+    G.diagonal(dim1=-2, dim2=-1).add_(lam)
+    return G
 
 
 def ease_weights(G: torch.Tensor, lam: float, leaf: str = "auto") -> torch.Tensor:
     """The closed-form EASE matrix ``B`` from the gram, (I_p, I_p) on
-    ``G``'s device; ``leaf`` as in ``ops/spd.py``."""
-    ip = G.shape[-1]
-    A = G + lam * torch.eye(ip, dtype=torch.float32, device=G.device)
-    return _closed_form(spd_inverse_scaled(A, leaf=leaf))
+    ``G``'s device; ``leaf`` as in ``ops/spd.py``. ``G`` is not changed."""
+    with span("ease.inverse"):
+        # the system goes in as a temporary, let go inside the refinement
+        P = spd_inverse_scaled(_with_ridge(G.clone(), lam), leaf=leaf)
+    return _closed_form(P)
+
+
+def fit_packed(pack: GramPack, lam: float, leaf: str = "auto") -> torch.Tensor:
+    """One whole fit on a pack: the scan, the ridge, the inverse and the
+    closed form, on the pack's device (``B``, (I_p, I_p) f32). The gram
+    becomes the system in place, the system is let go before the
+    refinement's last product, and ``B`` is written over ``P``; the pack
+    is left as it was."""
+    # the system's one reference, handed over whole to the inverse
+    system = [_with_ridge(gram_scan(pack), lam)]
+    with span("ease.inverse"):
+        P = spd_inverse_scaled(system.pop(), leaf=leaf)
+    return _closed_form(P)
 
 
 def ease_weights_sharded(G: torch.Tensor, lam: float, mesh, leaf: str = "auto",

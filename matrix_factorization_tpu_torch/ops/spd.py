@@ -78,7 +78,17 @@ def spd_inverse(A: torch.Tensor, base: int = 32,
                 leaf: str = "auto") -> torch.Tensor:
     """Batched inverse of SPD matrices ``A`` (..., d, d) by recursive Schur
     complements, split at multiples of 8 down to the leaf (see the module
-    docstring for ``leaf``)."""
+    docstring for ``leaf``), into a new tensor; ``A`` is not changed."""
+    return _inverse(A, base, leaf, inplace=False)
+
+
+def _inverse(A: torch.Tensor, base: int, leaf: str, inplace: bool) -> torch.Tensor:
+    """:func:`spd_inverse`, its blocks written into a new tensor, or with
+    ``inplace`` over ``A``, which the caller gives up (each block of ``A``
+    is read before the result is written over it). A level's complement
+    ``S`` is its own, so its inverse is written over it. Every product sees
+    the same operands, strides included, either way, so the result's bits
+    do not depend on ``inplace``."""
     if leaf not in LEAVES:
         raise ValueError(f"leaf must be one of {LEAVES}, got {leaf!r}")
     d = A.shape[-1]
@@ -95,15 +105,20 @@ def spd_inverse(A: torch.Tensor, base: int = 32,
         A11 = A[..., :m, :m]
         A12 = A[..., :m, m:]
         A22 = A[..., m:, m:]
-        inv11 = spd_inverse(A11, base, leaf)
+        inv11 = _inverse(A11, base, leaf, inplace=False)
         W = _mm(inv11, A12)                      # (..., m, d-m)
         S = A22 - _mm(_t(A12), W)                # Schur complement, SPD
-        invS = spd_inverse(S, base, leaf)
-        B12 = -_mm(W, invS)                      # (..., m, d-m)
-        B11 = inv11 - _mm(B12, _t(W))
-        top = torch.cat([B11, B12], dim=-1)
-        bot = torch.cat([_t(B12), invS], dim=-1)
-        return torch.cat([top, bot], dim=-2)
+        invS = _inverse(S, base, leaf, inplace=True)
+        del S
+        B12 = _mm(W, invS).neg_()                # (..., m, d-m)
+        B11 = inv11.sub_(_mm(B12, _t(W)))
+        del inv11, W
+        out = A if inplace else A.new_empty(A.shape)
+        out[..., :m, :m] = B11
+        out[..., :m, m:] = B12
+        out[..., m:, :m] = _t(B12)
+        out[..., m:, m:] = invS
+        return out
 
 
 def _jacobi(A: torch.Tensor) -> torch.Tensor:
@@ -117,14 +132,24 @@ def spd_inverse_scaled(A: torch.Tensor, base: int = 32, refine: int = 1,
     """Explicit SPD inverse with :func:`spd_solve`'s conditioning
     insurance: Jacobi scaling to a unit diagonal before the Schur
     recursion, then ``refine`` Newton-Schulz steps
-    (``P <- 2P - P A P``) in exact f32."""
+    (``P <- 2P - P A P``) in exact f32. The scaled system becomes ``P``
+    in place; passed as a temporary (the caller keeping no reference),
+    ``A`` is let go after the last refinement's first product, so that
+    three (..., d, d) matrices are live at its second."""
     dscale = _jacobi(A)
-    As = A * dscale[..., :, None] * dscale[..., None, :]
-    inv = spd_inverse(As, base, leaf)
-    P = inv * dscale[..., :, None] * dscale[..., None, :]
-    for _ in range(refine):
+    As = A * dscale[..., :, None]
+    As.mul_(dscale[..., None, :])
+    P = _inverse(As, base, leaf, inplace=True)
+    del As
+    P.mul_(dscale[..., :, None]).mul_(dscale[..., None, :])
+    for r in range(refine):
         AP = _mm(A, P)
-        P = 2.0 * P - _mm(P, AP)
+        if r == refine - 1:
+            del A
+        PAP = _mm(P, AP)
+        del AP
+        P.mul_(2.0).sub_(PAP)
+        del PAP
     return P
 
 
@@ -145,7 +170,7 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor, base: int = 32,
     with span("spd.solve"):
         dscale = _jacobi(A)
         As = A * dscale[..., :, None] * dscale[..., None, :]
-        inv = spd_inverse(As, base, leaf)
+        inv = _inverse(As, base, leaf, inplace=True)
 
         def apply_inv(r):
             return dscale * _matvec(inv, dscale * r)

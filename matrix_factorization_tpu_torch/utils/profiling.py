@@ -41,13 +41,23 @@ ALS (``ops/ials.py``, ``ops/spd.py``):
   application and the refinement, inside ``als.bucket`` (beside
   ``als.normal_eq``);
 * ``spd.schur`` — one level of ``spd_inverse`` above the leaf (``W``,
-  ``S``, ``B12``, ``B11`` and the ``cat``s), inside ``spd.solve`` or an
-  outer ``spd.schur``;
+  ``S``, ``B12``, ``B11`` and the writes of the four blocks), inside
+  ``spd.solve``, ``ease.inverse`` or an outer ``spd.schur``;
 * ``spd.leaf`` — the leaf inverse (``cuda_spd.gj_inverse``, or
   ``_base_inverse`` with ``leaf='cholesky'``), inside ``spd.schur`` or,
   for d up to the leaf's size, directly inside ``spd.solve``;
 * ``als.write`` — the write of the solutions into the swept table, inside
   ``als.bucket``.
+
+EASE (``ops/ease.py``; ``EASE.fit`` on one data rank runs all three):
+
+* ``ease.gram`` — ``gram_scan``: the chunks' slabs and products, the int8
+  path's conversion to f32 included;
+* ``ease.inverse`` — ``spd_inverse_scaled`` of ``G + lam I`` (Jacobi
+  scaling, the Schur recursion with its ``spd.schur`` and ``spd.leaf``
+  spans, one Newton-Schulz refinement), in ``fit_packed`` and
+  ``ease_weights``;
+* ``ease.closed_form`` — ``_closed_form``: ``B = -P / diag(P)`` over ``P``.
 
 Search (``retrieval/search.py``, ``ops/scoring.py``):
 

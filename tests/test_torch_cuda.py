@@ -1512,3 +1512,95 @@ def test_sharded_checkpoint_on_gloo_ranks_sharing_the_gpu(cuda, tmp_path):
         assert rk["launches"] > 0 and all(rk["equal"])
         assert rk["device"].startswith("cuda") and rk["rows"] < 300
         pd.testing.assert_frame_equal(*rk["recs"])
+
+
+def _gram_case(n_users, n_items, n_pairs, seed, weights="binary"):
+    rng = np.random.default_rng(seed)
+    key = np.unique(rng.integers(0, n_users * n_items, n_pairs))
+    u, i = (key // n_items).astype(np.int64), (key % n_items).astype(np.int64)
+    w = {"binary": np.ones(len(u), np.float32),
+         "small": rng.integers(-7, 8, len(u)).astype(np.float32),
+         "real": rng.uniform(0.5, 5.0, len(u)).astype(np.float32)}[weights]
+    return u, i, w
+
+
+@pytest.mark.parametrize("n_users,n_items,n_pairs,weights", [
+    (300, 40, 3_000, "binary"), (5_000, 1_500, 200_000, "binary"),
+    (40_000, 3_000, 600_000, "small"), (20_001, 4_100, 400_000, "binary")])
+def test_int8_gram_is_the_f32_gram_bit_for_bit(cuda, n_users, n_items, n_pairs,
+                                               weights):
+    """The int8 tensor-core gram (ragged items and users, several chunks,
+    negative weights) against the exact-f32 scan of the same pairs."""
+    from matrix_factorization_tpu_torch.ops import cuda_gram
+    from matrix_factorization_tpu_torch.ops import ease as ease_ops
+
+    u, i, w = _gram_case(n_users, n_items, n_pairs, n_users, weights)
+    pack = ease_ops.gram_pack(u, i, w, n_users, n_items, device="cuda")
+    assert pack.tiles is not None
+    cuda_gram.reset_launches()
+    G8 = ease_ops.gram_scan(pack)
+    torch.cuda.synchronize()
+    assert cuda_gram.launches == len(pack.bounds) - 1
+    ip = ease_ops.round8(n_items)
+    cu = min(2048, ease_ops.round8(n_users))
+    lu, ii, ww, bounds = ease_ops._gram_chunks(u, i, w, n_users, cu)
+    f32 = ease_ops.GramPack(*(torch.from_numpy(a).cuda() for a in (lu, ii, ww)),
+                            tuple(int(b) for b in bounds), ip, cu, None)
+    Gf = ease_ops.gram_scan(f32)
+    assert G8.dtype == torch.float32 and G8.shape == (ip, ip)
+    assert torch.equal(G8, Gf)
+    # the plain versions of the kernels' steps give the same gram
+    plain = cuda_gram.int8_gram(pack.lu.cpu(), pack.ii.cpu(), pack.ww.cpu(), pack.bounds,
+                                ip, pack.cu, pack.tiles.cpu()) if n_items <= 1_500 else None
+    if plain is not None:
+        assert torch.equal(plain, Gf.cpu())
+
+
+def test_int8_gram_leaves_other_weights_to_the_f32_path(cuda):
+    from matrix_factorization_tpu_torch.ops import ease as ease_ops
+
+    u, i, w = _gram_case(3_000, 500, 50_000, 5, "real")
+    assert ease_ops.gram_pack(u, i, w, 3_000, 500, device="cuda").tiles is None
+    u2 = np.concatenate([u, u[:1]])  # a repeated pair
+    i2 = np.concatenate([i, i[:1]])
+    w2 = np.ones(len(u2), np.float32)
+    assert ease_ops.gram_pack(u2, i2, w2, 3_000, 500, device="cuda").tiles is None
+    w3 = np.full(len(u), 128.0, np.float32)
+    assert ease_ops.gram_pack(u, i, w3, 3_000, 500, device="cuda").tiles is None
+
+
+def _cat_inverse(A, base=32):
+    """``ops/spd.py``'s recursion as it was with the blocks joined by
+    ``torch.cat`` (the in-place writes must give the same bits)."""
+    d = A.shape[-1]
+    if d <= cuda_spd.MAX_D:
+        flat = A.reshape((-1,) + tuple(A.shape[-2:])).contiguous()
+        return cuda_spd.gj_inverse(flat).reshape(A.shape)
+    m = ((d // 2 + 7) // 8) * 8
+    A11, A12, A22 = A[..., :m, :m], A[..., :m, m:], A[..., m:, m:]
+    inv11 = _cat_inverse(A11, base)
+    W = spd._mm(inv11, A12)
+    S = A22 - spd._mm(spd._t(A12), W)
+    invS = _cat_inverse(S, base)
+    B12 = -spd._mm(W, invS)
+    B11 = inv11 - spd._mm(B12, spd._t(W))
+    return torch.cat([torch.cat([B11, B12], -1), torch.cat([spd._t(B12), invS], -1)], -2)
+
+
+@pytest.mark.parametrize("shape", [(2_000, 201, 201), (3, 1_000, 1_000), (4_100, 4_100)])
+def test_inplace_schur_recursion_is_the_cat_recursion_bit_for_bit(cuda, shape):
+    """ALS's batched d = 201 and EASE-like single systems: the inverse of
+    the Jacobi-scaled system (what the main paths invert) and the scaled
+    inverse with its refinement, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(shape[-1])
+    d = shape[-1]
+    X = torch.randn(shape[:-2] + (2 * d, d), device="cuda", generator=g)
+    A = spd._mm(spd._t(X), X) + torch.eye(d, device="cuda")
+    ds = spd._jacobi(A)
+    As = A * ds[..., :, None] * ds[..., None, :]
+    want = _cat_inverse(As)
+    assert torch.isfinite(want).all()
+    assert torch.equal(spd.spd_inverse(As), want)
+    P = want * ds[..., :, None] * ds[..., None, :]
+    P = 2.0 * P - spd._mm(P, spd._mm(A, P))
+    assert torch.equal(spd.spd_inverse_scaled(A.clone()), P)

@@ -16,7 +16,7 @@ from pathlib import Path
 
 import pytest
 
-from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, cuda_spd, cuda_topk
+from matrix_factorization_tpu_torch.ops import cuda_gram, cuda_scores, cuda_sgd, cuda_spd, cuda_topk
 from matrix_factorization_tpu_torch.ops import segment_sum
 
 CSRC = Path(cuda_scores.__file__).resolve().parent.parent / "csrc"
@@ -281,3 +281,15 @@ def test_select_plan_covers_every_call(k):
                 (4, 10, 0)):
         with pytest.raises(ValueError):
             cuda_topk.select_plan(*bad, H100_SMS, bps)
+
+
+def test_ease_gram_tiles_match_the_source():
+    """``ops/cuda_gram.py`` pads the slab's rows to ``TILE`` and a chunk's
+    users to ``K_TILE``: the tile and stage widths of
+    ``csrc/ease_gram.cu``, whose shared memory fits two blocks an SM."""
+    src = (CSRC / "ease_gram.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kTile"] == cuda_gram.TILE and const["kBK"] == cuda_gram.K_TILE
+    smem = const["kStages"] * 2 * const["kTile"] * const["kBK"]
+    assert 2 * smem <= cuda_spd.SMEM_LIMIT
+    assert const["kThreads"] == 128 and "__launch_bounds__(kThreads, 2)" in src
