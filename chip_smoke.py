@@ -100,6 +100,15 @@ failed check ends the run with a non-zero exit:
 
 12. als_pack: config 3 grouped into count buckets once (by user: chunks of
     15,625 x 256; by item: 7,812 x 512).
+12a. normal_eq_kernel_time: the normal-equation kernel
+    (``ials.normal_equations`` on the card) against
+    ``plain_normal_equations`` on the first full user chunk (d = 201) and
+    on the first 256 entities of the shortest bucket past one 1,024-slot
+    slice (the finish kernel), against the seeded initial tables: A and b
+    within 1e-5 of the plain body's largest entry, two calls the same
+    bits; kernel, plain and library (the batched product alone) times
+    and the bound. The kernel's launches are counted on every ALS path
+    from here on.
 13. compare_spd: the GJ leaf kernel against its plain version on the card,
     both against the float64 inverse, at (E, d) = (15,625, 104),
     (15,625, 97), (7,812, 101), (1,000, 128), (4,096, 64), (3, 8), (5, 1)
@@ -377,7 +386,8 @@ failed check ends the run with a non-zero exit:
 
 Then the ``kernels`` line (``score_catalog``, ``sgd_step``,
 ``segment_apply``, ``spd_gj`` with its EASE launches and shapes,
-``segment_sum``; the apply's and the sum's launches and shapes on the
+``segment_sum``, ``topk_select``, ``ease_gram``, ``normal_eq`` with its
+launches on each ALS path; the apply's and the sum's launches and shapes on the
 families' paths beside the rest, and each kernel's launches on the
 parallel paths), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -1630,6 +1640,111 @@ def phase_als_sweeps(torch, data3, buckets, seed):
                                              match="gj_inverse_kernel")
         out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
     return out
+
+
+# the normal equations' long chunk: entities of two slices' slots, each
+# the lists of several item entities side by side (config 3's buckets stop
+# at 1,024 slots, one slice)
+NORMAL_EQ_LONG_E = 256
+
+
+def normal_eq_work(k, E, L, live):
+    """(operations, bytes) of E entities' normal equations of L slots at k
+    factors, ``live`` of the slots live: each live row's augmented upper
+    triangle, 2 (d + 1)(d + 2) / 2 flops at d = k + 1, and its k + 2
+    columns read, the (E, L) slots read, A and b written."""
+    d = k + 1
+    flops = 2 * live * (d + 1) * (d + 2) // 2
+    nbytes = live * (-(-(k + 2) // 4) * 4) * 4 + E * L * 12 + E * (d * d + d) * 4
+    return flops, nbytes
+
+
+def phase_normal_eq(torch, buckets, p, cfg, reg_scale, timer):
+    """The normal-equation kernel (``ials.normal_equations`` on the card)
+    against ``plain_normal_equations`` on the same slots, at the first
+    full user chunk (d = 201) and at ``NORMAL_EQ_LONG_E`` entities of two
+    slices' slots, each the lists of 2 * SLICE / L consecutive entities of
+    the first full item chunk side by side (their padding left in place:
+    a mask with holes), so that the finish kernel runs: A and b within
+    1e-5 of the plain body's largest entry, two calls the same bits, one
+    launch a call; then the kernel, the plain body and the library (the
+    batched product alone on the plain body's masked design block) timed
+    in turns, beside the bound. Returns the rows and the largest absolute
+    difference."""
+    from matrix_factorization_tpu_torch.ops import cuda_normal_eq, ials
+    from matrix_factorization_tpu_torch.ops.segment_sgd import bias_col, const_col
+    from matrix_factorization_tpu_torch.ops.spd import exact_f32
+
+    bu, bi = buckets
+    k = cfg.n_factors
+    b = first_full_chunk(bi)
+    E0, L0 = b.other_ids.shape
+    f = -(-2 * cuda_normal_eq.SLICE // L0)
+    n = min(NORMAL_EQ_LONG_E, E0 // f)
+    check(n >= 1, f"normal_eq: the item chunk {E0} x {L0} makes no long list")
+    long_slots = [x[:n * f].reshape(n, f * L0) for x in (b.other_ids, b.ratings, b.mask)]
+    rows, worst = [], 0.0
+    for name, side, (ids, r, m) in (("user_chunk", "user", first_full_chunk(bu)[1:]),
+                                    ("long_chunk", "item", long_slots)):
+        other = p.item_features if side == "user" else p.user_features
+        o_side = "item" if side == "user" else "user"
+        o_bias, o_const = bias_col(cfg, o_side), const_col(cfg, o_side)
+
+        def kernel():
+            return ials.normal_equations(other, ids, r, m, p.global_mean, cfg,
+                                         side, reg_scale=reg_scale)
+
+        def plain():
+            return ials.plain_normal_equations(other, ids, r, m, p.global_mean, k,
+                                               o_bias, o_const, cfg.reg,
+                                               reg_scale=reg_scale)
+
+        n0 = cuda_normal_eq.launches
+        A, rhs = kernel()
+        A2, rhs2 = kernel()
+        check(cuda_normal_eq.launches == n0 + 2,
+              f"normal_eq {name}: normal_equations did not launch the kernel")
+        same = bool(torch.equal(A, A2) and torch.equal(rhs, rhs2))
+        del A2, rhs2
+        wA, wb = plain()
+        E, L = ids.shape
+        err = {"err_A": float((A - wA).abs().max()), "err_b": float((rhs - wb).abs().max()),
+               "plain_max_A": float(wA.abs().max()), "plain_max_b": float(wb.abs().max())}
+        worst = max(worst, err["err_A"], err["err_b"])
+        del A, rhs, wA, wb
+        check(same, f"normal_eq {name}: two kernel calls differ")
+        check(err["err_A"] <= 1e-5 * err["plain_max_A"]
+              and err["err_b"] <= 1e-5 * err["plain_max_b"],
+              f"normal_eq {name}: the kernel against the plain body {err}")
+        design = torch.cat([other[:, :k], other[:, o_const:o_const + 1]], dim=1)
+        Xm = design[ids.long()].mul_(m[..., None])
+        del design
+
+        def library():
+            with exact_f32():
+                return torch.bmm(Xm.transpose(1, 2), Xm)
+
+        bodies = {"kernel": kernel, "plain": plain, "library": library}
+        times = {w: [] for w in bodies}
+        for w in (*bodies, *reversed(bodies)):
+            times[w].append(timer.ms(bodies[w], reps=5))
+        live = int(m.count_nonzero())
+        flops, nbytes = normal_eq_work(k, E, L, live)
+        t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES_PER_S
+        row = {"shape": name, "side": side, "E": E, "L": L, "d": k + 1,
+               "live_rows": live,
+               "slices": cuda_normal_eq.normal_eq_plan(k + 1, L).slices,
+               **err, "same_bits": same,
+               **{f"{w}_ms": min(t) for w, t in times.items()},
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        row["roofline"] = row["bound_ms"] / row["kernel_ms"]
+        rows.append(row)
+        emit({"phase": "normal_eq_kernel_time", **row})
+        del Xm
+        torch.cuda.empty_cache()
+    check(rows[1]["slices"] > 1, "the long chunk did not take the slices")
+    return rows, worst
 
 
 def phase_warm_start(torch, data3, seed):
@@ -6622,7 +6737,8 @@ def main() -> int:
     import numpy as np
 
     from matrix_factorization_tpu_torch.core.config import SGDConfig
-    from matrix_factorization_tpu_torch.ops import _build, cuda_scores, cuda_sgd, cuda_topk, ials
+    from matrix_factorization_tpu_torch.ops import (_build, cuda_normal_eq, cuda_scores,
+                                                    cuda_sgd, cuda_topk, ials)
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
     t_start = time.perf_counter()
@@ -6645,10 +6761,10 @@ def main() -> int:
     spilled = [k for k in ptxas if k[2] and any(
         n in k[0] for n in ("score_stream", "score_tile", "gj_inverse",
                             "sgd_step_kernel", "step_finish", "segsum",
-                            "apply_", "topk_", "ease_gram"))]
+                            "apply_", "topk_", "ease_gram", "normal_eq"))]
     check(not spilled, f"the scorer, the GJ leaf, the SGD step, the segment "
-                       f"sum, the apply, the top-k or the EASE gram spills: "
-                       f"{spilled}")
+                       f"sum, the apply, the top-k, the EASE gram or the "
+                       f"normal equations spill: {spilled}")
 
     # -- serving (slice 1) -------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -6777,10 +6893,21 @@ def main() -> int:
                         reg=ALS["reg"], min_rating=0.5, max_rating=5.0)
     p_init = sgd.init_params(torch.Generator(device="cuda").manual_seed(args.seed),
                              N_USERS, N_ITEMS, cfg_als, float(data3[2].mean()))
+    # the normal-equation kernel's launches on each ALS path, counted from
+    # here (every earlier phase runs none)
+    cuda_normal_eq.reset_launches()
+    ne_launches = {}
+
+    def ne_mark(path):
+        ne_launches[path] = cuda_normal_eq.launches - sum(ne_launches.values())
+
+    ne_rows, ne_worst = phase_normal_eq(torch, buckets, p_init, cfg_als,
+                                        ALS["reg_scale"], timer)
     ch = first_full_chunk(buckets[0])
     A, _ = ials.normal_equations(p_init.item_features, ch.other_ids, ch.ratings,
                                  ch.mask, p_init.global_mean, cfg_als, "user",
                                  reg_scale=ALS["reg_scale"])
+    ne_mark("normal_eq_check")
     real = list(zip(("config3_chunk_A11", "config3_chunk_schur"),
                     chunk_leaves(torch, A)))
     del A, p_init
@@ -6790,11 +6917,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         train_als = phase_train_als(torch, rng, data3, args.seed, tmpdir)
     emit(train_als)
+    ne_mark("train_als")
     emit(phase_als_sweeps(torch, data3, buckets, args.seed))
+    ne_mark("als_sweeps")
     del buckets
     torch.cuda.empty_cache()
     warm = phase_warm_start(torch, data3, args.seed)
     emit(warm)
+    ne_mark("warm_start")
+    check(all(v > 0 for v in ne_launches.values()),
+          f"an ALS path missed the normal-equation kernel: {ne_launches}")
     implicit = phase_implicit(torch, args.seed)
     emit(implicit)
     spd_rows = phase_spd_kernel_times(torch, gen, timer)
@@ -6882,9 +7014,13 @@ def main() -> int:
         del par_packs
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
+        ne_mark("before_parallel_als")
         par_als = phase_parallel_als(torch, rng, data3, train1m, args.seed)
         par_als["seconds"] = time.perf_counter() - t1
         emit(par_als)
+        ne_mark("parallel_als")
+        check(ne_launches["parallel_als"] > 0,
+              "dp ALS at one NCCL rank missed the normal-equation kernel")
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         par_fam = phase_parallel_families(torch, rng, data3, args.seed)
@@ -7073,6 +7209,23 @@ def main() -> int:
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
         "shape": {k: row[k] for k in ("users", "ip", "chunks")}, "shapes": gram_rows})
+    row = ne_rows[0]
+    ne_mark("after_parallel_als")
+    kernels.append({
+        "name": "normal_eq", "route": "cuda",
+        "source": "matrix_factorization_tpu_torch/csrc/als_normal_eq.cu",
+        "replaces": "none: XLA's design gather and batched products on the TPU "
+                    "(matrix_factorization_tpu/ops/ials.py::_jit_bucket_sweep)",
+        "note": "the ALS normal equations (normal_eq_kernel, normal_eq_finish_kernel "
+                "past 1,024 slots); plain_ms is plain_normal_equations, library_ms "
+                "the batched product alone on its masked design block",
+        "launches": sum(ne_launches.values()), "launches_by_path": ne_launches,
+        "max_abs_err": ne_worst,
+        "ms": row["kernel_ms"], "kernel_ms": row["kernel_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "shape": {k: row[k] for k in ("E", "L", "d", "live_rows", "slices")},
+        "shapes": ne_rows})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -17,10 +17,13 @@ pass of ``csrc/host_loader.cpp`` places every entry (numpy's argsorts
 with ``native=False``). The packs are the JAX package's, byte for byte;
 their tensors go to the tables' device
 as int32 ids, f32 ratings and f32 masks (the JAX package's wire encoders
-existed for the TPU image's remote link). A sweep gathers the (E, L, d)
-design rows, forms the grams with one batched product, and solves with
-``ops.spd.solve_spd``, whose Gauss-Jordan leaf is the hand-written kernel
-of ``ops/cuda_spd.py`` on the GPU. The sweeps are plain functions that
+existed for the TPU image's remote link). A sweep forms each entity's
+ridged gram and right-hand side (``normal_equations``: on the GPU the
+hand-written kernel of ``ops/cuda_normal_eq.py``, which gathers the rows
+straight from the table; elsewhere the (E, L, d) design rows and one
+batched product), and solves with ``ops.spd.solve_spd``, whose
+Gauss-Jordan leaf is the hand-written kernel of ``ops/cuda_spd.py`` on
+the GPU. The sweeps are plain functions that
 update the tables in place (the JAX package's jit caches have no
 counterpart). Every product is exact f32 unless ``gram_dtype='bf16'``.
 
@@ -42,6 +45,7 @@ import torch
 from matrix_factorization_tpu_torch.core.config import SGDConfig
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.data.loader import host_lib
+from matrix_factorization_tpu_torch.ops import cuda_normal_eq
 from matrix_factorization_tpu_torch.ops.segment_sgd import (
     MFParams,
     RatingBatches,
@@ -298,20 +302,39 @@ def normal_equations(other: torch.Tensor, other_ids: torch.Tensor,
                      gram_dtype: str = "f32", reg_scale: str = "absolute"):
     """(A, b): the (E, d, d) ridged grams and (E, d) right-hand sides of E
     entities' padded rating lists against the other side's table
-    ``other``, d = k + 1 (bias folding, see the module docstring)."""
+    ``other``, d = k + 1 (bias folding, see the module docstring). A CUDA
+    table always takes the kernel of ``ops/cuda_normal_eq.py`` (span
+    ``als.gram_kernel``), any other :func:`plain_normal_equations`."""
     k = cfg.n_factors
     o_side = "item" if own_side == "user" else "user"
     o_bias, o_const = bias_col(cfg, o_side), const_col(cfg, o_side)
     with span("als.normal_eq"):
-        # the d = k + 1 design columns of every other-side row, then one
-        # gather
-        design = torch.cat([other[:, :k], other[:, o_const:o_const + 1]], dim=1)
-        ids = other_ids.long()
-        Xm = design[ids].mul_(mask[..., None])
-        y = (ratings - mu - other[:, o_bias][ids]) * mask
-        A = _gram(Xm, gram_dtype)
-        A.diagonal(dim1=-2, dim2=-1).add_(_reg_diag(cfg.reg, mask, reg_scale))
-        b = _mm(Xm.transpose(1, 2), y[..., None])[..., 0]
+        if other.device.type == "cuda":
+            with span("als.gram_kernel"):
+                return cuda_normal_eq.cuda_normal_equations(
+                    other, other_ids, ratings, mask, mu, k, o_bias, o_const,
+                    _reg_diag(cfg.reg, mask, reg_scale), gram_dtype == "bf16")
+        return plain_normal_equations(other, other_ids, ratings, mask, mu, k,
+                                      o_bias, o_const, cfg.reg, gram_dtype,
+                                      reg_scale)
+
+
+def plain_normal_equations(other: torch.Tensor, other_ids: torch.Tensor,
+                           ratings: torch.Tensor, mask: torch.Tensor,
+                           mu: torch.Tensor, k: int, o_bias: int, o_const: int,
+                           reg: float, gram_dtype: str = "f32",
+                           reg_scale: str = "absolute"):
+    """:func:`normal_equations` in plain PyTorch: the d = k + 1 design
+    columns of every other-side row gathered into an (E, L, d) block, the
+    mask multiplied in, the grams by one batched product (:func:`_gram`),
+    the ridge, and the right-hand sides by a second product."""
+    design = torch.cat([other[:, :k], other[:, o_const:o_const + 1]], dim=1)
+    ids = other_ids.long()
+    Xm = design[ids].mul_(mask[..., None])
+    y = (ratings - mu - other[:, o_bias][ids]) * mask
+    A = _gram(Xm, gram_dtype)
+    A.diagonal(dim1=-2, dim2=-1).add_(_reg_diag(reg, mask, reg_scale))
+    b = _mm(Xm.transpose(1, 2), y[..., None])[..., 0]
     return A, b
 
 

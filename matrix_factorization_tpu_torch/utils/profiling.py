@@ -35,8 +35,14 @@ ALS (``ops/ials.py``, ``ops/spd.py``):
 * ``als.epoch`` — one epoch of ``ials_train_bucketed`` or ``ials_train``;
 * ``als.bucket`` — ``bucket_sweep`` (one bucket chunk) or ``grouped_sweep``
   (one half-sweep), inside ``als.epoch``;
-* ``als.normal_eq`` — ``normal_equations``: the design gather, the mask,
-  the grams, the ridge and the right-hand sides, inside ``als.bucket``;
+* ``als.normal_eq`` — ``normal_equations``: the grams, the ridge and the
+  right-hand sides (off CUDA also the design gather and the mask), inside
+  ``als.bucket``;
+* ``als.gram_kernel`` — the call of ``ops/cuda_normal_eq.py``'s kernel
+  (its ridge values, launch and, for lists longer than its slice, the
+  finish kernel), inside ``als.normal_eq``; entered only on CUDA, so its
+  count is the kernel's calls (one a ``normal_equations`` call: a bucket
+  chunk or each piece of one; 0 on the CPU);
 * ``spd.solve`` — ``spd_solve``: Jacobi scaling, the inverse, its
   application and the refinement, inside ``als.bucket`` (beside
   ``als.normal_eq``);

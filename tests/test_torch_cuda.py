@@ -21,7 +21,7 @@ from chip_smoke import run_cli
 from matrix_factorization_tpu_torch import ImplicitALS, KernelMF, params_from_numpy
 from matrix_factorization_tpu_torch.core.config import SGDConfig
 from matrix_factorization_tpu_torch.core.ids import IdVocab
-from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, cuda_spd, ials, spd
+from matrix_factorization_tpu_torch.ops import cuda_normal_eq, cuda_scores, cuda_sgd, cuda_spd, ials, spd
 from matrix_factorization_tpu_torch.ops import segment_sum as ss
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
@@ -564,11 +564,12 @@ def test_als_on_cuda_matches_cpu_and_launches(cuda):
         bu, bi = ials.group_both_sides_bucketed(u, i, r, 300, 200,
                                                 max_block_rows=2000, device=dev)
         data = sgd.pack_ratings(u, i, r, 512, device=dev)
-        before = cuda_spd.launches
+        before, ne_before = cuda_spd.launches, cuda_normal_eq.launches
         out[dev] = ials.ials_train_bucketed(start, bu, bi, data, cfg, 2,
                                             reg_scale="per_obs")
         if dev == "cuda":
             assert cuda_spd.launches == before + 2 * (len(bu) + len(bi))
+            assert cuda_normal_eq.launches == ne_before + 2 * (len(bu) + len(bi))
     (pc, hc), (pg, hg) = out["cpu"], out["cuda"]
     torch.testing.assert_close(pg.user_features.cpu(), pc.user_features,
                                atol=2e-4, rtol=0)
@@ -583,6 +584,116 @@ def test_als_on_cuda_matches_cpu_and_launches(cuda):
     before = cuda_spd.launches
     ImplicitALS(n_factors=16, n_epochs=2, device="cuda").fit(X, pd.Series(r))
     assert cuda_spd.launches == before + 4
+
+
+# ---------------------------------------------------------------------------
+# The normal-equation kernel
+# ---------------------------------------------------------------------------
+
+
+def _ne_slots(k, side, E, L, variant, seed, device):
+    """A table of N(0, 0.3^2) factors and E entities' (E, L) slots, counts
+    from L / 2 to L filled from the left (the last entity none), the pads
+    id 0; ``holes`` masks every odd slot (the ``half`` fault's shape)."""
+    rng = np.random.default_rng(seed)
+    cfg = SGDConfig(n_factors=k, reg=0.1)
+    o_side = "item" if side == "user" else "user"
+    T = _rows(cfg, 70_000, rng, o_side)
+    counts = rng.integers(L // 2, L + 1, E)
+    counts[-1] = 0
+    mask = (np.arange(L)[None] < counts[:, None]).astype(np.float32)
+    if variant == "holes":
+        mask[:, 1::2] = 0.0
+    ids = np.where(mask > 0, rng.integers(0, len(T), (E, L)), 0).astype(np.int32)
+    r = np.where(mask > 0, np.round(rng.uniform(0.5, 5, (E, L)) * 2) / 2, 0)
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    return cfg, put(T), put(ids), put(r.astype(np.float32)), put(mask)
+
+
+# (k, E, L): a short bucket, the cell's user chunk cut to 400 entities,
+# lists that cross the slice, the cell's longest bucket, factors not a
+# multiple of 4, and a width whose microtiles take two blocks an entity
+NE_SHAPES = [(8, 50, 8), (64, 300, 256), (200, 400, 256), (200, 5, 4096),
+             (200, 2, 131_072), (13, 70, 40), (256, 40, 256), (256, 3, 2048)]
+
+
+@pytest.mark.parametrize("variant", ["per_obs", "absolute", "bf16", "holes"])
+@pytest.mark.parametrize("side", ["user", "item"])
+@pytest.mark.parametrize("k,E,L", NE_SHAPES)
+def test_normal_eq_kernel_matches_plain(cuda, k, E, L, side, variant):
+    """The kernel against the plain body on the card, within 1e-5 of the
+    largest |entry| (the CPU tests' bar between the kernel's order and the
+    batched product); A exactly symmetric, an empty list the ridge alone,
+    the same bits twice, one call counted."""
+    cfg, T, ids, r, m = _ne_slots(k, side, E, L, variant, k + L, cuda)
+    mu = torch.tensor(3.4, device=cuda)
+    gram = "bf16" if variant == "bf16" else "f32"
+    reg_scale = "absolute" if variant == "absolute" else "per_obs"
+    o_side = "item" if side == "user" else "user"
+    before = cuda_normal_eq.launches
+    A, b = ials.normal_equations(T, ids, r, m, mu, cfg, side, gram, reg_scale)
+    assert cuda_normal_eq.launches == before + 1
+    wA, wb = ials.plain_normal_equations(
+        T, ids, r, m, mu, k, sgd.bias_col(cfg, o_side), sgd.const_col(cfg, o_side),
+        cfg.reg, gram, reg_scale)
+    torch.cuda.synchronize()
+    assert float((A - wA).abs().max()) <= 1e-5 * float(wA.abs().max())
+    assert float((b - wb).abs().max()) <= 1e-5 * float(wb.abs().max())
+    assert torch.equal(A, A.transpose(1, 2))
+    assert torch.equal(A[-1], wA[-1]) and not b[-1].any()
+    A2, b2 = ials.normal_equations(T, ids, r, m, mu, cfg, side, gram, reg_scale)
+    assert torch.equal(A2, A) and torch.equal(b2, b)
+
+
+def test_normal_eq_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):
+    """A bucketed ALS epoch on the card: one kernel call and one
+    ``als.gram_kernel`` span a bucket chunk, and no gather or batched
+    product under ``als.normal_eq``."""
+    def refuse(*a, **k):
+        raise AssertionError("the plain normal equations ran on a CUDA table")
+
+    monkeypatch.setattr(ials, "plain_normal_equations", refuse)
+    rng = np.random.default_rng(5)
+    flat = rng.choice(400 * 300, 20_000, replace=False)
+    u, i = (flat // 300).astype(np.int32), (flat % 300).astype(np.int32)
+    r = rng.uniform(0.5, 5, 20_000).astype(np.float32)
+    cfg = SGDConfig(n_factors=200, reg=0.1, batch_size=4096, compute_epoch_rmse=False)
+    p0 = sgd.init_params(torch.Generator(device="cuda").manual_seed(0), 400, 300,
+                         cfg, float(r.mean()))
+    bu, bi = ials.group_both_sides_bucketed(u, i, r, 400, 300, max_block_rows=4096,
+                                            device=cuda)
+    before = cuda_normal_eq.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        ials.ials_train_bucketed(p0, bu, bi, None, cfg, 1, reg_scale="per_obs")
+        torch.cuda.synchronize()
+    assert cuda_normal_eq.launches == before + len(bu) + len(bi)
+    names = [e.name for e in prof.events()]
+    assert names.count("mf:als.gram_kernel") == len(bu) + len(bi)
+    inside = [e for e in prof.events() if e.name.startswith("aten::")
+              and any(p.name == "mf:als.normal_eq" for p in _parents(e))]
+    assert not [e.name for e in inside
+                if e.name in ("aten::index", "aten::bmm", "aten::matmul", "aten::cat")]
+
+
+def _parents(event):
+    while event.cpu_parent is not None:
+        event = event.cpu_parent
+        yield event
+
+
+def test_normal_eq_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    cfg, T, ids, r, m = _ne_slots(8, "user", 4, 16, "per_obs", 0, cuda)
+    mu = torch.tensor(3.0, device=cuda)
+    good = dict(other=T, other_ids=ids, ratings=r, mask=m, mu=mu, k=8, o_bias=9,
+                o_const=8, ridge=0.1)
+    for bad in ({"other": T[:, 1:]}, {"other": T.double()}, {"other": T.cpu()},
+                {"other_ids": ids.long()}, {"ratings": r[:, :8]}, {"o_bias": 7},
+                {"ridge": torch.ones(3, device=cuda)}):
+        with pytest.raises(ValueError):
+            cuda_normal_eq.cuda_normal_equations(**{**good, **bad})
+    A, b = cuda_normal_eq.cuda_normal_equations(**{**good, "other_ids": ids[:0],
+                                                   "ratings": r[:0], "mask": m[:0]})
+    assert A.shape == (0, 9, 9) and b.shape == (0, 9)
 
 
 # ---------------------------------------------------------------------------
@@ -1242,8 +1353,9 @@ def test_gloo_world_on_one_gpu(cuda):
 
 def test_dp_als_sweep_at_world_one_is_bucket_sweep(cuda):
     """At world size 1 the data-parallel ALS sweep solves each bucket's
-    chunk as ``ials_train_bucketed`` does, through the GJ kernel, and ends
-    with its bits; it launches the leaf as often."""
+    chunk as ``ials_train_bucketed`` does, through the normal-equation
+    kernel and the GJ kernel, and ends with its bits; it launches both as
+    often."""
     import tempfile
 
     import torch.distributed as dist
@@ -1264,15 +1376,17 @@ def test_dp_als_sweep_at_world_one_is_bucket_sweep(cuda):
                                             max_block_rows=4096, device=cuda)
     data = sgd.pack_ratings(u, i, r, 4096, aggregate=False, device=cuda)
     cuda_spd.reset_launches()
+    cuda_normal_eq.reset_launches()
     ref, href = ials.ials_train_bucketed(p0, bu, bi, data, cfg, 2,
                                          reg_scale="per_obs")
     torch.cuda.synchronize()
-    single = cuda_spd.launches
+    single, single_ne = cuda_spd.launches, cuda_normal_eq.launches
     with tempfile.TemporaryDirectory() as d:
         dist.init_process_group("gloo", init_method=f"file://{d}/store",
                                 rank=0, world_size=1)
         try:
             cuda_spd.reset_launches()
+            cuda_normal_eq.reset_launches()
             got, hist = ials.dp_ials_train_bucketed(p0, bu, bi, data, cfg, 2,
                                                     make_mesh(1),
                                                     reg_scale="per_obs")
@@ -1280,6 +1394,7 @@ def test_dp_als_sweep_at_world_one_is_bucket_sweep(cuda):
         finally:
             dist.destroy_process_group()
     assert single > 0 and cuda_spd.launches == single
+    assert single_ne == 2 * (len(bu) + len(bi)) == cuda_normal_eq.launches
     assert torch.equal(got.user_features, ref.user_features)
     assert torch.equal(got.item_features, ref.item_features)
     assert torch.equal(hist, href)

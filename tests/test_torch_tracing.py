@@ -258,3 +258,65 @@ def test_trace_spans_tool_reads_a_cut_cell(monkeypatch, name):
     if "als" in name:
         assert per_unit["spd.leaf"] >= per_unit["als.normal_eq"] > 0
         assert checks["als_parts_within_busy"] is True
+        assert out["span_readings"]["als_normal_eq_ms.inclusive"] == 0.0
+
+
+def test_trace_spans_tool_names_the_kernels_of_each_span():
+    """``kernels_by_span``: a kernel counts in the innermost span its
+    launch lies in, for its device time inside the window; a launch in no
+    span counts outside."""
+    spec = importlib.util.spec_from_file_location("trace_spans",
+                                                  ROOT / "tools" / "trace_spans.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+
+    def X(name, cat, ts, dur, corr=None):
+        e = {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+
+    events = [X("mf:als.normal_eq", "cpu_op", 0, 100),
+              X("mf:als.gram_kernel", "cpu_op", 10, 80),
+              X("cudaLaunchKernel", "cuda_runtime", 20, 1, 1),
+              X("cudaLaunchKernel", "cuda_runtime", 95, 1, 2),
+              X("cudaLaunchKernel", "cuda_runtime", 200, 1, 3),
+              X("normal_eq_kernel", "kernel", 30, 40, 1),
+              X("reduce_kernel", "kernel", 96, 10, 2),
+              X("gemm", "kernel", 201, 2_000, 3)]
+    got = tool.kernels_by_span(events, 0, 1_000)
+    assert got == {"als.gram_kernel": [["normal_eq_kernel", 40e-6]],
+                   "als.normal_eq": [["reduce_kernel", 10e-6]],
+                   "(outside)": [["gemm", 799e-6]]}
+
+
+def test_trace_spans_tool_sums_each_span_inclusively():
+    """``inclusive_device_s``: a launch counts in every span that holds
+    it, once a name; memory copies count as device work; a launch in no
+    span counts in none."""
+    spec = importlib.util.spec_from_file_location("trace_spans",
+                                                  ROOT / "tools" / "trace_spans.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+
+    def X(name, cat, ts, dur, corr=None):
+        e = {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+
+    events = [X("mf:als.epoch", "cpu_op", 0, 500),
+              X("mf:als.normal_eq", "cpu_op", 0, 100),
+              X("mf:als.gram_kernel", "cpu_op", 10, 80),
+              X("mf:als.normal_eq", "cpu_op", 300, 50),
+              X("cudaLaunchKernel", "cuda_runtime", 20, 1, 1),
+              X("cudaLaunchKernel", "cuda_runtime", 95, 1, 2),
+              X("cudaMemcpyAsync", "cuda_runtime", 310, 1, 3),
+              X("cudaLaunchKernel", "cuda_runtime", 600, 1, 4),
+              X("normal_eq_kernel", "kernel", 30, 40, 1),
+              X("reduce_kernel", "kernel", 96, 10, 2),
+              X("Memcpy DtoD", "gpu_memcpy", 320, 5, 3),
+              X("gemm", "kernel", 601, 2_000, 4)]
+    got = tool.inclusive_device_s(events, 0, 1_000)
+    assert got == pytest.approx({"als.epoch": 55e-6, "als.normal_eq": 55e-6,
+                                 "als.gram_kernel": 40e-6})

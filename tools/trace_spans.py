@@ -22,6 +22,15 @@ name-matching readers:
   ``spd.leaf`` at most the window's busy seconds, and the attributed and
   unattributed device seconds adding up to it within 0.1%.
 
+Besides, the kernels launched inside each span (innermost), by name, with
+their device seconds in the window (``kernels_by_span``, the ten longest a
+span): what runs under ``als.normal_eq`` shows whether the design gather
+and the batched product are gone. And each span's device seconds with the
+spans nested in it (``inclusive_device_s``), and from them
+``als_normal_eq_ms.inclusive``: the normal equations' device ms an epoch
+with the kernel's own span ``als.gram_kernel`` inside, which the
+harness's innermost ``als_normal_eq_ms`` leaves out.
+
 ``--cost`` times ``utils.profiling.span`` on the host instead: entered and
 left with no profiler recording, and with one recording, beside a bare
 ``record_function`` and ``_RecordFunctionFast``, in microseconds a span.
@@ -41,6 +50,67 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
+
+
+def _device_by_span(events: list, lo: float, hi: float, cats) -> tuple:
+    """The ``mf:`` spans ((start, end, name), by start) and, for each device
+    event of ``cats`` with a launch, (name, device seconds in the window
+    [lo, hi], index of the innermost span its launch lies in or -1)."""
+    from portbench.program_trace import LAUNCH_CATS, PROGRAM_PREFIX, _innermost
+
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"][len(PROGRAM_PREFIX):])
+                   for e in events if e.get("ph") == "X" and e.get("cat") == "cpu_op"
+                   and e.get("name", "").startswith(PROGRAM_PREFIX))
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("ph") == "X" and e.get("cat") in LAUNCH_CATS
+              and "correlation" in e.get("args", {})}
+    work = []
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in cats:
+            continue
+        a, b = max(e["ts"], lo), min(e["ts"] + e["dur"], hi)
+        at = launch.get(e.get("args", {}).get("correlation"))
+        if b > a and at is not None:
+            work.append((e["name"], (b - a) / 1e6, at))
+    inner = _innermost(spans, [w[2] for w in work])
+    return spans, [(n, secs, ix) for (n, secs, _), ix in zip(work, inner)]
+
+
+def kernels_by_span(events: list, lo: float, hi: float, top: int = 10) -> dict:
+    """{span: [[kernel name, device seconds in the window], ...]} for the
+    kernels whose launch lies innermost in each ``mf:`` span, the longest
+    first."""
+    spans, kernels = _device_by_span(events, lo, hi, ("kernel",))
+    out: dict = {}
+    for kname, secs, ix in kernels:
+        per = out.setdefault(spans[ix][2] if ix >= 0 else "(outside)", {})
+        per[kname] = per.get(kname, 0.0) + secs
+    return {n: sorted(([k[:100], v] for k, v in per.items()), key=lambda x: -x[1])[:top]
+            for n, per in sorted(out.items())}
+
+
+def inclusive_device_s(events: list, lo: float, hi: float) -> dict:
+    """{span: device seconds in the window of the work launched inside it,
+    the spans nested in it included}: a launch counts once in every span
+    name that holds it."""
+    from portbench.trace import DEVICE_CATS
+
+    spans, work = _device_by_span(events, lo, hi, DEVICE_CATS)
+    parent, open_ = [], []
+    for j, (start, _, _) in enumerate(spans):  # as ``_innermost`` nests them
+        while open_ and spans[open_[-1]][1] < start:
+            open_.pop()
+        parent.append(open_[-1] if open_ else -1)
+        open_.append(j)
+    out: dict = {}
+    for _, secs, ix in work:
+        names = set()
+        while ix >= 0:
+            names.add(spans[ix][2])
+            ix = parent[ix]
+        for n in names:
+            out[n] = out.get(n, 0.0) + secs
+    return dict(sorted(out.items()))
 
 
 def trace_cell(name: str, seed: int) -> dict:
@@ -90,17 +160,23 @@ def trace_cell(name: str, seed: int) -> dict:
                                       <= readings["search_idle_program_ms"]
                                       <= metrics["search_host_ms"])
     sp = prog["spans"]
+    inclusive = inclusive_device_s(events, lo, hi)
     if "als.normal_eq" in sp:
-        parts = sum(sp.get(n, {}).get("device_s", 0.0)
-                    for n in ("als.normal_eq", "spd.schur", "spd.leaf"))
+        parts = inclusive.get("als.normal_eq", 0.0) + sum(
+            sp.get(n, {}).get("device_s", 0.0) for n in ("spd.schur", "spd.leaf"))
         checks["als_parts_within_busy"] = parts <= prog["busy_s"]
+        if view.work.get("epochs"):
+            readings["als_normal_eq_ms.inclusive"] = (
+                1e3 * inclusive.get("als.normal_eq", 0.0) / view.work["epochs"])
     if prog["busy_s"] > 0:
         attributed = total(prog, "device_s") + prog["outside"]["device_s"]
         checks["device_rel_gap"] = abs(attributed - prog["busy_s"]) / prog["busy_s"]
     return {"workload": name, "seed": seed, "units": units, "result": result,
             "program": prog,
             "per_unit": {n: r["count"] / units for n, r in sorted(sp.items())},
-            "span_readings": readings, "checks": checks}
+            "span_readings": readings, "checks": checks,
+            "inclusive_device_s": inclusive,
+            "kernels_by_span": kernels_by_span(events, lo, hi)}
 
 
 def span_cost(n: int = 100_000) -> dict:
@@ -144,7 +220,8 @@ def main(argv=None) -> int:
             f.write(line + "\n")
     brief = out if a.cost else {k: out[k] for k in ("workload", "seed", "units",
                                                     "per_unit", "span_readings",
-                                                    "checks")}
+                                                    "checks", "inclusive_device_s",
+                                                    "kernels_by_span")}
     print(json.dumps(brief))
     return 0
 
