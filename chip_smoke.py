@@ -421,6 +421,23 @@ class SmokeFailure(Exception):
     pass
 
 
+STEP = ("mf_sgd_step", "mf_sgd_step_acc")  # the SGD step's entry points
+
+
+def n_launches(*entries):
+    """Launches of the named C entry points together, as ``ops/_build.py``
+    counts them (zero returns of the checked call)."""
+    from matrix_factorization_tpu_torch.ops import _build
+
+    return _build.launches(*entries)
+
+
+def zero_launches(*entries):
+    from matrix_factorization_tpu_torch.ops import _build
+
+    _build.reset_launches(*entries)
+
+
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
@@ -1013,10 +1030,11 @@ def run_step(params, b, cfg, primary, plain):
     """One step on the card, in place: the step and apply kernels, or
     (``plain``) their plain versions. Returns the secondary deltas."""
     from matrix_factorization_tpu_torch.ops import cuda_sgd
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
 
-    step, apply = ((cuda_sgd.plain_sgd_step, cuda_sgd.plain_segment_apply)
+    step, apply = ((cuda_sgd.plain_sgd_step, ss.plain_segment_apply)
                    if plain else
-                   (cuda_sgd.cuda_sgd_step, cuda_sgd.cuda_segment_apply))
+                   (cuda_sgd.cuda_sgd_step, ss.cuda_segment_apply))
     args, kw, sec_tbl = step_args(params, b, cfg, primary)
     dq = step(*args, **kw)
     if kw["write_dq"]:
@@ -1034,7 +1052,6 @@ def phase_compare_sgd(torch, rng, cases):
     largest error of the step (primary table, dq) and of the apply
     (secondary table). Two runs of the kernels from the same tables must
     agree bitwise."""
-    from matrix_factorization_tpu_torch.ops import cuda_sgd
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
     from matrix_factorization_tpu_torch.ops import segment_sum as ss
 
@@ -1082,12 +1099,12 @@ def phase_compare_sgd(torch, rng, cases):
                   f"compare_sgd {name}: dq differs")
             got, again, model, want = (getattr(p0, sec).clone()
                                        for _ in range(4))
-            cuda_sgd.cuda_segment_apply(got, dq_plain, b["sp"], b["ss"])
-            cuda_sgd.cuda_segment_apply(again, dq_plain, b["sp"], b["ss"])
+            ss.cuda_segment_apply(got, dq_plain, b["sp"], b["ss"])
+            ss.cuda_segment_apply(again, dq_plain, b["sp"], b["ss"])
             ss.segmented_segment_sum(model, dq_plain, b["sp"], b["ss"],
-                                     chunk=cuda_sgd.APPLY_CHUNK,
+                                     chunk=ss.APPLY_CHUNK,
                                      layout="columns")
-            cuda_sgd.plain_segment_apply(want, dq_plain, b["sp"], b["ss"])
+            ss.plain_segment_apply(want, dq_plain, b["sp"], b["ss"])
             apply_err = float((got - want).abs().max())
             check(torch.equal(got, again),
                   f"compare_sgd {name}: two runs of the apply differ")
@@ -1129,7 +1146,6 @@ def phase_train(torch, rng, kernel, data3, pack, pack_seconds, seed):
     import pandas as pd
 
     from matrix_factorization_tpu_torch import KernelMF
-    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
     u, i, r, hu, hi = data3
@@ -1145,7 +1161,7 @@ def phase_train(torch, rng, kernel, data3, pack, pack_seconds, seed):
     y = pd.Series(r)
 
     # -- the main path: fit, then update_users -------------------------
-    cuda_sgd.reset_launches()
+    zero_launches(*STEP, "mf_segment_apply")
     t0 = time.perf_counter()
     model.fit(X, y, n_epochs=3)
     out["fit_seconds"] = time.perf_counter() - t0
@@ -1154,7 +1170,7 @@ def phase_train(torch, rng, kernel, data3, pack, pack_seconds, seed):
     check(len(hist) == 3 and all(np.isfinite(hist)), f"train RMSE {hist}")
     check(hist[2] < hist[1] < hist[0], f"train RMSE not falling: {hist}")
     check(model._params.item_features.device.type == "cuda", "tables left the card")
-    fit_launches = (cuda_sgd.step_launches, cuda_sgd.apply_launches)
+    fit_launches = (n_launches(*STEP), n_launches("mf_segment_apply"))
 
     known = rng.choice(np.unique(u), 500, replace=False)
     new = np.arange(500) + 10_000_000
@@ -1169,8 +1185,8 @@ def phase_train(torch, rng, kernel, data3, pack, pack_seconds, seed):
     model.update_users(Xu, yu)
     torch.cuda.synchronize()
     out["update_users_seconds"] = time.perf_counter() - t0
-    launches = {"sgd_step": cuda_sgd.step_launches,
-                "segment_apply": cuda_sgd.apply_launches}
+    launches = {"sgd_step": n_launches(*STEP),
+                "segment_apply": n_launches("mf_segment_apply")}
     check(launches["sgd_step"] > fit_launches[0], "update_users did not step")
     check(torch.equal(model._params.item_features, items),
           "update_users moved the frozen item table")
@@ -1187,9 +1203,9 @@ def phase_train(torch, rng, kernel, data3, pack, pack_seconds, seed):
     check(preds.min() >= 0.5 and preds.max() <= 5.0,
           "held-out predict outside [0.5, 5]")
     out["heldout_predict_mean"] = float(preds.mean())
-    n0 = cuda_scores.launches
+    n0 = n_launches("mf_score_catalog")
     rec = model.recommend(int(u[0]), amount=10)
-    check(cuda_scores.launches > n0 and len(rec) == 10,
+    check(n_launches("mf_score_catalog") > n0 and len(rec) == 10,
           "recommend after training did not launch the scorer")
     del model, X
     torch.cuda.empty_cache()
@@ -1362,6 +1378,7 @@ def phase_sgd_kernel_times(torch, rng, shapes, timer):
     their bounds; returns {shape name: {kernel name: row}}."""
     from matrix_factorization_tpu_torch.ops import cuda_sgd
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
 
     out = {}
     for shape, cfg, pack, n_users, n_items in shapes:
@@ -1378,9 +1395,9 @@ def phase_sgd_kernel_times(torch, rng, shapes, timer):
                 "plain_ms": timer.ms(lambda: cuda_sgd.plain_sgd_step(*args)),
                 "library_ms": None},
             "segment_apply": {
-                "ms": timer.ms(lambda: cuda_sgd.cuda_segment_apply(
+                "ms": timer.ms(lambda: ss.cuda_segment_apply(
                     S, dq, b["sp"], b["ss"])),
-                "plain_ms": timer.ms(lambda: cuda_sgd.plain_segment_apply(
+                "plain_ms": timer.ms(lambda: ss.plain_segment_apply(
                     S, dq, b["sp"], b["ss"])),
                 # one PyTorch call of the same function on the pre-permuted
                 # rows: a float-atomic scatter, a yardstick the port never
@@ -1519,7 +1536,6 @@ def phase_train_als(torch, rng, data3, seed, tmpdir):
 
     from matrix_factorization_tpu_torch import KernelMF, load_model, save_model
     from matrix_factorization_tpu_torch.models import kernel_mf
-    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_spd
 
     u, i, r, hu, hi = data3
     model = KernelMF(method="als", kernel="linear", n_factors=ALS["n_factors"],
@@ -1528,7 +1544,7 @@ def phase_train_als(torch, rng, data3, seed, tmpdir):
     X = pd.DataFrame({"user_id": u, "item_id": i})
     out = {"phase": "train_als", "n_ratings": len(r), **ALS}
 
-    cuda_spd.reset_launches()
+    zero_launches("mf_gj_inverse")
     t0 = time.perf_counter()
     model.fit(X, pd.Series(r), n_epochs=ALS["sweeps"])
     torch.cuda.synchronize()
@@ -1540,7 +1556,7 @@ def phase_train_als(torch, rng, data3, seed, tmpdir):
     check(len(hist) == ALS["sweeps"] and all(np.isfinite(hist)),
           f"ALS train RMSE {hist}")
     check(hist[-1] < hist[0], f"ALS train RMSE not falling: {hist}")
-    fit_launches = cuda_spd.launches
+    fit_launches = n_launches("mf_gj_inverse")
 
     known = rng.choice(np.unique(u), 500, replace=False)
     new = np.arange(500) + 10_000_000
@@ -1555,7 +1571,7 @@ def phase_train_als(torch, rng, data3, seed, tmpdir):
     model.update_users(Xu, yu)
     torch.cuda.synchronize()
     out["update_users_seconds"] = time.perf_counter() - t0
-    launches = cuda_spd.launches
+    launches = n_launches("mf_gj_inverse")
     check(launches > fit_launches, "ALS update_users did not launch the GJ leaf")
     check(torch.equal(model._params.item_features, items),
           "ALS update_users moved the frozen item table")
@@ -1569,9 +1585,9 @@ def phase_train_als(torch, rng, data3, seed, tmpdir):
           and preds.min() >= 0.5 and preds.max() <= 5.0,
           "ALS held-out predict")
     out["heldout_predict_mean"] = float(preds.mean())
-    n0 = cuda_scores.launches
+    n0 = n_launches("mf_score_catalog")
     rec = model.recommend(int(u[0]), amount=10)
-    check(cuda_scores.launches > n0 and len(rec) == 10,
+    check(n_launches("mf_score_catalog") > n0 and len(rec) == 10,
           "ALS recommend did not launch the scorer")
     save_model(model, f"{tmpdir}/als")
     back = load_model(f"{tmpdir}/als")
@@ -1699,10 +1715,10 @@ def phase_normal_eq(torch, buckets, p, cfg, reg_scale, timer):
                                                o_bias, o_const, cfg.reg,
                                                reg_scale=reg_scale)
 
-        n0 = cuda_normal_eq.launches
+        n0 = n_launches("mf_normal_eq")
         A, rhs = kernel()
         A2, rhs2 = kernel()
-        check(cuda_normal_eq.launches == n0 + 2,
+        check(n_launches("mf_normal_eq") == n0 + 2,
               f"normal_eq {name}: normal_equations did not launch the kernel")
         same = bool(torch.equal(A, A2) and torch.equal(rhs, rhs2))
         del A2, rhs2
@@ -1754,7 +1770,6 @@ def phase_warm_start(torch, data3, seed):
     import pandas as pd
 
     from matrix_factorization_tpu_torch import KernelMF
-    from matrix_factorization_tpu_torch.ops import cuda_sgd, cuda_spd
 
     n = WARM["n_ratings"]
     X = pd.DataFrame({"user_id": data3[0][:n], "item_id": data3[1][:n]})
@@ -1763,15 +1778,14 @@ def phase_warm_start(torch, data3, seed):
               reg=WARM["reg"], min_rating=0.5, max_rating=5.0,
               batch_size=WARM["batch_size"], seed=seed)
     out = {"phase": "warm_start", **WARM}
-    cuda_spd.reset_launches()
-    cuda_sgd.reset_launches()
+    zero_launches("mf_gj_inverse", *STEP, "mf_segment_apply")
     t0 = time.perf_counter()
     warm = KernelMF(als_warm_start=1, als_warm_reg=WARM["als_warm_reg"],
                     **kw).fit(X, y, n_epochs=1)
     torch.cuda.synchronize()
     out["fit_seconds"] = time.perf_counter() - t0
-    launches = {"spd_gj": cuda_spd.launches, "sgd_step": cuda_sgd.step_launches,
-                "segment_apply": cuda_sgd.apply_launches}
+    launches = {"spd_gj": n_launches("mf_gj_inverse"), "sgd_step": n_launches(*STEP),
+                "segment_apply": n_launches("mf_segment_apply")}
     check(all(v > 0 for v in launches.values()),
           f"the warm-start fit missed a kernel: {launches}")
     cold = KernelMF(**kw).fit(X, y, n_epochs=1)
@@ -1793,7 +1807,6 @@ def phase_implicit(torch, seed):
     import pandas as pd
 
     from matrix_factorization_tpu_torch import ImplicitALS
-    from matrix_factorization_tpu_torch.ops import cuda_spd
 
     nu, ni, n = IMPLICIT["n_users"], IMPLICIT["n_items"], IMPLICIT["n"]
     rng = np.random.default_rng(seed + 2)
@@ -1803,7 +1816,7 @@ def phase_implicit(torch, seed):
     X = pd.DataFrame({"user_id": flat // ni, "item_id": flat % ni})
     s = pd.Series(rng.integers(1, 11, len(flat)).astype(np.float32))
     out = {"phase": "implicit", **IMPLICIT}
-    cuda_spd.reset_launches()
+    zero_launches("mf_gj_inverse")
     t0 = time.perf_counter()
     m = ImplicitALS(n_epochs=IMPLICIT["epochs"], seed=seed).fit(X, s)
     torch.cuda.synchronize()
@@ -1821,8 +1834,8 @@ def phase_implicit(torch, seed):
           "implicit update_users moved the item table")
     rec = m.recommend(10_000_000, amount=10)
     check(len(rec) == 10 and m.n_users == nu + k, "implicit recommend")
-    out.update({"train_loss": loss, "launches": cuda_spd.launches})
-    check(cuda_spd.launches > 0, "ImplicitALS launched no GJ leaf")
+    out.update({"train_loss": loss, "launches": n_launches("mf_gj_inverse")})
+    check(n_launches("mf_gj_inverse") > 0, "ImplicitALS launched no GJ leaf")
     return out
 
 
@@ -1842,7 +1855,7 @@ def phase_topk_kernel_times(torch, timer):
         if kind == "steps":
             s = torch.round(s * 64) / 64
         want = scoring._plain_select_topk(s, k)
-        before = cuda_topk.launches
+        before = n_launches("mf_topk_select")
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1850,7 +1863,7 @@ def phase_topk_kernel_times(torch, timer):
             again = scoring._select_topk(s, k)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        check(cuda_topk.launches == before + 2,
+        check(n_launches("mf_topk_select") == before + 2,
               "_select_topk did not launch the selection kernel")
         check(all(torch.equal(a, b) for a, b in zip(got + again, want + got)),
               f"the selection kernel differs from the torch body at "
@@ -1859,7 +1872,7 @@ def phase_topk_kernel_times(torch, timer):
         row = {"rows": rows, "n": n, "k": k, "scores": kind,
                "chunks": cuda_topk.select_plan(
                    rows, n, k, torch.cuda.get_device_properties(0).multi_processor_count,
-                   cuda_topk._blocks_per_sm()).chunks,
+                   cuda_topk.blocks_per_sm()).chunks,
                "ms": timer.ms(lambda: scoring._select_topk(s, k)),
                "plain_ms": timer.ms(lambda: scoring._plain_select_topk(s, k)),
                "library_ms": timer.ms(lambda: torch.topk(s, k, dim=-1)),
@@ -2151,7 +2164,6 @@ def phase_baseline(torch, rng, train, held, tmpdir, seed):
     import pandas as pd
 
     from matrix_factorization_tpu_torch import BaselineModel, load_model, save_model
-    from matrix_factorization_tpu_torch.ops import segment_sum as ss
 
     u, i, r = train
     X = pd.DataFrame({"user_id": u, "item_id": i})
@@ -2165,13 +2177,13 @@ def phase_baseline(torch, rng, train, held, tmpdir, seed):
            "global_mean_rmse": rmse_mean, "launches": {}}
     for method, kw in BASE.items():
         res = {}
-        ss.reset_launches()
+        zero_launches("mf_segment_sum")
         t0 = time.perf_counter()
         model = BaselineModel(min_rating=0.5, max_rating=5.0, seed=seed,
                               **kw).fit(X, y)
         torch.cuda.synchronize()
         res["fit_seconds"] = time.perf_counter() - t0
-        res["fit_launches"] = ss.launches
+        res["fit_launches"] = n_launches("mf_segment_sum")
         hist = model.train_rmse
         check(len(hist) == kw["n_epochs"] and np.isfinite(hist).all(),
               f"baseline {method} RMSE {hist}")
@@ -2218,9 +2230,10 @@ def phase_baseline(torch, rng, train, held, tmpdir, seed):
                              model.item_vocab.raw_ids)
         check(np.allclose(np.sort(scores)[::-1][:10], rec["rating_pred"],
                           atol=1e-5), f"baseline {method} recommend scores")
-        res["launches"] = ss.launches
-        out["launches"][method] = ss.launches
-        check(ss.launches > 0, f"baseline {method} launched no segment sum")
+        res["launches"] = n_launches("mf_segment_sum")
+        out["launches"][method] = n_launches("mf_segment_sum")
+        check(n_launches("mf_segment_sum") > 0,
+              f"baseline {method} launched no segment sum")
         res["train_rmse_first_last"] = [hist[0], hist[-1]]
         again = BaselineModel(min_rating=0.5, max_rating=5.0, seed=seed,
                               **kw).fit(X, y)
@@ -2365,7 +2378,6 @@ def phase_content(torch, rng, train, held, seed):
     import pandas as pd
 
     from matrix_factorization_tpu_torch import ContentBasedRecommender
-    from matrix_factorization_tpu_torch.ops import segment_sum as ss
 
     u, i, r = train
     X = pd.DataFrame({"user_id": u, "item_id": i})
@@ -2376,7 +2388,7 @@ def phase_content(torch, rng, train, held, seed):
     feats = pd.DataFrame(genres, columns=[f"g{j}" for j in range(N_GENRES)])
     feats.insert(0, "item_id", np.arange(ni))
     out = {"phase": "content", "genres": N_GENRES}
-    ss.reset_launches()
+    zero_launches("mf_segment_sum")
     t0 = time.perf_counter()
     plain = ContentBasedRecommender(min_rating=0.5, max_rating=5.0).fit(X, y)
     models = {mode: ContentBasedRecommender(
@@ -2385,8 +2397,9 @@ def phase_content(torch, rng, train, held, seed):
         for mode in ("profile_mean", "similarity")}
     torch.cuda.synchronize()
     out["fit_seconds"] = time.perf_counter() - t0
-    out["launches"] = ss.launches
-    check(ss.launches > 0, "the content fits launched no segment sum")
+    out["launches"] = n_launches("mf_segment_sum")
+    check(n_launches("mf_segment_sum") > 0,
+          "the content fits launched no segment sum")
 
     m = models["profile_mean"]
     uu = m.user_vocab.encode(np.asarray(u, dtype=object))
@@ -2470,15 +2483,14 @@ def phase_sweep(torch, sw, seed):
     import numpy as np
 
     from matrix_factorization_tpu_torch import grid_search_kernel_mf
-    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, sweep
+    from matrix_factorization_tpu_torch.ops import sweep
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
     c = ML100K
     n = len(sw["X"])
     out = {"phase": "sweep", "n_train": n, "held_out": c["held_out"],
            "epochs": c["epochs"], **sw["kw"]}
-    cuda_sgd.reset_launches()
-    cuda_scores.reset_launches()
+    zero_launches(*STEP, "mf_segment_apply", "mf_score_catalog")
     t0 = time.perf_counter()
     model, results = grid_search_kernel_mf(sw["X"], sw["y"], sw["Xv"],
                                            sw["yv"], n_epochs=c["epochs"],
@@ -2486,9 +2498,9 @@ def phase_sweep(torch, sw, seed):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     rec = model.recommend(sw["raw_u0"], amount=10)
-    launches = {"sgd_step": cuda_sgd.step_launches,
-                "segment_apply": cuda_sgd.apply_launches,
-                "score_catalog": cuda_scores.launches}
+    launches = {"sgd_step": n_launches(*STEP),
+                "segment_apply": n_launches("mf_segment_apply"),
+                "score_catalog": n_launches("mf_score_catalog")}
     nb = -(-n // c["batch_size"])
     k = len(results)
     out.update({"seconds": secs, "candidates": k,
@@ -2908,7 +2920,6 @@ def phase_ease(torch, rng, train, tmpdir, seed):
     import pandas as pd
 
     from matrix_factorization_tpu_torch import EASE, load_model, save_model
-    from matrix_factorization_tpu_torch.ops import cuda_gram, cuda_spd
     from matrix_factorization_tpu_torch.ops import ease as ease_ops
     from matrix_factorization_tpu_torch.ops.spd import exact_f32
 
@@ -2919,13 +2930,12 @@ def phase_ease(torch, rng, train, tmpdir, seed):
     res = out["ml1m"]
     X = pd.DataFrame({"user_id": u, "item_id": i})
     torch.cuda.reset_peak_memory_stats()
-    cuda_spd.reset_launches()
-    cuda_gram.reset_launches()
+    zero_launches("mf_gj_inverse", "mf_ease_gram_tiles")
     with LeafRecorder() as rec_ml1m:
         model, res["fit_seconds"] = timed(
             torch, lambda: EASE(reg=lam).fit(X, pd.Series(r)))
-    launches = {"ml1m": cuda_spd.launches}
-    gram_launches = {"ml1m": cuda_gram.launches}
+    launches = {"ml1m": n_launches("mf_gj_inverse")}
+    gram_launches = {"ml1m": n_launches("mf_ease_gram_tiles")}
     check(launches["ml1m"] > 0, "EASE fit did not launch the GJ leaf")
     check(gram_launches["ml1m"] > 0, "EASE fit did not take the int8 gram")
     res["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
@@ -2960,18 +2970,18 @@ def phase_ease(torch, rng, train, tmpdir, seed):
     bu, bi, w, gen = ease_budget_data(seed)
     res["pairs"] = len(bu)
     torch.cuda.reset_peak_memory_stats()
-    cuda_gram.reset_launches()
+    zero_launches("mf_ease_gram_tiles")
     G, res["gram_seconds"] = timed(torch, lambda: ease_ops.item_gram(
         bu, bi, w, cfg["n_users"], cfg["n_items"], device="cuda"))
-    gram_launches["at_16384"] = cuda_gram.launches
+    gram_launches["at_16384"] = n_launches("mf_ease_gram_tiles")
     check(gram_launches["at_16384"] > 0, "EASE at 16k did not take the int8 gram")
     res["gram_peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
     torch.cuda.reset_peak_memory_stats()
-    cuda_spd.reset_launches()
+    zero_launches("mf_gj_inverse")
     with LeafRecorder() as rec_budget:
         Bt, res["inverse_seconds"] = timed(
             torch, lambda: ease_ops.ease_weights(G, cfg["reg"]))
-    launches["budget"] = cuda_spd.launches
+    launches["budget"] = n_launches("mf_gj_inverse")
     check(launches["budget"] > 0, "EASE at the budget did not launch the GJ leaf")
     res["inverse_peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
     res["leaf_d"] = sorted(rec_budget.inputs)
@@ -3048,7 +3058,7 @@ def phase_ease_gram_kernel_time(torch, timer, seed):
     gen = np.random.default_rng(seed)
     n_max = max(n for n, _ in cfg["users"])
     u_all, i_all = unique_plays(gen, n_max, n_items, cfg["per_user"], skew=2.0)
-    cuda_gram.reset_launches()
+    zero_launches("mf_ease_gram_tiles")
     rows_out = []
     for n_users, name in cfg["users"]:
         keep = u_all < n_users
@@ -3079,7 +3089,8 @@ def phase_ease_gram_kernel_time(torch, timer, seed):
                "bound_ms": max(t_ops, t_bytes) * 1e3,
                "bound_by": "ops" if t_ops >= t_bytes else "bytes"}
         if not big:
-            lib, cu = cuda_gram._library(), p8.cu
+            # the tile kernel raw: timed alone and outside the launch count
+            run_tiles, cu = cuda_gram.LIB.fn("mf_ease_gram_tiles"), p8.cu
             rows = cuda_gram.slab_rows(p8.ip)
             Dt = cuda_gram.plain_slab(p8.lu, p8.ii, p8.ww, rows, cu)
             G = torch.zeros((p8.ip, p8.ip), dtype=torch.int32, device="cuda")
@@ -3087,9 +3098,10 @@ def phase_ease_gram_kernel_time(torch, timer, seed):
             stream = torch.cuda.current_stream().cuda_stream
 
             def tiles():
-                cuda_gram._check(lib, lib.mf_ease_gram_tiles(
-                    Dt.data_ptr(), cu, cu // cuda_gram.K_TILE, p8.tiles.data_ptr(),
-                    p8.tiles.shape[0], G.data_ptr(), p8.ip, stream), "ease_gram_tiles")
+                rc = run_tiles(Dt.data_ptr(), cu, cu // cuda_gram.K_TILE,
+                               p8.tiles.data_ptr(), p8.tiles.shape[0], G.data_ptr(),
+                               p8.ip, stream)
+                check(rc == 0, f"mf_ease_gram_tiles returned {rc}")
 
             def int_mm():
                 torch._int_mm(Dt, Dt.T, out=prod)
@@ -3103,7 +3115,7 @@ def phase_ease_gram_kernel_time(torch, timer, seed):
         emit({"phase": "ease_gram_kernel_time", **row})
         del p8, pf
         torch.cuda.empty_cache()
-    return rows_out, cuda_gram.launches
+    return rows_out, n_launches("mf_ease_gram_tiles")
 
 
 def phase_ease_leaf_times(torch, leaves, timer):
@@ -3172,21 +3184,21 @@ FAM_TOL = {"BPR": 1e-4, "SVDpp": 2e-4, "NMF": 1e-4}  # one epoch, kernel vs plai
 
 
 def plain_scatters(fn):
-    """``fn()`` with ``cuda_sgd.sgd_step``, ``cuda_sgd.segment_apply`` and
+    """``fn()`` with ``cuda_sgd.sgd_step``, ``segment_sum.segment_apply`` and
     ``segment_sum.segment_sum`` routed to their plain versions (gathers and
     ``index_add_``) for the call: the trainers reach them through those
     names."""
     from matrix_factorization_tpu_torch.ops import cuda_sgd
     from matrix_factorization_tpu_torch.ops import segment_sum as ss
 
-    saved = cuda_sgd.sgd_step, cuda_sgd.segment_apply, ss.segment_sum
+    saved = cuda_sgd.sgd_step, ss.segment_apply, ss.segment_sum
     cuda_sgd.sgd_step = cuda_sgd.plain_sgd_step
-    cuda_sgd.segment_apply = cuda_sgd.plain_segment_apply
+    ss.segment_apply = ss.plain_segment_apply
     ss.segment_sum = lambda out, *a: (ss.plain_segment_sum(out, *a), out)[1]
     try:
         return fn()
     finally:
-        cuda_sgd.sgd_step, cuda_sgd.segment_apply, ss.segment_sum = saved
+        cuda_sgd.sgd_step, ss.segment_apply, ss.segment_sum = saved
 
 
 def family_epoch_fn(torch, family, pack, seed, n_users, n_items, ids):
@@ -3287,15 +3299,15 @@ def family_serving_check(torch, model, family, held, rng, users_pool):
               "NMF cold pairs do not predict the global mean")
     out.update(predict_max_abs_err=err, predict_possible=int(possible.sum()))
     users = [int(x) for x in rng.choice(users_pool, 256, replace=False)]
-    n0 = cuda_scores.launches
+    n0 = n_launches("mf_score_catalog")
     rec = model.recommend(users[0], amount=10)
-    check(cuda_scores.launches > n0 and len(rec) == 10,
+    check(n_launches("mf_score_catalog") > n0 and len(rec) == 10,
           f"{family} recommend did not launch the scorer")
-    n0 = cuda_scores.launches
+    n0 = n_launches("mf_score_catalog")
     batch = model.recommend_batch(users, amount=10)
-    check(cuda_scores.launches > n0 and len(batch) == 2560,
+    check(n_launches("mf_score_catalog") > n0 and len(batch) == 2560,
           f"{family} recommend_batch did not launch the scorer")
-    out["score_launches"] = cuda_scores.launches
+    out["score_launches"] = n_launches("mf_score_catalog")
     dense = torch.as_tensor(model.user_vocab.encode(np.asarray(users)),
                             device="cuda")
     plain = cuda_scores.plain_score_catalog(
@@ -3327,8 +3339,6 @@ def phase_family(torch, rng, family, data3, pack, pack_seconds, tmpdir, seed):
     import pandas as pd
 
     import matrix_factorization_tpu_torch as mf
-    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd
-    from matrix_factorization_tpu_torch.ops import segment_sum as ss
 
     u, i, r, hu, hi = data3
     out = {"phase": family.lower(), "n_ratings": len(r), **FAM,
@@ -3336,7 +3346,7 @@ def phase_family(torch, rng, family, data3, pack, pack_seconds, tmpdir, seed):
     kernel_name = "segment_sum" if family == "NMF" else "segment_apply"
 
     def count():
-        return ss.launches if family == "NMF" else cuda_sgd.apply_launches
+        return n_launches("mf_" + kernel_name)
 
     # -- one epoch, kernels against plain, from the same tables and draws --
     run, cfg = family_epoch_fn(torch, family, pack, seed, N_USERS, N_ITEMS,
@@ -3376,9 +3386,7 @@ def phase_family(torch, rng, family, data3, pack, pack_seconds, tmpdir, seed):
                                 n_epochs=FAM["epochs"],
                                 batch_size=FAM["batch_size"], seed=seed,
                                 **FAM_KW[family])
-    cuda_sgd.reset_launches()
-    ss.reset_launches()
-    cuda_scores.reset_launches()
+    zero_launches(*STEP, "mf_segment_apply", "mf_segment_sum", "mf_score_catalog")
     t0 = time.perf_counter()
     model.fit(X, y)
     torch.cuda.synchronize()
@@ -3501,7 +3509,6 @@ def phase_family_kernel_times(torch, rng, pack, timer):
     (BPR's Q[j]); with their bounds."""
     import numpy as np
 
-    from matrix_factorization_tpu_torch.ops import cuda_sgd
     from matrix_factorization_tpu_torch.ops import segment_sum as ss
 
     b = {"u": pack.user_ids[0], "i": pack.item_ids[0], "sp": pack.sec_perm[0],
@@ -3521,8 +3528,8 @@ def phase_family_kernel_times(torch, rng, pack, timer):
             out = torch.zeros((n_rows, kp), device="cuda")
             raw_l = raw.long()
             if kernel == "segment_apply":
-                fns = {"": lambda: cuda_sgd.cuda_segment_apply(out, vals, *order),
-                       "plain_": lambda: cuda_sgd.plain_segment_apply(out, vals, *order)}
+                fns = {"": lambda: ss.cuda_segment_apply(out, vals, *order),
+                       "plain_": lambda: ss.plain_segment_apply(out, vals, *order)}
             else:
                 fns = {"": lambda: ss.cuda_segment_sum(out, vals, *order),
                        "plain_": lambda: ss.plain_segment_sum(out, vals, *order)}
@@ -3789,7 +3796,7 @@ def phase_recipe_serve(torch, rng, train, tmpdir, seed, timer):
 
     from matrix_factorization_tpu_torch import KernelMF
     from matrix_factorization_tpu_torch.core.artifacts import load_pickle
-    from matrix_factorization_tpu_torch.ops import cuda_sgd, cuda_topk, scoring
+    from matrix_factorization_tpu_torch.ops import scoring
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
     from matrix_factorization_tpu_torch.rank import hybrid
     from matrix_factorization_tpu_torch.rank.recipe_features import (
@@ -3844,13 +3851,13 @@ def phase_recipe_serve(torch, rng, train, tmpdir, seed, timer):
     model = KernelMF(n_factors=R["n_factors"], kernel="linear", lr=R["lr"],
                      reg=R["reg"], batch_size=R["batch_size"], min_rating=0.5,
                      max_rating=5.0, seed=seed)
-    cuda_sgd.reset_launches()
+    zero_launches(*STEP, "mf_segment_apply")
     t0 = time.perf_counter()
     model.fit(X, pd.Series(r), n_epochs=R["epochs"])
     torch.cuda.synchronize()
     out["fit_seconds"] = time.perf_counter() - t0
-    out["launches"] = {"sgd_step": cuda_sgd.step_launches,
-                       "segment_apply": cuda_sgd.apply_launches}
+    out["launches"] = {"sgd_step": n_launches(*STEP),
+                       "segment_apply": n_launches("mf_segment_apply")}
     check(all(v > 0 for v in out["launches"].values()),
           f"the fit missed a kernel: {out['launches']}")
     hist = model.train_rmse
@@ -3942,11 +3949,11 @@ def phase_recipe_serve(torch, rng, train, tmpdir, seed, timer):
     block = max(1, search._TOPK_ELEMS // n)
     want_launches = sum(min(block, len(Q) - lo) * n > scoring.SORT_MAX_SCORES
                         for lo in range(0, len(Q), block))
-    cuda_topk.reset_launches()
+    zero_launches("mf_topk_select")
     bvals, bpos = search.search_topk_batch(index, Q, k)
-    out["topk_launches"] = {"recipe_search": cuda_topk.launches}
-    check(cuda_topk.launches == want_launches,
-          f"search_topk_batch launched the top-k kernel {cuda_topk.launches} "
+    out["topk_launches"] = {"recipe_search": n_launches("mf_topk_select")}
+    check(n_launches("mf_topk_select") == want_launches,
+          f"search_topk_batch launched the top-k kernel {n_launches("mf_topk_select")} "
           f"times, not once a row block past SORT_MAX_SCORES ({want_launches})")
     out["batch_max_abs_err"] = hold_search(bvals, bpos, S, want)
     del S
@@ -4051,7 +4058,7 @@ def phase_recipe_serve(torch, rng, train, tmpdir, seed, timer):
     hold_search(tvals, tpos, ref, twant)
     out["tfidf_peak_bytes"] = torch.cuda.max_memory_allocated()
     out["topk_launches"]["recipe_other"] = (
-        cuda_topk.launches - out["topk_launches"]["recipe_search"])
+        n_launches("mf_topk_select") - out["topk_launches"]["recipe_search"])
     del got, ref, M, tix
     svc.model = svc.reranker = None
     torch.cuda.empty_cache()
@@ -4247,12 +4254,10 @@ def host_rss_mib():
 
 
 def pipeline_launches():
-    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, segment_sum
-
-    return {"score_catalog": cuda_scores.launches,
-            "sgd_step": cuda_sgd.step_launches,
-            "segment_apply": cuda_sgd.apply_launches,
-            "segment_sum": segment_sum.launches}
+    return {"score_catalog": n_launches("mf_score_catalog"),
+            "sgd_step": n_launches(*STEP),
+            "segment_apply": n_launches("mf_segment_apply"),
+            "segment_sum": n_launches("mf_segment_sum")}
 
 
 def phase_pipeline(torch, rng, data3, tmpdir, seed):
@@ -4272,7 +4277,6 @@ def phase_pipeline(torch, rng, data3, tmpdir, seed):
     from matrix_factorization_tpu_torch.core.artifacts import load_pickle
     from matrix_factorization_tpu_torch.data.synthetic import lowrank_ratings
     from matrix_factorization_tpu_torch.eval import hybrid_eval
-    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, segment_sum
     from matrix_factorization_tpu_torch.pipeline import (
         build_item_embeddings, build_recipe_metadata, build_structured_features,
         evaluate, evaluate_hybrid, evaluate_llm, export_artifacts, train,
@@ -4303,9 +4307,7 @@ def phase_pipeline(torch, rng, data3, tmpdir, seed):
     n_users = int(ratings["user_id"].nunique())
 
     torch.cuda.reset_peak_memory_stats()
-    for reset in (cuda_scores.reset_launches, cuda_sgd.reset_launches,
-                  segment_sum.reset_launches):
-        reset()
+    zero_launches("mf_score_catalog", *STEP, "mf_segment_apply", "mf_segment_sum")
     seconds, launches, printed = {}, {}, {}
 
     def stage(name, module, argv, at=root):
@@ -4366,10 +4368,10 @@ def phase_pipeline(torch, rng, data3, tmpdir, seed):
     out["fit_seconds"] = fit.seconds
     trace_dir = root / "trace"
     with trace(str(trace_dir)):
-        before = cuda_scores.launches
+        before = n_launches("mf_score_catalog")
         model, recs, res, eval_seconds = evaluate_recorded("evaluate", root,
                                                            ratings)
-        eval_launches = cuda_scores.launches - before
+        eval_launches = n_launches("mf_score_catalog") - before
     check(model._params.item_features.device.type == "cuda"
           and model._params.user_features.device.type == "cuda",
           "the loaded model is not on the card")
@@ -4544,7 +4546,7 @@ def phase_parallel_nccl(torch, rng, data3, held_r, seed):
     Returns (out, the shuffle and user packs)."""
     import numpy as np
 
-    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, scoring
+    from matrix_factorization_tpu_torch.ops import scoring
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
     from matrix_factorization_tpu_torch.parallel import distributed as pdist
     from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
@@ -4567,8 +4569,7 @@ def phase_parallel_nccl(torch, rng, data3, held_r, seed):
     # -- the main path: dp_fit, then the sharded catalog ----------------
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cuda_sgd.reset_launches()
-    cuda_scores.reset_launches()
+    zero_launches(*STEP, "mf_segment_apply", "mf_score_catalog")
     fits, pack_seconds = {}, []
     pack_ratings = sgd.pack_ratings
 
@@ -4599,10 +4600,10 @@ def phase_parallel_nccl(torch, rng, data3, held_r, seed):
     ud = rng.choice(N_USERS, PAR["serve_users"], replace=False).astype(np.int32)
     vals, idx = cat.topk(served.user_features[torch.from_numpy(ud).cuda()],
                          PAR["k"])
-    launches = {"sgd_step": cuda_sgd.step_launches,
-                "sgd_step_acc": cuda_sgd.acc_launches,
-                "segment_apply": cuda_sgd.apply_launches,
-                "score_catalog": cuda_scores.launches}
+    launches = {"sgd_step": n_launches(*STEP),
+                "sgd_step_acc": n_launches("mf_sgd_step_acc"),
+                "segment_apply": n_launches("mf_segment_apply"),
+                "score_catalog": n_launches("mf_score_catalog")}
     out["launches"] = launches
     out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
     check(all(v > 0 for v in launches.values()),
@@ -4794,8 +4795,7 @@ def parallel_gloo_rank(rank, world, inp):
     import torch
 
     from matrix_factorization_tpu_torch import KernelMF, params_from_numpy
-    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, cuda_spd, scoring
-    from matrix_factorization_tpu_torch.ops import segment_sum as ss
+    from matrix_factorization_tpu_torch.ops import scoring
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
     from matrix_factorization_tpu_torch.parallel import distributed as pdist
     from matrix_factorization_tpu_torch.parallel.mesh import device_index, make_mesh
@@ -4808,8 +4808,8 @@ def parallel_gloo_rank(rank, world, inp):
               gamma=1.0 / N_FACTORS, min_rating=0.5, max_rating=5.0,
               batch_size=PAR["gloo_bs"], n_epochs=PAR["gloo_epochs"],
               seed=inp["seed"])
-    for counter in (cuda_sgd, cuda_scores, cuda_spd, ss):
-        counter.reset_launches()
+    zero_launches(*STEP, "mf_segment_apply", "mf_score_catalog", "mf_gj_inverse",
+                  "mf_segment_sum")
     out = {"rank": rank}
     fitted = {}  # keep_sharded fits that the checkpoint part reuses
     t0 = time.perf_counter()
@@ -4863,18 +4863,18 @@ def parallel_gloo_rank(rank, world, inp):
     torch.cuda.synchronize()
     out["6b_seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    n0 = cuda_sgd.apply_launches, cuda_scores.launches
+    n0 = n_launches("mf_segment_apply"), n_launches("mf_score_catalog")
     out["6c"] = gloo_6c_rank(world, inp, X, y)
     torch.cuda.synchronize()
     out["6c_seconds"] = time.perf_counter() - t0
-    out["6c_launches"] = {"segment_apply": cuda_sgd.apply_launches - n0[0],
-                          "score_catalog": cuda_scores.launches - n0[1]}
-    out["launches"] = {"sgd_step": cuda_sgd.step_launches,
-                       "sgd_step_acc": cuda_sgd.acc_launches,
-                       "segment_apply": cuda_sgd.apply_launches,
-                       "score_catalog": cuda_scores.launches,
-                       "spd_gj": cuda_spd.launches,
-                       "segment_sum": ss.launches}
+    out["6c_launches"] = {"segment_apply": n_launches("mf_segment_apply") - n0[0],
+                          "score_catalog": n_launches("mf_score_catalog") - n0[1]}
+    out["launches"] = {"sgd_step": n_launches(*STEP),
+                       "sgd_step_acc": n_launches("mf_sgd_step_acc"),
+                       "segment_apply": n_launches("mf_segment_apply"),
+                       "score_catalog": n_launches("mf_score_catalog"),
+                       "spd_gj": n_launches("mf_gj_inverse"),
+                       "segment_sum": n_launches("mf_segment_sum")}
     t0 = time.perf_counter()
     out["ckpt"] = gloo_ckpt_rank(world, inp, X, y, kw, fitted)
     out["ckpt_seconds"] = time.perf_counter() - t0
@@ -5135,10 +5135,10 @@ def phase_parallel_kernels(torch, rng, packs, train1m, timer):
               and torch.allclose(dq_k, dq_p, atol=1e-5, rtol=1e-5),
               f"parallel_kernels {name}: the accumulator mode off by {step_err}")
         zk, zp, zm = (torch.zeros_like(S) for _ in range(3))
-        cuda_sgd.cuda_segment_apply(zk, dq_p, b["sp"], b["ss"])
-        cuda_sgd.plain_segment_apply(zp, dq_p, b["sp"], b["ss"])
+        ss.cuda_segment_apply(zk, dq_p, b["sp"], b["ss"])
+        ss.plain_segment_apply(zp, dq_p, b["sp"], b["ss"])
         ss.segmented_segment_sum(zm, dq_p, b["sp"], b["ss"],
-                                 chunk=cuda_sgd.APPLY_CHUNK, layout="columns")
+                                 chunk=ss.APPLY_CHUNK, layout="columns")
         apply_err = float((zk - zp).abs().max())
         check(torch.equal(zk, zm) and torch.allclose(zk, zp, atol=1e-5,
                                                      rtol=1e-5),
@@ -5167,9 +5167,9 @@ def phase_parallel_kernels(torch, rng, packs, train1m, timer):
             ss_long, dq_perm = b["ss"].long(), dq_p[b["sp"].long()]
             row.update({
                 "name": "segment_apply_into_zeros",
-                "ms": timer.ms(lambda: cuda_sgd.cuda_segment_apply(
+                "ms": timer.ms(lambda: ss.cuda_segment_apply(
                     zk, dq_p, b["sp"], b["ss"]), before=lambda: zero(zk)),
-                "plain_ms": timer.ms(lambda: cuda_sgd.plain_segment_apply(
+                "plain_ms": timer.ms(lambda: ss.plain_segment_apply(
                     zp, dq_p, b["sp"], b["ss"]), before=lambda: zero(zp)),
                 "library_ms": timer.ms(lambda: zm.index_add_(0, ss_long, dq_perm),
                                        before=lambda: zero(zm)),
@@ -5236,10 +5236,9 @@ def phase_parallel_als(torch, rng, data3, train1m, seed):
     import torch.distributed as dist
 
     from matrix_factorization_tpu_torch.core.config import SGDConfig
-    from matrix_factorization_tpu_torch.ops import als, cuda_scores, cuda_spd, ials, nmf
+    from matrix_factorization_tpu_torch.ops import als, ials, nmf
     from matrix_factorization_tpu_torch.ops import scoring
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
-    from matrix_factorization_tpu_torch.ops import segment_sum as ss
     from matrix_factorization_tpu_torch.parallel import distributed as pdist
     from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
     from matrix_factorization_tpu_torch.parallel.serving import ShardedCatalog
@@ -5298,12 +5297,12 @@ def phase_parallel_als(torch, rng, data3, train1m, seed):
                              .astype(np.float32)).cuda()
 
     # -- the single-device references -------------------------------------
-    cuda_spd.reset_launches()
+    zero_launches("mf_gj_inverse")
     t0 = time.perf_counter()
     ref, href = ials.ials_train_bucketed(p0, bu, bi, rmse_pack, cfg,
                                          ALS["sweeps"], reg_scale=ALS["reg_scale"])
     out["single_device_fit_seconds"] = sync_time(t0)
-    single_gj = cuda_spd.launches
+    single_gj = n_launches("mf_gj_inverse")
     bref, _ = als.als_train(b3, cols3, base_kw["reg"], base_kw["n_epochs"])
     qref, qhref = nmf.nmf_train(q0, npack, cnt_u, cnt_i, ncfg,
                                 PAR_ALS["nmf_epochs"], PAR_ALS["nmf_reg"],
@@ -5311,15 +5310,13 @@ def phase_parallel_als(torch, rng, data3, train1m, seed):
 
     # -- the main path, counts zeroed just before --------------------------
     torch.cuda.synchronize()
-    cuda_spd.reset_launches()
-    ss.reset_launches()
-    cuda_scores.reset_launches()
+    zero_launches("mf_gj_inverse", "mf_segment_sum", "mf_score_catalog")
     t0 = time.perf_counter()
     got, hist = ials.dp_ials_train_bucketed(p0, bu, bi, rmse_pack, cfg,
                                             ALS["sweeps"], mesh,
                                             reg_scale=ALS["reg_scale"])
     out["fit_seconds"] = sync_time(t0)
-    dp_gj = cuda_spd.launches
+    dp_gj = n_launches("mf_gj_inverse")
     t0 = time.perf_counter()
     bdp, bhist = als.dp_als_train(b3, cols3, base_kw["reg"], base_kw["n_epochs"],
                                   mesh)
@@ -5341,8 +5338,8 @@ def phase_parallel_als(torch, rng, data3, train1m, seed):
     ud = rng.choice(N_USERS, PAR["serve_users"], replace=False).astype(np.int32)
     cat = ShardedCatalog(got, N_ITEMS, cfg, mesh)
     vals, idx = cat.topk(got.user_features[torch.from_numpy(ud).cuda()], PAR["k"])
-    launches = {"spd_gj": dp_gj, "segment_sum": ss.launches,
-                "score_catalog": cuda_scores.launches}
+    launches = {"spd_gj": dp_gj, "segment_sum": n_launches("mf_segment_sum"),
+                "score_catalog": n_launches("mf_score_catalog")}
     out["launches"] = launches
     check(all(v > 0 for v in launches.values()),
           f"the parallel ALS path missed a kernel: {launches}")
@@ -5455,7 +5452,7 @@ def phase_parallel_families(torch, rng, data3, seed):
 
     import matrix_factorization_tpu_torch as port
     from matrix_factorization_tpu_torch.core.config import SGDConfig
-    from matrix_factorization_tpu_torch.ops import bpr, cuda_scores, cuda_sgd, svdpp
+    from matrix_factorization_tpu_torch.ops import bpr, svdpp
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
     from matrix_factorization_tpu_torch.parallel import distributed as pdist
     from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
@@ -5545,23 +5542,22 @@ def phase_parallel_families(torch, rng, data3, seed):
     # -- the single-device references --------------------------------------
     refs = {}
     for name, (single, _) in runs.items():
-        n0 = cuda_sgd.apply_launches
+        n0 = n_launches("mf_segment_apply")
         t0 = time.perf_counter()
         refs[name] = single()
         out[f"{name}_single_device_seconds"] = sync_time(t0)
-        out[f"{name}_single_device_launches"] = cuda_sgd.apply_launches - n0
+        out[f"{name}_single_device_launches"] = n_launches("mf_segment_apply") - n0
 
     # -- the main path, counts zeroed just before --------------------------
     torch.cuda.synchronize()
-    cuda_sgd.reset_launches()
-    cuda_scores.reset_launches()
+    zero_launches(*STEP, "mf_segment_apply", "mf_score_catalog")
     got = {}
     for name, (_, dp) in runs.items():
-        n0 = cuda_sgd.apply_launches
+        n0 = n_launches("mf_segment_apply")
         t0 = time.perf_counter()
         got[name] = dp()
         out[f"{name}_seconds"] = sync_time(t0)
-        out[f"{name}_launches"] = cuda_sgd.apply_launches - n0
+        out[f"{name}_launches"] = n_launches("mf_segment_apply") - n0
     X = pd.DataFrame({"user_id": u, "item_id": i})
     served = {}
     for cls, y in (("BPR", None), ("SVDpp", pd.Series(r))):
@@ -5576,8 +5572,8 @@ def phase_parallel_families(torch, rng, data3, seed):
         batch = m.recommend_batch(users, amount=PAR["k"])
         served[cls] = (len(one), len(batch))
         del m
-    launches = {"segment_apply": cuda_sgd.apply_launches,
-                "score_catalog": cuda_scores.launches}
+    launches = {"segment_apply": n_launches("mf_segment_apply"),
+                "score_catalog": n_launches("mf_score_catalog")}
     out["launches"] = launches
     check(all(v > 0 for v in launches.values()),
           f"the parallel families' path missed a kernel: {launches}")
@@ -5967,7 +5963,6 @@ def phase_parallel_gram_nccl(torch, data3, train1m, item_lists, seed):
     import pandas as pd
 
     from matrix_factorization_tpu_torch import TopKItemItemCF
-    from matrix_factorization_tpu_torch.ops import cuda_spd
     from matrix_factorization_tpu_torch.ops import ease as ease_ops
     from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
 
@@ -6003,12 +5998,12 @@ def phase_parallel_gram_nccl(torch, data3, train1m, item_lists, seed):
     del Gd
     B1, res["single_device_inverse_seconds"] = timed(
         torch, lambda: ease_ops.ease_weights(G1, EASE_BUDGET["reg"]))
-    cuda_spd.reset_launches()
+    zero_launches("mf_gj_inverse")
     with NSRecorder(torch, max_iters=EASE_NS_STEPS) as rec:
         B, res["ns_seconds"] = timed(torch, lambda: ease_ops.ease_weights_sharded(
             ease_ops.dp_item_gram(*args, mesh, device="cuda"),
             EASE_BUDGET["reg"], mesh, inverse="ns"))
-    res["gj_launches"] = cuda_spd.launches
+    res["gj_launches"] = n_launches("mf_gj_inverse")
     check(res["gj_launches"] == 0, f"EASE's Newton-Schulz path launched the "
                                    f"GJ leaf {res['gj_launches']} times")
     res["ns"] = rec.calls[0]
@@ -6056,7 +6051,6 @@ def gloo_gram_rank(rank, world, inp):
     import torch
 
     import matrix_factorization_tpu_torch as port
-    from matrix_factorization_tpu_torch.ops import cuda_spd
     from matrix_factorization_tpu_torch.ops import ease as ease_ops
     from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
 
@@ -6068,10 +6062,10 @@ def gloo_gram_rank(rank, world, inp):
     pairs = X.iloc[:GRAM_GLOO["predict"]]
     out = {"rank": rank}
     t0 = time.perf_counter()
-    cuda_spd.reset_launches()
+    zero_launches("mf_gj_inverse")
     m = port.EASE(reg=EASE_ML1M["reg"], mesh=mesh).fit(X, y)
     torch.cuda.synchronize()
-    out["ease"] = {"gj_launches": cuda_spd.launches, "sharding": m._sharding,
+    out["ease"] = {"gj_launches": n_launches("mf_gj_inverse"), "sharding": m._sharding,
                    "rows": tuple(m._params.item_weights.shape),
                    "scores": m._catalog_scores_batch(
                        m.user_vocab.encode(inp["users"]))}
@@ -6095,14 +6089,14 @@ def gloo_gram_rank(rank, world, inp):
     out["seconds"] = time.perf_counter() - t0
     if world == 4:
         torch.cuda.empty_cache()
-        cuda_spd.reset_launches()
+        zero_launches("mf_gj_inverse")
         with NSRecorder(torch) as rec:
             B = ease_ops.ease_weights_sharded(
                 ease_ops.dp_item_gram(*ml1m_gram_args(inp["train"]), mesh,
                                       device="cuda"),
                 EASE_ML1M["reg"], mesh, inverse="ns")
         out["ns"] = {"B_rows": B.cpu().numpy(), **rec.calls[0],
-                     "gj_launches": cuda_spd.launches}
+                     "gj_launches": n_launches("mf_gj_inverse")}
     out["launches"] = {"spd_gj": out["ease"]["gj_launches"]}
     if "retrieval" in inp:
         out["retrieval"] = gloo_retrieval_rank(rank, world, inp["retrieval"])
@@ -6550,7 +6544,6 @@ def gloo_ckpt_rank(world, inp, X, y, kw, fitted):
 
     from matrix_factorization_tpu_torch import (
         KernelMF, load_model_sharded, save_model_sharded)
-    from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd
     from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
 
     t0 = time.perf_counter()
@@ -6559,8 +6552,8 @@ def gloo_ckpt_rank(world, inp, X, y, kw, fitted):
     out = {"dcp_import_seconds": time.perf_counter() - t0, "cells": {}}
     pairs = X.iloc[:4096]
     users = list(inp["users"])
-    n_step, n_apply, n_score = (cuda_sgd.step_launches, cuda_sgd.apply_launches,
-                                cuda_scores.launches)
+    n_step, n_apply, n_score = (n_launches(*STEP), n_launches("mf_segment_apply"),
+                                n_launches("mf_score_catalog"))
     for shape in [(world, 1)] + ([(2, 2)] if world == 4 else []):
         tag = f"{shape[0]}x{shape[1]}"
         res = {}
@@ -6579,10 +6572,10 @@ def gloo_ckpt_rank(world, inp, X, y, kw, fitted):
         m2 = load_model_sharded(path, mesh=mesh)
         torch.cuda.synchronize()
         res["load_seconds"] = time.perf_counter() - t0
-        n0 = cuda_scores.launches
+        n0 = n_launches("mf_score_catalog")
         recs2 = m2.recommend_batch(users, amount=PAR["k"], bound_ratings=False)
         torch.cuda.synchronize()
-        res["serve_launches"] = cuda_scores.launches - n0
+        res["serve_launches"] = n_launches("mf_score_catalog") - n0
         recs = m.recommend_batch(users, amount=PAR["k"], bound_ratings=False)
         whole = m._whole_params()
         m3 = load_model_sharded(path)
@@ -6605,9 +6598,9 @@ def gloo_ckpt_rank(world, inp, X, y, kw, fitted):
         del m, m2, m3, whole
     fitted.clear()
     torch.cuda.empty_cache()
-    out["launches"] = {"sgd_step": cuda_sgd.step_launches - n_step,
-                       "segment_apply": cuda_sgd.apply_launches - n_apply,
-                       "score_catalog": cuda_scores.launches - n_score}
+    out["launches"] = {"sgd_step": n_launches(*STEP) - n_step,
+                       "segment_apply": n_launches("mf_segment_apply") - n_apply,
+                       "score_catalog": n_launches("mf_score_catalog") - n_score}
     return out
 
 
@@ -6677,7 +6670,6 @@ def phase_sharded_checkpoint_nccl(torch, data3, seed, tmpdir):
 
     from matrix_factorization_tpu_torch import (
         KernelMF, load_model, load_model_sharded, save_model, save_model_sharded)
-    from matrix_factorization_tpu_torch.ops import cuda_sgd
     from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
 
     u, i, r = data3[:3]
@@ -6689,15 +6681,15 @@ def phase_sharded_checkpoint_nccl(torch, data3, seed, tmpdir):
     import torch.distributed.checkpoint  # noqa: F401 (its import, timed apart)
 
     out["dcp_import_seconds"] = time.perf_counter() - t0
-    cuda_sgd.reset_launches()
+    zero_launches(*STEP, "mf_segment_apply")
     t0 = time.perf_counter()
     m = KernelMF(n_factors=N_FACTORS, kernel="sigmoid", gamma=1.0 / N_FACTORS,
                  min_rating=0.5, max_rating=5.0, n_epochs=1, mesh=mesh,
                  **CONFIG3["sigmoid"], seed=seed).fit(X, pd.Series(r))
     torch.cuda.synchronize()
     out["fit_seconds"] = time.perf_counter() - t0
-    out["launches"] = {"sgd_step": cuda_sgd.step_launches,
-                       "segment_apply": cuda_sgd.apply_launches}
+    out["launches"] = {"sgd_step": n_launches(*STEP),
+                       "segment_apply": n_launches("mf_segment_apply")}
     pairs = X.iloc[:4096]
     want = np.asarray(m.predict(pairs))
     for name, save, load in (
@@ -6737,8 +6729,7 @@ def main() -> int:
     import numpy as np
 
     from matrix_factorization_tpu_torch.core.config import SGDConfig
-    from matrix_factorization_tpu_torch.ops import (_build, cuda_normal_eq, cuda_scores,
-                                                    cuda_sgd, cuda_topk, ials)
+    from matrix_factorization_tpu_torch.ops import _build, cuda_scores, cuda_sgd, ials
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
     t_start = time.perf_counter()
@@ -6770,8 +6761,8 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     worst = phase_compare(torch, rng, SGDConfig, cuda_scores)
 
-    cuda_scores.reset_launches()
-    launches = lambda: cuda_scores.launches  # noqa: E731
+    zero_launches("mf_score_catalog")
+    launches = lambda: n_launches("mf_score_catalog")  # noqa: E731
     torch.cuda.reset_peak_memory_stats()
     models = {}
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
@@ -6788,7 +6779,7 @@ def main() -> int:
     timer = Timer(torch)
     rows = phase_kernel_times(torch, rng, SGDConfig, cuda_scores, timer)
     topk_rows = phase_topk_kernel_times(torch, timer)
-    cuda_topk.reset_launches()
+    zero_launches("mf_topk_select")
     head = next(r for r in rows if r["B"] == 256 and r["kernel"] == "sigmoid"
                 and r["dtype"] == "float32")
 
@@ -6895,11 +6886,11 @@ def main() -> int:
                              N_USERS, N_ITEMS, cfg_als, float(data3[2].mean()))
     # the normal-equation kernel's launches on each ALS path, counted from
     # here (every earlier phase runs none)
-    cuda_normal_eq.reset_launches()
+    zero_launches("mf_normal_eq")
     ne_launches = {}
 
     def ne_mark(path):
-        ne_launches[path] = cuda_normal_eq.launches - sum(ne_launches.values())
+        ne_launches[path] = n_launches("mf_normal_eq") - sum(ne_launches.values())
 
     ne_rows, ne_worst = phase_normal_eq(torch, buckets, p_init, cfg_als,
                                         ALS["reg_scale"], timer)
@@ -6984,7 +6975,7 @@ def main() -> int:
     # -- the recipe recommender's serving path at RecipeNLG's catalog --------
     # top-k kernel launches of the phases since the kernel's timing phase;
     # the recipe phase resets the counter before its main path
-    topk_launches = {"before_recipe": cuda_topk.launches}
+    topk_launches = {"before_recipe": n_launches("mf_topk_select")}
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         recipe = phase_recipe_serve(torch, rng, train1m, tmpdir, args.seed, timer)
     emit(recipe)
@@ -7179,7 +7170,7 @@ def main() -> int:
         "shape": {k: row[k] for k in ("n", "d", "rows")}, "shapes": segsum_rows,
         "family_shapes": [r for r in fam_rows if r["name"] == "segment_sum"]})
     row = topk_rows[0]
-    topk_launches["after_recipe"] = (cuda_topk.launches
+    topk_launches["after_recipe"] = (n_launches("mf_topk_select")
                                      - topk_launches["recipe_search"]
                                      - topk_launches["recipe_other"])
     kernels.append({

@@ -9,18 +9,17 @@ order (as :class:`core.ids.IdVocab` does); files with string ids, or with
 a line the parser cannot read, go through pandas. The outputs, ``backend``
 included, equal the JAX package's for the same file.
 
-``host_lib`` is the ``ctypes`` binding of ``host_loader.cpp``, built at
-first use by ``ops/_build.py``; the packs of ``ops/segment_sgd.py``,
-``ops/ials.py``, ``ops/sparse_gram.py`` and ``models/cf_topk.py`` call its
-counting sorts. A failed build raises: no path switches to numpy on its
-own.
+``host_lib`` is the ``ctypes`` binding of ``host_loader.cpp``, made by
+``ops/_build.py`` from the table here and built at first use; the packs
+of ``ops/segment_sgd.py``, ``ops/ials.py``, ``ops/sparse_gram.py`` and
+``models/cf_topk.py`` call its counting sorts. A failed build raises: no
+path switches to numpy on its own.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import threading
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
@@ -28,8 +27,28 @@ import numpy as np
 
 from matrix_factorization_tpu_torch.ops import _build
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_c, _ll, _i32 = ctypes.c_char_p, ctypes.c_longlong, ctypes.c_int
+_dp = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+_fp = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+_ip = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_llp = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_LIB = _build.Library("host_loader", {
+    "mf_count_rows": ([_c, _ll, _i32], _ll),
+    "mf_parse_numeric_csv": ([_c, _ll, _i32, _i32, _i32, _i32, _ll, _dp, _dp, _fp,
+                              _i32], _ll),
+    "mf_dense_encode": ([_dp, _ll, _ip, _dp], _ll),
+    "mf_find_duplicate_pair": ([_dp, _dp, _ll], _ll),
+    "mf_entity_counts": ([_ip, _ll, _i32, _ip], None),
+    "mf_pack_grouped": ([_ip, _ip, _fp, _ll, _ip, _ip, _ip, _llp, _ip, _fp, _fp,
+                         _ip], None),
+    "mf_sort_ranges": ([_ip, _ip, _fp, _fp, _llp, _llp, _i32, _i32, _i32, _i32],
+                       None),
+    "mf_argsort_ranges": ([_ip, _llp, _llp, _i32, _i32, _ip, _ip, _i32], None),
+    "mf_gather_rows": ([_ip, _ip, _fp, _llp, _ll, _ip, _ip, _fp, _i32], None),
+    "mf_sort_pairs_by_key": ([_ip, _ip, _fp, _ll, _i32, _ip, _fp], None),
+    "mf_sort_triple_by_key": ([_ip, _ip, _ip, _fp, _ll, _i32, _ip, _ip, _fp], None),
+    "mf_lexsort_pair": ([_ip, _ip, _fp, _ll, _i32, _i32, _ip, _fp], None),
+})
 
 
 def native_threads() -> int:
@@ -39,44 +58,9 @@ def native_threads() -> int:
 
 def host_lib() -> ctypes.CDLL:
     """The bound host library (``csrc/host_loader.cpp``), built on first
-    use; raises ``RuntimeError`` when it cannot be built."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            _lib = _bind(_build.load("host_loader"))
-        return _lib
-
-
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    c = ctypes.c_char_p
-    ll = ctypes.c_longlong
-    i32 = ctypes.c_int
-    dp = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
-    fp = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-    ip = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-    llp = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
-    sigs = {
-        "mf_count_rows": ([c, ll, i32], ll),
-        "mf_parse_numeric_csv": ([c, ll, i32, i32, i32, i32, ll, dp, dp, fp,
-                                  i32], ll),
-        "mf_dense_encode": ([dp, ll, ip, dp], ll),
-        "mf_find_duplicate_pair": ([dp, dp, ll], ll),
-        "mf_entity_counts": ([ip, ll, i32, ip], None),
-        "mf_pack_grouped": ([ip, ip, fp, ll, ip, ip, ip, llp, ip, fp, fp, ip],
-                            None),
-        "mf_sort_ranges": ([ip, ip, fp, fp, llp, llp, i32, i32, i32, i32],
-                           None),
-        "mf_argsort_ranges": ([ip, llp, llp, i32, i32, ip, ip, i32], None),
-        "mf_gather_rows": ([ip, ip, fp, llp, ll, ip, ip, fp, i32], None),
-        "mf_sort_pairs_by_key": ([ip, ip, fp, ll, i32, ip, fp], None),
-        "mf_sort_triple_by_key": ([ip, ip, ip, fp, ll, i32, ip, ip, fp], None),
-        "mf_lexsort_pair": ([ip, ip, fp, ll, i32, i32, ip, fp], None),
-    }
-    for name, (argtypes, restype) in sigs.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-    return lib
+    use; raises ``RuntimeError`` when it cannot be built. Its entry points
+    return counts or nothing, and are called raw."""
+    return _LIB.cdll()
 
 
 class LoadedRatings(NamedTuple):

@@ -12,9 +12,9 @@ by ALS): every rank of the mesh calls it with the same ratings. A model is
 trained here or arrives fitted through ``core.checkpoint.load_model`` (a
 checkpoint of either package) or ``ops.segment_sgd.params_from_numpy``. On
 the GPU, SGD runs the hand-written step and apply kernels of
-``ops/cuda_sgd.py``, the ALS solves the Gauss-Jordan leaf of
-``ops/cuda_spd.py``, and serving the catalog scorer of
-``ops/cuda_scores.py``.
+``ops/cuda_sgd.py`` and ``ops/segment_sum.py``, the ALS solves the
+Gauss-Jordan leaf of ``ops/cuda_spd.py``, and serving the catalog scorer
+of ``ops/cuda_scores.py``.
 
 Reference: ``matrix_factorization/kernel_matrix_factorization.py``
 (fit ``:320-445``, update_users ``:165-237``, predict ``:130-163``). The

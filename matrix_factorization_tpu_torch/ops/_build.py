@@ -21,7 +21,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -30,10 +30,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may take on sm_90 (kMaxSmem)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}  # name -> compiler output (registers, spills)
+_count_lock = threading.Lock()
+_launches: Dict[str, int] = {}  # entry point -> zero returns of the checked call
+_sm_counts: Dict[int, int] = {}  # CUDA device index -> its SMs
 
 
 def _nvcc() -> str:
@@ -119,3 +123,118 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = _libs[name] = ctypes.CDLL(str(_target(name)))
     return lib
+
+
+Signature = Tuple[Sequence[type], Optional[type]]  # (argtypes, restype)
+LIBRARIES: Dict[str, "Library"] = {}  # source name -> its bound library
+
+
+class Library:
+    """The binding of ``csrc/<name>.cu`` or ``.cpp``: ``entries`` maps each
+    C entry point of the source to its ``ctypes`` (argument types, return
+    type), exactly as the source declares it; ``error`` names the source's
+    function from a non-zero status to its message (declared here), or is
+    None. Nothing is built or loaded until the first call."""
+
+    def __init__(self, name: str, entries: Dict[str, Signature],
+                 error: Optional[str] = None):
+        self.name = name
+        self.entries = dict(entries)
+        if error is not None:
+            self.entries[error] = ([ctypes.c_int], ctypes.c_char_p)
+        self.error = error
+        self._lib: Optional[ctypes.CDLL] = None
+        LIBRARIES[name] = self
+
+    def cdll(self) -> ctypes.CDLL:
+        """The loaded library, every entry point of the table bound; built
+        on first use."""
+        lib = self._lib
+        if lib is None:
+            loaded = load(self.name)
+            with _lock:
+                if self._lib is None:
+                    for entry, (argtypes, restype) in self.entries.items():
+                        fn = getattr(loaded, entry)
+                        fn.argtypes = list(argtypes)
+                        fn.restype = restype
+                    self._lib = loaded
+                lib = self._lib
+        return lib
+
+    def fn(self, entry: str):
+        """The bound entry point ``entry``, called raw; ``ValueError`` for a
+        name that is not in the table."""
+        if entry not in self.entries:
+            raise ValueError(f"{entry} is not an entry point of {self.name}")
+        return getattr(self.cdll(), entry)
+
+    def __call__(self, entry: str, *args) -> None:
+        """The checked call of the status entry point ``entry``: a non-zero
+        return raises ``RuntimeError`` with the library's message and counts
+        nothing; a zero return counts one launch of ``entry``. An entry
+        point outside the table, or one that returns no status, is refused."""
+        if self.entries.get(entry, (None, None))[1] is not ctypes.c_int:
+            raise ValueError(f"{entry} is not a status entry point of {self.name}")
+        rc = getattr(self.cdll(), entry)(*args)
+        if rc != 0:
+            msg = (self.fn(self.error)(rc).decode() if self.error is not None
+                   else f"status {rc}")
+            raise RuntimeError(f"{entry} failed: {msg}")
+        with _count_lock:
+            _launches[entry] = _launches.get(entry, 0) + 1
+
+
+def _declared(entries: Tuple[str, ...]) -> None:
+    known = {e for lib in LIBRARIES.values() for e in lib.entries}
+    for entry in entries:
+        if entry not in known:
+            raise ValueError(f"{entry} is not an entry point of a bound library")
+
+
+def launches(*entries: str) -> int:
+    """Launches of the named entry points together (zero returns of the
+    checked call) since import or their last :func:`reset_launches`."""
+    _declared(entries)
+    with _count_lock:
+        return sum(_launches.get(e, 0) for e in entries)
+
+
+def reset_launches(*entries: str) -> None:
+    """Zero the launch counts of the named entry points, or of every entry
+    point when none is named."""
+    _declared(entries)
+    with _count_lock:
+        if not entries:
+            _launches.clear()
+        for entry in entries:
+            _launches.pop(entry, None)
+
+
+def sm_count(device) -> int:
+    """SMs of the CUDA ``device`` (a ``torch.device``), asked once a card."""
+    import torch
+
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    n = _sm_counts.get(idx)
+    if n is None:
+        n = _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n
+
+
+def check(name: str, t, device, dtype, shape=None, aligned: bool = False) -> None:
+    """``ValueError`` unless the tensor ``t`` (the argument ``name``) lies on
+    ``device``, has ``dtype``, is contiguous, with ``aligned`` starts on a
+    16-byte boundary, and has ``shape`` where one is given."""
+    if t.device != device:
+        raise ValueError(f"{name} must be on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if aligned and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")

@@ -11,7 +11,7 @@ scorer like every other model).
 
 A step reads every row it needs (``P[u]``, ``Q[i]``, ``Q[j]``) before any
 table is written, forms the three deltas from those pre-step rows, as the
-JAX step does, and adds them with ``cuda_sgd.segment_apply``: over the
+JAX step does, and adds them with ``segment_sum.segment_apply``: over the
 batch's own user order for P (the pack stores every batch sorted by user,
 so the identity permutation), over the pack's ``sec_perm`` /
 ``sec_ids_sorted`` for ``Q[i]``, and over a per-batch stable sort of the
@@ -54,8 +54,8 @@ import torch
 import torch.nn.functional as F
 
 from matrix_factorization_tpu_torch.core.config import SGDConfig
-from matrix_factorization_tpu_torch.ops import cuda_sgd
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+from matrix_factorization_tpu_torch.ops import segment_sum
 from matrix_factorization_tpu_torch.ops.segment_sum import identity_order, sorted_order
 
 
@@ -95,13 +95,13 @@ def bpr_step(P: torch.Tensor, Q: torch.Tensor, u: torch.Tensor,
     loss = torch.sum(F.softplus(-x) * w)
     reg_w = (cfg.reg * w)[:, None]
     gP = (s[:, None] * d - reg_w * pu) * umask[None, :]
-    cuda_sgd.segment_apply(P, lr * gP, *orders[0])
+    segment_sum.segment_apply(P, lr * gP, *orders[0])
     if update_item_params:
         gQi = (s[:, None] * pu - reg_w * qi) * imask[None, :]
         gQj = (-s[:, None] * pu - reg_w * qj) * imask[None, :]
         out = Q if dq is None else dq
-        cuda_sgd.segment_apply(out, lr * gQi, *orders[1])
-        cuda_sgd.segment_apply(out, lr * gQj, *orders[2])
+        segment_sum.segment_apply(out, lr * gQi, *orders[1])
+        segment_sum.segment_apply(out, lr * gQj, *orders[2])
     return loss
 
 

@@ -17,36 +17,28 @@ are added to an int32 gram; after the last chunk the gram is converted to
 f32 in place and its upper tiles mirrored into the lower ones.
 
 ``int8_gram`` takes CUDA tensors to the kernels and CPU tensors to the
-plain versions (the same steps in PyTorch, for the tests); ``launches``
-counts the tile kernel's launches.
+plain versions (the same steps in PyTorch, for the tests).
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import numpy as np
 import torch
+
+from matrix_factorization_tpu_torch.ops import _build
 
 TILE = 128  # kTile of csrc/ease_gram.cu: output tile rows and columns
 K_TILE = 128  # kBK: users a stage; a chunk's users are a multiple of it
 GROUP = 8  # tile rows whose tiles the order keeps together
 
-_count_lock = threading.Lock()
-launches = 0  # tile-kernel launches since import or the last reset_launches()
-
-
-def reset_launches() -> None:
-    global launches
-    with _count_lock:
-        launches = 0
-
-
-def _count_launch() -> None:
-    global launches
-    with _count_lock:
-        launches += 1
+_vp, _ci, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIB = _build.Library("ease_gram", {
+    "mf_ease_gram_slab": ([_vp, _vp, _vp, _cll, _vp, _cll, _ci, _vp], _ci),
+    "mf_ease_gram_tiles": ([_vp, _ci, _ci, _vp, _ci, _vp, _ci, _vp], _ci),
+    "mf_ease_gram_finish": ([_vp, _ci, _vp], _ci),
+}, error="mf_ease_gram_error_string")
 
 
 def slab_rows(n: int) -> int:
@@ -70,34 +62,6 @@ def tile_order(n: int, group: int = GROUP) -> np.ndarray:
         keep = bi <= bj
         out.append(np.stack([bi[keep], bj[keep]], axis=1))
     return np.concatenate(out).astype(np.int32)
-
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from matrix_factorization_tpu_torch.ops import _build
-
-        lib = _build.load("ease_gram")
-        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mf_ease_gram_slab.argtypes = [vp, vp, vp, cll, vp, cll, ci, vp]
-        lib.mf_ease_gram_tiles.argtypes = [vp, ci, ci, vp, ci, vp, ci, vp]
-        lib.mf_ease_gram_finish.argtypes = [vp, ci, vp]
-        for fn in (lib.mf_ease_gram_slab, lib.mf_ease_gram_tiles,
-                   lib.mf_ease_gram_finish):
-            fn.restype = ci
-        lib.mf_ease_gram_error_string.argtypes = [ci]
-        lib.mf_ease_gram_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-def _check(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           f"{lib.mf_ease_gram_error_string(rc).decode()}")
 
 
 def plain_slab(lu: torch.Tensor, ii: torch.Tensor, w: torch.Tensor, rows: int,
@@ -157,17 +121,13 @@ def int8_gram(lu: torch.Tensor, ii: torch.Tensor, w: torch.Tensor, bounds,
     if (lu.dtype, ii.dtype, w.dtype, tiles.dtype) != (torch.int32, torch.int32,
                                                       torch.float32, torch.int32):
         raise ValueError("int8_gram takes int32 ids and tiles and f32 weights")
-    lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     Dt = torch.empty((rows, cu), dtype=torch.int8, device=dev)
     for s, e in chunks:
-        _check(lib, lib.mf_ease_gram_slab(lu[s:e].data_ptr(), ii[s:e].data_ptr(),
-                                          w[s:e].data_ptr(), e - s, Dt.data_ptr(),
-                                          Dt.numel(), cu, stream), "ease_gram_slab")
-        _check(lib, lib.mf_ease_gram_tiles(Dt.data_ptr(), cu, cu // K_TILE,
-                                           tiles.data_ptr(), tiles.shape[0],
-                                           G.data_ptr(), n, stream), "ease_gram_tiles")
-        _count_launch()
+        LIB("mf_ease_gram_slab", lu[s:e].data_ptr(), ii[s:e].data_ptr(),
+            w[s:e].data_ptr(), e - s, Dt.data_ptr(), Dt.numel(), cu, stream)
+        LIB("mf_ease_gram_tiles", Dt.data_ptr(), cu, cu // K_TILE,
+            tiles.data_ptr(), tiles.shape[0], G.data_ptr(), n, stream)
     del Dt
-    _check(lib, lib.mf_ease_gram_finish(G.data_ptr(), n, stream), "ease_gram_finish")
+    LIB("mf_ease_gram_finish", G.data_ptr(), n, stream)
     return G.view(torch.float32)

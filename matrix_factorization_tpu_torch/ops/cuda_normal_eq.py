@@ -17,23 +17,30 @@ finish kernel), and the rows of A staged at a time for the write;
 ``mf_normal_eq`` refuses a plan that does not cover its (d, L).
 ``cuda_normal_equations`` launches the kernels and takes only CUDA
 tensors; ``ops/ials.py::normal_equations`` calls it for every CUDA table
-and ``plain_normal_equations`` elsewhere. ``launches`` counts its calls.
+and ``plain_normal_equations`` elsewhere.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import NamedTuple, Tuple, Union
 
 import torch
+
+from matrix_factorization_tpu_torch.ops import _build
 
 TILE = 8  # kMT: a thread's microtile side
 STAGES = 3  # kStages: staged row chunks
 SLICE = 1024  # kSlice: slots a block takes; longer lists are cut into slices
 MAX_THREADS = 384  # kMaxThreads: one block an SM
 MAX_ROWS = 64  # rows a stage holds, where the shared memory allows
-SMEM_LIMIT = 232_448  # kMaxSmem: dynamic shared memory a block may use
+
+_vp, _ci, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIB = _build.Library("als_normal_eq", {
+    "mf_normal_eq": ([_vp, _cll, _vp, _vp, _vp, _cll, _ci, _vp, _ci, _ci, _ci,
+                      ctypes.c_float, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
+                      _ci, _ci, _vp, _vp, _vp, _vp], _ci),
+}, error="mf_normal_eq_error_string")
 
 
 class NormalEqPlan(NamedTuple):
@@ -81,7 +88,7 @@ def normal_eq_plan(d: int, L: int) -> NormalEqPlan:
     threads = -(-per // 32) * 32
     width = t * TILE
     stride = (d + (d - 1) // 8) | 1
-    avail = SMEM_LIMIT // 4 - _SLOT_FLOATS
+    avail = _build.SMEM_LIMIT // 4 - _SLOT_FLOATS
     rows = MAX_ROWS
     while rows > 1 and STAGES * rows * width > avail:
         rows //= 2
@@ -93,42 +100,6 @@ def normal_eq_plan(d: int, L: int) -> NormalEqPlan:
     slices = 1 if L <= SLICE else -(-L // SLICE)
     return NormalEqPlan(t, M, groups, per, threads, rows, width, band, stride,
                         slices, (work + _SLOT_FLOATS) * 4)
-
-
-_count_lock = threading.Lock()
-launches = 0  # kernel calls since import or the last reset_launches()
-
-
-def reset_launches() -> None:
-    global launches
-    with _count_lock:
-        launches = 0
-
-
-def _count_launch() -> None:
-    global launches
-    with _count_lock:
-        launches += 1
-
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from matrix_factorization_tpu_torch.ops import _build
-
-        lib = _build.load("als_normal_eq")
-        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mf_normal_eq.argtypes = [vp, cll, vp, vp, vp, cll, ci, vp, ci, ci, ci,
-                                     ctypes.c_float, vp, ci, ci, ci, ci, ci, ci, ci,
-                                     ci, ci, ci, vp, vp, vp, vp]
-        lib.mf_normal_eq.restype = ci
-        lib.mf_normal_eq_error_string.argtypes = [ci]
-        lib.mf_normal_eq_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
 
 
 def cuda_normal_equations(other: torch.Tensor, other_ids: torch.Tensor,
@@ -183,8 +154,7 @@ def cuda_normal_equations(other: torch.Tensor, other_ids: torch.Tensor,
     if plan.slices > 1:
         partial = torch.empty((E * plan.slices, plan.microtiles, TILE * TILE),
                               dtype=torch.float32, device=dev)
-    lib = _library()
-    rc = lib.mf_normal_eq(
+    LIB("mf_normal_eq",
         other.data_ptr(), ldo, ids.data_ptr(), r.data_ptr(), m.data_ptr(), E, L,
         mu_t.data_ptr(), k, o_bias, o_const,
         float(ridge) if ridge_t is None else 0.0,
@@ -193,8 +163,4 @@ def cuda_normal_equations(other: torch.Tensor, other_ids: torch.Tensor,
         plan.stride, plan.slices, plan.smem_bytes, A.data_ptr(), b.data_ptr(),
         None if partial is None else partial.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"normal_eq launch failed: "
-                           f"{lib.mf_normal_eq_error_string(rc).decode()}")
-    _count_launch()
     return A, b

@@ -18,18 +18,17 @@ by the tensors' device: a CUDA tensor always launches the kernel.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import NamedTuple, Tuple
 
 import torch
 
 from matrix_factorization_tpu_torch.core.config import LANE, SGDConfig
+from matrix_factorization_tpu_torch.ops import _build
 
 _KERNEL_CODES = {"linear": 0, "sigmoid": 1, "rbf": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Shapes of csrc/score_catalog.cu; the kernel checks a plan against them.
-SMEM_LIMIT = 232_448      # dynamic shared memory a block may use on sm_90
 ROW_BYTES = 128           # k bytes of one stage row (32 f32 / 64 bf16)
 ROW_STRIDE = ROW_BYTES + 16
 STREAM_ITEMS = 256        # items of a streaming tile, one per thread
@@ -39,6 +38,12 @@ TILE_M = 64               # users of a tiled block
 TILE_N = 128              # items of a tiled block
 TILE_STAGES = 3
 MAX_STAGES = 4
+
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIB = _build.Library("score_catalog", {
+    "mf_score_catalog": ([_vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _cf,
+                          _cf, _ci, _ci, _ci, _ci, _ci, _ci, _vp], _ci),
+}, error="mf_error_string")
 
 
 class ScorePlan(NamedTuple):
@@ -81,7 +86,7 @@ def score_plan(B: int, I: int, kp: int, itemsize: int, n_sms: int = 132) -> Scor
         users = next(u for u in STREAM_USERS if u >= B)
         for stages in range(MAX_STAGES, 1, -1):
             smem = stream_smem(users, kp, stages)
-            if smem <= SMEM_LIMIT:
+            if smem <= _build.SMEM_LIMIT:
                 n_tiles = -(-I // STREAM_ITEMS)
                 return ScorePlan("stream", users, STREAM_ITEMS, k_chunk, stages,
                                  (min(n_tiles, n_sms), 1), smem)
@@ -90,52 +95,6 @@ def score_plan(B: int, I: int, kp: int, itemsize: int, n_sms: int = 132) -> Scor
         raise ValueError(f"B={B} needs more than 65535 row blocks")
     return ScorePlan("tile", TILE_M, TILE_N, k_chunk, TILE_STAGES, grid,
                      tile_smem(TILE_STAGES))
-
-
-_n_sms = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _n_sms:
-        _n_sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _n_sms[idx]
-
-
-_count_lock = threading.Lock()
-launches = 0  # kernel launches since import or the last reset_launches()
-
-
-def reset_launches() -> None:
-    global launches
-    with _count_lock:
-        launches = 0
-
-
-def _count_launch() -> None:
-    global launches
-    with _count_lock:
-        launches += 1
-
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from matrix_factorization_tpu_torch.ops import _build
-
-        lib = _build.load("score_catalog")
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mf_score_catalog.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                         cf, cf, cf, ci, ci, ci, ci, ci, ci,
-                                         vp]
-        lib.mf_score_catalog.restype = ci
-        lib.mf_error_string.argtypes = [ci]
-        lib.mf_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
 
 
 def plain_score_catalog(cfg: SGDConfig, mu: torch.Tensor, pu: torch.Tensor,
@@ -199,18 +158,13 @@ def score_with_plan(cfg: SGDConfig, mu: torch.Tensor, pu: torch.Tensor,
     if B == 0 or I == 0:
         return out
     if plan is None:
-        plan = score_plan(B, I, kp, pu.element_size(), _sm_count(pu.device))
-    lib = _library()
-    stream = torch.cuda.current_stream(pu.device).cuda_stream
-    rc = lib.mf_score_catalog(
+        plan = score_plan(B, I, kp, pu.element_size(), _build.sm_count(pu.device))
+    LIB("mf_score_catalog",
         mu.data_ptr(), pu.data_ptr(), Q.data_ptr(), out.data_ptr(), B, I, kp,
         _KERNEL_CODES[cfg.kernel], _DTYPE_CODES[pu.dtype], float(cfg.gamma),
         float(cfg.a), float(cfg.c), 0 if plan.path == "stream" else 1,
-        plan.tile, plan.stages, *plan.grid, plan.smem_bytes, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"score_catalog launch failed: {lib.mf_error_string(rc).decode()}")
-    _count_launch()
+        plan.tile, plan.stages, *plan.grid, plan.smem_bytes,
+        torch.cuda.current_stream(pu.device).cuda_stream)
     return out
 
 

@@ -1,58 +1,44 @@
-"""Hand-written CUDA mini-batch SGD step and deterministic secondary apply.
+"""Hand-written CUDA mini-batch SGD step.
 
-Counterpart of ``matrix_factorization_tpu/ops/pallas_sgd.py``. Two
-kernels:
+Counterpart of ``matrix_factorization_tpu/ops/pallas_sgd.py``: the kernel
+``mf_sgd_step`` (``csrc/sgd_step.cu``) replaces the Pallas
+``_step_kernel``. For one batch sorted by the primary side's id it
+updates the primary table in place (every row from the pre-step tables,
+deltas of one row summed) and writes the per-entry secondary deltas ``dq``
+(bs, Kp). A warp owns a fixed segment of ``SEG_LEN`` consecutive entries;
+a run of equal ids that crosses a segment boundary is summed in pieces,
+which a second small launch of the same call adds in segment order
+(``step_plan`` lays the call out, ``segmented_sgd_step`` is that summation
+in plain PyTorch). Given ``prim_out`` (the accumulator mode, the TPU
+step's ``agg`` output), it leaves the primary table as it is and adds each
+run's summed delta to that run's row of ``prim_out`` instead: the
+data-parallel trainers (``parallel/distributed.py``) read a table frozen
+for a window and collect its deltas apart. The deltas ``dq`` are added to
+the secondary table by ``ops/segment_sum.py::segment_apply``, one writer
+per row and a fixed summation order, where XLA's scatter did it on the
+TPU: a float-atomic ``index_add_`` would break same-seed, same-bits
+determinism. The source says what bounds the step and how it is laid out.
 
-* ``mf_sgd_step`` (``csrc/sgd_step.cu``) replaces the Pallas
-  ``_step_kernel``: for one batch sorted by the primary side's id it
-  updates the primary table in place (every row from the pre-step
-  tables, deltas of one row summed) and writes the per-entry secondary
-  deltas ``dq`` (bs, Kp). A warp owns a
-  fixed segment of ``SEG_LEN`` consecutive entries; a run of equal ids
-  that crosses a segment boundary is summed in pieces, which a second
-  small launch of the same call adds in segment order (``step_plan``
-  lays the call out, ``segmented_sgd_step`` is that summation in plain
-  PyTorch). Given ``prim_out`` (the accumulator mode, the TPU step's
-  ``agg`` output), it leaves the primary table as it is and adds each
-  run's summed delta to that run's row of ``prim_out`` instead: the
-  data-parallel trainers (``parallel/distributed.py``) read a table frozen
-  for a window and collect its deltas apart;
-* ``mf_segment_apply`` (``csrc/segment_sum.cu``, beside the segment sum
-  whose scheme it shares) adds ``dq`` to the secondary table over the
-  pack's stable secondary argsort (``sec_perm``, ``sec_ids_sorted``), one
-  writer per row and a fixed summation order, where XLA's scatter did it
-  on the TPU. A float-atomic ``index_add_`` would break same-seed, same-
-  bits determinism. A warp owns a fixed chunk of ``APPLY_CHUNK``
-  entries; a run that crosses a chunk boundary is summed in pieces that a
-  second launch adds in chunk order (``apply_plan`` lays the call out,
-  ``segment_sum.segmented_segment_sum`` is that summation in plain
-  PyTorch).
-
-The sources say what bounds them and how they are laid out.
-
-``cuda_sgd_step`` and ``cuda_segment_apply`` launch the kernels and take
-only CUDA tensors. ``plain_sgd_step`` and ``plain_segment_apply`` are the
-same functions in plain PyTorch (a gather, ``ext_forward_and_rowgrads``
-and ``index_add_``); the CPU path and the comparisons use them. Only
-tests call ``segmented_sgd_step``.
-``sgd_step`` and ``segment_apply`` pick between the two by the tensors'
-device: a CUDA tensor always launches the kernel.
+``cuda_sgd_step`` launches the kernel and takes only CUDA tensors.
+``plain_sgd_step`` is the same function in plain PyTorch (a gather,
+``ext_forward_and_rowgrads`` and ``index_add_``); the CPU path and the
+comparisons use it. Only tests call ``segmented_sgd_step``. ``sgd_step``
+picks between the two by the tensors' device: a CUDA tensor always
+launches the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from matrix_factorization_tpu_torch.core.config import LANE, SGDConfig
-from matrix_factorization_tpu_torch.ops import segment_sum
-from matrix_factorization_tpu_torch.ops.segment_sum import _piece_sums
+from matrix_factorization_tpu_torch.core.config import SGDConfig
+from matrix_factorization_tpu_torch.ops import _build
+from matrix_factorization_tpu_torch.ops.segment_sum import check_width, piece_sums
 
 _KERNEL_CODES = {"linear": 0, "sigmoid": 1, "rbf": 2}
-MAX_WIDTH = 8 * LANE  # the kernels hold a row in registers, Kp <= 1024
 
 # The step's launch geometry; csrc/sgd_step.cu is compiled for the same
 # values (kSegLen, kStages, kWarps, kMaxSmem) and refuses any other.
@@ -60,80 +46,15 @@ SEG_LEN = 64  # consecutive entries one warp owns
 STEP_STAGES = 6  # secondary rows a warp keeps in flight (its cp.async ring)
 STEP_WARPS = 8  # warps a block
 STEP_MAX_BLOCKS_PER_SM = 4
-SMEM_LIMIT = 232_448  # dynamic shared memory a block may take on sm_90
 SMEM_PER_SM = 233_472  # of which a resident block reserves 1 KB
-# The apply's chunk; csrc/segment_sum.cu is compiled for the same value
-# (MF_APPLY_CHUNK, with the segment sum's kWarps) and refuses any other.
-APPLY_CHUNK = 32  # consecutive entries one warp owns
 
-_count_lock = threading.Lock()
-step_launches = 0  # mf_sgd_step launches since import or reset_launches()
-acc_launches = 0  # of which in the accumulator mode (prim_out)
-apply_launches = 0  # mf_segment_apply launches, likewise
-
-
-def reset_launches() -> None:
-    global step_launches, acc_launches, apply_launches
-    with _count_lock:
-        step_launches = acc_launches = apply_launches = 0
-
-
-def _count_step(acc: bool) -> None:
-    global step_launches, acc_launches
-    with _count_lock:
-        step_launches += 1
-        acc_launches += int(acc)
-
-
-def _count_apply() -> None:
-    global apply_launches
-    with _count_lock:
-        apply_launches += 1
-
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from matrix_factorization_tpu_torch.ops import _build
-
-        lib = _build.load("sgd_step")
-        vp, ci, cf, cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                           ctypes.c_longlong)
-        lib.mf_sgd_step.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                    cll, ci, ci, cf, cf, cf, cf, cf, ci,
-                                    vp, ci, cll, ci, ci, ci, vp]
-        lib.mf_sgd_step.restype = ci
-        lib.mf_sgd_step_acc.argtypes = (
-            list(lib.mf_sgd_step.argtypes[:-1]) + [vp, vp])
-        lib.mf_sgd_step_acc.restype = ci
-        lib.mf_sgd_error_string.argtypes = [ci]
-        lib.mf_sgd_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-def _check(name: str, t: torch.Tensor, device: torch.device, dtype,
-           shape=None) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} must be on {device}, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-
-
-def _check_width(kp: int) -> None:
-    if kp % LANE or not 0 < kp <= MAX_WIDTH:
-        raise ValueError(f"row width {kp} is not a multiple of {LANE} "
-                         f"in (0, {MAX_WIDTH}]")
+_vp, _ci, _cf, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_STEP_ARGS = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _cll, _ci, _ci, _cf,
+              _cf, _cf, _cf, _cf, _ci, _vp, _ci, _cll, _ci, _ci, _ci]
+LIB = _build.Library("sgd_step", {
+    "mf_sgd_step": (_STEP_ARGS + [_vp], _ci),
+    "mf_sgd_step_acc": (_STEP_ARGS + [_vp, _vp], _ci),  # ... prim_out, stream
+}, error="mf_sgd_error_string")
 
 
 # ---------------------------------------------------------------------------
@@ -171,12 +92,6 @@ def plain_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
     return -lr * ((err[:, None] * dy + rw[:, None] * y) * smask[None, :])
 
 
-def plain_segment_apply(table: torch.Tensor, rows: torch.Tensor,
-                        perm: torch.Tensor, ids_sorted: torch.Tensor) -> None:
-    """``table[ids_sorted[j]] += rows[perm[j]]`` by ``index_add_``."""
-    table.index_add_(0, ids_sorted.long(), rows[perm.long()])
-
-
 def segmented_sgd_step(cfg: SGDConfig, mu: torch.Tensor,
                        prim_tbl: torch.Tensor, sec_tbl: torch.Tensor,
                        prim_ids: torch.Tensor, sec_ids: torch.Tensor,
@@ -212,7 +127,7 @@ def segmented_sgd_step(cfg: SGDConfig, mu: torch.Tensor,
         new_run[1:] = ids[1:] != ids[:-1]
         starts = (new_run | (pos % seg_len == 0)).nonzero().squeeze(1)
         lengths = torch.diff(starts, append=pos.new_tensor([n]))
-        pieces = _piece_sums(g, starts, lengths)
+        pieces = piece_sums(g, starts, lengths)
         # the pieces of one run, in segment order: piece sums of piece sums
         run_of_piece = torch.cumsum(new_run, 0)[starts] - 1
         first = torch.ones_like(starts, dtype=torch.bool)
@@ -220,7 +135,7 @@ def segmented_sgd_step(cfg: SGDConfig, mu: torch.Tensor,
         run_starts = first.nonzero().squeeze(1)
         run_lengths = torch.diff(run_starts,
                                  append=pos.new_tensor([starts.numel()]))
-        total = _piece_sums(pieces, run_starts, run_lengths)
+        total = piece_sums(pieces, run_starts, run_lengths)
         rows = ids[starts[run_starts]]
         target = prim_tbl if prim_out is None else prim_out
         target[rows] = target[rows] + total
@@ -265,52 +180,16 @@ def step_plan(n: int, kp: int, n_sms: int = 132, seg_len: int = SEG_LEN,
     with other constants (``tools/probe_kernels.py``)."""
     if n <= 0:
         raise ValueError(f"the step needs n > 0, got {n}")
-    _check_width(kp)
+    check_width(kp)
     n_segments = -(-n // seg_len)
     smem = step_smem(kp, stages, seg_len)
-    if smem > SMEM_LIMIT:
+    if smem > _build.SMEM_LIMIT:
         raise ValueError(f"{stages} stages of width {kp} need {smem} bytes "
-                         f"of shared memory, over {SMEM_LIMIT}")
+                         f"of shared memory, over {_build.SMEM_LIMIT}")
     per_sm = max(1, min(STEP_MAX_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
     grid = min(-(-n_segments // STEP_WARPS), n_sms * per_sm)
     return StepPlan(seg_len, n_segments, grid, smem, stages,
                     (2 * n_segments, kp))
-
-
-class ApplyPlan(NamedTuple):
-    """How one ``mf_segment_apply`` call is laid out on the card."""
-
-    chunk: int  # entries a warp owns
-    n_chunks: int  # ceil(n / chunk)
-    grid: int  # blocks of segment_sum.WARPS warps, one warp a chunk
-    finish_grid: int  # blocks of the finishing launch (0: none)
-    scratch_shape: Tuple[int, int]  # f32 pieces of crossing runs
-
-
-def apply_plan(n: int, kp: int, chunk: int = APPLY_CHUNK) -> ApplyPlan:
-    """The launch plan of the apply for ``n`` entries of width ``kp``;
-    needs no look at the data. The scratch holds two slots of ``kp``
-    floats a chunk, as the segment sum's does. ``chunk`` other than the
-    default is for a build of the source with another ``MF_APPLY_CHUNK``
-    (``tools/probe_kernels.py``)."""
-    if n <= 0:
-        raise ValueError(f"the apply needs n > 0, got {n}")
-    _check_width(kp)
-    n_chunks = -(-n // chunk)
-    warps = segment_sum.WARPS
-    return ApplyPlan(chunk, n_chunks, -(-n_chunks // warps),
-                     -(-(n_chunks - 1) // warps), (2 * n_chunks, kp))
-
-
-_sm_counts: dict = {}
-
-
-def _n_sms(dev: torch.device) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _sm_counts[idx]
 
 
 def cuda_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
@@ -342,28 +221,26 @@ def cuda_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
     if prim_tbl.dim() != 2 or sec_tbl.dim() != 2:
         raise ValueError("tables must be 2-D")
     kp = prim_tbl.shape[1]
-    _check_width(kp)
+    check_width(kp)
     n = prim_ids.numel()
     f32, i32 = torch.float32, torch.int32
-    _check("mu", mu, dev, f32, ())
-    _check("prim_tbl", prim_tbl, dev, f32)
-    _check("sec_tbl", sec_tbl, dev, f32, (sec_tbl.shape[0], kp))
-    for name, t, dt in (("prim_ids", prim_ids, i32), ("sec_ids", sec_ids, i32),
-                        ("r", r, f32), ("w", w, f32)):
-        _check(name, t, dev, dt, (n,))
-    _check("pmask", pmask, dev, f32, (kp,))
-    _check("smask", smask, dev, f32, (kp,))
+    tensors = [("mu", mu, f32, ()), ("prim_tbl", prim_tbl, f32, None),
+               ("sec_tbl", sec_tbl, f32, (sec_tbl.shape[0], kp)),
+               ("prim_ids", prim_ids, i32, (n,)), ("sec_ids", sec_ids, i32, (n,)),
+               ("r", r, f32, (n,)), ("w", w, f32, (n,)),
+               ("pmask", pmask, f32, (kp,)), ("smask", smask, f32, (kp,))]
     if prim_out is not None:
-        _check("prim_out", prim_out, dev, f32, prim_tbl.shape)
-        if prim_out.data_ptr() == prim_tbl.data_ptr():
-            raise ValueError("prim_out must be another tensor than prim_tbl")
+        tensors.append(("prim_out", prim_out, f32, prim_tbl.shape))
+    for name, t, dt, shape in tensors:
+        _build.check(name, t, dev, dt, shape, aligned=True)
+    if prim_out is not None and prim_out.data_ptr() == prim_tbl.data_ptr():
+        raise ValueError("prim_out must be another tensor than prim_tbl")
     dq = torch.empty((n, kp), dtype=f32, device=dev) if write_dq else None
     if n == 0:
         return dq
-    plan = step_plan(n, kp, _n_sms(dev))
+    plan = step_plan(n, kp, _build.sm_count(dev))
     scratch = (torch.empty(plan.scratch_shape, dtype=f32, device=dev)
                if update_prim else None)
-    lib = _library()
     args = [
         mu.data_ptr(), prim_tbl.data_ptr(), sec_tbl.data_ptr(),
         prim_ids.data_ptr(), sec_ids.data_ptr(), r.data_ptr(), w.data_ptr(),
@@ -375,50 +252,10 @@ def cuda_sgd_step(cfg: SGDConfig, mu: torch.Tensor, prim_tbl: torch.Tensor,
         plan.n_segments, plan.grid, plan.smem_bytes, plan.stages]
     stream = torch.cuda.current_stream(dev).cuda_stream
     if prim_out is None:
-        rc = lib.mf_sgd_step(*args, stream)
+        LIB("mf_sgd_step", *args, stream)
     else:
-        rc = lib.mf_sgd_step_acc(*args, prim_out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"sgd_step launch failed: {lib.mf_sgd_error_string(rc).decode()}")
-    _count_step(prim_out is not None)
+        LIB("mf_sgd_step_acc", *args, prim_out.data_ptr(), stream)
     return dq
-
-
-def cuda_segment_apply(table: torch.Tensor, rows: torch.Tensor,
-                       perm: torch.Tensor, ids_sorted: torch.Tensor) -> None:
-    """``table[ids_sorted[j]] += rows[perm[j]]`` by ``mf_segment_apply``,
-    in place, on ``table``'s stream (the chunk launch and, when a chunk
-    follows the first, the finishing launch): ``table`` (rows, Kp) and
-    ``rows`` (n, Kp) f32, ``perm`` and ``ids_sorted`` (n,) int32 with
-    ``ids_sorted`` ascending."""
-    dev = table.device
-    if dev.type != "cuda":
-        raise ValueError(f"cuda_segment_apply takes CUDA tensors, got {dev}")
-    if table.dim() != 2:
-        raise ValueError("table must be 2-D")
-    kp = table.shape[1]
-    _check_width(kp)
-    n = perm.numel()
-    _check("table", table, dev, torch.float32)
-    _check("rows", rows, dev, torch.float32, (n, kp))
-    _check("perm", perm, dev, torch.int32, (n,))
-    _check("ids_sorted", ids_sorted, dev, torch.int32, (n,))
-    if n == 0:
-        return
-    plan = apply_plan(n, kp)
-    scratch = torch.empty(plan.scratch_shape, dtype=torch.float32, device=dev)
-    lib = segment_sum._library()
-    rc = lib.mf_segment_apply(
-        table.data_ptr(), rows.data_ptr(), perm.data_ptr(),
-        ids_sorted.data_ptr(), n, kp, scratch.data_ptr(), plan.chunk,
-        plan.n_chunks, plan.grid, plan.finish_grid,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"segment_apply launch failed: "
-            f"{lib.mf_segment_sum_error_string(rc).decode()}")
-    _count_apply()
 
 
 # ---------------------------------------------------------------------------
@@ -439,14 +276,3 @@ def sgd_step(cfg: SGDConfig, mu, prim_tbl, sec_tbl, prim_ids, sec_ids, r, w,
         raise ValueError(f"no SGD step for device {prim_tbl.device}")
     return fn(cfg, mu, prim_tbl, sec_tbl, prim_ids, sec_ids, r, w, pmask,
               smask, lr, reg, update_prim, write_dq, prim_out)
-
-
-def segment_apply(table, rows, perm, ids_sorted) -> None:
-    """``cuda_segment_apply`` for a CUDA table, ``plain_segment_apply``
-    for a CPU table; any other device raises."""
-    if table.device.type == "cuda":
-        cuda_segment_apply(table, rows, perm, ids_sorted)
-    elif table.device.type == "cpu":
-        plain_segment_apply(table, rows, perm, ids_sorted)
-    else:
-        raise ValueError(f"no segment apply for device {table.device}")

@@ -22,18 +22,24 @@ always launches the kernel.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import NamedTuple
 
 import torch
 
+from matrix_factorization_tpu_torch.ops import _build
+
 MAX_D = 128  # the leaf's largest block, as on the TPU (pallas_spd.py:110)
-SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on sm_90
 
 # (largest d, side S, R, matrices a block): the instantiations of
 # csrc/spd_gj.cu. A matrix takes S x S threads holding R x R elements each.
 _GJ_TILES = ((8, 8, 1, 4), (16, 8, 2, 4), (32, 8, 4, 4), (64, 8, 8, 4),
              (80, 16, 5, 1), (96, 16, 6, 1), (112, 16, 7, 1), (128, 16, 8, 1))
+
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+LIB = _build.Library("spd_gj", {
+    "mf_gj_inverse": ([_vp, _vp, ctypes.c_longlong, _ci, _ci, _ci, _ci, _ci, _vp],
+                      _ci),
+}, error="mf_spd_error_string")
 
 
 class GJPlan(NamedTuple):
@@ -57,41 +63,6 @@ def gj_plan(d: int) -> GJPlan:
             smem = (per_block * 8 * side * slot + per_block * d * d + 4) * 4
             return GJPlan(side, regs, per_block, smem)
     raise ValueError(f"gj_inverse leaf handles 1 <= d <= {MAX_D}, got {d}")
-
-
-_count_lock = threading.Lock()
-launches = 0  # kernel launches since import or the last reset_launches()
-
-
-def reset_launches() -> None:
-    global launches
-    with _count_lock:
-        launches = 0
-
-
-def _count_launch() -> None:
-    global launches
-    with _count_lock:
-        launches += 1
-
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from matrix_factorization_tpu_torch.ops import _build
-
-        lib = _build.load("spd_gj")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.mf_gj_inverse.argtypes = [vp, vp, ctypes.c_longlong, ci, ci, ci,
-                                      ci, ci, vp]
-        lib.mf_gj_inverse.restype = ci
-        lib.mf_spd_error_string.argtypes = [ci]
-        lib.mf_spd_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
 
 
 def _check_batch(A: torch.Tensor) -> int:
@@ -128,10 +99,7 @@ def cuda_gj_inverse(A: torch.Tensor) -> torch.Tensor:
     d = _check_batch(A)
     if A.device.type != "cuda":
         raise ValueError(f"cuda_gj_inverse takes CUDA tensors, got {A.device}")
-    if A.dtype != torch.float32:
-        raise ValueError(f"A must be torch.float32, got {A.dtype}")
-    if not A.is_contiguous():
-        raise ValueError("A must be contiguous")
+    _build.check("A", A, A.device, torch.float32)
     E = A.shape[0]
     if E >= 2**31:
         raise ValueError(f"gj_inverse launches at most 2^31 - 1 matrices, got {E}")
@@ -139,14 +107,9 @@ def cuda_gj_inverse(A: torch.Tensor) -> torch.Tensor:
     if E == 0 or d == 0:
         return out
     plan = gj_plan(d)
-    lib = _library()
-    rc = lib.mf_gj_inverse(A.data_ptr(), out.data_ptr(), E, d, plan.side,
-                           plan.regs, plan.per_block, plan.smem_bytes,
-                           torch.cuda.current_stream(A.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"gj_inverse launch failed: {lib.mf_spd_error_string(rc).decode()}")
-    _count_launch()
+    LIB("mf_gj_inverse", A.data_ptr(), out.data_ptr(), E, d, plan.side,
+        plan.regs, plan.per_block, plan.smem_bytes,
+        torch.cuda.current_stream(A.device).cuda_stream)
     return out
 
 

@@ -17,12 +17,12 @@ CPU path of ``_select_topk``).
 from __future__ import annotations
 
 import ctypes
-import threading
+import functools
 from typing import NamedTuple
 
 import torch
 
-from matrix_factorization_tpu_torch.ops.cuda_scores import _sm_count
+from matrix_factorization_tpu_torch.ops import _build
 
 # Shapes of csrc/topk_select.cu; the kernel refuses a plan outside them.
 THREADS = 256         # threads a block
@@ -30,6 +30,12 @@ POOL = 4096           # keys of a block's shared-memory pool
 MAX_K = 1024          # the largest k the kernel takes
 MIN_CHUNK = 16_384    # the fewest scores a chunk, at k <= 512
 CHUNK_PER_K = 32      # ... and at least this many scores a kept key
+
+_vp, _ci, _cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIB = _build.Library("topk_select", {
+    "mf_topk_select": ([_vp, _cl, _cl, _ci, _ci, _cl, _vp, _vp, _vp, _vp], _ci),
+    "mf_topk_blocks_per_sm": ([], _ci),  # a count, not a status: called raw
+}, error="mf_topk_error_string")
 
 
 class SelectPlan(NamedTuple):
@@ -62,55 +68,14 @@ def select_plan(rows: int, n: int, k: int, n_sms: int,
     return SelectPlan(chunks, chunk_len)
 
 
-_count_lock = threading.Lock()
-launches = 0  # calls that launched the pair, since import or reset_launches()
-
-
-def reset_launches() -> None:
-    global launches
-    with _count_lock:
-        launches = 0
-
-
-def _count_launch() -> None:
-    global launches
-    with _count_lock:
-        launches += 1
-
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from matrix_factorization_tpu_torch.ops import _build
-
-        lib = _build.load("topk_select")
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mf_topk_select.argtypes = [vp, cl, cl, ci, ci, cl, vp, vp, vp, vp]
-        lib.mf_topk_select.restype = ci
-        lib.mf_topk_error_string.argtypes = [ci]
-        lib.mf_topk_error_string.restype = ctypes.c_char_p
-        lib.mf_topk_blocks_per_sm.argtypes = []
-        lib.mf_topk_blocks_per_sm.restype = ci
-        _lib = lib
-    return _lib
-
-
-_resident = None
-
-
-def _blocks_per_sm() -> int:
+@functools.cache
+def blocks_per_sm() -> int:
     """Resident chunk blocks an SM holds, as the built kernel's registers
     and shared memory allow (the CUDA occupancy query, asked once)."""
-    global _resident
-    if _resident is None:
-        b = _library().mf_topk_blocks_per_sm()
-        if b <= 0:
-            raise RuntimeError("topk_select: the occupancy query failed")
-        _resident = b
-    return _resident
+    b = LIB.fn("mf_topk_blocks_per_sm")()
+    if b <= 0:
+        raise RuntimeError("topk_select: the occupancy query failed")
+    return b
 
 
 def cuda_select_topk(s: torch.Tensor, k: int):
@@ -132,16 +97,11 @@ def cuda_select_topk(s: torch.Tensor, k: int):
     idx = torch.empty((rows, k), dtype=torch.int64, device=s.device)
     if rows == 0 or k == 0:
         return vals, idx
-    plan = select_plan(rows, n, k, _sm_count(s.device), _blocks_per_sm())
+    plan = select_plan(rows, n, k, _build.sm_count(s.device), blocks_per_sm())
     cand = (torch.empty((rows, plan.chunks, k), dtype=torch.int64,
                         device=s.device) if plan.chunks > 1 else None)
-    lib = _library()
-    rc = lib.mf_topk_select(
+    LIB("mf_topk_select",
         s.data_ptr(), rows, n, k, plan.chunks, plan.chunk_len,
         None if cand is None else cand.data_ptr(), vals.data_ptr(),
         idx.data_ptr(), torch.cuda.current_stream(s.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"topk_select launch failed: {lib.mf_topk_error_string(rc).decode()}")
-    _count_launch()
     return vals, idx

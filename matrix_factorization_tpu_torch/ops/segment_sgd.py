@@ -21,9 +21,10 @@ the wire encoders):
 * A step (``minibatch_update``) reads the pre-step tables for every row
   and sums the deltas of one row, exactly as the JAX step does; only the
   float summation order differs. On the card it is two hand-written
-  kernels (``ops/cuda_sgd.py``): the fused primary step, which updates
+  kernels: the fused primary step (``ops/cuda_sgd.py``), which updates
   the primary table in place, then the deterministic apply of the
-  secondary deltas. On the CPU, their plain versions.
+  secondary deltas (``ops/segment_sum.py::segment_apply``). On the CPU,
+  their plain versions.
 * An epoch visits the batches in a per-epoch random order
   (``shuffle='batch'``), the pack order (``'none'``) or re-permutes every
   element (``'full'``, the reference's per-epoch shuffle); randomness
@@ -41,6 +42,7 @@ import torch
 from matrix_factorization_tpu_torch.core.config import LANE, SUBLANE, SGDConfig
 from matrix_factorization_tpu_torch.core.device import resolve_device
 from matrix_factorization_tpu_torch.data.loader import host_lib, native_threads
+from matrix_factorization_tpu_torch.ops import cuda_sgd, segment_sum
 from matrix_factorization_tpu_torch.utils.profiling import span
 
 class MFParams(NamedTuple):
@@ -665,8 +667,6 @@ def minibatch_update(params: MFParams, b: dict, cfg: SGDConfig, lr: float,
     delta table) is only read (the step kernel's accumulator mode on the
     primary side, the apply into that table on the secondary side). A
     side whose ``write`` is None is frozen."""
-    from matrix_factorization_tpu_torch.ops import cuda_sgd
-
     prim_is_user = primary == "user"
     prim_side, sec_side = ("user", "item") if prim_is_user else ("item", "user")
     tables = {"user": params.user_features, "item": params.item_features}
@@ -697,7 +697,7 @@ def minibatch_update(params: MFParams, b: dict, cfg: SGDConfig, lr: float,
             prim_out=None if prim_out is tables[prim_side] else prim_out)
     if upd[sec_side]:
         with span("sgd.apply"):
-            cuda_sgd.segment_apply(out[sec_side], dq, sp, ss)
+            segment_sum.segment_apply(out[sec_side], dq, sp, ss)
     return params
 
 

@@ -14,9 +14,15 @@ crosses a chunk boundary is summed in pieces that a second launch adds in
 chunk order. One writer a row, no float atomics, so the same inputs give
 the same bits. ``index_add_`` and its relatives add with float atomics
 on CUDA, in an order that changes from run to run, and appear on no CUDA
-path of the port. The same source holds ``mf_segment_apply``, the SGD
-step's secondary apply (``ops/cuda_sgd.py::cuda_segment_apply``), on the
-same scheme with rows of float4 lanes.
+path of the port.
+
+The same source holds ``mf_segment_apply`` and this module its wrapper,
+``segment_apply(table, rows, perm, ids_sorted)``:
+``table[ids_sorted[j]] += rows[perm[j]]`` for rows of float4 lanes, on the
+same scheme with chunks of ``APPLY_CHUNK`` entries (``apply_plan`` lays a
+call out). It adds the SGD step's secondary deltas (``ops/cuda_sgd.py``)
+over the pack's stable secondary argsort, and every scatter of the BPR and
+SVD++ trainers, where XLA's scatter did it on the TPU.
 
 ``sorted_order(ids)`` gives the ``(perm, ids_sorted)`` the sum takes: a
 stable ``torch.sort`` on the ids' device. ``plain_segment_sum`` is
@@ -24,62 +30,40 @@ stable ``torch.sort`` on the ids' device. ``plain_segment_sum`` is
 in ``j`` order; the CPU path and the comparisons on the card use it.
 ``segmented_segment_sum`` is the kernels' summation in plain PyTorch, bit
 for bit: the tests of its boundary logic use it, and the checks on the
-card hold both kernels to it with ``torch.equal``. ``segment_sum`` picks
+card hold both kernels to it with ``torch.equal``. ``plain_segment_apply``
+is the apply's ``index_add_``. ``segment_sum`` and ``segment_apply`` pick
 by the tensors' device: a CUDA tensor always launches the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from matrix_factorization_tpu_torch.core.config import LANE
+from matrix_factorization_tpu_torch.ops import _build
+
 # The launch geometry; csrc/segment_sum.cu is compiled for the same values
-# (kChunk, kWarps, MF_ENTRIES_MAX_D) and refuses any other.
+# (kChunk, kWarps, MF_ENTRIES_MAX_D, MF_APPLY_CHUNK, kMaxVec) and refuses
+# any other.
 CHUNK = 256  # consecutive entries one warp owns
 SLICE = CHUNK // 32  # consecutive entries one lane owns (entries layout)
 ENTRIES_MAX_D = 1  # widest rows the entries layout takes
 WARPS = 8  # warps a block
 LAYOUTS = ("columns", "entries")  # the C entry's layout codes 0 and 1
+APPLY_CHUNK = 32  # consecutive entries one warp of the apply owns
+# the apply and the SGD step whose deltas it adds hold a row in registers
+MAX_WIDTH = 8 * LANE
 
-_count_lock = threading.Lock()
-launches = 0  # mf_segment_sum calls since import or reset_launches()
-
-
-def reset_launches() -> None:
-    global launches
-    with _count_lock:
-        launches = 0
-
-
-def _count() -> None:
-    global launches
-    with _count_lock:
-        launches += 1
-
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from matrix_factorization_tpu_torch.ops import _build
-
-        lib = _build.load("segment_sum")
-        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mf_segment_sum.argtypes = [vp, vp, vp, vp, cll, ci, vp, ci, ci,
-                                       cll, cll, cll, vp]
-        lib.mf_segment_sum.restype = ci
-        lib.mf_segment_apply.argtypes = [vp, vp, vp, vp, cll, ci, vp, ci, cll,
-                                         cll, cll, vp]
-        lib.mf_segment_apply.restype = ci
-        lib.mf_segment_sum_error_string.argtypes = [ci]
-        lib.mf_segment_sum_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+_vp, _ci, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIB = _build.Library("segment_sum", {
+    "mf_segment_sum": ([_vp, _vp, _vp, _vp, _cll, _ci, _vp, _ci, _ci, _cll, _cll,
+                        _cll, _vp], _ci),
+    "mf_segment_apply": ([_vp, _vp, _vp, _vp, _cll, _ci, _vp, _ci, _cll, _cll,
+                          _cll, _vp], _ci),
+}, error="mf_segment_sum_error_string")
 
 
 def sorted_order(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -122,8 +106,14 @@ def plain_segment_sum(out: torch.Tensor, vals: torch.Tensor,
     out2.index_add_(0, ids_sorted.long(), vals2[perm.long()])
 
 
-def _piece_sums(g: torch.Tensor, starts: torch.Tensor,
-                lengths: torch.Tensor) -> torch.Tensor:
+def plain_segment_apply(table: torch.Tensor, rows: torch.Tensor,
+                        perm: torch.Tensor, ids_sorted: torch.Tensor) -> None:
+    """``table[ids_sorted[j]] += rows[perm[j]]`` by ``index_add_``."""
+    table.index_add_(0, ids_sorted.long(), rows[perm.long()])
+
+
+def piece_sums(g: torch.Tensor, starts: torch.Tensor,
+               lengths: torch.Tensor) -> torch.Tensor:
     """Row sums of ``g[starts[p] : starts[p] + lengths[p]]`` for every piece
     ``p``, each added in entry order from zero (f32, one add an entry)."""
     out = torch.zeros((starts.numel(), g.shape[1]), dtype=g.dtype,
@@ -183,13 +173,13 @@ def segmented_segment_sum(out: torch.Tensor, vals: torch.Tensor,
             first[1:] |= blk[1:] != blk[:-1]
         starts = first.nonzero().squeeze(1)
         lengths = torch.diff(starts, append=starts.new_tensor([head.numel()]))
-        sums, head = _piece_sums(sums, starts, lengths), head[starts]
+        sums, head = piece_sums(sums, starts, lengths), head[starts]
     rows = ids[head]
     out2[rows] = out2[rows] + sums
 
 
 # ---------------------------------------------------------------------------
-# The kernel
+# The kernels
 # ---------------------------------------------------------------------------
 
 
@@ -224,17 +214,36 @@ def segsum_plan(n: int, d: int,
                       -(-(n_chunks - 1) // WARPS), (2 * n_chunks, d))
 
 
-def _check(name: str, t: torch.Tensor, device: torch.device, dtype,
-           shape) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} must be on {device}, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
+def check_width(kp: int) -> None:
+    """``ValueError`` unless ``kp`` is a row width the apply and the SGD
+    step take: a multiple of ``LANE`` in (0, ``MAX_WIDTH``]."""
+    if kp % LANE or not 0 < kp <= MAX_WIDTH:
+        raise ValueError(f"row width {kp} is not a multiple of {LANE} "
+                         f"in (0, {MAX_WIDTH}]")
+
+
+class ApplyPlan(NamedTuple):
+    """How one ``mf_segment_apply`` call is laid out on the card."""
+
+    chunk: int  # entries a warp owns
+    n_chunks: int  # ceil(n / chunk)
+    grid: int  # blocks of WARPS warps, one warp a chunk
+    finish_grid: int  # blocks of the finishing launch (0: none)
+    scratch_shape: Tuple[int, int]  # f32 pieces of crossing runs
+
+
+def apply_plan(n: int, kp: int, chunk: int = APPLY_CHUNK) -> ApplyPlan:
+    """The launch plan of the apply for ``n`` entries of width ``kp``;
+    needs no look at the data. The scratch holds two slots of ``kp``
+    floats a chunk, as the segment sum's does. ``chunk`` other than the
+    default is for a build of the source with another ``MF_APPLY_CHUNK``
+    (``tools/probe_kernels.py``)."""
+    if n <= 0:
+        raise ValueError(f"the apply needs n > 0, got {n}")
+    check_width(kp)
+    n_chunks = -(-n // chunk)
+    return ApplyPlan(chunk, n_chunks, -(-n_chunks // WARPS),
+                     -(-(n_chunks - 1) // WARPS), (2 * n_chunks, kp))
 
 
 def cuda_segment_sum(out: torch.Tensor, vals: torch.Tensor,
@@ -249,25 +258,50 @@ def cuda_segment_sum(out: torch.Tensor, vals: torch.Tensor,
         raise ValueError(f"cuda_segment_sum takes CUDA tensors, got {dev}")
     out2, vals2 = _as_2d(out, vals)
     n, d = vals2.shape
-    _check("out", out2, dev, torch.float32, (out2.shape[0], d))
-    _check("vals", vals2, dev, torch.float32, (n, d))
-    _check("perm", perm, dev, torch.int32, (n,))
-    _check("ids_sorted", ids_sorted, dev, torch.int32, (n,))
+    _build.check("out", out2, dev, torch.float32, (out2.shape[0], d))
+    _build.check("vals", vals2, dev, torch.float32, (n, d))
+    _build.check("perm", perm, dev, torch.int32, (n,))
+    _build.check("ids_sorted", ids_sorted, dev, torch.int32, (n,))
     if n == 0:
         return
     plan = segsum_plan(n, d)
     scratch = torch.empty(plan.scratch_shape, dtype=torch.float32, device=dev)
-    lib = _library()
-    rc = lib.mf_segment_sum(
+    LIB("mf_segment_sum",
         out2.data_ptr(), vals2.data_ptr(), perm.data_ptr(),
         ids_sorted.data_ptr(), n, d, scratch.data_ptr(),
         LAYOUTS.index(plan.layout), plan.chunk, plan.n_chunks, plan.grid,
         plan.finish_grid,
         torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"segment_sum launch failed: "
-                           f"{lib.mf_segment_sum_error_string(rc).decode()}")
-    _count()
+
+
+def cuda_segment_apply(table: torch.Tensor, rows: torch.Tensor,
+                       perm: torch.Tensor, ids_sorted: torch.Tensor) -> None:
+    """``table[ids_sorted[j]] += rows[perm[j]]`` by ``mf_segment_apply``,
+    in place, on ``table``'s stream (the chunk launch and, when a chunk
+    follows the first, the finishing launch): ``table`` (rows, Kp) and
+    ``rows`` (n, Kp) f32, ``perm`` and ``ids_sorted`` (n,) int32 with
+    ``ids_sorted`` ascending."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"cuda_segment_apply takes CUDA tensors, got {dev}")
+    if table.dim() != 2:
+        raise ValueError("table must be 2-D")
+    kp = table.shape[1]
+    check_width(kp)
+    n = perm.numel()
+    _build.check("table", table, dev, torch.float32, aligned=True)
+    _build.check("rows", rows, dev, torch.float32, (n, kp), aligned=True)
+    _build.check("perm", perm, dev, torch.int32, (n,), aligned=True)
+    _build.check("ids_sorted", ids_sorted, dev, torch.int32, (n,), aligned=True)
+    if n == 0:
+        return
+    plan = apply_plan(n, kp)
+    scratch = torch.empty(plan.scratch_shape, dtype=torch.float32, device=dev)
+    LIB("mf_segment_apply",
+        table.data_ptr(), rows.data_ptr(), perm.data_ptr(),
+        ids_sorted.data_ptr(), n, kp, scratch.data_ptr(), plan.chunk,
+        plan.n_chunks, plan.grid, plan.finish_grid,
+        torch.cuda.current_stream(dev).cuda_stream)
 
 
 def segment_sum(out: torch.Tensor, vals: torch.Tensor, perm: torch.Tensor,
@@ -281,6 +315,17 @@ def segment_sum(out: torch.Tensor, vals: torch.Tensor, perm: torch.Tensor,
     else:
         raise ValueError(f"no segment sum for device {out.device}")
     return out
+
+
+def segment_apply(table, rows, perm, ids_sorted) -> None:
+    """``cuda_segment_apply`` for a CUDA table, ``plain_segment_apply``
+    for a CPU table; any other device raises."""
+    if table.device.type == "cuda":
+        cuda_segment_apply(table, rows, perm, ids_sorted)
+    elif table.device.type == "cpu":
+        plain_segment_apply(table, rows, perm, ids_sorted)
+    else:
+        raise ValueError(f"no segment apply for device {table.device}")
 
 
 def segment_sums(vals: torch.Tensor, order: Tuple[torch.Tensor, torch.Tensor],

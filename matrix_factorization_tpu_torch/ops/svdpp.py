@@ -18,7 +18,7 @@ Bias folding is ``segment_sgd``'s; ``Y`` is nonzero only in the factor
 columns, so the serving view ``P + S`` (``SVDppParams.as_mf``) prices the
 biases once under the linear catalog scorer.
 
-Every ``.at[].add`` of the JAX module is ``cuda_sgd.segment_apply`` here,
+Every ``.at[].add`` of the JAX module is ``segment_sum.segment_apply`` here,
 which on the card is the hand-written ``mf_segment_apply`` (one writer a
 row, a fixed order, no float atomics): the S build, ``A`` and ``P`` over
 a pack batch's user order (the identity: batches are stored sorted by
@@ -57,8 +57,8 @@ import numpy as np
 import torch
 
 from matrix_factorization_tpu_torch.core.config import SGDConfig
-from matrix_factorization_tpu_torch.ops import cuda_sgd
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+from matrix_factorization_tpu_torch.ops import segment_sum
 from matrix_factorization_tpu_torch.ops.segment_sum import identity_order, sorted_order
 
 
@@ -160,7 +160,8 @@ def implicit_sum(Y: torch.Tensor, u: torch.Tensor, i: torch.Tensor,
     S = torch.zeros((wvec.shape[0], Y.shape[1]), dtype=Y.dtype,
                     device=Y.device)
     for sl in _chunks(u.shape[0], chunk):
-        cuda_sgd.segment_apply(S, Y[i[sl].long()] * w[sl, None], *sorted_order(u[sl]))
+        segment_sum.segment_apply(S, Y[i[sl].long()] * w[sl, None],
+                                  *sorted_order(u[sl]))
     return S * wvec[:, None]
 
 
@@ -173,7 +174,7 @@ def _scatter_pair_grads(A: torch.Tensor, Y_like: torch.Tensor,
     for sl in _chunks(u.shape[0], chunk):
         uu = u[sl].long()
         rows = A[uu] * wvec[uu][:, None] * w[sl, None]
-        cuda_sgd.segment_apply(gY, rows, *sorted_order(i[sl]))
+        segment_sum.segment_apply(gY, rows, *sorted_order(i[sl]))
     return gY
 
 
@@ -193,9 +194,9 @@ def _batch_step(P, Q, S, A, mu, u, i, r, w, orders, cfg: SGDConfig, masks,
     reg_w = (cfg.reg * w)[:, None]
     gp = (e[:, None] * qi - reg_w * pu) * umask[None, :]
     gq = (e[:, None] * eff - reg_w * qi) * imask[None, :]
-    cuda_sgd.segment_apply(A, e[:, None] * qi * fmask[None, :], *orders[0])
-    cuda_sgd.segment_apply(P, cfg.lr * gp, *orders[0])
-    cuda_sgd.segment_apply(Q if dq is None else dq, cfg.lr * gq, *orders[1])
+    segment_sum.segment_apply(A, e[:, None] * qi * fmask[None, :], *orders[0])
+    segment_sum.segment_apply(P, cfg.lr * gp, *orders[0])
+    segment_sum.segment_apply(Q if dq is None else dq, cfg.lr * gq, *orders[1])
     return torch.sum(e * e)
 
 
@@ -267,8 +268,8 @@ def implicit_sum_batched(Y: torch.Tensor, data: sgd.RatingBatches,
                     device=Y.device)
     for k in range(data.n_batches):
         b = sgd.batch_at(data, k)
-        cuda_sgd.segment_apply(S, Y[b["i"].long()] * b["w"][:, None],
-                      *identity_order(b["u"]))
+        segment_sum.segment_apply(S, Y[b["i"].long()] * b["w"][:, None],
+                                  *identity_order(b["u"]))
     return S * wvec[:, None]
 
 
@@ -282,8 +283,8 @@ def _pair_grads_batched(A: torch.Tensor, Y_like: torch.Tensor,
     gY = torch.zeros_like(Y_like)
     for k in range(data.n_batches):
         b = sgd.batch_at(data, k)
-        cuda_sgd.segment_apply(gY, Aw[b["u"].long()] * b["w"][:, None], b["sp"],
-                      b["ss"])
+        segment_sum.segment_apply(gY, Aw[b["u"].long()] * b["w"][:, None],
+                                  b["sp"], b["ss"])
     return gY
 
 
@@ -525,7 +526,7 @@ def user_refit(
             qi = Q[is_[sl].long()]
             e_ = (rs[sl] - (mu + torch.sum((pu + S[u.long()]) * qi, dim=1))) * w
             gp = (e_[:, None] * qi - (cfg.reg * w)[:, None] * pu) * umask[None, :]
-            cuda_sgd.segment_apply(P, cfg.lr * gp, *sorted_order(u))
+            segment_sum.segment_apply(P, cfg.lr * gp, *sorted_order(u))
     # pads (weight 0) go to a spare row past the table, so only real pairs
     # mark their user; every write sets 1.0, so the fill is deterministic
     cap = P.shape[0]

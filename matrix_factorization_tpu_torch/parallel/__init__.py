@@ -15,7 +15,8 @@ the mesh). NCCL carries them between GPUs, gloo between CPU processes.
   tests, the chip check and ``dryrun``;
 * ``distributed`` — the data-parallel (``dp_fit``: P sharded, Q
   replicated) and 2D (``dp_tp_fit``: both sharded) SGD trainers, on the
-  hand-written step and apply kernels of ``ops/cuda_sgd.py``;
+  hand-written step and apply kernels of ``ops/cuda_sgd.py`` and
+  ``ops/segment_sum.py``;
 * ``topk`` / ``serving`` — the item-sharded catalog top-k and
   ``ShardedCatalog``, on the catalog scorer of ``ops/cuda_scores.py``;
 * ``dryrun`` — one step of each trainer and one distributed top-k on

@@ -20,11 +20,12 @@ own device:
   deltas are all-reduced over the model group, its item deltas over the
   data group.
 
-Every step is the hand-written step and apply of ``ops/cuda_sgd.py`` on
-CUDA (their plain versions on the CPU): a side written in place (the
-local P of ``dp_fit``) is the step's in-place primary update or the apply
-into that table; a side whose deltas go into a window's table is the
-step's accumulator mode (``prim_out``) or the apply into the delta table.
+Every step is the hand-written step of ``ops/cuda_sgd.py`` and apply of
+``ops/segment_sum.py`` on CUDA (their plain versions on the CPU): a side
+written in place (the local P of ``dp_fit``) is the step's in-place
+primary update or the apply into that table; a side whose deltas go into
+a window's table is the step's accumulator mode (``prim_out``) or the
+apply into the delta table.
 So a rank's step is the single-device step, and ``psum_every=1`` with one
 rank is ``sgd_train`` up to where a delta is added.
 

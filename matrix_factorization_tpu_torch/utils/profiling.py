@@ -27,7 +27,7 @@ SGD (``ops/segment_sgd.py``), nested as listed:
 
 * ``sgd.epoch`` — one epoch of ``sgd_train``, with its RMSE pass when on;
 * ``sgd.step`` — ``cuda_sgd.sgd_step`` of one batch (``minibatch_update``);
-* ``sgd.apply`` — ``cuda_sgd.segment_apply`` of one batch;
+* ``sgd.apply`` — ``segment_sum.segment_apply`` of one batch;
 * ``sgd.rmse`` — ``masked_sse``, the RMSE pass (also under ``als.epoch``).
 
 ALS (``ops/ials.py``, ``ops/spd.py``):

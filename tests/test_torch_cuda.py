@@ -21,11 +21,13 @@ from chip_smoke import run_cli
 from matrix_factorization_tpu_torch import ImplicitALS, KernelMF, params_from_numpy
 from matrix_factorization_tpu_torch.core.config import SGDConfig
 from matrix_factorization_tpu_torch.core.ids import IdVocab
-from matrix_factorization_tpu_torch.ops import cuda_normal_eq, cuda_scores, cuda_sgd, cuda_spd, ials, spd
+from matrix_factorization_tpu_torch.ops import _build, cuda_normal_eq, cuda_scores, cuda_sgd, cuda_spd
+from matrix_factorization_tpu_torch.ops import ials, spd
 from matrix_factorization_tpu_torch.ops import segment_sum as ss
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
 pytestmark = pytest.mark.cuda
+STEP = ("mf_sgd_step", "mf_sgd_step_acc")  # the SGD step's entry points
 
 
 @pytest.fixture
@@ -59,9 +61,9 @@ def test_kernel_matches_plain(cuda, shape, kernel, dtype):
     pu = torch.from_numpy(_rows(cfg, B, rng, "user")).to(cuda, dtype)
     Q = torch.from_numpy(_rows(cfg, I, rng, "item")).to(cuda, dtype)
     mu = torch.tensor(3.5, device=cuda)
-    before = cuda_scores.launches
+    before = _build.launches("mf_score_catalog")
     got = cuda_scores.cuda_score_catalog(cfg, mu, pu, Q)
-    assert cuda_scores.launches == before + 1
+    assert _build.launches("mf_score_catalog") == before + 1
     want = cuda_scores.plain_score_catalog(cfg, mu, pu, Q)
     torch.cuda.synchronize()
     assert got.shape == (B, I) and got.dtype == torch.float32
@@ -126,10 +128,10 @@ def test_score_kernel_refuses_a_plan_that_does_not_cover_the_call(cuda):
     pu = torch.zeros(20, 128, device=cuda)
     Q = torch.zeros(300, 128, device=cuda)
     short = cuda_scores.score_plan(4, 300, 128, 4)._replace(tile=4)  # 4 < 20 users
-    before = cuda_scores.launches
+    before = _build.launches("mf_score_catalog")
     with pytest.raises(RuntimeError):
         cuda_scores.score_with_plan(cfg, mu, pu, Q, short)
-    assert cuda_scores.launches == before
+    assert _build.launches("mf_score_catalog") == before
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -162,9 +164,9 @@ def test_model_on_cuda_matches_cpu(cuda, kernel):
         m._params = params_from_numpy(P, Q, 3.0, device=dev, cfg=cfg)
         models.append(m)
     cpu, gpu = models
-    before = cuda_scores.launches
+    before = _build.launches("mf_score_catalog")
     a = gpu.recommend_batch(list(range(40)), amount=7)
-    assert cuda_scores.launches > before
+    assert _build.launches("mf_score_catalog") > before
     b = cpu.recommend_batch(list(range(40)), amount=7)
     assert list(a.item_id) == list(b.item_id)
     np.testing.assert_allclose(a.rating_pred, b.rating_pred, atol=1e-5)
@@ -195,20 +197,20 @@ def test_sgd_step_and_apply_match_plain(cuda, kernel, n_factors, prim_side):
     n_prim, n_sec = 300, 700
     P = torch.from_numpy(_rows(cfg, n_prim, rng, prim_side)).to(cuda)
     S = torch.from_numpy(_rows(cfg, n_sec, rng, sec_side)).to(cuda)
-    prim, sec, r, w, sp, ss = _batch(rng, 5000, n_prim, n_sec, cuda)
+    prim, sec, r, w, sp, srt = _batch(rng, 5000, n_prim, n_sec, cuda)
     pm = torch.from_numpy(sgd.update_mask(cfg, prim_side)).to(cuda)
     sm = torch.from_numpy(sgd.update_mask(cfg, sec_side)).to(cuda)
     mu = torch.tensor(3.5, device=cuda)
     Pk, Sk, Pp, Sp = P.clone(), S.clone(), P.clone(), S.clone()
-    before = (cuda_sgd.step_launches, cuda_sgd.apply_launches)
+    before = (_build.launches(*STEP), _build.launches("mf_segment_apply"))
     dq = cuda_sgd.cuda_sgd_step(cfg, mu, Pk, Sk, prim, sec, r, w, pm, sm,
                                 0.05, cfg.reg)
-    cuda_sgd.cuda_segment_apply(Sk, dq, sp, ss)
-    assert (cuda_sgd.step_launches, cuda_sgd.apply_launches) == (
+    ss.cuda_segment_apply(Sk, dq, sp, srt)
+    assert (_build.launches(*STEP), _build.launches("mf_segment_apply")) == (
         before[0] + 1, before[1] + 1)
     dq_plain = cuda_sgd.plain_sgd_step(cfg, mu, Pp, Sp, prim, sec, r, w, pm,
                                        sm, 0.05, cfg.reg)
-    cuda_sgd.plain_segment_apply(Sp, dq_plain, sp, ss)
+    ss.plain_segment_apply(Sp, dq_plain, sp, srt)
     torch.cuda.synchronize()
     torch.testing.assert_close(dq, dq_plain, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(Pk, Pp, atol=1e-5, rtol=1e-5)
@@ -231,7 +233,7 @@ def test_sgd_step_is_deterministic(cuda):
     rng = np.random.default_rng(0)
     P = torch.from_numpy(_rows(cfg, 50, rng, "user")).to(cuda)
     S = torch.from_numpy(_rows(cfg, 40, rng, "item")).to(cuda)
-    prim, sec, r, w, sp, ss = _batch(rng, 200_000, 50, 40, cuda)
+    prim, sec, r, w, sp, srt = _batch(rng, 200_000, 50, 40, cuda)
     pm = torch.from_numpy(sgd.update_mask(cfg, "user")).to(cuda)
     sm = torch.from_numpy(sgd.update_mask(cfg, "item")).to(cuda)
     mu = torch.tensor(3.5, device=cuda)
@@ -240,7 +242,7 @@ def test_sgd_step_is_deterministic(cuda):
         Pk, Sk = P.clone(), S.clone()
         dq = cuda_sgd.cuda_sgd_step(cfg, mu, Pk, Sk, prim, sec, r, w, pm, sm,
                                     1e-4, cfg.reg)
-        cuda_sgd.cuda_segment_apply(Sk, dq, sp, ss)
+        ss.cuda_segment_apply(Sk, dq, sp, srt)
         outs.append((Pk, Sk))
     torch.cuda.synchronize()
     assert torch.equal(outs[0][0], outs[1][0])
@@ -338,11 +340,11 @@ def test_sgd_step_kernel_refuses_a_plan_it_is_not_compiled_for(cuda,
                    {"n_segments": 1}, {"grid": 1000}, {"smem_bytes": 1024}):
         monkeypatch.setattr(cuda_sgd, "step_plan",
                             lambda *a, **k: plan(*a, **k)._replace(**change))
-        before, P0 = cuda_sgd.step_launches, P.clone()
+        before, P0 = _build.launches(*STEP), P.clone()
         with pytest.raises(RuntimeError):
             cuda_sgd.cuda_sgd_step(cfg, mu, P, S, *batch, pm, sm, 0.05, 0.0)
         torch.cuda.synchronize()
-        assert cuda_sgd.step_launches == before and torch.equal(P, P0)
+        assert _build.launches(*STEP) == before and torch.equal(P, P0)
 
 
 def test_sgd_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -362,9 +364,9 @@ def test_sgd_wrappers_reject_what_the_kernels_do_not_take(cuda):
             cuda_sgd.cuda_sgd_step(cfg, *args, 0.1, 0.0)
     rows = torch.zeros(4, 128, device=cuda)
     with pytest.raises(ValueError):
-        cuda_sgd.cuda_segment_apply(P, rows[:, :64].contiguous(), ids, ids)
+        ss.cuda_segment_apply(P, rows[:, :64].contiguous(), ids, ids)
     with pytest.raises(ValueError):
-        cuda_sgd.cuda_segment_apply(P, rows, ids.long(), ids)
+        ss.cuda_segment_apply(P, rows, ids.long(), ids)
 
 
 @pytest.mark.parametrize("kp", [128, 256, 1024])
@@ -386,14 +388,14 @@ def test_segment_apply_matches_its_order_model(cuda, case, kp):
         rng.normal(size=(n_rows, kp)).astype(np.float32)).to(cuda)
     perm = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
     srt = torch.from_numpy(ids.astype(np.int32)).to(cuda)
-    before = cuda_sgd.apply_launches
+    before = _build.launches("mf_segment_apply")
     got, again, model, want = (table.clone() for _ in range(4))
-    cuda_sgd.cuda_segment_apply(got, rows, perm, srt)
-    cuda_sgd.cuda_segment_apply(again, rows, perm, srt)
-    assert cuda_sgd.apply_launches == before + 2
+    ss.cuda_segment_apply(got, rows, perm, srt)
+    ss.cuda_segment_apply(again, rows, perm, srt)
+    assert _build.launches("mf_segment_apply") == before + 2
     ss.segmented_segment_sum(model, rows, perm, srt,
-                             chunk=cuda_sgd.APPLY_CHUNK, layout="columns")
-    cuda_sgd.plain_segment_apply(want, rows, perm, srt)
+                             chunk=ss.APPLY_CHUNK, layout="columns")
+    ss.plain_segment_apply(want, rows, perm, srt)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     assert torch.equal(got, model)
@@ -405,16 +407,16 @@ def test_segment_apply_refuses_a_plan_it_is_not_compiled_for(cuda,
     table = torch.zeros(8, 128, device=cuda)
     rows = torch.ones(100, 128, device=cuda)
     perm, srt = ss.sorted_order(torch.arange(100, device=cuda) % 8)
-    plan = cuda_sgd.apply_plan
-    for change in ({"chunk": cuda_sgd.APPLY_CHUNK * 2}, {"n_chunks": 1},
+    plan = ss.apply_plan
+    for change in ({"chunk": ss.APPLY_CHUNK * 2}, {"n_chunks": 1},
                    {"grid": 9}, {"finish_grid": 0}):
-        monkeypatch.setattr(cuda_sgd, "apply_plan",
+        monkeypatch.setattr(ss, "apply_plan",
                             lambda *a, **k: plan(*a, **k)._replace(**change))
-        before = cuda_sgd.apply_launches
+        before = _build.launches("mf_segment_apply")
         with pytest.raises(RuntimeError):
-            cuda_sgd.cuda_segment_apply(table, rows, perm, srt)
+            ss.cuda_segment_apply(table, rows, perm, srt)
         torch.cuda.synchronize()
-        assert cuda_sgd.apply_launches == before
+        assert _build.launches("mf_segment_apply") == before
         assert torch.equal(table, torch.zeros_like(table))
 
 
@@ -436,11 +438,11 @@ def test_fit_on_cuda_matches_cpu(cuda, kernel):
     for dev in ("cpu", "cuda"):
         data = sgd.pack_ratings(u, i, r, 512, order="user", device=dev)
         start = p0._replace(**{k: getattr(p0, k).to(dev) for k in p0._fields})
-        before = cuda_sgd.step_launches
+        before = _build.launches(*STEP)
         out[dev] = sgd.sgd_train(start, data, None, cfg, 3, cfg.lr,
                                  batch_orders=orders)
         if dev == "cuda":
-            assert cuda_sgd.step_launches == before + 3 * data.n_batches
+            assert _build.launches(*STEP) == before + 3 * data.n_batches
     (pc, hc), (pg, hg) = out["cpu"], out["cuda"]
     torch.testing.assert_close(pg.user_features.cpu(), pc.user_features,
                                atol=1e-4, rtol=1e-4)
@@ -450,11 +452,11 @@ def test_fit_on_cuda_matches_cpu(cuda, kernel):
     m = KernelMF(n_factors=20, kernel=kernel, n_epochs=2, lr=0.05, reg=0.02,
                  batch_size=512, device="cuda")
     X = pd.DataFrame({"user_id": u, "item_id": i}).drop_duplicates()
-    before = cuda_sgd.step_launches
+    before = _build.launches(*STEP)
     m.fit(X, pd.Series(r[X.index]))
     assert m._params.user_features.device.type == "cuda"
     assert len(m.train_rmse) == 2 and np.isfinite(m.train_rmse).all()
-    assert cuda_sgd.step_launches == before + 2 * -(-len(X) // 512)
+    assert _build.launches(*STEP) == before + 2 * -(-len(X) // 512)
 
 
 def _scaled_grams(rng, E, d, device, L=64):
@@ -475,9 +477,9 @@ def test_gj_kernel_matches_plain(cuda, E, d):
     (f32, FMA-contracted in the kernel), |A A^-1 - I| < 5e-3 (the JAX
     bar) and the same bits twice."""
     A = _scaled_grams(np.random.default_rng(d), E, d, cuda)
-    before = cuda_spd.launches
+    before = _build.launches("mf_gj_inverse")
     got = cuda_spd.cuda_gj_inverse(A)
-    assert cuda_spd.launches == before + 1
+    assert _build.launches("mf_gj_inverse") == before + 1
     want = cuda_spd.plain_gj_inverse(A)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
@@ -511,11 +513,9 @@ def test_gj_kernel_in_place_and_unaligned(cuda, d):
     want = cuda_spd.cuda_gj_inverse(A)
     X = A.clone()
     plan = cuda_spd.gj_plan(d)
-    lib = cuda_spd._library()
-    rc = lib.mf_gj_inverse(X.data_ptr(), X.data_ptr(), 9, d, plan.side,
-                           plan.regs, plan.per_block, plan.smem_bytes,
-                           torch.cuda.current_stream().cuda_stream)
-    assert rc == 0
+    cuda_spd.LIB("mf_gj_inverse", X.data_ptr(), X.data_ptr(), 9, d, plan.side,
+                 plan.regs, plan.per_block, plan.smem_bytes,
+                 torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert torch.equal(X, want)
     for shift in (1, 2, 3):
@@ -531,11 +531,11 @@ def test_gj_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):
 
     monkeypatch.setattr(cuda_spd, "plain_gj_inverse", refuse)
     A = _scaled_grams(np.random.default_rng(0), 9, 201, cuda, L=256)
-    before = cuda_spd.launches
+    before = _build.launches("mf_gj_inverse")
     cuda_spd.gj_inverse(A[:, :100, :100].contiguous())
     inv = spd.spd_inverse(A)  # d = 201: two leaves, 104 and 97
     torch.cuda.synchronize()
-    assert cuda_spd.launches == before + 3
+    assert _build.launches("mf_gj_inverse") == before + 3
     torch.testing.assert_close(inv, torch.linalg.inv(A), atol=1e-3, rtol=1e-3)
 
 
@@ -564,12 +564,12 @@ def test_als_on_cuda_matches_cpu_and_launches(cuda):
         bu, bi = ials.group_both_sides_bucketed(u, i, r, 300, 200,
                                                 max_block_rows=2000, device=dev)
         data = sgd.pack_ratings(u, i, r, 512, device=dev)
-        before, ne_before = cuda_spd.launches, cuda_normal_eq.launches
+        before, ne_before = _build.launches("mf_gj_inverse"), _build.launches("mf_normal_eq")
         out[dev] = ials.ials_train_bucketed(start, bu, bi, data, cfg, 2,
                                             reg_scale="per_obs")
         if dev == "cuda":
-            assert cuda_spd.launches == before + 2 * (len(bu) + len(bi))
-            assert cuda_normal_eq.launches == ne_before + 2 * (len(bu) + len(bi))
+            assert _build.launches("mf_gj_inverse") == before + 2 * (len(bu) + len(bi))
+            assert _build.launches("mf_normal_eq") == ne_before + 2 * (len(bu) + len(bi))
     (pc, hc), (pg, hg) = out["cpu"], out["cuda"]
     torch.testing.assert_close(pg.user_features.cpu(), pc.user_features,
                                atol=2e-4, rtol=0)
@@ -577,13 +577,13 @@ def test_als_on_cuda_matches_cpu_and_launches(cuda):
                                atol=2e-4, rtol=0)
     torch.testing.assert_close(hg.cpu(), hc, atol=1e-4, rtol=0)
     X = pd.DataFrame({"user_id": u, "item_id": i})
-    before = cuda_spd.launches
+    before = _build.launches("mf_gj_inverse")
     m = KernelMF(n_factors=20, n_epochs=2, method="als", reg=0.1,
                  device="cuda").fit(X, pd.Series(r))
-    assert cuda_spd.launches > before and np.isfinite(m.train_rmse).all()
-    before = cuda_spd.launches
+    assert _build.launches("mf_gj_inverse") > before and np.isfinite(m.train_rmse).all()
+    before = _build.launches("mf_gj_inverse")
     ImplicitALS(n_factors=16, n_epochs=2, device="cuda").fit(X, pd.Series(r))
-    assert cuda_spd.launches == before + 4
+    assert _build.launches("mf_gj_inverse") == before + 4
 
 
 # ---------------------------------------------------------------------------
@@ -630,9 +630,9 @@ def test_normal_eq_kernel_matches_plain(cuda, k, E, L, side, variant):
     gram = "bf16" if variant == "bf16" else "f32"
     reg_scale = "absolute" if variant == "absolute" else "per_obs"
     o_side = "item" if side == "user" else "user"
-    before = cuda_normal_eq.launches
+    before = _build.launches("mf_normal_eq")
     A, b = ials.normal_equations(T, ids, r, m, mu, cfg, side, gram, reg_scale)
-    assert cuda_normal_eq.launches == before + 1
+    assert _build.launches("mf_normal_eq") == before + 1
     wA, wb = ials.plain_normal_equations(
         T, ids, r, m, mu, k, sgd.bias_col(cfg, o_side), sgd.const_col(cfg, o_side),
         cfg.reg, gram, reg_scale)
@@ -662,11 +662,11 @@ def test_normal_eq_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):
                          cfg, float(r.mean()))
     bu, bi = ials.group_both_sides_bucketed(u, i, r, 400, 300, max_block_rows=4096,
                                             device=cuda)
-    before = cuda_normal_eq.launches
+    before = _build.launches("mf_normal_eq")
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         ials.ials_train_bucketed(p0, bu, bi, None, cfg, 1, reg_scale="per_obs")
         torch.cuda.synchronize()
-    assert cuda_normal_eq.launches == before + len(bu) + len(bi)
+    assert _build.launches("mf_normal_eq") == before + len(bu) + len(bi)
     names = [e.name for e in prof.events()]
     assert names.count("mf:als.gram_kernel") == len(bu) + len(bi)
     inside = [e for e in prof.events() if e.name.startswith("aten::")
@@ -743,10 +743,10 @@ def test_segment_sum_kernel_matches_plain(cuda, case):
     if case == "unaligned":  # views 4 bytes into their storage
         order = tuple(torch.cat([t[:1], t])[1:] for t in order)
         assert order[0].data_ptr() % 16 == 4
-    before = ss.launches
+    before = _build.launches("mf_segment_sum")
     got = base.clone()
     ss.cuda_segment_sum(got, vals, *order)
-    assert ss.launches == before + 1
+    assert _build.launches("mf_segment_sum") == before + 1
     again = base.clone()
     ss.cuda_segment_sum(again, vals, *order)
     model = base.clone()
@@ -803,9 +803,9 @@ def test_baseline_on_cuda_matches_cpu_and_repeats(cuda, method):
     X, y = _ml_shaped()
     kw = dict(method=method, n_epochs=5, reg=0.5 if method == "als" else 0.02,
               lr=0.02, min_rating=0.5, batch_size=512)
-    before = ss.launches
+    before = _build.launches("mf_segment_sum")
     a = BaselineModel(device="cuda", **kw).fit(X, y)
-    assert ss.launches > before
+    assert _build.launches("mf_segment_sum") > before
     b = BaselineModel(device="cuda", **kw).fit(X, y)
     assert torch.equal(a._params.user_biases, b._params.user_biases)
     assert torch.equal(a._params.item_biases, b._params.item_biases)
@@ -853,19 +853,19 @@ def test_content_and_sweep_on_cuda_match_cpu(cuda):
     feats = pd.DataFrame(rng.integers(0, 2, (250, 18)).astype(float),
                          columns=[f"g{j}" for j in range(18)])
     feats.insert(0, "item_id", np.arange(250))
-    before = ss.launches
+    before = _build.launches("mf_segment_sum")
     got = {d: mf.ContentBasedRecommender(device=d, min_rating=0.5).fit(
         X, y, item_features=feats) for d in ("cuda", "cpu")}
-    assert ss.launches == before + 2  # the profile and its weight
+    assert _build.launches("mf_segment_sum") == before + 2  # the profile and its weight
     np.testing.assert_allclose(got["cuda"]._profiles.cpu().numpy(),
                                got["cpu"]._profiles.numpy(), atol=1e-5)
     cut = 6000
     args = (X.iloc[:cut], y.iloc[:cut], X.iloc[cut:], y.iloc[cut:])
     kw = dict(lrs=[0.005, 0.02], regs=[0.01, 0.1], n_epochs=3, n_factors=16,
               batch_size=512)
-    before = cuda_sgd.step_launches
+    before = _build.launches(*STEP)
     m, res = mf.grid_search_kernel_mf(*args, device="cuda", **kw)
-    assert cuda_sgd.step_launches == before + 4 * 3 * -(-cut // 512)
+    assert _build.launches(*STEP) == before + 4 * 3 * -(-cut // 512)
     m2, res2 = mf.grid_search_kernel_mf(*args, device="cuda", **kw)
     assert torch.equal(m._params.user_features, m2._params.user_features)
     assert res == res2 and np.isfinite(res[0]["val_rmse"])
@@ -941,9 +941,9 @@ def test_ease_on_cuda_matches_cpu_and_launches_the_leaf(cuda, tmp_path):
     import matrix_factorization_tpu_torch as mf
 
     X, y = _ml_shaped()
-    before = cuda_spd.launches
+    before = _build.launches("mf_gj_inverse")
     a = mf.EASE(reg=50.0, device="cuda").fit(X, y)
-    assert cuda_spd.launches > before
+    assert _build.launches("mf_gj_inverse") > before
     c = mf.EASE(reg=50.0, device="cpu").fit(X, y)
     np.testing.assert_allclose(a._params.item_weights.cpu().numpy(),
                                c._params.item_weights.numpy(), atol=1e-4)
@@ -1035,12 +1035,13 @@ def test_family_epoch_on_cuda_matches_plain_and_repeats(cuda, family,
     tables[2][:, 64:] = 0.0
     tables[3][:, 64:] = 0.0
     tables = tables if family == "svdpp" else tables[:2]
-    counts = (cuda_sgd.apply_launches, ss.launches)
+    entries = ("mf_segment_apply", "mf_segment_sum")
+    counts = [_build.launches(e) for e in entries]
     got = _family_epoch(family, data, tables, 2000, 1)
     again = _family_epoch(family, data, tables, 2000, 1)
-    launched = (cuda_sgd.apply_launches - counts[0], ss.launches - counts[1])
+    launched = [_build.launches(e) - c for e, c in zip(entries, counts)]
     assert launched[1 if family == "nmf" else 0] > 0
-    monkeypatch.setattr(cuda_sgd, "segment_apply", cuda_sgd.plain_segment_apply)
+    monkeypatch.setattr(ss, "segment_apply", ss.plain_segment_apply)
     monkeypatch.setattr(ss, "segment_sum", lambda out, *a: (
         ss.plain_segment_sum(out, *a), out)[1])
     plain = _family_epoch(family, data, tables, 2000, 1)
@@ -1069,9 +1070,9 @@ def test_family_models_on_cuda(cuda, family, tmp_path):
     upd = X.iloc[:40].assign(user_id=10_000 + np.arange(40) // 2)
     a.update_users(upd, y.iloc[:40], n_epochs=2)
     assert torch.equal(a._params.item_features, Q)
-    before = cuda_scores.launches
+    before = _build.launches("mf_score_catalog")
     rec = a.recommend_batch(X.user_id.unique()[:8].tolist(), amount=5)
-    assert cuda_scores.launches > before and len(rec) == 40
+    assert _build.launches("mf_score_catalog") > before and len(rec) == 40
     mf.save_model(a, tmp_path / family)
     back = mf.load_model(tmp_path / family)
     for s, t in zip(a._params, back._params):
@@ -1143,7 +1144,7 @@ def test_stable_topk_bodies_on_cuda_are_the_tie_rule(cuda, scores, body,
     inside the k and at the cut, ``-0.0`` beside ``0.0``, NaNs, ``+inf``
     and ``-inf`` beside NaNs, rows whose every score is equal, and rows
     wider than a sort's small-segment path."""
-    from matrix_factorization_tpu_torch.ops import cuda_topk, scoring
+    from matrix_factorization_tpu_torch.ops import scoring
 
     rng = np.random.default_rng(TIE_CASES.index(scores))
     B, n = (6, 300_001) if scores == "steps_wide" else (9, 4_099)
@@ -1167,14 +1168,15 @@ def test_stable_topk_bodies_on_cuda_are_the_tie_rule(cuda, scores, body,
     if body == "_plain_select_topk_sorting_ties":
         monkeypatch.setattr(scoring, "SELECT_MAX_TIED", 0)
         body = "_plain_select_topk"
-    before = cuda_topk.launches
+    before = _build.launches("mf_topk_select")
     for k in (1, 10, 50):
         v, i = getattr(scoring, body)(torch.from_numpy(s).cuda(), k)
         want = _rule_positions(s, k)
         np.testing.assert_array_equal(i.cpu().numpy(), want)
         np.testing.assert_array_equal(v.cpu().numpy(),
                                       np.take_along_axis(s, want, 1))
-    assert cuda_topk.launches == before + (3 if body == "_select_topk" else 0)
+    launched = _build.launches("mf_topk_select") - before
+    assert launched == (3 if body == "_select_topk" else 0)
 
 
 # (rows, n, k, scores): the selection body's blocks on the main paths
@@ -1207,7 +1209,7 @@ def test_select_kernel_is_the_plain_body_bit_for_bit(cuda, rows, n, k, scores):
         s = torch.round(s * 64) / 64
     want = scoring._plain_select_topk(s, k)
     fits = k <= cuda_topk.MAX_K
-    before = cuda_topk.launches
+    before = _build.launches("mf_topk_select")
     torch.cuda.synchronize()
     # the kernel's call never syncs; the torch body past MAX_K does (its
     # tie test)
@@ -1217,7 +1219,7 @@ def test_select_kernel_is_the_plain_body_bit_for_bit(cuda, rows, n, k, scores):
         again = scoring._select_topk(s, k)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert cuda_topk.launches == before + (2 if fits else 0)
+    assert _build.launches("mf_topk_select") == before + (2 if fits else 0)
     for a, b in ((got, want), (again, got)):
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
         assert a[0].dtype == torch.float32 and a[1].dtype == torch.int64
@@ -1230,17 +1232,17 @@ def test_select_kernel_wrapper_refuses_what_it_does_not_take(cuda):
     from matrix_factorization_tpu_torch.ops import cuda_topk, scoring
 
     s = torch.randn((8, 5_000), device="cuda")
-    before = cuda_topk.launches
+    before = _build.launches("mf_topk_select")
     for bad, k in ((s.double(), 5), (s.half(), 5), (s[:, ::2], 5),
                    (s.t(), 5), (s.cpu(), 5), (s[0], 5),
                    (s, cuda_topk.MAX_K + 1), (s[:, :10].contiguous(), 11)):
         with pytest.raises(ValueError):
             cuda_topk.cuda_select_topk(bad, k)
-    assert cuda_topk.launches == before
+    assert _build.launches("mf_topk_select") == before
     v, i = cuda_topk.cuda_select_topk(s, 0)
-    assert v.shape == i.shape == (8, 0) and cuda_topk.launches == before
+    assert v.shape == i.shape == (8, 0) and _build.launches("mf_topk_select") == before
     v, i = cuda_topk.cuda_select_topk(s, 5)
-    assert cuda_topk.launches == before + 1
+    assert _build.launches("mf_topk_select") == before + 1
     want = scoring._plain_select_topk(s, 5)
     assert torch.equal(v, want[0]) and torch.equal(i, want[1])
 
@@ -1301,11 +1303,11 @@ def test_pipeline_train_and_evaluate_default_to_cuda(cuda, tmp_path):
     model = load_pickle(tmp_path / "artifacts" / "model.pkl")
     assert model._params.item_features.device.type == "cuda"
     assert model.train_rmse[-1] < model.train_rmse[0]
-    before = cuda_scores.launches
+    before = _build.launches("mf_score_catalog")
     res = json.loads(run(evaluate, ["--k", "10", "--positive-threshold", "3.0",
                                     "--max-users", "50"]).strip().splitlines()[-1])
     assert res["n_users"] > 0
-    assert cuda_scores.launches - before >= res["n_users"]
+    assert _build.launches("mf_score_catalog") - before >= res["n_users"]
 
 
 @pytest.mark.parametrize("case", ["run_ends_at_boundary",
@@ -1375,26 +1377,26 @@ def test_dp_als_sweep_at_world_one_is_bucket_sweep(cuda):
     bu, bi = ials.group_both_sides_bucketed(u, i, r, n_users, n_items,
                                             max_block_rows=4096, device=cuda)
     data = sgd.pack_ratings(u, i, r, 4096, aggregate=False, device=cuda)
-    cuda_spd.reset_launches()
-    cuda_normal_eq.reset_launches()
+    _build.reset_launches("mf_gj_inverse")
+    _build.reset_launches("mf_normal_eq")
     ref, href = ials.ials_train_bucketed(p0, bu, bi, data, cfg, 2,
                                          reg_scale="per_obs")
     torch.cuda.synchronize()
-    single, single_ne = cuda_spd.launches, cuda_normal_eq.launches
+    single, single_ne = _build.launches("mf_gj_inverse"), _build.launches("mf_normal_eq")
     with tempfile.TemporaryDirectory() as d:
         dist.init_process_group("gloo", init_method=f"file://{d}/store",
                                 rank=0, world_size=1)
         try:
-            cuda_spd.reset_launches()
-            cuda_normal_eq.reset_launches()
+            _build.reset_launches("mf_gj_inverse")
+            _build.reset_launches("mf_normal_eq")
             got, hist = ials.dp_ials_train_bucketed(p0, bu, bi, data, cfg, 2,
                                                     make_mesh(1),
                                                     reg_scale="per_obs")
             torch.cuda.synchronize()
         finally:
             dist.destroy_process_group()
-    assert single > 0 and cuda_spd.launches == single
-    assert single_ne == 2 * (len(bu) + len(bi)) == cuda_normal_eq.launches
+    assert single > 0 and _build.launches("mf_gj_inverse") == single
+    assert single_ne == 2 * (len(bu) + len(bi)) == _build.launches("mf_normal_eq")
     assert torch.equal(got.user_features, ref.user_features)
     assert torch.equal(got.item_features, ref.item_features)
     assert torch.equal(hist, href)
@@ -1447,10 +1449,10 @@ def test_dp_families_at_nccl_world_one_are_the_single_device_trainers(cuda):
             ("svdpp", lambda: svdpp.svdpp_train_batched(
                 s0, pack, wvec, deg, None, scfg, E, 0.005, 0.02,
                 batch_orders=orders))):
-        cuda_sgd.reset_launches()
+        _build.reset_launches("mf_sgd_step", "mf_sgd_step_acc", "mf_segment_apply")
         runs[tag] = fn()
         torch.cuda.synchronize()
-        launches[tag] = cuda_sgd.apply_launches
+        launches[tag] = _build.launches("mf_segment_apply")
     given = [[o] for o in orders], [[x] for x in negs]
     with tempfile.TemporaryDirectory() as d:
         dist.init_process_group("nccl", init_method=f"file://{d}/store",
@@ -1458,19 +1460,19 @@ def test_dp_families_at_nccl_world_one_are_the_single_device_trainers(cuda):
                                 device_id=torch.device("cuda:0"))
         try:
             mesh = make_mesh(1)
-            cuda_sgd.reset_launches()
+            _build.reset_launches("mf_sgd_step", "mf_sgd_step_acc", "mf_segment_apply")
             got_b = bpr.dp_bpr_train_tiled(pdist.place_params(b0, mesh), pack,
                                            bcfg, E, 0.05, n_items, mesh,
                                            batch_orders=given[0],
                                            negatives=given[1])
             torch.cuda.synchronize()
-            dp_b = cuda_sgd.apply_launches
-            cuda_sgd.reset_launches()
+            dp_b = _build.launches("mf_segment_apply")
+            _build.reset_launches("mf_sgd_step", "mf_sgd_step_acc", "mf_segment_apply")
             got_s = svdpp.dp_svdpp_train_batched(s0, pack, wvec, deg, scfg, E,
                                                  0.005, 0.02, mesh,
                                                  batch_orders=given[0])
             torch.cuda.synchronize()
-            dp_s = cuda_sgd.apply_launches
+            dp_s = _build.launches("mf_segment_apply")
         finally:
             dist.destroy_process_group()
     assert launches["bpr"] > 0 and dp_b == launches["bpr"]
@@ -1492,10 +1494,10 @@ def _gloo_ease_rank(rank, world, X, y):
     from matrix_factorization_tpu_torch.parallel.mesh import make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cuda_spd.reset_launches()
+    _build.reset_launches("mf_gj_inverse")
     m = EASE(reg=10.0, mesh=make_mesh(world)).fit(X, y)
     torch.cuda.synchronize()
-    return {"launches": cuda_spd.launches,
+    return {"launches": _build.launches("mf_gj_inverse"),
             "rows": tuple(m._params.item_weights.shape),
             "device": str(m._params.item_weights.device),
             "scores": m._catalog_scores_batch(np.arange(16))}
@@ -1602,10 +1604,10 @@ def _gloo_checkpoint_rank(rank, world, X, y, path):
     save_model_sharded(m, path)
     m2 = load_model_sharded(path, mesh=mesh)
     uid = X["user_id"].iloc[0]
-    before = cuda_scores.launches
+    before = _build.launches("mf_score_catalog")
     recs = m2.recommend(user=uid, amount=5)
     torch.cuda.synchronize()
-    return {"launches": cuda_scores.launches - before,
+    return {"launches": _build.launches("mf_score_catalog") - before,
             "equal": [torch.equal(a, b) for a, b in zip(m._params, m2._params)],
             "device": str(m2._params.user_features.device),
             "rows": m2._params.user_features.shape[0],
@@ -1652,10 +1654,10 @@ def test_int8_gram_is_the_f32_gram_bit_for_bit(cuda, n_users, n_items, n_pairs,
     u, i, w = _gram_case(n_users, n_items, n_pairs, n_users, weights)
     pack = ease_ops.gram_pack(u, i, w, n_users, n_items, device="cuda")
     assert pack.tiles is not None
-    cuda_gram.reset_launches()
+    _build.reset_launches("mf_ease_gram_tiles")
     G8 = ease_ops.gram_scan(pack)
     torch.cuda.synchronize()
-    assert cuda_gram.launches == len(pack.bounds) - 1
+    assert _build.launches("mf_ease_gram_tiles") == len(pack.bounds) - 1
     ip = ease_ops.round8(n_items)
     cu = min(2048, ease_ops.round8(n_users))
     lu, ii, ww, bounds = ease_ops._gram_chunks(u, i, w, n_users, cu)

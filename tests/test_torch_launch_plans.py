@@ -1,22 +1,26 @@
 """The launch plans of the port's redesigned kernels, on the CPU.
 
 ``ops/cuda_scores.py::score_plan``, ``ops/cuda_spd.py::gj_plan``,
-``ops/cuda_sgd.py::step_plan`` and ``apply_plan``,
-``ops/segment_sum.py::segsum_plan`` and ``ops/cuda_topk.py::select_plan``
+``ops/cuda_sgd.py::step_plan``, ``ops/segment_sum.py::segsum_plan`` and
+``apply_plan`` and ``ops/cuda_topk.py::select_plan``
 decide in Python how ``csrc/score_catalog.cu``, ``csrc/spd_gj.cu``,
 ``csrc/sgd_step.cu``, ``csrc/segment_sum.cu`` and ``csrc/topk_select.cu``
 cover a call; the kernels refuse a plan that does
 not match what they compute.
 These tests need no GPU: every plan covers its call, fits the card's
-limits, and names a shape the CUDA sources are compiled for.
+limits, and names a shape the CUDA sources are compiled for; and every
+C entry point of ``csrc/`` has its signature in its wrapper's table.
 """
 
+import ctypes
 import re
 from pathlib import Path
 
 import pytest
 
-from matrix_factorization_tpu_torch.ops import cuda_gram, cuda_scores, cuda_sgd, cuda_spd, cuda_topk
+from matrix_factorization_tpu_torch.data import loader  # noqa: F401 (binds host_loader)
+from matrix_factorization_tpu_torch.ops import _build, cuda_gram, cuda_normal_eq  # noqa: F401
+from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, cuda_spd, cuda_topk
 from matrix_factorization_tpu_torch.ops import segment_sum
 
 CSRC = Path(cuda_scores.__file__).resolve().parent.parent / "csrc"
@@ -37,8 +41,15 @@ def test_plans_name_compiled_shapes():
     assert f"kTileN = {cuda_scores.TILE_N};" in src
     gj = _instantiations("spd_gj.cu", r"return launch<(\d+), (\d+), (\d+)>")
     assert gj == {t[1:] for t in cuda_spd._GJ_TILES}
-    for src in ("score_catalog.cu", "spd_gj.cu"):
-        assert f"kMaxSmem = {cuda_scores.SMEM_LIMIT}" in (CSRC / src).read_text()
+
+
+@pytest.mark.parametrize("src", ["score_catalog.cu", "spd_gj.cu", "sgd_step.cu",
+                                 "als_normal_eq.cu"])
+def test_sources_take_the_one_smem_limit(src):
+    """Every source that bounds a block's dynamic shared memory is compiled
+    for ``_build.SMEM_LIMIT``, the one limit the launch plans use."""
+    assert re.search(rf"constexpr int kMaxSmem = {_build.SMEM_LIMIT};",
+                     (CSRC / src).read_text())
 
 
 @pytest.mark.parametrize("kp", [128, 256, 512, 1024])
@@ -47,7 +58,7 @@ def test_score_plan_covers_every_batch(itemsize, kp):
     for I in (1, 255, 256, 257, 1000, 59_392):
         for B in range(1, 301):
             p = cuda_scores.score_plan(B, I, kp, itemsize, H100_SMS)
-            assert 0 < p.smem_bytes <= cuda_scores.SMEM_LIMIT
+            assert 0 < p.smem_bytes <= _build.SMEM_LIMIT
             assert 2 <= p.stages <= cuda_scores.MAX_STAGES
             assert p.k_chunk * itemsize == cuda_scores.ROW_BYTES
             assert kp % p.k_chunk == 0
@@ -78,7 +89,7 @@ def test_score_plan_boundary_and_stages():
     # the streaming path stages the user rows whole; where they do not fit
     # beside two stages the batch tiles, whatever its size
     wide = cuda_scores.score_plan(16, 1000, 8192, 4)
-    assert wide.path == "tile" and wide.smem_bytes <= cuda_scores.SMEM_LIMIT
+    assert wide.path == "tile" and wide.smem_bytes <= _build.SMEM_LIMIT
     for bad in ((0, 10, 128), (1, 0, 128), (1, 10, 96)):
         with pytest.raises(ValueError):
             cuda_scores.score_plan(*bad, 4)
@@ -93,7 +104,7 @@ def test_gj_plan_covers_every_d(max_d, side, regs, per_block):
         assert p.side * p.regs >= d  # the register tile covers d x d
         assert p.side * p.side * p.per_block <= 1024  # threads a block
         assert (p.side * p.side) % 32 == 0  # a warp never spans two matrices
-        assert 0 < p.smem_bytes <= cuda_spd.SMEM_LIMIT
+        assert 0 < p.smem_bytes <= _build.SMEM_LIMIT
         assert p.smem_bytes >= 4 * p.per_block * d * d
 
 
@@ -109,8 +120,7 @@ def test_step_plan_names_what_the_source_is_compiled_for():
     assert f"#define MF_SEG_LEN {cuda_sgd.SEG_LEN}\n" in src
     assert f"#define MF_STAGES {cuda_sgd.STEP_STAGES}\n" in src
     assert f"constexpr int kWarps = {cuda_sgd.STEP_WARPS};" in src
-    assert f"constexpr int kMaxSmem = {cuda_sgd.SMEM_LIMIT};" in src
-    assert f"constexpr int kMaxVec = {cuda_sgd.MAX_WIDTH // 128};" in src
+    assert f"constexpr int kMaxVec = {segment_sum.MAX_WIDTH // 128};" in src
     assert cuda_sgd.SEG_LEN % 32 == 0 and 32 <= cuda_sgd.SEG_LEN <= 128
     # the kernel's own layout: masks, rings, entry words, primary ids
     m = re.search(r"return 16 \* \(2 \* nv \* 32 \+ kWarps \* kStages \* nv "
@@ -136,7 +146,7 @@ def test_step_plan_covers_every_n(kp, mult):
         assert (p.n_segments - 1) * L < n <= p.n_segments * L
         assert 1 <= p.grid <= -(-p.n_segments // W)  # no block without work
         assert p.grid <= H100_SMS * cuda_sgd.STEP_MAX_BLOCKS_PER_SM
-        assert p.smem_bytes == cuda_sgd.step_smem(kp) <= cuda_sgd.SMEM_LIMIT
+        assert p.smem_bytes == cuda_sgd.step_smem(kp) <= _build.SMEM_LIMIT
         # the blocks the plan puts on an SM fit its shared memory
         per_sm = -(-p.grid // H100_SMS)
         assert per_sm * (p.smem_bytes + 1024) <= cuda_sgd.SMEM_PER_SM
@@ -188,13 +198,13 @@ def test_segsum_plan_picks_the_layout_from_d_alone(d):
 
 def test_apply_plan_names_what_the_source_is_compiled_for():
     src = (CSRC / "segment_sum.cu").read_text()
-    assert f"#define MF_APPLY_CHUNK {cuda_sgd.APPLY_CHUNK}\n" in src
-    assert cuda_sgd.APPLY_CHUNK % 32 == 0 and 32 <= cuda_sgd.APPLY_CHUNK <= 256
+    assert f"#define MF_APPLY_CHUNK {segment_sum.APPLY_CHUNK}\n" in src
+    assert segment_sum.APPLY_CHUNK % 32 == 0 and 32 <= segment_sum.APPLY_CHUNK <= 256
     rows = int(re.search(r"#define MF_APPLY_ROWS (\d+)\n", src).group(1))
     assert rows >= 4 and 32 % rows == 0  # at least 4 rows in flight a warp
     for nv in range(1, 9):  # every width the wrapper takes
         assert f"case {nv}: launch_apply<{nv}>" in src
-    assert f"kMaxVec = {cuda_sgd.MAX_WIDTH // 128};" in src
+    assert f"kMaxVec = {segment_sum.MAX_WIDTH // 128};" in src
     step_src = (CSRC / "sgd_step.cu").read_text()  # the apply left it
     assert 'extern "C" int mf_segment_apply' not in step_src
     assert "segment_apply_kernel" not in step_src
@@ -207,21 +217,21 @@ def test_apply_plan_covers_every_n(kp, mult):
     a warp a chunk, a finishing warp for every chunk but the last and two
     scratch slots of ``kp`` a chunk. The sweep's batch (4,096) and the
     headline's (131,072) give 128 and 4,096 warps."""
-    C, W = cuda_sgd.APPLY_CHUNK, segment_sum.WARPS
+    C, W = segment_sum.APPLY_CHUNK, segment_sum.WARPS
     for n in range(max(1, mult * C - C - 1), mult * C + C + 2, 5):
-        p = cuda_sgd.apply_plan(n, kp)
+        p = segment_sum.apply_plan(n, kp)
         assert p.chunk == C and (p.n_chunks - 1) * C < n <= p.n_chunks * C
         assert (p.grid - 1) * W < p.n_chunks <= p.grid * W
         assert (p.finish_grid - 1) * W < p.n_chunks - 1 <= p.finish_grid * W \
             or p.n_chunks == 1 and p.finish_grid == 0
         assert p.grid <= 2**31 - 1
         assert p.scratch_shape == (2 * p.n_chunks, kp)
-    assert cuda_sgd.apply_plan(4096, 128).n_chunks >= 64
-    assert cuda_sgd.apply_plan(131_072, 128).n_chunks >= 2048
-    assert cuda_sgd.apply_plan(1000, 256, chunk=64).n_chunks == 16
+    assert segment_sum.apply_plan(4096, 128).n_chunks >= 64
+    assert segment_sum.apply_plan(131_072, 128).n_chunks >= 2048
+    assert segment_sum.apply_plan(1000, 256, chunk=64).n_chunks == 16
     for bad in ((0, 128), (-1, 128), (10, 96), (10, 0), (10, 1152)):
         with pytest.raises(ValueError):
-            cuda_sgd.apply_plan(*bad)
+            segment_sum.apply_plan(*bad)
 
 
 @pytest.mark.parametrize("d", [1, 18, 33])
@@ -291,5 +301,58 @@ def test_ease_gram_tiles_match_the_source():
     const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert const["kTile"] == cuda_gram.TILE and const["kBK"] == cuda_gram.K_TILE
     smem = const["kStages"] * 2 * const["kTile"] * const["kBK"]
-    assert 2 * smem <= cuda_spd.SMEM_LIMIT
+    assert 2 * smem <= _build.SMEM_LIMIT
     assert const["kThreads"] == 128 and "__launch_bounds__(kThreads, 2)" in src
+
+
+# The ctypes type each C parameter or return type of the sources binds as
+# (a pointer: an address, a C string or a numpy array's data).
+_POINTER = (ctypes.c_void_p, ctypes.c_char_p)
+_C_TYPES = {"int": ctypes.c_int, "int32_t": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float, "void": None}
+
+
+def _entry_points(text):
+    """{name: (return type, [parameter types])} of every ``extern "C"``
+    function of a source: one declared ``extern "C"`` on its own, or at
+    the top level of an ``extern "C" { ... }`` block."""
+    text = re.sub(r"/\*.*?\*/", "", text, flags=re.S)
+    sig = r"((?:const )?[\w ]+?\s*\*?)\s*\b(mf_\w+)\s*\(([^)]*)\)\s*\{"
+    found = re.findall(r'extern "C" ' + sig, text)
+    for block in re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"', text, re.S):
+        found += re.findall(r"^" + sig, block, re.M)
+    out = {}
+    for ret, name, params in found:
+        params = re.sub(r"//[^\n]*", "", params)
+        params = [" ".join(p.split()) for p in params.split(",") if p.strip()]
+        # drop each parameter's name: what is left is its type
+        out[name] = (ret.strip(), [re.sub(r"\s*\w+$", "", p) for p in params])
+    return out
+
+
+def _binds(c_type, ctype):
+    c_type = c_type.replace("const ", "").strip()
+    if c_type.endswith("*"):
+        return ctype is not None and issubclass(ctype, _POINTER)
+    return ctype is _C_TYPES[c_type]
+
+
+@pytest.mark.parametrize("src", sorted(p.name for p in CSRC.iterdir()
+                                       if p.suffix in (".cu", ".cpp")))
+def test_every_entry_point_has_its_signature_in_one_table(src):
+    """Each ``extern "C"`` entry point of ``csrc/<src>`` has exactly one
+    entry in its wrapper's table (``_build.LIBRARIES``), with as many
+    arguments, each bound as the C type it is declared as, and the same
+    return type: ctypes would pass a wrong one without a word."""
+    entries = _entry_points((CSRC / src).read_text())
+    assert entries
+    lib = _build.LIBRARIES[src.rsplit(".", 1)[0]]
+    assert set(lib.entries) == set(entries)
+    others = [e for name, other in _build.LIBRARIES.items()
+              if name != lib.name for e in other.entries]
+    assert not set(entries) & set(others)
+    for name, (ret, params) in entries.items():
+        argtypes, restype = lib.entries[name]
+        assert len(argtypes) == len(params), name
+        assert all(_binds(c, t) for c, t in zip(params, argtypes)), name
+        assert _binds(ret, restype), name

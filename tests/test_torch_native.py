@@ -1,8 +1,10 @@
 """The port's native host library (``csrc/host_loader.cpp``): it builds,
-each helper equals its numpy version, the SGD and ALS packs are byte-equal
+the one binding of native code (``ops/_build.py``) checks and counts its
+calls, each helper equals its numpy version, the SGD and ALS packs are byte-equal
 native vs numpy vs the JAX package's, and ``load_ratings_csv`` equals the
 JAX loader."""
 
+import ctypes
 import dataclasses
 import os
 import subprocess
@@ -73,6 +75,54 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="failed to build broken.cpp"):
         _build.load("broken")
     assert not list((tmp_path / "build").glob("*"))
+
+
+class _StandIn:
+    """A loaded library in place of a build: ``mf_standin_run`` returns its
+    argument as the status, ``mf_standin_error`` names the status."""
+
+    @staticmethod
+    def mf_standin_run(rc):
+        return rc
+
+    @staticmethod
+    def mf_standin_count():
+        return 7
+
+    @staticmethod
+    def mf_standin_error(rc):
+        return f"status {rc} in the stand-in".encode()
+
+
+def test_checked_call_raises_counts_and_refuses(monkeypatch):
+    """The checked call: a non-zero return raises with the entry's name and
+    the library's message and counts nothing; a zero return counts one
+    launch of that entry and of no other; an entry point outside the table
+    is refused, and so is a checked call of one that returns no status."""
+    monkeypatch.setattr(_build, "LIBRARIES", dict(_build.LIBRARIES))
+    lib = _build.Library("standin", {
+        "mf_standin_run": ([ctypes.c_int], ctypes.c_int),
+        "mf_standin_count": ([], ctypes.c_longlong),
+    }, error="mf_standin_error")
+    lib._lib = _StandIn()  # loaded: nothing is built
+    counts = dict(_build._launches)
+    with pytest.raises(RuntimeError, match="mf_standin_run failed: status 3 in the stand-in"):
+        lib("mf_standin_run", 3)
+    assert _build.launches("mf_standin_run") == 0 and _build._launches == counts
+    lib("mf_standin_run", 0)
+    lib("mf_standin_run", 0)
+    assert _build.launches("mf_standin_run") == 2
+    assert {k: v for k, v in _build._launches.items() if counts.get(k) != v} == {
+        "mf_standin_run": 2}
+    for refused in (lambda: lib("mf_standin_other", 0),
+                    lambda: lib.fn("mf_standin_other"),
+                    lambda: lib("mf_standin_count"),
+                    lambda: _build.launches("mf_standin_other")):
+        with pytest.raises(ValueError):
+            refused()
+    assert lib.fn("mf_standin_count")() == 7
+    _build.reset_launches("mf_standin_run")
+    assert _build.launches("mf_standin_run") == 0 and _build._launches == counts
 
 
 def test_counting_sorts_equal_numpy():

@@ -28,6 +28,7 @@ import torch
 
 from matrix_factorization_tpu.ops import ials as jials
 from matrix_factorization_tpu_torch.core.config import SGDConfig
+from matrix_factorization_tpu_torch.ops import _build
 from matrix_factorization_tpu_torch.ops import cuda_normal_eq as cne
 from matrix_factorization_tpu_torch.ops import ials
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
@@ -49,7 +50,7 @@ def _one_thread():
 def test_constants_are_the_kernels():
     for name, value in (("kMT", cne.TILE), ("kBand", BAND),
                         ("kStages", cne.STAGES), ("kSlice", cne.SLICE),
-                        ("kMaxThreads", cne.MAX_THREADS), ("kMaxSmem", cne.SMEM_LIMIT)):
+                        ("kMaxThreads", cne.MAX_THREADS), ("kMaxSmem", _build.SMEM_LIMIT)):
         assert re.search(rf"constexpr int {name} = {value};", CU), name
     assert "int smem_bytes(int work) { return (work + 4 * kSlice + 34) * 4; }" in CU
     assert cne._SLOT_FLOATS == 4 * cne.SLICE + 34
@@ -79,7 +80,7 @@ def test_plan_covers_the_call(d, L, slices):
     assert p.stride % 2 == 1 and p.stride >= d + (d - 1) // 8
     assert 1 <= p.band <= d
     work = max(cne.STAGES * p.rows * p.width, 4 * cne.SLICE, p.band * p.stride)
-    assert p.smem_bytes == (work + 4 * cne.SLICE + 34) * 4 <= cne.SMEM_LIMIT
+    assert p.smem_bytes == (work + 4 * cne.SLICE + 34) * 4 <= _build.SMEM_LIMIT
 
 
 def test_plan_at_the_cells_width():

@@ -20,7 +20,7 @@ from matrix_factorization_tpu.ops.pallas_scores import (
     recommend_topk as jax_recommend_topk,
 )
 from matrix_factorization_tpu_torch.core.config import SGDConfig
-from matrix_factorization_tpu_torch.ops import cuda_scores, scoring
+from matrix_factorization_tpu_torch.ops import _build, cuda_scores, scoring
 from matrix_factorization_tpu_torch.ops import kernels as torch_kernels
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 
@@ -342,16 +342,16 @@ def test_select_on_cpu_never_launches_the_kernel():
     rng = np.random.default_rng(7)
     n = scoring.SORT_MAX_SCORES // 2 + 1
     s = torch.from_numpy(rng.standard_normal((2, n), dtype=np.float32))
-    before = cuda_topk.launches
+    before = _build.launches("mf_topk_select")
     v, i = scoring.stable_topk(s, 10)
-    assert cuda_topk.launches == before
+    assert _build.launches("mf_topk_select") == before
     want = _kernel_key_topk(s, 10)
     assert torch.equal(i, want[1]) and torch.equal(v, want[0])
     scoring._select_topk(s[:, :100], 5)
-    assert cuda_topk.launches == before
+    assert _build.launches("mf_topk_select") == before
     with pytest.raises(ValueError):
         cuda_topk.cuda_select_topk(s, 5)
-    assert cuda_topk.launches == before
+    assert _build.launches("mf_topk_select") == before
 
 
 @pytest.mark.parametrize("kernel", ["linear", "sigmoid", "rbf"])
@@ -376,9 +376,9 @@ def test_scorer_device_rules():
     cfg, _ = _cfgs("linear")
     pu = torch.zeros(2, cfg.padded_factors)
     Q = torch.zeros(3, cfg.padded_factors)
-    before = cuda_scores.launches
+    before = _build.launches("mf_score_catalog")
     scoring.score_catalog(cfg, torch.tensor(1.0), pu, Q)
-    assert cuda_scores.launches == before  # the plain version launches nothing
+    assert _build.launches("mf_score_catalog") == before  # the plain version launches nothing
     with pytest.raises(ValueError, match="CUDA"):
         cuda_scores.cuda_score_catalog(cfg, torch.tensor(1.0), pu, Q)
     with pytest.raises(ValueError, match="no catalog scorer"):

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from matrix_factorization_tpu_torch.ops import cuda_sgd
+from matrix_factorization_tpu_torch.ops import _build
 from matrix_factorization_tpu_torch.ops import segment_sum as ss
 
 
@@ -116,9 +116,9 @@ def test_routing_by_device_and_kernel_wrapper_refuses_cpu():
         ss.cuda_segment_sum(torch.zeros(60, 3), vals, *order)
     with pytest.raises(ValueError, match="no segment sum"):
         ss.segment_sum(torch.zeros(60, 3, device="meta"), vals, *order)
-    before = ss.launches
+    before = _build.launches("mf_segment_sum")
     ss.segment_sum(torch.zeros(60, 3), vals, *order)
-    assert ss.launches == before  # the CPU path launches nothing
+    assert _build.launches("mf_segment_sum") == before  # the CPU path launches nothing
 
 
 # ---------------------------------------------------------------------------
@@ -277,12 +277,12 @@ def test_apply_chunk_model_matches_plain_apply(kp):
              torch.from_numpy(ids.astype(np.int32)))
     got = torch.from_numpy(table.copy())
     ss.segmented_segment_sum(got, torch.from_numpy(rows), *order,
-                             chunk=cuda_sgd.APPLY_CHUNK, layout="columns")
-    want = _emulate(table, rows, perm_np, ids, cuda_sgd.APPLY_CHUNK,
-                    cuda_sgd.APPLY_CHUNK)
+                             chunk=ss.APPLY_CHUNK, layout="columns")
+    want = _emulate(table, rows, perm_np, ids, ss.APPLY_CHUNK,
+                    ss.APPLY_CHUNK)
     assert torch.equal(got, torch.from_numpy(want))
     plain = torch.from_numpy(table.copy())
-    cuda_sgd.segment_apply(plain, torch.from_numpy(rows), *order)
+    ss.segment_apply(plain, torch.from_numpy(rows), *order)
     scale = torch.from_numpy(np.abs(table)).double()
     ss.plain_segment_sum(scale, torch.from_numpy(np.abs(rows)).double(),
                          *order)

@@ -17,8 +17,9 @@ import torch
 from matrix_factorization_tpu.core.config import SGDConfig as JaxConfig
 from matrix_factorization_tpu.ops import segment_sgd as jsgd
 from matrix_factorization_tpu_torch.core.config import SGDConfig
-from matrix_factorization_tpu_torch.ops import cuda_sgd
+from matrix_factorization_tpu_torch.ops import _build, cuda_sgd
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
+from matrix_factorization_tpu_torch.ops import segment_sum as ss
 
 ATOL = 1e-6
 LR = 0.05
@@ -230,13 +231,14 @@ def test_plain_versions_are_the_routed_cpu_path():
     plain = cuda_sgd.plain_sgd_step(*args, t2[0], t2[1], prim, sec, r, w, pm,
                                     sm, LR, cfg.reg)
     assert torch.equal(routed, plain) and torch.equal(tabs[0], t2[0])
-    before = (cuda_sgd.step_launches, cuda_sgd.apply_launches)
+    entries = ("mf_sgd_step", "mf_sgd_step_acc", "mf_segment_apply")
+    before = [_build.launches(e) for e in entries]
     with pytest.raises(ValueError, match="CUDA"):
         cuda_sgd.cuda_sgd_step(*args, t2[0], t2[1], prim, sec, r, w, pm, sm,
                                LR, cfg.reg)
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_sgd.cuda_segment_apply(t2[1], plain, prim, sec)
-    assert (cuda_sgd.step_launches, cuda_sgd.apply_launches) == before
+        ss.cuda_segment_apply(t2[1], plain, prim, sec)
+    assert [_build.launches(e) for e in entries] == before
     assert cuda_sgd.plain_sgd_step(*args, t2[0], t2[1], prim, sec, r, w, pm,
                                    sm, LR, cfg.reg, write_dq=False) is None
 
@@ -343,7 +345,7 @@ def _segmented_update(P, Q, b, cfg, primary, seg_len, step=None):
               update_prim=upd[prim], write_dq=upd[sec])
     assert (dq is None) == (not upd[sec])
     if dq is not None:
-        cuda_sgd.plain_segment_apply(tabs[sec], dq, t["sp"], t["ss"])
+        ss.plain_segment_apply(tabs[sec], dq, t["sp"], t["ss"])
     return tabs["user"].numpy(), tabs["item"].numpy(), dq
 
 

@@ -26,7 +26,7 @@ import torch
 
 from matrix_factorization_tpu.ops import spd as jspd
 from matrix_factorization_tpu.ops.pallas_spd import gj_inverse as jax_gj_inverse
-from matrix_factorization_tpu_torch.ops import cuda_spd, spd
+from matrix_factorization_tpu_torch.ops import _build, cuda_spd, spd
 
 
 def _ridged_gram(rng, E, d, L=64, ridge=0.1):
@@ -62,9 +62,9 @@ def test_leaf_takes_what_the_kernel_takes():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_spd.cuda_gj_inverse(torch.eye(4)[None])
     # the CPU path is the plain version and launches nothing
-    before = cuda_spd.launches
+    before = _build.launches("mf_gj_inverse")
     out = cuda_spd.gj_inverse(torch.eye(3)[None] * 4.0)
-    assert cuda_spd.launches == before
+    assert _build.launches("mf_gj_inverse") == before
     torch.testing.assert_close(out, torch.eye(3)[None] / 4.0)
     assert cuda_spd.gj_inverse(torch.zeros(0, 5, 5)).shape == (0, 5, 5)
 

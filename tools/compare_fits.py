@@ -43,8 +43,7 @@ def worker(tree: Path, seed: int) -> None:
 
     import chip_smoke as cs
     from matrix_factorization_tpu_torch import BaselineModel, grid_search_kernel_mf
-    from matrix_factorization_tpu_torch.ops import _build, cuda_sgd
-    from matrix_factorization_tpu_torch.ops import segment_sum as ss
+    from matrix_factorization_tpu_torch.ops import _build
 
     _build.build(sorted(p.stem for p in _build.CSRC.glob("*.cu")))
     (u, i, r), _ = cs.ml1m_ratings(seed)
@@ -54,16 +53,16 @@ def worker(tree: Path, seed: int) -> None:
 
     def timed(name, fn):
         fn()  # first fit: warm-up
-        ss.reset_launches()
-        cuda_sgd.reset_launches()
+        _build.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         out[f"{name}_seconds"] = time.perf_counter() - t0
-        out[f"{name}_launches"] = {"segment_sum": ss.launches,
-                                   "sgd_step": cuda_sgd.step_launches,
-                                   "segment_apply": cuda_sgd.apply_launches}
+        out[f"{name}_launches"] = {
+            "segment_sum": _build.launches("mf_segment_sum"),
+            "sgd_step": _build.launches("mf_sgd_step", "mf_sgd_step_acc"),
+            "segment_apply": _build.launches("mf_segment_apply")}
 
     for method in ("sgd", "als"):
         timed(f"baseline_{method}", lambda: BaselineModel(

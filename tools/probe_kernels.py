@@ -106,6 +106,7 @@ def build_others(jobs):
 
 def phase_paths(torch, rng, timer):
     from matrix_factorization_tpu_torch.core.config import SGDConfig
+    from matrix_factorization_tpu_torch.ops import _build
     from matrix_factorization_tpu_torch.ops import cuda_scores as sc
 
     cfg = cs.score_cfg(SGDConfig, "sigmoid", 256)
@@ -126,7 +127,7 @@ def phase_paths(torch, rng, timer):
             if users is not None:
                 for stages in (2, 3, 4):
                     smem = sc.stream_smem(users, 256, stages)
-                    if smem <= sc.SMEM_LIMIT:
+                    if smem <= _build.SMEM_LIMIT:
                         plans[f"stream{stages}"] = sc.ScorePlan(
                             "stream", users, sc.STREAM_ITEMS, 128 // size, stages,
                             (min(-(-cs.N_ITEMS // sc.STREAM_ITEMS), n_sms), 1), smem)
@@ -447,7 +448,7 @@ def apply_caller(torch, lib, chunk=None):
     ``lib``: the planned interface of a build with ``MF_APPLY_CHUNK =
     chunk``, or (None) the earlier one of ``sgd_step.cu`` (a warp a
     run)."""
-    from matrix_factorization_tpu_torch.ops import cuda_sgd
+    from matrix_factorization_tpu_torch.ops import segment_sum as ss
 
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mf_segment_apply.argtypes = [vp, vp, vp, vp, cll, ci] + (
@@ -458,7 +459,7 @@ def apply_caller(torch, lib, chunk=None):
         n, kp = rows.shape
         tail = []
         if chunk is not None:
-            plan = cuda_sgd.apply_plan(n, kp, chunk)
+            plan = ss.apply_plan(n, kp, chunk)
             scratch = torch.empty(plan.scratch_shape, device="cuda")
             tail = [scratch.data_ptr(), plan.chunk, plan.n_chunks, plan.grid,
                     plan.finish_grid]
@@ -484,7 +485,6 @@ def phase_segsum(torch, seed, timer, old_src, variants):
     A B .. B A), beside the plain version and ``index_add_``."""
     import numpy as np
 
-    from matrix_factorization_tpu_torch.ops import cuda_sgd
     from matrix_factorization_tpu_torch.ops import _build
     from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
     from matrix_factorization_tpu_torch.ops import segment_sum as ss
@@ -503,7 +503,7 @@ def phase_segsum(torch, seed, timer, old_src, variants):
     built = build_others(jobs)
     # tag -> (caller, chunk and layout of its order model, or None)
     sums = {"current": (ss.cuda_segment_sum, ss.ENTRIES_MAX_D)}
-    applies = {"current": (cuda_sgd.cuda_segment_apply, cuda_sgd.APPLY_CHUNK)}
+    applies = {"current": (ss.cuda_segment_apply, ss.APPLY_CHUNK)}
     for tag, (lib, log) in built.items():
         emit({"phase": "segsum_build", "tag": tag,
               "ptxas": cs.ptxas_summary((log,))})
@@ -514,7 +514,7 @@ def phase_segsum(torch, seed, timer, old_src, variants):
         else:
             consts = consts_of[tag]
             max_d = int(consts.get("ENTRIES_MAX_D", ss.ENTRIES_MAX_D))
-            chunk = int(consts.get("APPLY_CHUNK", cuda_sgd.APPLY_CHUNK))
+            chunk = int(consts.get("APPLY_CHUNK", ss.APPLY_CHUNK))
             sums[tag[2:]] = (segsum_caller(torch, lib, max_d), max_d)
             applies[tag[2:]] = (apply_caller(torch, lib, chunk), chunk)
 
@@ -585,7 +585,7 @@ def phase_segsum(torch, seed, timer, old_src, variants):
                  for tag, (c, _) in applies.items()}
         for tag, times in in_turns(calls).items():
             row[tag]["ms"] = times
-        row["plain_ms"] = timer.ms(lambda: cuda_sgd.plain_segment_apply(
+        row["plain_ms"] = timer.ms(lambda: ss.plain_segment_apply(
             table, rows, b["sp"], b["ss"]))
         rows_perm, ss_long = rows[b["sp"].long()], b["ss"].long()
         row["library_ms"] = timer.ms(

@@ -153,7 +153,7 @@ def main() -> int:
         for b, t in times.items():
             row[f"{b}_ms"] = min(t)
         row["kernel_chunks"] = cuda_topk.select_plan(
-            rows, n, k, n_sms, cuda_topk._blocks_per_sm()).chunks
+            rows, n, k, n_sms, cuda_topk.blocks_per_sm()).chunks
         row["bytes_bound_ms"] = (rows * n * 4 + rows * k * 12) / cs.HBM_BYTES_PER_S * 1e3
         row["fastest_rule_body"] = min(("sort", "select", "key", "kernel"),
                                        key=lambda b: row[f"{b}_ms"])
