@@ -109,6 +109,15 @@ failed check ends the run with a non-zero exit:
     bits; kernel, plain and library (the batched product alone) times
     and the bound. The kernel's launches are counted on every ALS path
     from here on.
+12b. spd_block_solve_time: the block solve's kernels on the same chunk's
+    systems (``ials.normal_equations`` on the card): ``mf_spd_split``
+    against ``plain_spd_split`` bit for bit, ``mf_spd_block_solve``
+    against ``plain_block_solve`` at refine 1 within 1e-6 of the largest
+    |x|, two calls the same bits, one launch a call; kernel, plain and
+    library (what each replaced: the scaling's broadcast products; the
+    explicit inverse applied, the residual, applied again) times and the
+    bytes bound. Both kernels' launches are counted on every ALS path from
+    here on.
 13. compare_spd: the GJ leaf kernel against its plain version on the card,
     both against the float64 inverse, at (E, d) = (15,625, 104),
     (15,625, 97), (7,812, 101), (1,000, 128), (4,096, 64), (3, 8), (5, 1)
@@ -386,8 +395,8 @@ failed check ends the run with a non-zero exit:
 
 Then the ``kernels`` line (``score_catalog``, ``sgd_step``,
 ``segment_apply``, ``spd_gj`` with its EASE launches and shapes,
-``segment_sum``, ``topk_select``, ``ease_gram``, ``normal_eq`` with its
-launches on each ALS path; the apply's and the sum's launches and shapes on the
+``segment_sum``, ``topk_select``, ``ease_gram``, ``normal_eq``,
+``spd_split`` and ``spd_block_solve`` with their launches on each ALS path; the apply's and the sum's launches and shapes on the
 families' paths beside the rest, and each kernel's launches on the
 parallel paths), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -1761,6 +1770,94 @@ def phase_normal_eq(torch, buckets, p, cfg, reg_scale, timer):
         torch.cuda.empty_cache()
     check(rows[1]["slices"] > 1, "the long chunk did not take the slices")
     return rows, worst
+
+
+def split_bytes(E, d, m):
+    """The block solve's split: As11, As12 and As22 read from A and
+    written, ds written."""
+    n = d - m
+    return 4 * E * (2 * (m * m + m * n + n * n) + d)
+
+
+def backsolve_bytes(E, d):
+    """The block solve's back-solve at one refinement: the staged blocks
+    (d^2 floats), A, ds and b read, x written."""
+    return 4 * E * (2 * d * d + 3 * d)
+
+
+def phase_spd_block_solve(torch, A, b, timer):
+    """The block solve's kernels against their plain versions on the card
+    at the systems ``A`` (E, d, d), ``b`` (E, d): ``mf_spd_split`` the
+    bits of ``plain_spd_split``; ``mf_spd_block_solve`` at refine 1, on
+    the blocks ``spd._schur_blocks`` forms, within 1e-6 of
+    ``plain_block_solve`` (relative to its largest |x|); two calls the
+    same bits, one launch a call. Then kernel, plain and library (what
+    each kernel replaced in the solve before it: ``_jacobi`` and the
+    scaling's two broadcast products; the explicit inverse applied, the
+    residual, applied again, by batched matrix-vector products) timed in
+    turns beside the bytes bound. Returns the two rows."""
+    from matrix_factorization_tpu_torch.ops import cuda_spd_solve as css
+    from matrix_factorization_tpu_torch.ops import spd
+
+    E, d = A.shape[0], A.shape[-1]
+    m = css.split_point(d)
+    n0 = n_launches("mf_spd_split")
+    got, again = css.cuda_spd_split(A), css.cuda_spd_split(A)
+    check(n_launches("mf_spd_split") == n0 + 2, "spd_split: not one launch a call")
+    want = css.plain_spd_split(A)
+    split = {"same_bits": all(torch.equal(g, w) for g, w in zip(got, want)),
+             "repeat_same_bits": all(torch.equal(g, h) for g, h in zip(got, again))}
+    del got, again, want
+    check(split["same_bits"] and split["repeat_same_bits"],
+          f"spd_split: the kernel against the plain split {split}")
+
+    blocks = spd._schur_blocks(A)
+    n0 = n_launches("mf_spd_block_solve")
+    x, x2 = (css.cuda_block_solve(*blocks, A, b, 1) for _ in range(2))
+    check(n_launches("mf_spd_block_solve") == n0 + 2,
+          "spd_block_solve: not one launch a call")
+    xp = css.plain_block_solve(*blocks, A, b, 1)
+    err = float((x - xp).abs().max())
+    solve = {"repeat_same_bits": bool(torch.equal(x, x2)), "max_abs_err": err,
+             "plain_max_x": float(xp.abs().max())}
+    solve["rel_err"] = err / solve["plain_max_x"]
+    del x, x2, xp
+    check(solve["repeat_same_bits"] and solve["rel_err"] <= 1e-6,
+          f"spd_block_solve: the kernel against the plain back-solve {solve}")
+
+    def scale():
+        ds = spd._jacobi(A)
+        return A * ds[:, :, None] * ds[:, None, :]
+
+    inv = spd._inverse(scale(), 32, "auto", inplace=True)
+    ds = blocks[-1]
+
+    def apply_inverse():
+        x = ds * spd._matvec(inv, ds * b)
+        return x + ds * spd._matvec(inv, ds * (b - spd._matvec(A, x)))
+
+    rows = []
+    for name, bodies, nbytes, check_row in (
+            ("spd_split", {"kernel": lambda: css.cuda_spd_split(A),
+                           "plain": lambda: css.plain_spd_split(A),
+                           "library": scale}, split_bytes(E, d, m), split),
+            ("spd_block_solve", {"kernel": lambda: css.cuda_block_solve(*blocks, A, b, 1),
+                                 "plain": lambda: css.plain_block_solve(*blocks, A, b, 1),
+                                 "library": apply_inverse},
+             backsolve_bytes(E, d), solve)):
+        times = {w: [] for w in bodies}
+        for w in (*bodies, *reversed(bodies)):
+            times[w].append(timer.ms(bodies[w], reps=5))
+        row = {"kernel": name, "E": E, "d": d, "m": m, **check_row,
+               **{f"{w}_ms": min(t) for w, t in times.items()},
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        row["roofline"] = row["bound_ms"] / row["kernel_ms"]
+        rows.append(row)
+        emit({"phase": "spd_block_solve_time", **row})
+        torch.cuda.empty_cache()
+    del inv, blocks
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_warm_start(torch, data3, seed):
@@ -6752,10 +6849,11 @@ def main() -> int:
     spilled = [k for k in ptxas if k[2] and any(
         n in k[0] for n in ("score_stream", "score_tile", "gj_inverse",
                             "sgd_step_kernel", "step_finish", "segsum",
-                            "apply_", "topk_", "ease_gram", "normal_eq"))]
+                            "apply_", "topk_", "ease_gram", "normal_eq",
+                            "spd_split", "block_solve"))]
     check(not spilled, f"the scorer, the GJ leaf, the SGD step, the segment "
-                       f"sum, the apply, the top-k, the EASE gram or the "
-                       f"normal equations spill: {spilled}")
+                       f"sum, the apply, the top-k, the EASE gram, the "
+                       f"normal equations or the block solve spill: {spilled}")
 
     # -- serving (slice 1) -------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -6884,24 +6982,35 @@ def main() -> int:
                         reg=ALS["reg"], min_rating=0.5, max_rating=5.0)
     p_init = sgd.init_params(torch.Generator(device="cuda").manual_seed(args.seed),
                              N_USERS, N_ITEMS, cfg_als, float(data3[2].mean()))
-    # the normal-equation kernel's launches on each ALS path, counted from
-    # here (every earlier phase runs none)
-    zero_launches("mf_normal_eq")
-    ne_launches = {}
+    # the launches of the ALS kernels (the normal equations, the block
+    # solve's split and back-solve) on each ALS path, counted from here
+    # (every earlier phase runs none)
+    als_entries = ("mf_normal_eq", "mf_spd_split", "mf_spd_block_solve")
+    zero_launches(*als_entries)
+    als_launches = {e: {} for e in als_entries}
+    ne_launches = als_launches["mf_normal_eq"]
 
     def ne_mark(path):
-        ne_launches[path] = n_launches("mf_normal_eq") - sum(ne_launches.values())
+        for e, by_path in als_launches.items():
+            by_path[path] = n_launches(e) - sum(by_path.values())
+
+    def als_check(paths, what):
+        missed = {e: {p: by_path[p] for p in paths}
+                  for e, by_path in als_launches.items()}
+        check(all(v > 0 for by_path in missed.values() for v in by_path.values()),
+              f"{what} missed an ALS kernel: {missed}")
 
     ne_rows, ne_worst = phase_normal_eq(torch, buckets, p_init, cfg_als,
                                         ALS["reg_scale"], timer)
     ch = first_full_chunk(buckets[0])
-    A, _ = ials.normal_equations(p_init.item_features, ch.other_ids, ch.ratings,
-                                 ch.mask, p_init.global_mean, cfg_als, "user",
-                                 reg_scale=ALS["reg_scale"])
-    ne_mark("normal_eq_check")
+    A, rhs = ials.normal_equations(p_init.item_features, ch.other_ids, ch.ratings,
+                                   ch.mask, p_init.global_mean, cfg_als, "user",
+                                   reg_scale=ALS["reg_scale"])
+    bs_rows = phase_spd_block_solve(torch, A, rhs, timer)
+    ne_mark("kernel_checks")
     real = list(zip(("config3_chunk_A11", "config3_chunk_schur"),
                     chunk_leaves(torch, A)))
-    del A, p_init
+    del A, rhs, p_init
     spd_worst = phase_compare_spd(torch, gen, real)
     del real
     torch.cuda.empty_cache()
@@ -6916,8 +7025,7 @@ def main() -> int:
     warm = phase_warm_start(torch, data3, args.seed)
     emit(warm)
     ne_mark("warm_start")
-    check(all(v > 0 for v in ne_launches.values()),
-          f"an ALS path missed the normal-equation kernel: {ne_launches}")
+    als_check(("kernel_checks", "train_als", "als_sweeps", "warm_start"), "an ALS path")
     implicit = phase_implicit(torch, args.seed)
     emit(implicit)
     spd_rows = phase_spd_kernel_times(torch, gen, timer)
@@ -7010,8 +7118,7 @@ def main() -> int:
         par_als["seconds"] = time.perf_counter() - t1
         emit(par_als)
         ne_mark("parallel_als")
-        check(ne_launches["parallel_als"] > 0,
-              "dp ALS at one NCCL rank missed the normal-equation kernel")
+        als_check(("parallel_als",), "dp ALS at one NCCL rank")
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         par_fam = phase_parallel_families(torch, rng, data3, args.seed)
@@ -7217,6 +7324,30 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": {k: row[k] for k in ("E", "L", "d", "live_rows", "slices")},
         "shapes": ne_rows})
+    for row, entry, note in (
+            (bs_rows[0], "mf_spd_split",
+             "the block solve's Jacobi scaling and split (spd_split_kernel); plain_ms "
+             "is plain_spd_split, library_ms _jacobi and the scaling's broadcast "
+             "products into one (E, d, d) tensor, as the solve before it scaled"),
+            (bs_rows[1], "mf_spd_block_solve",
+             "the block solve's back-solve and float64-residual refinement "
+             "(block_solve_kernel); plain_ms is plain_block_solve, library_ms the "
+             "explicit inverse applied, the residual, applied again by batched "
+             "matrix-vector products, as the solve before it applied them")):
+        kernels.append({
+            "name": row["kernel"], "route": "cuda",
+            "source": "matrix_factorization_tpu_torch/csrc/spd_block_solve.cu",
+            "replaces": "none: XLA's scaling and batched matrix-vector products of the "
+                        "explicit inverse on the TPU "
+                        "(matrix_factorization_tpu/ops/spd.py::spd_solve)",
+            "note": note,
+            "launches": sum(als_launches[entry].values()),
+            "launches_by_path": als_launches[entry],
+            "max_abs_err": row.get("max_abs_err", 0.0),
+            "ms": row["kernel_ms"], "kernel_ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": {k: row[k] for k in ("E", "d", "m")}})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

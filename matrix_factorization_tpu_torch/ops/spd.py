@@ -12,9 +12,11 @@ the recursive Schur-complement block inverse: for SPD
 so every level is a few batched products, down to leaves of d <= 128,
 which the Gauss-Jordan leaf inverts: the hand-written kernel of
 ``ops/cuda_spd.py`` on a CUDA tensor, its plain version on the CPU.
-``spd_solve`` Jacobi-scales to a unit diagonal, applies the inverse of the
-scaled system and refines once; ``spd_inverse_scaled`` does the same for
-an explicit inverse (Newton-Schulz steps). ``spd_inverse_ns`` inverts one
+``spd_solve`` Jacobi-scales to a unit diagonal, solves the scaled system
+and refines once: for 128 < d <= 232 by one Schur block elimination that
+never forms the inverse (``ops/cuda_spd_solve.py``), otherwise by applying
+the inverse; ``spd_inverse_scaled`` scales and refines an explicit inverse
+(Newton-Schulz steps). ``spd_inverse_ns`` inverts one
 SPD matrix by the Newton-Schulz iteration alone, and
 ``spd_inverse_ns_sharded`` does so with the rows split over the ranks of a
 mesh's first axis (EASE past 16,384 items).
@@ -38,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-from matrix_factorization_tpu_torch.ops import cuda_spd
+from matrix_factorization_tpu_torch.ops import cuda_spd, cuda_spd_solve
 from matrix_factorization_tpu_torch.ops.segment_sgd import round_up
 from matrix_factorization_tpu_torch.utils.profiling import span
 
@@ -163,22 +165,70 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor, base: int = 32,
     ``A`` (..., d, d), ``b`` (..., d).
 
     Jacobi-scales to a unit diagonal (the ALS grams' diagonals span the
-    entities' rating counts), forms the Schur-recursion inverse of the
-    scaled system, applies it, then runs ``refine`` steps of iterative
-    refinement (``x += A^-1 (b - A x)``, exact-f32 residual) against the
-    same inverse."""
+    entities' rating counts), solves the scaled system, then runs
+    ``refine`` steps of iterative refinement (``x += A^-1 (b - A x)``). For
+    ``cuda_spd.MAX_D < d <= cuda_spd_solve.MAX_D`` with the Gauss-Jordan
+    leaf that is :func:`_block_solve`; otherwise the Schur-recursion
+    inverse of the scaled system is formed and applied, against an
+    exact-f32 residual."""
     with span("spd.solve"):
-        dscale = _jacobi(A)
-        As = A * dscale[..., :, None] * dscale[..., None, :]
-        inv = _inverse(As, base, leaf, inplace=True)
+        d = A.shape[-1]
+        if leaf in ("auto", "gj") and cuda_spd.MAX_D < d <= cuda_spd_solve.MAX_D:
+            return _block_solve(A, b, refine)
+        return _inverse_solve(A, b, base, refine, leaf)
 
-        def apply_inv(r):
-            return dscale * _matvec(inv, dscale * r)
 
-        x = apply_inv(b)
-        for _ in range(refine):
-            x = x + apply_inv(b - _matvec(A, x))
+def _inverse_solve(A: torch.Tensor, b: torch.Tensor, base: int, refine: int,
+                   leaf: str) -> torch.Tensor:
+    """:func:`spd_solve` by the Schur-recursion inverse of the scaled
+    system, applied by batched matrix-vector products, the residual in
+    exact f32 (every d; the solve of d <= 128 and d > 232)."""
+    dscale = _jacobi(A)
+    As = A * dscale[..., :, None] * dscale[..., None, :]
+    inv = _inverse(As, base, leaf, inplace=True)
+
+    def apply_inv(r):
+        return dscale * _matvec(inv, dscale * r)
+
+    x = apply_inv(b)
+    for _ in range(refine):
+        x = x + apply_inv(b - _matvec(A, x))
     return x
+
+
+def _schur_blocks(A: torch.Tensor):
+    """The back-solve's inputs of the (E, d, d) systems ``A``, contiguous,
+    split at ``m = cuda_spd_solve.split_point(d)``: the split and scaling
+    (span ``spd.split``), the Gauss-Jordan leaf of ``As11`` and of the
+    complement ``S = As22 - As12^T W``, ``W = inv11 As12``, formed in
+    ``As22``'s place (``spd.leaf``, ``spd.schur``). Returns (inv11, As12,
+    invS, W, ds)."""
+    with span("spd.split"):
+        A11, A12, S, ds = cuda_spd_solve.spd_split(A)
+    with span("spd.leaf"):
+        inv11 = cuda_spd.gj_inverse(A11)
+    del A11
+    with span("spd.schur"):
+        W = _mm(inv11, A12)
+        with exact_f32():
+            S.baddbmm_(_t(A12), W, alpha=-1.0)
+    with span("spd.leaf"):
+        invS = cuda_spd.gj_inverse(S)
+    return inv11, A12, invS, W, ds
+
+
+def _block_solve(A: torch.Tensor, b: torch.Tensor, refine: int) -> torch.Tensor:
+    """:func:`spd_solve` by one Schur block elimination of the scaled
+    system: :func:`_schur_blocks`, then the back-solve and its refinement
+    (span ``spd.backsolve``). No inverse of the whole system is formed,
+    stored or read."""
+    d = A.shape[-1]
+    A = A.reshape(-1, d, d).contiguous()
+    blocks = _schur_blocks(A)
+    with span("spd.backsolve"):
+        x = cuda_spd_solve.block_solve(*blocks, A, b.reshape(-1, d).contiguous(),
+                                       refine)
+    return x.reshape(b.shape)
 
 
 def solve_spd(A: torch.Tensor, b: torch.Tensor, base: int = 32,

@@ -43,15 +43,22 @@ ALS (``ops/ials.py``, ``ops/spd.py``):
   finish kernel), inside ``als.normal_eq``; entered only on CUDA, so its
   count is the kernel's calls (one a ``normal_equations`` call: a bucket
   chunk or each piece of one; 0 on the CPU);
-* ``spd.solve`` — ``spd_solve``: Jacobi scaling, the inverse, its
-  application and the refinement, inside ``als.bucket`` (beside
-  ``als.normal_eq``);
+* ``spd.solve`` — ``spd_solve``: Jacobi scaling, the solve and the
+  refinement, inside ``als.bucket`` (beside ``als.normal_eq``);
+* ``spd.split`` — the block solve's split (``cuda_spd_solve.spd_split``:
+  the scaling and the three blocks), inside ``spd.solve`` for
+  128 < d <= 232;
 * ``spd.schur`` — one level of ``spd_inverse`` above the leaf (``W``,
   ``S``, ``B12``, ``B11`` and the writes of the four blocks), inside
-  ``spd.solve``, ``ease.inverse`` or an outer ``spd.schur``;
+  ``spd.solve``, ``ease.inverse`` or an outer ``spd.schur``; in the block
+  solve its two products (``W`` and ``S``, in place), inside
+  ``spd.solve``;
 * ``spd.leaf`` — the leaf inverse (``cuda_spd.gj_inverse``, or
-  ``_base_inverse`` with ``leaf='cholesky'``), inside ``spd.schur`` or,
-  for d up to the leaf's size, directly inside ``spd.solve``;
+  ``_base_inverse`` with ``leaf='cholesky'``), inside ``spd.schur`` or
+  directly inside ``spd.solve`` (for d up to the leaf's size, and the
+  block solve's two leaves);
+* ``spd.backsolve`` — the block solve's back-solve and refinement
+  (``cuda_spd_solve.block_solve``), inside ``spd.solve``;
 * ``als.write`` — the write of the solutions into the swept table, inside
   ``als.bucket``.
 

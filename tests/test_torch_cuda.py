@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions: the
 catalog scorer, the SGD step, the secondary-side apply, the Gauss-Jordan
-SPD leaf and the segment sum; the models that the segment sum carries
+SPD leaf, the SPD block solve's split and back-solve and the segment sum;
+the models that the segment sum carries
 (bias, neighbourhood and content models, the sweep) on the card against
 the CPU; and an epoch of BPR, SVD++ and NMF through the apply and the
 segment sum against their plain versions, and those models' lifecycles.
@@ -22,6 +23,7 @@ from matrix_factorization_tpu_torch import ImplicitALS, KernelMF, params_from_nu
 from matrix_factorization_tpu_torch.core.config import SGDConfig
 from matrix_factorization_tpu_torch.core.ids import IdVocab
 from matrix_factorization_tpu_torch.ops import _build, cuda_normal_eq, cuda_scores, cuda_sgd, cuda_spd
+from matrix_factorization_tpu_torch.ops import cuda_spd_solve as css
 from matrix_factorization_tpu_torch.ops import ials, spd
 from matrix_factorization_tpu_torch.ops import segment_sum as ss
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
@@ -546,6 +548,140 @@ def test_gj_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         with pytest.raises(ValueError):
             cuda_spd.cuda_gj_inverse(bad)
     assert cuda_spd.cuda_gj_inverse(A[:0]).shape == (0, 6, 6)
+
+
+# ---------------------------------------------------------------------------
+# The Schur block solve (128 < d <= 232)
+# ---------------------------------------------------------------------------
+
+
+def _ridged_systems(E, d, device, seed, L=256, ridge=0.1):
+    """E ridged grams (E, d, d) of L N(0, 0.3^2) rows, each scaled by a
+    weight from 1 to 1,000 (as rating counts spread an ALS chunk's
+    diagonals), and right-hand sides (E, d), made on the device."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    X = torch.randn(E, L, d, generator=g, device=device) * 0.3
+    w = torch.rand(E, 1, 1, generator=g, device=device) * 999.0 + 1.0
+    A = torch.bmm(X.transpose(1, 2), X * w)
+    A.diagonal(dim1=1, dim2=2).add_(ridge)
+    return A, torch.randn(E, d, generator=g, device=device)
+
+
+@pytest.mark.parametrize("E,d", [(15_625, 201), (7, 129), (13, 136), (5, 232)])
+def test_spd_split_kernel_is_plain_bit_for_bit(cuda, E, d):
+    """``mf_spd_split`` against ``plain_spd_split`` on the card: ds, As11,
+    As12 and As22 the same bits (correctly rounded square root and
+    reciprocal, two f32 products), one launch a call, the same bits twice,
+    and a zero diagonal clamped as the plain version clamps it."""
+    A, _ = _ridged_systems(E, d, cuda, seed=d)
+    A[E // 2, 3, 3] = 0.0
+    before = _build.launches("mf_spd_split")
+    got = css.cuda_spd_split(A)
+    assert _build.launches("mf_spd_split") == before + 1
+    want = css.plain_spd_split(A)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    assert all(torch.equal(g, h) for g, h in zip(got, css.cuda_spd_split(A)))
+
+
+@pytest.mark.parametrize("E,d", [(15_625, 201), (7, 136), (5, 232), (9, 129)])
+def test_block_solve_kernel_matches_plain(cuda, E, d):
+    """``mf_spd_block_solve`` against ``plain_block_solve`` at refine 1
+    and 2: within 1e-6 of it (relative to the largest |x|; the kernel sums
+    in its own fixed order) and as close to the float64 solution (within
+    1e-6 of the largest |x| beyond it); at refine 0, where the two orders
+    of the f32 sums part by the systems' conditioning, within 1e-4 of the
+    float64 solution (the JAX bar is 1e-3). One launch a call, the same
+    bits twice."""
+    A, b = _ridged_systems(E, d, cuda, seed=100 + d)
+    blocks = spd._schur_blocks(A)
+    exact = torch.linalg.solve(A.double(), b.double())
+    scale = float(exact.abs().max())
+    for refine in (0, 1, 2):
+        before = _build.launches("mf_spd_block_solve")
+        got = css.cuda_block_solve(*blocks, A, b, refine)
+        assert _build.launches("mf_spd_block_solve") == before + 1
+        want = css.plain_block_solve(*blocks, A, b, refine)
+        torch.cuda.synchronize()
+        err_k = float((got.double() - exact).abs().max()) / scale
+        err_p = float((want.double() - exact).abs().max()) / scale
+        if refine:
+            gap = float((got - want).abs().max()) / float(want.abs().max())
+            assert gap < 1e-6, (refine, gap)
+            assert err_k <= err_p + 1e-6, (refine, err_k, err_p)
+        else:
+            assert err_k < 1e-4, err_k
+        assert torch.equal(css.cuda_block_solve(*blocks, A, b, refine), got)
+
+
+@pytest.mark.parametrize("refine", [-1, 17])
+def test_block_solve_kernel_takes_any_refine(cuda, refine):
+    """The back-solve refines as often as the plain version does: none
+    below 0 (the bits of refine 0), and 17 steps within 1e-6 of the plain
+    version's (relative to its largest |x|)."""
+    A, b = _ridged_systems(9, 201, cuda, seed=7)
+    args = (*spd._schur_blocks(A), A, b)
+    got = css.cuda_block_solve(*args, refine)
+    if refine < 0:
+        assert torch.equal(got, css.cuda_block_solve(*args, 0))
+    want = css.plain_block_solve(*args, refine)
+    assert float((got - want).abs().max()) / float(want.abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_block_solve_kernel_takes_unaligned_blocks(cuda, shift):
+    """Every input of the back-solve 1-3 floats past a 16-byte boundary:
+    the same bits as the aligned call. (Within a tensor, entity e's invS
+    starts e n^2 floats in, off a boundary at odd n, as at d = 201.)"""
+    A, b = _ridged_systems(11, 201, cuda, seed=shift)
+    args = (*spd._schur_blocks(A), A, b)
+    want = css.cuda_block_solve(*args)
+    moved = []
+    for t in args:
+        buf = torch.zeros(t.numel() + shift, device=cuda)
+        view = buf[shift:].view(t.shape)
+        view.copy_(t)
+        moved.append(view)
+    assert torch.equal(css.cuda_block_solve(*moved), want)
+
+
+def test_solve_spd_on_cuda_takes_the_block_solve(cuda, monkeypatch):
+    """``solve_spd`` on the card at d = 201: one split, two leaves and one
+    back-solve a call, no plain version, no explicit inverse; within 1e-5
+    of the float64 solution (relative to its largest entry)."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("plain_spd_split", "plain_block_solve"):
+        monkeypatch.setattr(css, name, refuse)
+    monkeypatch.setattr(cuda_spd, "plain_gj_inverse", refuse)
+    monkeypatch.setattr(spd, "_inverse", refuse)
+    A, b = _ridged_systems(300, 201, cuda, seed=5)
+    entries = ("mf_spd_split", "mf_gj_inverse", "mf_spd_block_solve")
+    before = [_build.launches(e) for e in entries]
+    x = spd.solve_spd(A, b)
+    assert [_build.launches(e) - c for e, c in zip(entries, before)] == [1, 2, 1]
+    exact = torch.linalg.solve(A.double(), b.double())
+    assert float((x.double() - exact).abs().max() / exact.abs().max()) < 1e-5
+
+
+def test_block_solve_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    A, b = _ridged_systems(3, 201, cuda, seed=0)
+    args = [*spd._schur_blocks(A), A, b]
+    for bad in (A[:, :128, :128].contiguous(), A.double(), A.cpu(), A.transpose(1, 2),
+                torch.zeros(3, 233, 233, device=cuda)):
+        with pytest.raises(ValueError):
+            css.cuda_spd_split(bad)
+    for i, t in enumerate(args):
+        for bad in (t.double(), t[:2], t.cpu()):
+            with pytest.raises(ValueError):
+                css.cuda_block_solve(*args[:i], bad, *args[i + 1:])
+    before = _build.launches("mf_spd_block_solve")
+    empty = css.cuda_block_solve(*(t[:0] for t in args))
+    assert empty.shape == (0, 201) and _build.launches("mf_spd_block_solve") == before
+    assert [t.shape for t in css.cuda_spd_split(A[:0])] == [(0, 104, 104), (0, 104, 97),
+                                                          (0, 97, 97), (0, 201)]
 
 
 def test_als_on_cuda_matches_cpu_and_launches(cuda):

@@ -20,7 +20,8 @@ import pytest
 
 from matrix_factorization_tpu_torch.data import loader  # noqa: F401 (binds host_loader)
 from matrix_factorization_tpu_torch.ops import _build, cuda_gram, cuda_normal_eq  # noqa: F401
-from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, cuda_spd, cuda_topk
+from matrix_factorization_tpu_torch.ops import cuda_scores, cuda_sgd, cuda_spd, cuda_spd_solve
+from matrix_factorization_tpu_torch.ops import cuda_topk
 from matrix_factorization_tpu_torch.ops import segment_sum
 
 CSRC = Path(cuda_scores.__file__).resolve().parent.parent / "csrc"
@@ -44,7 +45,7 @@ def test_plans_name_compiled_shapes():
 
 
 @pytest.mark.parametrize("src", ["score_catalog.cu", "spd_gj.cu", "sgd_step.cu",
-                                 "als_normal_eq.cu"])
+                                 "als_normal_eq.cu", "spd_block_solve.cu"])
 def test_sources_take_the_one_smem_limit(src):
     """Every source that bounds a block's dynamic shared memory is compiled
     for ``_build.SMEM_LIMIT``, the one limit the launch plans use."""
@@ -113,6 +114,34 @@ def test_gj_plan_refuses_what_the_kernel_does_not_take():
     for d in (0, 129, -3):
         with pytest.raises(ValueError):
             cuda_spd.gj_plan(d)
+
+
+def test_block_solve_plan_is_what_the_source_computes():
+    """``ops/cuda_spd_solve.py`` states the constants of
+    ``csrc/spd_block_solve.cu``; its plan, ``solve_smem``, fits one block
+    for every d the block solve takes (129 to 232, where the leaf's 128
+    stops), with each side of the split within the row and column
+    products' reach, and refuses every other d; ``solve_grid`` is one
+    block an SM, at most one a system."""
+    src = (CSRC / "spd_block_solve.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kMaxD"] == cuda_spd_solve.MAX_D == 232
+    assert const["kMinD"] == cuda_spd.MAX_D + 1
+    assert const["kSolveThreads"] == cuda_spd_solve.SOLVE_THREADS
+    assert const["kColTile"] == cuda_spd_solve.COL_TILE
+    for d in range(cuda_spd.MAX_D + 1, cuda_spd_solve.MAX_D + 1):
+        m = cuda_spd_solve.split_point(d)
+        assert m % 8 == 0 and m <= 32 * const["kHalfLanes"]
+        assert d - m <= cuda_spd_solve.COL_TILE and d - m <= cuda_spd.MAX_D
+        assert 4 * d * d < cuda_spd_solve.solve_smem(d) <= _build.SMEM_LIMIT
+    assert cuda_spd_solve.solve_smem(232) == 222_976
+    # one persistent block an SM, never more blocks than systems
+    assert cuda_spd_solve.solve_grid(15_625, H100_SMS) == H100_SMS
+    assert cuda_spd_solve.solve_grid(5, H100_SMS) == 5
+    assert "grid < 1 || grid > E" in src
+    for d in (cuda_spd.MAX_D, cuda_spd_solve.MAX_D + 1, 0):
+        with pytest.raises(ValueError):
+            cuda_spd_solve.solve_smem(d)
 
 
 def test_step_plan_names_what_the_source_is_compiled_for():

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from matrix_factorization_tpu_torch.core.config import SGDConfig
-from matrix_factorization_tpu_torch.ops import ials, scoring
+from matrix_factorization_tpu_torch.ops import ials, scoring, spd
 from matrix_factorization_tpu_torch.ops import segment_sgd as sgd
 from matrix_factorization_tpu_torch.retrieval import search
 from matrix_factorization_tpu_torch.retrieval.index import DenseItemIndex
@@ -22,7 +22,7 @@ from matrix_factorization_tpu_torch.utils import profiling
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "matrix_factorization_tpu_torch"
 N_USERS, N_ITEMS = 40, 30
-# d = 131 > cuda_spd.MAX_D: one Schur level above two Gauss-Jordan leaves
+# d = 131 > cuda_spd.MAX_D: the Schur block solve, with two Gauss-Jordan leaves
 ALS_FACTORS = 130
 K = 5  # the search's cut
 ROWS = 4  # query rows a search block
@@ -161,7 +161,8 @@ def test_spans_named_and_nested(tmp_path, small_blocks):
     names = {s[0] for s in spans}
     assert names == {"sgd.epoch", "sgd.step", "sgd.apply", "sgd.rmse",
                      "als.epoch", "als.bucket", "als.normal_eq", "als.write",
-                     "spd.solve", "spd.schur", "spd.leaf", "search.query",
+                     "spd.solve", "spd.split", "spd.schur", "spd.leaf",
+                     "spd.backsolve", "search.query",
                      "search.gemm", "search.fetch", "search.answer",
                      "topk.sort", "topk.select", "topk.sync", "topk.ties"}
     parents = {}
@@ -176,12 +177,46 @@ def test_spans_named_and_nested(tmp_path, small_blocks):
     assert parents["als.bucket"] == {"als.epoch"}
     assert parents["als.normal_eq"] == parents["als.write"] == {"als.bucket"}
     assert parents["spd.solve"] == {"als.bucket"}
-    assert parents["spd.schur"] == {"spd.solve"}
-    assert parents["spd.leaf"] == {"spd.schur"}
+    assert parents["spd.split"] == parents["spd.schur"] == {"spd.solve"}
+    assert parents["spd.leaf"] == parents["spd.backsolve"] == {"spd.solve"}
     assert parents["search.query"] == parents["search.gemm"] == {None}
     assert parents["topk.select"] == parents["topk.sort"] == {None}
     assert parents["topk.sync"] == parents["topk.ties"] == {"topk.select"}
     assert parents["search.fetch"] == parents["search.answer"] == {None}
+
+
+def _spd_system(d, seed=6):
+    g = torch.Generator().manual_seed(seed)
+    X = torch.randn(2, d + 40, d, generator=g)
+    A = X.transpose(1, 2) @ X + d * torch.eye(d)
+    return A, torch.randn(2, d, generator=g)
+
+
+@pytest.mark.parametrize("case,outer", [
+    ("spd_inverse_d300", None),
+    ("spd_inverse_scaled_d300", None),
+    ("spd_solve_d300", "spd.solve"),
+    ("spd_solve_cholesky_d131", "spd.solve"),
+])
+def test_schur_recursion_nests_its_spans(tmp_path, case, outer):
+    """Where the Schur recursion runs (EASE's inverses, the solve past
+    d = 232 and with the Cholesky leaf), each ``spd.leaf`` sits in an
+    ``spd.schur``, and each ``spd.schur`` in the caller's span or in an
+    outer ``spd.schur``; the block solve's spans do not appear."""
+    d = int(case.rsplit("_d", 1)[1])
+    A, b = _spd_system(d)
+    run = {"spd_inverse_d300": lambda: spd.spd_inverse(A),
+           "spd_inverse_scaled_d300": lambda: spd.spd_inverse_scaled(A),
+           "spd_solve_d300": lambda: spd.spd_solve(A, b),
+           "spd_solve_cholesky_d131": lambda: spd.spd_solve(A, b, leaf="cholesky")}[case]
+    _, spans = _traced(run, tmp_path)
+    parents = {}
+    for s in spans:
+        up = _ancestors(spans, s)
+        parents.setdefault(s[0], set()).add(up[0] if up else None)
+    assert set(parents) == {"spd.schur", "spd.leaf"} | ({outer} - {None})
+    assert parents["spd.leaf"] == {"spd.schur"}
+    assert parents["spd.schur"] == {outer, "spd.schur"}
 
 
 def test_sgd_step_count(tmp_path):
